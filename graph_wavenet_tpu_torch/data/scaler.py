@@ -1,0 +1,25 @@
+"""Standardization of input features (copy of the reference package's
+``data/scaler.py``): fit on the raw signal channel, transform feature 0."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class StandardScaler:
+    mean: float
+    std: float
+
+    def transform(self, data):
+        return (data - self.mean) / self.std
+
+    def inverse_transform(self, data):
+        return (data * self.std) + self.mean
+
+    @classmethod
+    def fit(cls, x: np.ndarray) -> "StandardScaler":
+        """Fit on the raw signal channel, e.g. ``x_train[..., 0]``."""
+        return cls(mean=float(x.mean()), std=float(x.std()))
