@@ -13,14 +13,28 @@ exits non-zero:
    orientations on 128x128 and 128x512 blocks and kernel 3 with and
    without ``add`` against their plain versions, kernel 3 bitwise against
    two launches of kernel 1, with kernel, plain and library times;
-4. small-N end to end: a 2,048-node fp32 city model at full width on the
+4. kernel checks at the training path's shapes (the 40,960-node adaptive
+   mask, R = 1,536 and 128, fp32 and bf16): kernel 2 against its plain
+   version (and once on 128x512 blocks), kernel 3 over the transpose
+   tables with ``add`` against its plain version and bitwise against
+   kernel 1 + add + kernel 1, kernel 1 in the transpose orientation;
+5. small-N end to end: a 2,048-node fp32 city model at full width on the
    card matches the same model on the CPU (plain versions) to 2e-4, and
    its unfused supports give a bitwise-equal forecast;
-5. serving at full width (the main path): a 40,960-node city checkpoint of
+6. small-N training: 3 train steps of the 2,048-node fp32 model with the
+   adaptive adjacency on the card match 3 on the CPU, and one step's
+   gradients with unfused supports and an unfused mask are bitwise equal
+   to the fused ones;
+7. serving at full width (a main path): a 40,960-node city checkpoint of
    random weights (bf16 activations) served by the port's serve CLI to
    concurrent requests, with the launch counters held to the layout; the
    same checkpoint under the 128x512 layout, whose supports do not fuse,
-   runs kernel 1 instead; predict latency at batch 1 and 8.
+   runs kernel 1 instead; predict latency at batch 1 and 8;
+8. training at full width (a main path): the port's training CLI trains
+   the 40,960-node city model with the adaptive adjacency (bf16, batch 4)
+   for one epoch on synthetic data, its checkpoint is served with one
+   request, one train step's launch counters are held to the layout, and
+   the train step is timed and profiled.
 
 Before the last line it prints one ``{"kernels": [...]}`` line and the
 card's name and power limit; the last line is
@@ -46,9 +60,13 @@ KNN = 8
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 K1_SRC = "graph_wavenet_tpu_torch/csrc/mix_flat.cu"
+K2_SRC = "graph_wavenet_tpu_torch/csrc/outer_flat.cu"
 K3_SRC = "graph_wavenet_tpu_torch/csrc/mix_flat2.cu"
 K1_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:165"
+K2_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:255"
 K3_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:494"
+TRAIN_BATCH = 4
+TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
 
 
 def emit(phase: str, **kv) -> None:
@@ -361,6 +379,192 @@ def phase_kernels(graph) -> dict:
     return summary
 
 
+def outer_cost(mask, r: int, isz: int) -> tuple[float, float]:
+    """Operations and bytes of one kernel-2 launch over the mask's forward
+    table: one (BS, BS) product over R per table entry, x and g read once,
+    the fp32 output written once."""
+    lt = mask.row_tbl.numel()
+    bs = mask.bs_src
+    flops = 2.0 * lt * bs * bs * r
+    nbytes = 2 * mask.n_nodes * r * isz + lt * bs * bs * 4 + 8 * lt
+    return flops, nbytes
+
+
+def outer_check(got, x, g, src, row) -> tuple[float, bool]:
+    """Kernel 2 against its plain version: rtol 1e-5 of the sum of |terms|
+    (bf16 inputs multiply exactly in fp32, so the bound holds for both)."""
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    want = bd.outer_flat_plain(x, g, src, row)
+    diff = (got - want).abs()
+    del want
+    terms = bd.outer_flat_plain(x.abs(), g.abs(), src, row)
+    ok = bool((diff <= 1e-5 * terms + 1e-30).all())
+    return float(diff.max()), ok
+
+
+def phase_train_kernels(graph) -> dict:
+    """Kernels 2, 3 (transpose tables, ``add``) and 1 (transpose
+    orientation) at the training path's shapes: the adaptive mask of the
+    40,960-node RCM supports, R = 1,536 and 128 (batch 4, first and last
+    layer). Returns the numbers for the kernels line."""
+    import torch
+
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+    from graph_wavenet_tpu_torch.graphs.spatial import (
+        doubletransition_block_supports,
+    )
+    from graph_wavenet_tpu_torch.ops.adaptive_block import mask_from_supports
+    from graph_wavenet_tpu_torch.ops.block_sparse import from_edges_flat
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    _, src, dst, w = graph
+    perm = rcm_order_edges(src, dst, N_CITY)
+    sups = doubletransition_block_supports(src, dst, w, N_CITY, perm=perm,
+                                           form="flat", device="cuda")
+    mask = mask_from_supports(sups, hops=1)
+    require(mask.fuse2 is not None and mask.fuse2[2] > 0,
+            f"the 40,960-node mask must fuse both ways: {mask.fuse2}")
+    emit("train_mask", live_blocks=mask.n_live,
+         table_entries=mask.row_tbl.numel(), fuse2=list(mask.fuse2),
+         lag=mask.lag, lag_t=mask.lag_t)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    nv1 = torch.randn(N_CITY, 10, generator=gen, device="cuda")
+    nv2 = torch.randn(10, N_CITY, generator=gen, device="cuda")
+    nb, bs = mask.n_dst_blocks, mask.bs_src
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        sp = mask.materialize(nv1, nv2, out_dtype=dtype)
+        blocks = sp.blocks_flat
+        for r in (1536, 128):
+            reps = 5 if r > 256 else 20
+            x = torch.randn(nb, bs, r, generator=gen,
+                            device="cuda").to(dtype)
+            g = torch.randn(nb, bs, r, generator=gen,
+                            device="cuda").to(dtype)
+
+            # kernel 2 over the mask's forward table
+            def k2():
+                return bd.gathered_block_outer_flat(x, g, sp.src_tbl,
+                                                    sp.row_tbl)
+
+            def k2_plain():
+                return bd.outer_flat_plain(x, g, sp.src_tbl, sp.row_tbl)
+
+            got = k2()
+            torch.cuda.synchronize()
+            err, ok = outer_check(got, x, g, sp.src_tbl, sp.row_tbl)
+            again = k2()
+            deterministic = bool(torch.equal(got, again))
+            del got, again
+            rec = dict(kernel="gathered_block_outer_flat", dtype=dname, R=r,
+                       blocks="128x128", table_entries=sp.row_tbl.numel(),
+                       max_abs_err=err, tolerance="rtol 1e-5 of sum |terms|",
+                       deterministic=deterministic)
+            require(ok, f"kernel 2 disagrees with its plain version: {rec}")
+            require(deterministic, f"kernel 2 is not deterministic: {rec}")
+            rec["kernel_ms"] = cuda_ms(k2, reps)
+            rec["plain_ms"] = cuda_ms(k2_plain, max(2, reps // 5))
+            xs = x.index_select(0, sp.src_tbl.long())
+            gs = g.index_select(0, sp.row_tbl.long()).transpose(1, 2)
+            rec["library_ms"] = cuda_ms(lambda: torch.bmm(xs, gs),
+                                        max(2, reps // 5))
+            rec["library"] = ("torch.bmm on operands gathered beforehand "
+                              "(gather excluded; output in the input dtype)")
+            del xs, gs
+            flops, nbytes = outer_cost(mask, r, isz)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+            emit("kernel_check", **rec)
+            if (dname, r) == ("bfloat16", 1536):
+                summary["k2"] = rec
+            torch.cuda.empty_cache()
+
+            # kernel 3 over the transpose tables with add: the fused
+            # backward chain (g1_eff, dx) of one hop pair
+            args = (blocks, sp.slot_t, g, sp.src_t, sp.row_t)
+
+            def k3t():
+                return bd.gathered_block_mix_flat2(
+                    *args, nb=nb, lag=sp.lag_t, transpose_lhs=False, add=x,
+                    row_ptr=sp.row_ptr_t)
+
+            def k3t_plain():
+                return bd.mix_flat2_plain(*args, nb=nb, transpose_lhs=False,
+                                          add=x)
+
+            o1, o2 = k3t()
+            c1 = bd.gathered_block_mix_flat(*args, nb=nb,
+                                            transpose_lhs=False,
+                                            row_ptr=sp.row_ptr_t) + x
+            c2 = bd.gathered_block_mix_flat(blocks, sp.slot_t, c1, sp.src_t,
+                                            sp.row_t, nb=nb,
+                                            transpose_lhs=False,
+                                            row_ptr=sp.row_ptr_t)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(o1, c1) and torch.equal(o2, c2))
+            del c1, c2
+            p1, _ = k3t_plain()
+            err1, ok1, rule = close_err(o1, p1, summand=x)
+            del p1
+            p2 = bd.mix_flat_plain(blocks, sp.slot_t, o1, sp.src_t, sp.row_t,
+                                   nb=nb, transpose_lhs=False)
+            err2, ok2, _ = close_err(o2, p2)
+            del p2, o1, o2
+            rec = dict(kernel="gathered_block_mix_flat2", dtype=dname, R=r,
+                       tables="transpose", add=True,
+                       max_abs_err_out1=err1, max_abs_err_out2=err2,
+                       tolerance=rule, bitwise_vs_kernel1_add_kernel1=bitwise)
+            require(ok1 and ok2, f"kernel 3 over the transpose tables "
+                                 f"disagrees with its plain version: {rec}")
+            require(bitwise, f"kernel 3 over the transpose tables is not "
+                             f"bitwise equal to kernel 1 + add + kernel 1: "
+                             f"{rec}")
+            rec["kernel_ms"] = cuda_ms(k3t, reps)
+            rec["plain_ms"] = cuda_ms(k3t_plain, max(2, reps // 5))
+            rec["library_ms"] = None
+            flops, nbytes = hop_cost(sp, r, isz, fused=True, with_add=True)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+            emit("kernel_check", **rec)
+
+            # kernel 1 in the transpose orientation on the mask's tables
+            def k1t():
+                return bd.gathered_block_mix_flat(
+                    *args, nb=nb, transpose_lhs=False, row_ptr=sp.row_ptr_t)
+
+            got = k1t()
+            want = bd.mix_flat_plain(*args, nb=nb, transpose_lhs=False)
+            torch.cuda.synchronize()
+            err, ok, rule = close_err(got, want)
+            del got, want
+            rec = dict(kernel="gathered_block_mix_flat", dtype=dname, R=r,
+                       tables="transpose (mask)", max_abs_err=err,
+                       tolerance=rule)
+            require(ok, f"kernel 1 (transpose, mask) disagrees with its "
+                        f"plain version: {rec}")
+            rec["kernel_ms"] = cuda_ms(k1t, reps)
+            flops, nbytes = hop_cost(sp, r, isz, fused=False)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+            emit("kernel_check", **rec)
+            del x, g
+            torch.cuda.empty_cache()
+
+    # kernel 2 once on 128x512 blocks: the wrapper never launches a shape
+    # that was never run (no training path sends it there)
+    rect = from_edges_flat(src, dst, w, N_CITY, 128, 512, perm=perm,
+                           device="cuda")
+    x = torch.randn(N_CITY // 128, 128, 128, generator=gen, device="cuda")
+    g = torch.randn(N_CITY // 512, 512, 128, generator=gen, device="cuda")
+    got = bd.gathered_block_outer_flat(x, g, rect.src_tbl, rect.row_tbl)
+    torch.cuda.synchronize()
+    err, ok = outer_check(got, x, g, rect.src_tbl, rect.row_tbl)
+    emit("kernel_check", kernel="gathered_block_outer_flat", dtype="float32",
+         R=128, blocks="128x512", max_abs_err=err)
+    require(ok, f"kernel 2 on 128x512 blocks disagrees: {err}")
+    return summary
+
+
 def phase_small_e2e(seed: int = 0) -> None:
     import numpy as np
     import torch
@@ -413,16 +617,110 @@ def phase_small_e2e(seed: int = 0) -> None:
             f"launch counts {k3}, {k1} do not match the layout")
 
 
-def profile_predict(fc, xt) -> dict:
-    """Device time by kernel over one predict: the busy share of the wall
-    time and the kernels that take the most device time."""
+def phase_small_train(seed: int = 0) -> None:
+    """3 train steps of the 2,048-node fp32 model with the adaptive
+    adjacency on the card (kernels) and on the CPU (plain versions) from
+    the same weights; then one step with unfused supports and an unfused
+    mask, whose gradients must equal the fused ones bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.ops import block_sparse as bsp
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    pos, src, dst, w = city_graph(N_SMALL)
+    cfg = ModelConfig(num_nodes=N_SMALL, addaptadj=True, dropout=0.0,
+                      dtype="float32")
+    scaler = StandardScaler(50.0, 10.0)
+    sups, engines = {}, {}
+    for dev in ("cuda", "cpu"):
+        sup, mask, _ = build_city_supports(src, dst, w, N_SMALL, pos=pos,
+                                           ordering="rcm", addaptadj=True,
+                                           device=dev)
+        sups[dev] = sup + [mask]
+        engines[dev] = Engine(cfg, TrainConfig(), scaler, device=dev,
+                              seed=seed)
+    engines["cpu"].model.load_state_dict(engines["cuda"].model.state_dict())
+    mask = sups["cuda"][-1]
+    require(all(isinstance(s, bsp.Fused2FlatSupport) and s.delay_t > 0
+                for s in sups["cuda"][:-1])
+            and mask.fuse2 is not None and mask.fuse2[2] > 0,
+            "the 2,048-node supports and mask must fuse both ways")
+    rng = np.random.default_rng(5)
+    steps, batch = 3, 2
+    xs = rng.normal(size=(steps, batch, 12, N_SMALL, 2)).astype(np.float32)
+    ys = rng.normal(50.0, 10.0, size=(steps, batch, 12, N_SMALL, 2)
+                    ).astype(np.float32)
+    ys[:, :, :, :16, 0] = 0.0
+    losses = {}
+    for dev, eng in engines.items():
+        bd.reset_launch_counts()
+        losses[dev] = [float(eng.train_step(xs[i], ys[i], sups[dev])["loss"])
+                       for i in range(steps)]
+        if dev == "cuda":
+            counts = dict(bd.LAUNCHES)
+    sd = {dev: {k: v.float().cpu() for k, v in
+                eng.model.state_dict().items()}
+          for dev, eng in engines.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    worst = max(((sd["cuda"][k] - sd["cpu"][k]).abs()
+                 - 1e-4 * sd["cpu"][k].abs()).max().item() for k in sd["cpu"])
+    emit("small_train", nodes=N_SMALL, dtype="float32", steps=steps,
+         batch=batch, losses_card=losses["cuda"], losses_cpu=losses["cpu"],
+         max_loss_rel_diff=rel, tolerance="losses rtol 1e-4; parameters "
+         "and BN statistics rtol 1e-4 + atol 1e-4",
+         max_param_excess_over_rtol=worst, launches_card=counts)
+    require(rel <= 1e-4, f"card vs CPU losses differ: {losses}")
+    require(worst <= 1e-4, f"card vs CPU parameters differ by {worst}")
+    require(counts["gathered_block_outer_flat"] > 0
+            and counts["gathered_block_mix_flat"] == 0,
+            f"launch counts {counts} do not match the fused layout")
+
+    # one step from the same state with fused and with unfused supports
+    unfused = ([bsp.as_unfused(s) for s in sups["cuda"][:-1]]
+               + [dataclasses.replace(mask, fuse2=None)])
+    state = engines["cuda"].model.state_dict()
+    grads = {}
+    # PyTorch's index_add_ (the adaptive softmax's segment sums and the
+    # nodevec gathers' backward) uses float atomics unless asked not to
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, sup in (("fused", sups["cuda"]), ("unfused", unfused)):
+            eng = Engine(cfg, TrainConfig(), scaler, device="cuda",
+                         seed=seed)
+            eng.model.load_state_dict(state)
+            eng.train_step(xs[0], ys[0], sup)
+            grads[name] = {k: p.grad for k, p in
+                           eng.model.named_parameters()
+                           if p.grad is not None}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    differ = [k for k in grads["fused"]
+              if not torch.equal(grads["fused"][k], grads["unfused"][k])]
+    emit("small_train_unfused", parameters=len(grads["fused"]),
+         bitwise_equal=not differ, differ=differ[:8])
+    require(not differ and grads["fused"].keys() == grads["unfused"].keys(),
+            f"unfused gradients are not bitwise equal: {differ}")
+
+
+def profile_step(fn) -> dict:
+    """Device time by kernel over one call of ``fn``: the busy share of the
+    wall time and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fc.predict(xt)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -438,6 +736,170 @@ def profile_predict(fc, xt) -> dict:
             else None,
             "top_kernels": [{"name": k[:90], "ms": t, "launches": n}
                             for k, (t, n) in top]}
+
+
+def write_city_data(root: str, n: int) -> None:
+    """Synthetic ``train/val/test.npz`` in the layout ``data/metr.py``
+    reads: x, y of shape (S, 12, N, 2), speeds around 50 with some missing
+    (zero) readings and a time-of-day feature, from ``default_rng(0)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    os.makedirs(root, exist_ok=True)
+    for split, count in TRAIN_SAMPLES.items():
+        arrays = {}
+        for key in ("x", "y"):
+            a = np.empty((count, 12, n, 2), np.float32)
+            a[..., 0] = rng.normal(50.0, 10.0, size=(count, 12, n))
+            a[..., 0][rng.random((count, 12, n)) < 0.05] = 0.0
+            a[..., 1] = rng.random((count, 12, 1))
+            arrays[key] = a
+        np.savez(os.path.join(root, f"{split}.npz"), **arrays)
+
+
+def expected_step_launches(supports, layers: int) -> dict:
+    """Kernel launches of one train step implied by the supports. Forward,
+    every layer: kernel 3 for a fused support, kernel 1 per hop for an
+    unfused one. Backward, every layer but the last (whose diffusion output
+    feeds only its own residual and BatchNorm, which no loss term reads):
+    kernel 3 over the transpose tables for a fused support (two kernel-1
+    launches if its transpose band does not fuse), kernel 1 per hop for an
+    unfused one, and kernel 2 once per hop for the adaptive support only,
+    the one whose blocks need a gradient."""
+    from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
+
+    k1 = k2 = k3 = 0
+    for s in supports:
+        adaptive = getattr(s, "adaptive_mask", False)
+        fused = (s.fuse2 is not None if adaptive
+                 else isinstance(s, Fused2FlatSupport))
+        delay_t = (s.fuse2[2] if adaptive and fused
+                   else getattr(s, "delay_t", 0))
+        if fused:
+            k3 += layers + (layers - 1) * (delay_t > 0)
+            k1 += (layers - 1) * 2 * (delay_t == 0)
+        else:
+            k1 += (2 * layers) + 2 * (layers - 1)
+        k2 += 2 * (layers - 1) * adaptive
+    return {"gathered_block_mix_flat": k1, "gathered_block_mix_flat2": k3,
+            "gathered_block_outer_flat": k2}
+
+
+def phase_train(graph, tmp: str) -> dict:
+    """The training path at full width: the port's training CLI on the
+    40,960-node city model with the adaptive adjacency (bf16, batch 4),
+    its checkpoint served, one train step's launches held to the layout,
+    the step timed and profiled. Returns the launch counts of the train
+    and serve windows."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import serve, train
+    from graph_wavenet_tpu_torch.graphs import city
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    pos, src, dst, w = graph
+    t0 = time.perf_counter()
+    gpath = os.path.join(tmp, "train_graph.npz")
+    city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
+    data_dir = os.path.join(tmp, "city_data")
+    write_city_data(data_dir, N_CITY)
+    setup_s = time.perf_counter() - t0
+    save = os.path.join(tmp, "train_ckpt")
+    t1 = time.perf_counter()
+    out = train.main(["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
+                      "--addaptadj", "--dtype", "bfloat16", "--batch_size",
+                      str(TRAIN_BATCH), "--seq_length", "12", "--epochs", "1",
+                      "--print_every", "1", "--save", save, "--device",
+                      "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    result, runner, sups = out["result"], out["runner"], out["supports"]
+    hist = result.history[0]
+    finite = all(np.isfinite(v) for v in (
+        *hist.train.values(), *hist.valid.values(),
+        *result.test_metrics.values()))
+    emit("train_cli", nodes=N_CITY, dtype="bfloat16", batch=TRAIN_BATCH,
+         samples=TRAIN_SAMPLES, setup_seconds=round(setup_s, 3),
+         seconds=round(cli_s, 3), train=hist.train, valid=hist.valid,
+         test=result.test_metrics, checkpoint=os.path.basename(
+             result.best_checkpoint))
+    require(finite, "non-finite train, validation or test metrics")
+    require(os.path.exists(result.best_checkpoint), "no checkpoint written")
+
+    engine = runner.engine
+    fused = [bool(getattr(s, "fuse2", None)) if getattr(
+        s, "adaptive_mask", False) else hasattr(s, "mix2_2d") for s in sups]
+    emit("train_layout", fused2=fused,
+         delay_t=[s.fuse2[2] if getattr(s, "adaptive_mask", False)
+                  else getattr(s, "delay_t", 0) for s in sups],
+         live_blocks=[s.n_live for s in sups])
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(TRAIN_BATCH, 12, N_CITY, 2)).astype(np.float32)
+    y = rng.normal(50.0, 10.0, size=(TRAIN_BATCH, 12, N_CITY, 2)
+                   ).astype(np.float32)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    counts = {}
+    bd.reset_launch_counts()
+    engine.train_step(xt, yt, sups)
+    torch.cuda.synchronize()
+    counts["train"] = dict(bd.LAUNCHES)
+    want = expected_step_launches(sups, engine.model_cfg.blocks
+                                  * engine.model_cfg.layers)
+    emit("train_step_launches", launches=counts["train"], expected=want)
+    require(counts["train"] == want,
+            f"train-step launches {counts['train']} do not match {want}")
+
+    for _ in range(2):
+        engine.train_step(xt, yt, sups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(6):
+        t2 = time.perf_counter()
+        m = engine.train_step(xt, yt, sups)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t2) * 1e3)
+    require(bool(torch.isfinite(m["loss"])), "non-finite train loss")
+    med = sorted(times)[len(times) // 2]
+    emit("train_step", batch=TRAIN_BATCH, nodes=N_CITY, dtype="bfloat16",
+         median_ms=med, min_ms=min(times), max_ms=max(times), times_ms=times,
+         node_timesteps_per_s=TRAIN_BATCH * 12 * N_CITY / (med / 1e3),
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    emit("train_step_profile", batch=TRAIN_BATCH,
+         **profile_step(lambda: engine.train_step(xt, yt, sups)))
+    layers = engine.model_cfg.blocks * engine.model_cfg.layers
+    del engine, runner, out, xt, yt
+    torch.cuda.empty_cache()
+
+    # the trained checkpoint through the serve CLI, one request
+    run = serve.main(["--checkpoint", result.best_checkpoint, "--graph_npz",
+                      gpath, "--device", "cuda", "--port", "0",
+                      "--window_ms", "10"], serve_forever=False)
+    server, batcher = run["server"], run["batcher"]
+    try:
+        url = f"http://127.0.0.1:{server.server_port}"
+        raw = np.random.default_rng(7).normal(
+            50.0, 10.0, size=(12, N_CITY, 2)).astype(np.float32)
+        bd.reset_launch_counts()
+        answer = np.asarray(post_json(url + "/predict",
+                                      {"x": raw.tolist()})["y"])
+        torch.cuda.synchronize()
+        counts["serve_trained"] = dict(bd.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    emit("serve_trained", shape=list(answer.shape),
+         launches=counts["serve_trained"])
+    require(answer.shape == (12, N_CITY) and np.isfinite(answer).all(),
+            f"bad forecast of the trained checkpoint: {answer.shape}")
+    want = {"gathered_block_mix_flat2": layers * sum(fused),
+            "gathered_block_mix_flat": 2 * layers * (len(fused) - sum(fused)),
+            "gathered_block_outer_flat": 0}
+    require(counts["serve_trained"] == want,
+            f"serve launches {counts['serve_trained']} do not match {want}")
+    return counts
 
 
 def post_json(url: str, payload: dict, timeout: float = 600):
@@ -550,7 +1012,8 @@ def phase_serve(graph, tmp: str) -> dict:
              expected={"gathered_block_mix_flat2": want_k3,
                        "gathered_block_mix_flat": want_k1})
         require(counts["serve"] == {"gathered_block_mix_flat": want_k1,
-                                    "gathered_block_mix_flat2": want_k3},
+                                    "gathered_block_mix_flat2": want_k3,
+                                    "gathered_block_outer_flat": 0},
                 f"launch counts {counts['serve']} do not match the layout")
 
         # predict latency through the Forecaster, batch 1 and 8
@@ -578,7 +1041,7 @@ def phase_serve(graph, tmp: str) -> dict:
                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
             emit("predict_latency", layout="flat", **timing[b])
         emit("predict_profile", layout="flat", batch=8,
-             **profile_predict(fc, xt))
+             **profile_step(lambda: fc.predict(xt)))
         x1 = torch.randn(1, 12, N_CITY, 2, device="cuda",
                          generator=torch.Generator(
                              device="cuda").manual_seed(4))
@@ -601,7 +1064,7 @@ def phase_serve(graph, tmp: str) -> dict:
     torch.cuda.synchronize()
     counts["rect"] = dict(bd.LAUNCHES)
     want = {"gathered_block_mix_flat": 2 * 2 * layers,
-            "gathered_block_mix_flat2": 0}
+            "gathered_block_mix_flat2": 0, "gathered_block_outer_flat": 0}
     diff = float((rect_pred - fused_pred).abs().max())
     med = sorted(
         cuda_ms(lambda: rect.predict(x1), 1) for _ in range(10))[5]
@@ -630,6 +1093,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms
+    # only with a fixed workspace; set before the first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -638,17 +1104,25 @@ def main() -> int:
     phase_build()
     graph = city_graph(N_CITY)
     summary = phase_kernels(graph)
+    summary.update(phase_train_kernels(graph))
     phase_small_e2e()
+    phase_small_train()
     with tempfile.TemporaryDirectory(prefix="gwt_chip_smoke_") as tmp:
         counts = phase_serve(graph, tmp)
+        counts.update(phase_train(graph, tmp))
 
+    # launches on the main paths: kernel 1 serving the 128x512 layout,
+    # kernel 2 in a train step, kernel 3 serving and in a train step
     kernels = []
-    for key, name, src, tpu, window in (
-            ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU, "rect"),
-            ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU, "serve")):
+    for key, name, src, tpu, windows in (
+            ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU, ("rect",)),
+            ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU, ("train",)),
+            ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
+             ("serve", "train"))):
         rec = summary[key]
-        launches = counts[window][name]
-        require(launches > 0, f"{name} was not launched on the main path")
+        launches = sum(counts[w][name] for w in windows)
+        require(all(counts[w][name] > 0 for w in windows),
+                f"{name} was not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches,

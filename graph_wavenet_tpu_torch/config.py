@@ -74,8 +74,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization configuration. Only carried through sidecars in this
-    slice; the trainer is ported later."""
+    """Optimization configuration. ``train.engine`` and ``train.runner``
+    read the optimizer, schedule, epoch and checkpoint fields; ``prefetch``,
+    ``async_checkpoint``, ``grad_accum``, ``early_stop_patience``,
+    ``epoch_timeout_s``, ``scan_steps`` and ``keep_checkpoints`` are carried
+    through sidecars only (their runner features are not ported yet)."""
 
     batch_size: int = 64
     learning_rate: float = 1e-3

@@ -2,11 +2,12 @@
 supports + a persisted node layout.
 
 A copy of ``graph_wavenet_tpu/graphs/city.py``. The layout record
-(permutation, padding, ordering, graph fingerprint) has the same keys and
-values as the reference's, so a checkpoint sidecar written by either
-package rebuilds the same supports in the other. ``form="auto"`` resolves
-to ``"flat"`` on every device: the flat kernels are the port's only
-block-sparse kernels.
+(permutation, padding, ordering, graph fingerprint, and ``adaptive_hops``
+when the model learns the block-masked adaptive adjacency) has the same
+keys and values as the reference's, so a checkpoint sidecar written by
+either package rebuilds the same supports in the other. ``form="auto"``
+resolves to ``"flat"`` on every device: the flat kernels are the port's
+only block-sparse kernels.
 
 Graph file format (``--graph_npz``): an .npz with ``src``, ``dst`` int
 arrays (A[src, dst] = weight), optional ``weight``, ``pos`` (N, 2) and
@@ -75,23 +76,22 @@ def _full_perm(perm_raw, n_raw: int, n_pad: int) -> np.ndarray:
 def build_city_supports(src, dst, weight, n_nodes: int, *, pos=None,
                         ordering: str = "best", form: str = "auto",
                         block_size: int = 128, addaptadj: bool = False,
+                        adaptive_hops: int = 1,
                         device: torch.device | str = "cuda"):
-    """Edge list -> (supports, None, layout).
+    """Edge list -> (supports, adaptive_mask_or_None, layout).
 
     ordering: "best" (fewest live blocks among RCM/Hilbert, preferring a
     fusable band), "rcm", "hilbert" (needs ``pos``) or "identity".
-    form: "flat", "flat-rect", or "auto" (= "flat"). The middle element
-    is the reference's adaptive mask slot; ``addaptadj=True`` raises until
-    the block-masked adaptive adjacency is ported.
+    form: "flat", "flat-rect", or "auto" (= "flat"). ``addaptadj``: also
+    build the block-masked adaptive mask on the union of the supports'
+    patterns, widened to the ``adaptive_hops``-hop block closure; the layout
+    records ``adaptive_hops`` so every rebuild reproduces the trained
+    pattern.
     """
     from graph_wavenet_tpu_torch.graphs import ordering as O
     from graph_wavenet_tpu_torch.graphs import spatial
     from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
 
-    if addaptadj:
-        raise NotImplementedError(
-            "the block-masked adaptive adjacency is not ported yet "
-            "(ROADMAP.md); build with addaptadj=False")
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     weight = np.asarray(weight, np.float32)
@@ -118,7 +118,15 @@ def build_city_supports(src, dst, weight, n_nodes: int, *, pos=None,
     supports = spatial.doubletransition_block_supports(
         src, dst, weight, n_pad, perm=perm, form=form,
         block_size=block_size, device=device)
+    mask = None
+    if addaptadj:
+        from graph_wavenet_tpu_torch.ops.adaptive_block import (
+            mask_from_supports,
+        )
+
+        mask = mask_from_supports(supports, hops=adaptive_hops)
     layout = {
+        **({"adaptive_hops": int(adaptive_hops)} if addaptadj else {}),
         "perm": perm.tolist(),
         "ordering": chosen,
         "n_raw": n_raw,
@@ -131,7 +139,7 @@ def build_city_supports(src, dst, weight, n_nodes: int, *, pos=None,
         "blocks_per_row_max": stats["blocks_per_row_max"],
         "fused2": any(isinstance(s, Fused2FlatSupport) for s in supports),
     }
-    return supports, None, layout
+    return supports, mask, layout
 
 
 def apply_node_layout(arr: np.ndarray, layout: dict,
@@ -152,6 +160,15 @@ def apply_node_layout(arr: np.ndarray, layout: dict,
     idx[axis] = perm[:n_raw]
     out[tuple(idx)] = arr
     return out
+
+
+def apply_layout_to_data(data: dict, layout: dict) -> dict:
+    """Permute and pad every split's node axis in a dataset dict in place
+    (before the loaders are built). x_*/y_* arrays are (B, T, N, F)."""
+    for k in list(data):
+        if k.startswith(("x_", "y_")) and isinstance(data[k], np.ndarray):
+            data[k] = apply_node_layout(data[k], layout, axis=2)
+    return data
 
 
 def invert_node_layout(arr: np.ndarray, layout: dict,

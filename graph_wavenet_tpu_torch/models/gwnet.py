@@ -1,5 +1,5 @@
-"""Graph WaveNet as an ``nn.Module``, eval forward over block-sparse
-supports.
+"""Graph WaveNet as an ``nn.Module`` over block-sparse supports, with the
+block-masked adaptive adjacency; eval and train mode.
 
 Counterpart of ``graph_wavenet_tpu/models/gwnet.py``. Activations stay
 channels-last ``(B, T, N, C)``; parameters carry the reference state-dict
@@ -9,6 +9,14 @@ names (``start_conv``, ``filter_convs.i``, ``gate_convs.i``,
 left-padded to the true receptive field, activations run in ``cfg.dtype``
 over fp32 parameters, each layer's skip projection sees only the last
 ``T_final`` steps, and predictions leave in fp32.
+
+With ``addaptadj`` the model holds ``nodevec1 (N, r)`` and ``nodevec2 (r,
+N)`` and, given a :class:`ops.adaptive_block.BlockAdaptiveMask` among the
+supports, materializes the learned adjacency on the mask's live blocks
+every forward (in ``cfg.dtype``) and appends it to the fixed supports. In
+train mode BatchNorm uses batch statistics and the graph convolutions take
+dropout, drawn from the generator passed to :meth:`GWNet.forward`. The
+dense adaptive adjacency (no mask) waits for the dense slice.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from torch import nn
 
 from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.config import ModelConfig
+from graph_wavenet_tpu_torch.ops.adaptive import random_nodevecs
 from graph_wavenet_tpu_torch.ops.diffusion import GCN
 from graph_wavenet_tpu_torch.ops.linear import Linear
 from graph_wavenet_tpu_torch.ops.normalization import BatchNorm
@@ -34,10 +43,6 @@ class GWNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str =
                  "cuda", seed: int = 0):
         super().__init__()
-        if cfg.gcn_bool and cfg.addaptadj:
-            raise NotImplementedError(
-                "addaptadj=True (the block-masked adaptive adjacency) is "
-                "not ported yet; it is slice 3 of ROADMAP.md's queue")
         device = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -69,19 +74,26 @@ class GWNet(nn.Module):
                     cfg.supports_len, cfg.diffusion_order, **kw))
         self.end_conv_1 = Linear(cfg.skip_channels, cfg.end_channels, **kw)
         self.end_conv_2 = Linear(cfg.end_channels, cfg.out_dim, **kw)
+        if cfg.gcn_bool and cfg.addaptadj and not cfg.fresh_nodevec:
+            nv1, nv2 = random_nodevecs(cfg.num_nodes, cfg.adapt_rank, **kw)
+            self.nodevec1 = nn.Parameter(nv1)
+            self.nodevec2 = nn.Parameter(nv2)
         # parameters are drawn on the CPU from one seeded generator, so a
         # seed gives the same weights on every device
         self.to(device)
         self.eval()
 
-    def forward(self, x: torch.Tensor, supports: list | None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, supports: list | None, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x (B, T, N, in_dim) -> (B, T_out, N, out_dim) fp32. ``supports``:
-        block-sparse supports, or None for the temporal-only model."""
+        block-sparse supports, with at most one adaptive mask under
+        ``addaptadj``, or None for the temporal-only model. ``generator``:
+        the dropout stream in train mode."""
         cfg = self.cfg
         x = left_pad_time(x, cfg.receptive_field)
         x = x.to(_DTYPES[cfg.dtype])
         x = self.start_conv(x)
+        supports = self._with_adaptive(supports)
         use_gcn = cfg.gcn_bool and supports is not None
         t_final = x.shape[1] - (cfg.kernel_size - 1) * sum(cfg.dilations())
         skip = None
@@ -92,7 +104,7 @@ class GWNet(nn.Module):
             s = self.skip_convs[i](x[:, -t_final:])
             skip = s if skip is None else s + skip
             if use_gcn:
-                x = self.gconv[i](x, list(supports))
+                x = self.gconv[i](x, supports, cfg.dropout, generator)
             else:
                 x = self.residual_convs[i](x)
             x = x + residual[:, -x.shape[1]:]
@@ -101,3 +113,41 @@ class GWNet(nn.Module):
         out = torch.relu(self.end_conv_1(out))
         out = self.end_conv_2(out)
         return out.float()
+
+    def _with_adaptive(self, supports: list | None) -> list | None:
+        """The supports the layers diffuse over: the fixed ones, plus the
+        adaptive adjacency materialized from the mask under ``addaptadj``
+        (the reference's ``apply_gwnet`` checks, in its order)."""
+        cfg = self.cfg
+        if supports is None:
+            return None
+        masks = [s for s in supports if getattr(s, "adaptive_mask", False)]
+        use_adapt = cfg.gcn_bool and cfg.addaptadj
+        if masks and not use_adapt:
+            raise ValueError(
+                "supports contain a BlockAdaptiveMask but the adaptive "
+                "adjacency is off (gcn_bool and addaptadj must both be set "
+                "to materialize it)")
+        if not use_adapt:
+            return list(supports)
+        if cfg.fresh_nodevec:
+            raise ValueError(
+                "fresh_nodevec=True reproduces the diff-G per-forward "
+                "random embeddings; the shared-graph model has no such "
+                "mode; unset fresh_nodevec")
+        if not masks:
+            raise NotImplementedError(
+                "addaptadj without a BlockAdaptiveMask needs the dense "
+                "adaptive adjacency, which comes with the dense slice "
+                "(ROADMAP.md); put ops.adaptive_block.mask_from_supports("
+                "fixed) in the supports list")
+        if len(masks) > 1:
+            raise ValueError(
+                f"supports contain {len(masks)} BlockAdaptiveMasks; the "
+                "model materializes exactly one learned adjacency; pass a "
+                "single mask")
+        fixed = [s for s in supports
+                 if not getattr(s, "adaptive_mask", False)]
+        adp = masks[0].materialize(self.nodevec1, self.nodevec2,
+                                   out_dtype=_DTYPES[cfg.dtype])
+        return fixed + [adp]

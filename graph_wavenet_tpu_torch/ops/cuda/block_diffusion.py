@@ -1,7 +1,7 @@
 """Flat block-sparse diffusion kernels: wrappers, plain versions, schedule.
 
 Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``'s flat
-forward kernels:
+kernels:
 
 - :func:`gathered_block_mix_flat` (kernel 1, ``csrc/mix_flat.cu``): for
   every live entry ``l``, ``out[row[l]] += blocks[slot[l]] (contract)
@@ -9,14 +9,16 @@ forward kernels:
 - :func:`gathered_block_mix_flat2` (kernel 3, ``csrc/mix_flat2.cu``): both
   order-2 hops in one launch, with an optional ``add`` after the inter-hop
   cast; bitwise equal to two calls of kernel 1;
+- :func:`gathered_block_outer_flat` (kernel 2, ``csrc/outer_flat.cu``): the
+  per-entry weight cotangent ``x[src[l]] . g[row[l]]^T`` over R, fp32 out;
 - :func:`fused2_schedule`: the reference's host-side (delay, ring width)
   schedule, copied verbatim; it decides which layouts fuse;
 - :func:`fused2_lag`: the row lag the CUDA kernel orders its work by.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
-PyTorch version beside it (gather, fp32 einsum, ``index_add_`` over the
-destination rows, cast). Each wrapper counts its kernel launches in
-:data:`LAUNCHES`.
+PyTorch version beside it (gather, fp32 einsum, and for the mixes
+``index_add_`` over the destination rows and a cast). Each wrapper counts
+its kernel launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from graph_wavenet_tpu_torch.ops.cuda import build
 
 # kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0}
+LAUNCHES = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,
+            "gathered_block_outer_flat": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
@@ -83,6 +86,15 @@ def mix_flat2_plain(blocks: torch.Tensor, slot: torch.Tensor,
     return o1, o2
 
 
+def outer_flat_plain(x: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
+                     row: torch.Tensor) -> torch.Tensor:
+    """Kernel 2's function: gather ``x[src]`` and ``g[row]``, then an fp32
+    einsum over R."""
+    xs = x.index_select(0, src.long()).float()
+    gs = g.index_select(0, row.long()).float()
+    return torch.einsum("lxr,lgr->lxg", xs, gs)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -93,19 +105,21 @@ def _check_tables(*tables: torch.Tensor) -> None:
             raise ValueError("entry tables must be contiguous 1-D int32")
 
 
-def _check_cuda(x: torch.Tensor, blocks: torch.Tensor,
-                *tables: torch.Tensor) -> int:
+def _check_cuda(x: torch.Tensor, other: torch.Tensor,
+                *tables: torch.Tensor, name: str = "blocks") -> int:
+    """Checks x, the second operand (``name``) and the int32 tables for a
+    launch; returns the kernels' dtype code."""
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"CUDA block mix takes float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if blocks.dtype != x.dtype:
-        raise TypeError(f"blocks ({blocks.dtype}) must be in x's dtype "
-                        f"({x.dtype}); cast them first")
-    for t in (x, blocks) + tables:
+        raise TypeError(f"CUDA block kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if other.dtype != x.dtype:
+        raise TypeError(f"{name} ({other.dtype}) must be in x's dtype "
+                        f"({x.dtype}); cast first")
+    for t in (x, other) + tables:
         if t.device != x.device:
             raise ValueError(f"tensors on {t.device} and {x.device}")
-    if not (x.is_contiguous() and blocks.is_contiguous()):
-        raise ValueError("x and blocks must be contiguous")
+    if not (x.is_contiguous() and other.is_contiguous()):
+        raise ValueError(f"x and {name} must be contiguous")
     _check_tables(*tables)
     return _DTYPE_CODE[x.dtype]
 
@@ -240,6 +254,45 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
     _raise_on(lib, rc, "gathered_block_mix_flat2")
     LAUNCHES["gathered_block_mix_flat2"] += 1
     return out1, out2
+
+
+def gathered_block_outer_flat(x: torch.Tensor, g: torch.Tensor,
+                              src: torch.Tensor, row: torch.Tensor
+                              ) -> torch.Tensor:
+    """dW (Lt, BSx, BSg) fp32: for each table entry l (dummies included),
+    ``x[src[l]] (BSx, R)`` contracted over R with ``g[row[l]] (BSg, R)``.
+    x (nbx, BSx, R) and g (nbg, BSg, R) share a dtype; blocks may be
+    rectangular."""
+    if x.ndim != 3 or g.ndim != 3 or x.shape[2] != g.shape[2]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must "
+                         "be (nbx, BSx, R) and (nbg, BSg, R)")
+    if src.shape != row.shape:
+        raise ValueError("src and row tables must have one entry each")
+    if x.device.type == "cpu":
+        return outer_flat_plain(x, g, src, row)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    bs_x, bs_g, r = x.shape[1], g.shape[1], x.shape[2]
+    if bs_x % 128 or bs_g % 64:
+        raise ValueError(f"CUDA kernel needs x rows % 128 == 0 and g rows "
+                         f"% 64 == 0, got {bs_x}, {bs_g}")
+    code = _check_cuda(x, g, src, row, name="g")
+    lt = src.numel()
+    out = torch.empty((lt, bs_x, bs_g), dtype=torch.float32,
+                      device=x.device)
+    if lt == 0:
+        return out
+    if r == 0:
+        return out.zero_()
+    lib = _lib("outer_flat.cu", "gwt_outer_flat", 5, 4)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gwt_outer_flat(code, x.data_ptr(), g.data_ptr(),
+                                src.data_ptr(), row.data_ptr(),
+                                out.data_ptr(), lt, bs_x, bs_g, r, stream)
+    _raise_on(lib, rc, "gathered_block_outer_flat")
+    LAUNCHES["gathered_block_outer_flat"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

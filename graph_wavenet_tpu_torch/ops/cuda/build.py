@@ -21,7 +21,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mix_flat.cu", "mix_flat2.cu")
+SOURCES = ("mix_flat.cu", "mix_flat2.cu", "outer_flat.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

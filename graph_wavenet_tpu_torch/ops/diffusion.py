@@ -6,7 +6,8 @@ whole hop block, ``(B, T, N, C) -> (N, R)`` with ``R = B*T*C``; every hop
 is a support's ``mix_2d`` (or both order-2 hops at once through a fused
 support's ``mix2_2d``); every hop is projected in place and accumulated in
 fp32. The projection weight's row blocks follow the reference concat
-order ``[x, s1 hop1, s1 hop2, ..., sS hop1, sS hop2]``.
+order ``[x, s1 hop1, s1 hop2, ..., sS hop1, sS hop2]``. In training the
+projected output takes inverted dropout.
 
 Dense supports (the flagship's modes) come with a later slice.
 """
@@ -43,15 +44,30 @@ class GCN(nn.Module):
                                generator=generator, device=device,
                                dtype=dtype))
 
-    def forward(self, x: torch.Tensor, supports: list) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, supports: list, dropout: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         lin = self.mlp.mlp
-        return gcn_apply(lin.weight, lin.bias, x, supports, self.order)
+        return gcn_apply(lin.weight, lin.bias, x, supports, self.order,
+                         dropout=dropout if self.training else 0.0,
+                         generator=generator)
+
+
+def dropout_scale(generator: torch.Generator | None, p: float, shape,
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Inverted-dropout mask: {0, 1/(1-p)} in ``dtype``, an element kept
+    where a uniform draw from ``generator`` is below 1 - p (the reference's
+    ``bernoulli(1 - p)``)."""
+    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    return keep.to(dtype) / torch.tensor(1.0 - p, dtype=dtype, device=device)
 
 
 def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
-              supports: list, order: int = 2) -> torch.Tensor:
-    """Diffusion conv, eval mode: x (B, T, N, C) -> (B, T, N, F).
-    weight (F, n_hops*C, 1, 1) in the reference Conv2d shape."""
+              supports: list, order: int = 2, *, dropout: float = 0.0,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Diffusion conv: x (B, T, N, C) -> (B, T, N, F). weight (F,
+    n_hops*C, 1, 1) in the reference Conv2d shape. ``dropout`` > 0 (train
+    mode only) multiplies the output by a :func:`dropout_scale` mask drawn
+    from ``generator``."""
     if not supports or not all(hasattr(s, "mix_2d") for s in supports):
         raise NotImplementedError(
             "the port runs the all-sparse gcn path only; dense supports "
@@ -84,4 +100,7 @@ def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
             k += 1
     h = (h + bias.float()).to(x.dtype)             # (N, B*T, F)
     f = h.shape[-1]
-    return h.reshape(n, b, t, f).permute(1, 2, 0, 3).contiguous()
+    h = h.reshape(n, b, t, f).permute(1, 2, 0, 3).contiguous()
+    if dropout > 0.0:
+        h = h * dropout_scale(generator, dropout, h.shape, h.dtype, h.device)
+    return h

@@ -66,8 +66,9 @@ class Forecaster:
                              ) -> "Forecaster":
         """City-scale checkpoint: verifies the sidecar's graph fingerprint
         against ``graph_npz``, rebuilds the block-sparse supports under the
-        persisted node permutation, and returns a Forecaster that predicts
-        in original node order."""
+        persisted node permutation (and the adaptive mask, widened by the
+        layout's ``adaptive_hops``, when the model learned one), and
+        returns a Forecaster that predicts in original node order."""
         from graph_wavenet_tpu_torch.graphs import city
         from graph_wavenet_tpu_torch.graphs.spatial import (
             doubletransition_block_supports,
@@ -88,15 +89,18 @@ class Forecaster:
             raise ValueError(
                 f"graph fingerprint mismatch: checkpoint trained on "
                 f"{layout['fingerprint']}, {graph_npz} is {fp}")
-        if meta["model_cfg"].addaptadj:
-            raise NotImplementedError(
-                "the checkpoint trained the block-masked adaptive adjacency, "
-                "which is not ported yet (ROADMAP.md)")
         supports = doubletransition_block_supports(
             g["src"], g["dst"], g["weight"], layout["n_pad"],
             perm=np.asarray(layout["perm"], np.int64),
             form=layout["form"], block_size=layout["block_size"],
             device=device)
+        if meta["model_cfg"].addaptadj:
+            from graph_wavenet_tpu_torch.ops.adaptive_block import (
+                mask_from_supports,
+            )
+
+            supports = supports + [mask_from_supports(
+                supports, hops=int(layout.get("adaptive_hops", 1)))]
         fc = cls.from_checkpoint(path, supports, device=device)
         fc.node_layout = layout
         return fc

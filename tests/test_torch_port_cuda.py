@@ -10,7 +10,9 @@ with a card and nvcc:
 machine need not have; this file imports only torch and the port.) It adds
 what ``chip_smoke.py`` does not cover: ragged R (including R not a multiple
 of 8, which takes the kernels' scalar load path), kernel 3 in the transpose
-orientation, and the wrappers' refusals.
+orientation, and the wrappers' refusals; kernel 2 (the weight cotangent)
+at ragged R on square, rectangular and tall blocks; and the hops'
+backward on the card against the CPU's plain versions.
 """
 
 import numpy as np
@@ -141,6 +143,64 @@ def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
                                        transpose_lhs=transpose_lhs))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("shape", [(128, 128), (128, 512), (256, 64)],
+                         ids=["sq", "rect", "tall"])
+def test_kernel2_matches_plain(card, dtype, r, shape):
+    """fp32 to rtol 1e-5 of the sum of |terms| (bf16 inputs multiply
+    exactly in fp32, so the same bound holds for them)."""
+    bs_x, bs_g = shape
+    row, src, _, _ = tables(200 + r, 6, 5, band=2)
+    gen = torch.Generator(device=card).manual_seed(r)
+    x = torch.randn(5, bs_x, r, device=card, generator=gen).to(dtype)
+    g = torch.randn(6, bs_g, r, device=card, generator=gen).to(dtype)
+    args = (x, g, i32(src, card), i32(row, card))
+    before = bd.LAUNCHES["gathered_block_outer_flat"]
+    got = bd.gathered_block_outer_flat(*args)
+    assert bd.LAUNCHES["gathered_block_outer_flat"] == before + 1
+    want = bd.outer_flat_plain(*args)
+    terms = bd.outer_flat_plain(x.abs(), g.abs(), *args[2:])
+    torch.cuda.synchronize()
+    assert got.shape == (len(row), bs_x, bs_g) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * terms + 1e-30).all())
+    again = bd.gathered_block_outer_flat(*args)
+    assert torch.equal(got, again), "kernel 2 must be deterministic"
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "chained"])
+def test_hop_backward_matches_cpu(card, fused):
+    """dx and dblocks of both hops of a 128-block support on the card
+    (kernels 1, 2, 3) against the CPU's plain versions."""
+    import dataclasses
+
+    from graph_wavenet_tpu_torch.ops import block_sparse as tbs
+
+    n = 1024
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, n, size=6000)
+    dst = np.clip(src + rng.integers(-200, 200, size=6000), 0, n - 1)
+    w = rng.random(6000).astype(np.float32)
+    x_np = rng.normal(size=(n, 96)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        sp = tbs.as_fused2(tbs.from_edges_flat(src, dst, w, n, 128, 128,
+                                               device=dev))
+        assert isinstance(sp, tbs.Fused2FlatSupport) and sp.delay_t > 0
+        if not fused:
+            sp = dataclasses.replace(sp, delay_t=0, ring_w_t=0)
+        blocks = sp.blocks_flat.clone().requires_grad_(True)
+        sp = dataclasses.replace(sp, blocks_flat=blocks)
+        x = torch.as_tensor(x_np, device=dev).requires_grad_(True)
+        o1, o2 = sp.mix2_2d(x)
+        (o1.square().sum() + (o2 * o2.detach().sign()).sum()).backward()
+        grads[dev] = (x.grad.cpu(), blocks.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        # fp32 sums in another order: 1e-5 of the gradient's scale
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 def test_cuda_tensors_never_take_the_plain_version(card):
     """On the card a wrapper launches its kernel or raises."""
     row, src, slot, n_live = tables(0, 4, 4, band=1)
@@ -166,3 +226,7 @@ def test_cuda_tensors_never_take_the_plain_version(card):
             torch.zeros(n_live + 1, 128, 128, device=card), t[0],
             torch.zeros(4, 128, 8, device=card, dtype=torch.bfloat16),
             t[1], t[2], nb=4, transpose_lhs=True)
+    with pytest.raises(ValueError, match="% 128"):
+        bd.gathered_block_outer_flat(
+            torch.zeros(4, 64, 8, device=card),
+            torch.zeros(4, 64, 8, device=card), t[1], t[2])

@@ -1,5 +1,5 @@
-"""The port's flat block-sparse kernels, held to the JAX package's Pallas
-kernels (run in interpret mode) on the CPU.
+"""The port's flat block-sparse kernels (1, 2 and 3), held to the JAX
+package's Pallas kernels (run in interpret mode) on the CPU.
 
 On a CPU tensor each wrapper takes its plain PyTorch version, so these tests
 pin the kernels' function; the CUDA kernels themselves are held against the
@@ -101,6 +101,29 @@ def test_mix_flat2_plain_matches_pallas_fused(rng, with_add):
     np.testing.assert_allclose(g2.numpy(), np.asarray(w2), **TOL)
 
 
+@pytest.mark.parametrize("shape", [(16, 16), (16, 32), (32, 16)],
+                         ids=["square", "rect", "tall"])
+@pytest.mark.parametrize("r", [40, 130], ids=["r40", "r130"])
+def test_outer_flat_plain_matches_pallas(rng, shape, r):
+    """Kernel 2's plain version against the Pallas kernel: one output per
+    table entry, dummy entries included, R not a multiple of 128."""
+    bs_x, bs_g = shape
+    nb, nbx = 5, 4
+    row, src, _, _, n_empty = flat_tables(rng, nb, nbx, 3)
+    assert n_empty >= 1, "the seed must give a dummy entry"
+    x = rng.normal(size=(nbx, bs_x, r)).astype(np.float32)
+    g = rng.normal(size=(nb, bs_g, r)).astype(np.float32)
+    want = jbd.gathered_block_outer_flat(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(src), jnp.asarray(row),
+        out_dtype=jnp.float32, interpret=True)
+    got = tbd.gathered_block_outer_flat(torch.as_tensor(x),
+                                        torch.as_tensor(g), as_t(src),
+                                        as_t(row))
+    assert got.shape == (len(row), bs_x, bs_g)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("band", [1, 3, None], ids=["b1", "b3", "wide"])
 def test_fused2_schedule_matches_reference(rng, band):
     nb = 40
@@ -139,9 +162,14 @@ def test_cpu_tensor_takes_plain_version_and_no_launch(rng):
     o1, o2 = tbd.gathered_block_mix_flat2(
         torch.zeros(n_live + 1, 16, 16), as_t(slot), torch.ones(4, 16, 8),
         as_t(src), as_t(row), nb=4, lag=1, transpose_lhs=True)
+    dw = tbd.gathered_block_outer_flat(torch.ones(4, 128, 8),
+                                       torch.ones(4, 64, 8), as_t(src),
+                                       as_t(row))
     assert out.shape == (4, 128, 8) and o2.shape == (4, 16, 8)
+    assert dw.shape == (len(row), 128, 64)
     assert tbd.LAUNCHES == {"gathered_block_mix_flat": 0,
-                            "gathered_block_mix_flat2": 0}
+                            "gathered_block_mix_flat2": 0,
+                            "gathered_block_outer_flat": 0}
 
 
 def test_wrappers_refuse_bad_shapes():
@@ -154,3 +182,6 @@ def test_wrappers_refuse_bad_shapes():
         tbd.gathered_block_mix_flat2(torch.zeros(2, 16, 32), one,
                                      torch.zeros(1, 16, 4), one, one, nb=1,
                                      lag=0, transpose_lhs=True)
+    with pytest.raises(ValueError, match="nbg, BSg, R"):
+        tbd.gathered_block_outer_flat(torch.zeros(1, 16, 4),
+                                      torch.zeros(1, 16, 5), one, one)

@@ -1,6 +1,8 @@
 """The port's layers and support builders, held to the JAX package on the
 CPU: the same numpy inputs go through both, fp32, rtol/atol 1e-5."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,8 +99,9 @@ def test_eval_batch_norm_matches_jax(rng):
         train=False)
     np.testing.assert_allclose(bn(torch.as_tensor(x)).detach().numpy(),
                                np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bn.train()(torch.as_tensor(x))
+    # eval mode reads the running statistics and never updates them
+    np.testing.assert_array_equal(bn.running_mean.numpy(), state["mean"])
+    assert int(bn.num_batches_tracked) == 0
 
 
 def knn_graph(rng, n, k=4):
@@ -182,13 +185,28 @@ def test_sparse_gcn_matches_jax(rng, form):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_sparse_hops_are_forward_only(rng):
+def test_sparse_hops_are_forward_only(rng, monkeypatch):
+    """A fixed support's blocks are forward-only: the backward of its hops
+    gives x a gradient, the blocks none, and never runs kernel 2 (the
+    weight cotangent), as XLA drops it for the reference's constants."""
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as tbd
+
+    calls = []
+    plain = tbd.outer_flat_plain
+    monkeypatch.setattr(tbd, "outer_flat_plain",
+                        lambda *a: calls.append(1) or plain(*a))
     n = 32
     src, dst, w = knn_graph(rng, n)
     sp = tbs.from_edges_flat(src, dst, w, n, 16, 16, device=CPU)
+    fused = tbs.as_fused2(sp)
+    assert isinstance(fused, tbs.Fused2FlatSupport)
     x = torch.ones(n, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="kernel 2"):
-        sp.mix_2d(x).sum().backward()
+    (sp.mix_2d(x).sum() + sum(o.sum() for o in fused.mix2_2d(x))).backward()
+    assert x.grad is not None and x.grad.abs().sum() > 0
+    assert sp.blocks_flat.grad is None and not calls
+    blocks = sp.blocks_flat.clone().requires_grad_(True)
+    dataclasses.replace(sp, blocks_flat=blocks).mix_2d(x).sum().backward()
+    assert len(calls) == 1 and blocks.grad is not None
 
 
 @pytest.mark.parametrize("ordering", ["rcm", "hilbert"])
