@@ -34,7 +34,26 @@ exits non-zero:
    the 40,960-node city model with the adaptive adjacency (bf16, batch 4)
    for one epoch on synthetic data, its checkpoint is served with one
    request, one train step's launch counters are held to the layout, and
-   the train step is timed and profiled.
+   the train step is timed and profiled;
+9. kernel checks at the padded form's shapes (the 40,960-node RCM padded
+   support, 320 x 11 slots, fp32 and bf16): kernel 4 forward (R = 3,072
+   and 32) and over the transpose tables (R = 1,536 and 128) against its
+   plain version and bitwise against kernel 1 on ``as_flat_pallas``'s
+   tables, kernel 5 (R = 1,536 and 128, output in the storage dtype)
+   against its plain version, sentinel slots zero, a repeat bit-identical;
+   the host build of the padded supports timed beside the flat one;
+10. small-N padded: the 2,048-node fp32 model over "pallas" supports on the
+   card against the CPU (2e-4) and bitwise against the flat form, 3 train
+   steps with the adaptive adjacency against the CPU, one gradient with
+   respect to the padded blocks against the CPU;
+11. padded serving and training at full width (main paths): phases 7 and 8
+   for a checkpoint whose layout says "pallas" (32 kernel-4 launches per
+   forward; a train step 32 + 28 kernel-4, 15 kernel-3, 14 kernel-2 and no
+   kernel-5 launches);
+12. kernel 5's path at full width: one forward and backward of the gcn at
+   the first layer's training shape (batch 4, bf16, R = 1,536) over the
+   padded supports with blocks that require a gradient (4 kernel-5
+   launches), each launch held against its plain version on the card.
 
 Before the last line it prints one ``{"kernels": [...]}`` line and the
 card's name and power limit; the last line is
@@ -62,9 +81,13 @@ PEAK_BYTES = 3.35e12
 K1_SRC = "graph_wavenet_tpu_torch/csrc/mix_flat.cu"
 K2_SRC = "graph_wavenet_tpu_torch/csrc/outer_flat.cu"
 K3_SRC = "graph_wavenet_tpu_torch/csrc/mix_flat2.cu"
-K1_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:165"
-K2_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:255"
-K3_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:494"
+K4_SRC = "graph_wavenet_tpu_torch/csrc/mix_padded.cu"
+K5_SRC = "graph_wavenet_tpu_torch/csrc/outer_padded.cu"
+K1_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:167"
+K2_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:256"
+K3_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:497"
+K4_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:74"
+K5_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:325"
 TRAIN_BATCH = 4
 TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
 
@@ -544,6 +567,15 @@ def phase_train_kernels(graph) -> dict:
             require(ok, f"kernel 1 (transpose, mask) disagrees with its "
                         f"plain version: {rec}")
             rec["kernel_ms"] = cuda_ms(k1t, reps)
+            rec["plain_ms"] = cuda_ms(
+                lambda: bd.mix_flat_plain(*args, nb=nb, transpose_lhs=False),
+                max(2, reps // 5))
+            lib_fn, lib_name, lib_out = library_hop(sp, g.reshape(-1, r),
+                                                    False)
+            del lib_out
+            rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+            rec["library"] = lib_name
+            del lib_fn
             flops, nbytes = hop_cost(sp, r, isz, fused=False)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
@@ -617,20 +649,18 @@ def phase_small_e2e(seed: int = 0) -> None:
             f"launch counts {k3}, {k1} do not match the layout")
 
 
-def phase_small_train(seed: int = 0) -> None:
+def small_train_run(form: str, seed: int = 0):
     """3 train steps of the 2,048-node fp32 model with the adaptive
-    adjacency on the card (kernels) and on the CPU (plain versions) from
-    the same weights; then one step with unfused supports and an unfused
-    mask, whose gradients must equal the fused ones bit for bit."""
-    import dataclasses
-
+    adjacency over ``form`` supports on the card (kernels) and on the CPU
+    (plain versions) from the same weights, held to each other. Returns
+    the card's engine and supports, the batches and the card's launch
+    counts."""
     import numpy as np
     import torch
 
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.graphs.city import build_city_supports
-    from graph_wavenet_tpu_torch.ops import block_sparse as bsp
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.engine import Engine
 
@@ -639,19 +669,15 @@ def phase_small_train(seed: int = 0) -> None:
                       dtype="float32")
     scaler = StandardScaler(50.0, 10.0)
     sups, engines = {}, {}
-    for dev in ("cuda", "cpu"):
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
         sup, mask, _ = build_city_supports(src, dst, w, N_SMALL, pos=pos,
-                                           ordering="rcm", addaptadj=True,
-                                           device=dev)
-        sups[dev] = sup + [mask]
-        engines[dev] = Engine(cfg, TrainConfig(), scaler, device=dev,
-                              seed=seed)
-    engines["cpu"].model.load_state_dict(engines["cuda"].model.state_dict())
-    mask = sups["cuda"][-1]
-    require(all(isinstance(s, bsp.Fused2FlatSupport) and s.delay_t > 0
-                for s in sups["cuda"][:-1])
-            and mask.fuse2 is not None and mask.fuse2[2] > 0,
-            "the 2,048-node supports and mask must fuse both ways")
+                                           ordering="rcm", form=form,
+                                           addaptadj=True, device=dev)
+        sups[where] = sup + [mask]
+        engines[where] = Engine(cfg, TrainConfig(), scaler, device=dev,
+                                seed=seed)
+    engines["host"].model.load_state_dict(
+        engines["card"].model.state_dict())
     rng = np.random.default_rng(5)
     steps, batch = 3, 2
     xs = rng.normal(size=(steps, batch, 12, N_SMALL, 2)).astype(np.float32)
@@ -659,44 +685,71 @@ def phase_small_train(seed: int = 0) -> None:
                     ).astype(np.float32)
     ys[:, :, :, :16, 0] = 0.0
     losses = {}
-    for dev, eng in engines.items():
+    for where, eng in engines.items():
         bd.reset_launch_counts()
-        losses[dev] = [float(eng.train_step(xs[i], ys[i], sups[dev])["loss"])
-                       for i in range(steps)]
-        if dev == "cuda":
+        losses[where] = [float(eng.train_step(xs[i], ys[i],
+                                              sups[where])["loss"])
+                         for i in range(steps)]
+        if where == "card":
             counts = dict(bd.LAUNCHES)
-    sd = {dev: {k: v.float().cpu() for k, v in
-                eng.model.state_dict().items()}
-          for dev, eng in engines.items()}
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                  losses["cpu"]))
-    worst = max(((sd["cuda"][k] - sd["cpu"][k]).abs()
-                 - 1e-4 * sd["cpu"][k].abs()).max().item() for k in sd["cpu"])
-    emit("small_train", nodes=N_SMALL, dtype="float32", steps=steps,
-         batch=batch, losses_card=losses["cuda"], losses_cpu=losses["cpu"],
-         max_loss_rel_diff=rel, tolerance="losses rtol 1e-4; parameters "
-         "and BN statistics rtol 1e-4 + atol 1e-4",
-         max_param_excess_over_rtol=worst, launches_card=counts)
+    sd = {where: {k: v.float().cpu() for k, v in
+                  eng.model.state_dict().items()}
+          for where, eng in engines.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["host"]))
+    worst = max(((sd["card"][k] - sd["host"][k]).abs()
+                 - 1e-4 * sd["host"][k].abs()).max().item()
+                for k in sd["host"])
+    emit("small_train", form=form, nodes=N_SMALL, dtype="float32",
+         steps=steps, batch=batch, losses_card=losses["card"],
+         losses_cpu=losses["host"], max_loss_rel_diff=rel,
+         tolerance="losses rtol 1e-4; parameters and BN statistics rtol "
+         "1e-4 + atol 1e-4", max_param_excess_over_rtol=worst,
+         launches_card=counts)
     require(rel <= 1e-4, f"card vs CPU losses differ: {losses}")
     require(worst <= 1e-4, f"card vs CPU parameters differ by {worst}")
+    return engines["card"], sups["card"], (xs, ys), counts
+
+
+def phase_small_train(seed: int = 0) -> None:
+    """3 train steps of the 2,048-node fp32 model with the adaptive
+    adjacency over flat supports, card against CPU; then one step with
+    unfused supports and an unfused mask, whose gradients must equal the
+    fused ones bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from graph_wavenet_tpu_torch.config import TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.ops import block_sparse as bsp
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    engine, sup, (xs, ys), counts = small_train_run("flat", seed)
+    cfg, scaler = engine.model_cfg, StandardScaler(50.0, 10.0)
+    mask = sup[-1]
+    require(all(isinstance(s, bsp.Fused2FlatSupport) and s.delay_t > 0
+                for s in sup[:-1])
+            and mask.fuse2 is not None and mask.fuse2[2] > 0,
+            "the 2,048-node supports and mask must fuse both ways")
     require(counts["gathered_block_outer_flat"] > 0
             and counts["gathered_block_mix_flat"] == 0,
             f"launch counts {counts} do not match the fused layout")
 
     # one step from the same state with fused and with unfused supports
-    unfused = ([bsp.as_unfused(s) for s in sups["cuda"][:-1]]
+    unfused = ([bsp.as_unfused(s) for s in sup[:-1]]
                + [dataclasses.replace(mask, fuse2=None)])
-    state = engines["cuda"].model.state_dict()
+    state = engine.model.state_dict()
     grads = {}
     # PyTorch's index_add_ (the adaptive softmax's segment sums and the
     # nodevec gathers' backward) uses float atomics unless asked not to
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for name, sup in (("fused", sups["cuda"]), ("unfused", unfused)):
+        for name, sups in (("fused", sup), ("unfused", unfused)):
             eng = Engine(cfg, TrainConfig(), scaler, device="cuda",
                          seed=seed)
             eng.model.load_state_dict(state)
-            eng.train_step(xs[0], ys[0], sup)
+            eng.train_step(xs[0], ys[0], sups)
             grads[name] = {k: p.grad for k, p in
                            eng.model.named_parameters()
                            if p.grad is not None}
@@ -757,40 +810,70 @@ def write_city_data(root: str, n: int) -> None:
         np.savez(os.path.join(root, f"{split}.npz"), **arrays)
 
 
-def expected_step_launches(supports, layers: int) -> dict:
-    """Kernel launches of one train step implied by the supports. Forward,
-    every layer: kernel 3 for a fused support, kernel 1 per hop for an
-    unfused one. Backward, every layer but the last (whose diffusion output
-    feeds only its own residual and BatchNorm, which no loss term reads):
-    kernel 3 over the transpose tables for a fused support (two kernel-1
-    launches if its transpose band does not fuse), kernel 1 per hop for an
-    unfused one, and kernel 2 once per hop for the adaptive support only,
-    the one whose blocks need a gradient."""
+def _fused(s) -> bool:
+    """Whether a flat support or the adaptive mask runs kernel 3."""
     from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
 
-    k1 = k2 = k3 = 0
+    if getattr(s, "adaptive_mask", False):
+        return s.fuse2 is not None
+    return isinstance(s, Fused2FlatSupport)
+
+
+def forward_launches(supports, layers: int) -> dict:
+    """Kernel launches of one forward implied by the supports, every layer:
+    kernel 3 for a fused flat support (or adaptive mask), kernel 1 per hop
+    for an unfused one, kernel 4 per hop for a padded one."""
+    from graph_wavenet_tpu_torch.ops.block_sparse import BlockSparseSupport
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    n = dict.fromkeys(bd.LAUNCHES, 0)
+    for s in supports:
+        if isinstance(s, BlockSparseSupport):
+            n["gathered_block_mix"] += 2 * layers
+        elif _fused(s):
+            n["gathered_block_mix_flat2"] += layers
+        else:
+            n["gathered_block_mix_flat"] += 2 * layers
+    return n
+
+
+def expected_step_launches(supports, layers: int) -> dict:
+    """Kernel launches of one train step implied by the supports: the
+    forward's, then the backward of every layer but the last (whose
+    diffusion output feeds only its own residual and BatchNorm, which no
+    loss term reads): kernel 3 over the transpose tables for a fused
+    support (two kernel-1 launches if its transpose band does not fuse),
+    kernel 1 per hop for an unfused one, kernel 4 per hop over the
+    transpose tables for a padded one, and kernel 2 once per hop for the
+    adaptive support only, the one whose blocks need a gradient. Kernel 5,
+    the padded blocks' cotangent, never runs: fixed blocks need none."""
+    from graph_wavenet_tpu_torch.ops.block_sparse import BlockSparseSupport
+
+    n = forward_launches(supports, layers)
+    back = layers - 1
     for s in supports:
         adaptive = getattr(s, "adaptive_mask", False)
-        fused = (s.fuse2 is not None if adaptive
-                 else isinstance(s, Fused2FlatSupport))
-        delay_t = (s.fuse2[2] if adaptive and fused
+        if isinstance(s, BlockSparseSupport):
+            n["gathered_block_mix"] += 2 * back
+            continue
+        delay_t = (s.fuse2[2] if adaptive and _fused(s)
                    else getattr(s, "delay_t", 0))
-        if fused:
-            k3 += layers + (layers - 1) * (delay_t > 0)
-            k1 += (layers - 1) * 2 * (delay_t == 0)
+        if _fused(s):
+            n["gathered_block_mix_flat2"] += back * (delay_t > 0)
+            n["gathered_block_mix_flat"] += back * 2 * (delay_t == 0)
         else:
-            k1 += (2 * layers) + 2 * (layers - 1)
-        k2 += 2 * (layers - 1) * adaptive
-    return {"gathered_block_mix_flat": k1, "gathered_block_mix_flat2": k3,
-            "gathered_block_outer_flat": k2}
+            n["gathered_block_mix_flat"] += 2 * back
+        n["gathered_block_outer_flat"] += 2 * back * adaptive
+    return n
 
 
-def phase_train(graph, tmp: str) -> dict:
-    """The training path at full width: the port's training CLI on the
-    40,960-node city model with the adaptive adjacency (bf16, batch 4),
-    its checkpoint served, one train step's launches held to the layout,
-    the step timed and profiled. Returns the launch counts of the train
-    and serve windows."""
+def phase_train(graph, tmp: str, form: str) -> dict:
+    """A training path at full width: the port's training CLI on the
+    40,960-node city model with the adaptive adjacency (bf16, batch 4) over
+    ``form`` supports (``--sparse``), its checkpoint served, one train
+    step's launches held to the layout, the step timed and profiled.
+    Returns the launch counts of the train and serve windows (suffixed
+    ``_padded`` for a padded form)."""
     import numpy as np
     import torch
 
@@ -798,20 +881,22 @@ def phase_train(graph, tmp: str) -> dict:
     from graph_wavenet_tpu_torch.graphs import city
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
+    tag = "" if form == "flat" else "_padded"
     pos, src, dst, w = graph
     t0 = time.perf_counter()
     gpath = os.path.join(tmp, "train_graph.npz")
-    city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
     data_dir = os.path.join(tmp, "city_data")
-    write_city_data(data_dir, N_CITY)
+    if not os.path.exists(gpath):
+        city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
+        write_city_data(data_dir, N_CITY)
     setup_s = time.perf_counter() - t0
-    save = os.path.join(tmp, "train_ckpt")
+    save = os.path.join(tmp, f"train_ckpt_{form}")
     t1 = time.perf_counter()
     out = train.main(["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
                       "--addaptadj", "--dtype", "bfloat16", "--batch_size",
                       str(TRAIN_BATCH), "--seq_length", "12", "--epochs", "1",
-                      "--print_every", "1", "--save", save, "--device",
-                      "cuda"])
+                      "--print_every", "1", "--save", save, "--sparse", form,
+                      "--device", "cuda"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t1
     result, runner, sups = out["result"], out["runner"], out["supports"]
@@ -819,36 +904,40 @@ def phase_train(graph, tmp: str) -> dict:
     finite = all(np.isfinite(v) for v in (
         *hist.train.values(), *hist.valid.values(),
         *result.test_metrics.values()))
-    emit("train_cli", nodes=N_CITY, dtype="bfloat16", batch=TRAIN_BATCH,
-         samples=TRAIN_SAMPLES, setup_seconds=round(setup_s, 3),
-         seconds=round(cli_s, 3), train=hist.train, valid=hist.valid,
-         test=result.test_metrics, checkpoint=os.path.basename(
-             result.best_checkpoint))
+    emit("train_cli", form=form, nodes=N_CITY, dtype="bfloat16",
+         batch=TRAIN_BATCH, samples=TRAIN_SAMPLES,
+         setup_seconds=round(setup_s, 3), seconds=round(cli_s, 3),
+         train=hist.train, valid=hist.valid, test=result.test_metrics,
+         checkpoint=os.path.basename(result.best_checkpoint))
     require(finite, "non-finite train, validation or test metrics")
     require(os.path.exists(result.best_checkpoint), "no checkpoint written")
 
     engine = runner.engine
-    fused = [bool(getattr(s, "fuse2", None)) if getattr(
-        s, "adaptive_mask", False) else hasattr(s, "mix2_2d") for s in sups]
-    emit("train_layout", fused2=fused,
+    emit("train_layout", form=form,
+         supports=[type(s).__name__ for s in sups],
+         fused2=[_fused(s) for s in sups],
          delay_t=[s.fuse2[2] if getattr(s, "adaptive_mask", False)
                   else getattr(s, "delay_t", 0) for s in sups],
-         live_blocks=[s.n_live for s in sups])
+         live_blocks=[s.n_live if hasattr(s, "n_live")
+                      else int((s.block_idx < s.block_idx.shape[0]).sum())
+                      for s in sups])
     rng = np.random.default_rng(6)
     x = rng.normal(size=(TRAIN_BATCH, 12, N_CITY, 2)).astype(np.float32)
     y = rng.normal(50.0, 10.0, size=(TRAIN_BATCH, 12, N_CITY, 2)
                    ).astype(np.float32)
     xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
     counts = {}
+    layers = engine.model_cfg.blocks * engine.model_cfg.layers
     bd.reset_launch_counts()
     engine.train_step(xt, yt, sups)
     torch.cuda.synchronize()
-    counts["train"] = dict(bd.LAUNCHES)
-    want = expected_step_launches(sups, engine.model_cfg.blocks
-                                  * engine.model_cfg.layers)
-    emit("train_step_launches", launches=counts["train"], expected=want)
-    require(counts["train"] == want,
-            f"train-step launches {counts['train']} do not match {want}")
+    counts["train" + tag] = dict(bd.LAUNCHES)
+    want = expected_step_launches(sups, layers)
+    emit("train_step_launches", form=form, launches=counts["train" + tag],
+         expected=want)
+    require(counts["train" + tag] == want,
+            f"train-step launches {counts['train' + tag]} do not match "
+            f"{want}")
 
     for _ in range(2):
         engine.train_step(xt, yt, sups)
@@ -862,14 +951,14 @@ def phase_train(graph, tmp: str) -> dict:
         times.append((time.perf_counter() - t2) * 1e3)
     require(bool(torch.isfinite(m["loss"])), "non-finite train loss")
     med = sorted(times)[len(times) // 2]
-    emit("train_step", batch=TRAIN_BATCH, nodes=N_CITY, dtype="bfloat16",
-         median_ms=med, min_ms=min(times), max_ms=max(times), times_ms=times,
+    emit("train_step", form=form, batch=TRAIN_BATCH, nodes=N_CITY,
+         dtype="bfloat16", median_ms=med, min_ms=min(times),
+         max_ms=max(times), times_ms=times,
          node_timesteps_per_s=TRAIN_BATCH * 12 * N_CITY / (med / 1e3),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    emit("train_step_profile", batch=TRAIN_BATCH,
+    emit("train_step_profile", form=form, batch=TRAIN_BATCH,
          **profile_step(lambda: engine.train_step(xt, yt, sups)))
-    layers = engine.model_cfg.blocks * engine.model_cfg.layers
-    del engine, runner, out, xt, yt
+    del engine, runner, out, xt, yt, sups
     torch.cuda.empty_cache()
 
     # the trained checkpoint through the serve CLI, one request
@@ -885,20 +974,21 @@ def phase_train(graph, tmp: str) -> dict:
         answer = np.asarray(post_json(url + "/predict",
                                       {"x": raw.tolist()})["y"])
         torch.cuda.synchronize()
-        counts["serve_trained"] = dict(bd.LAUNCHES)
+        counts["serve_trained" + tag] = dict(bd.LAUNCHES)
+        want = forward_launches(run["forecaster"].supports, layers)
     finally:
         server.shutdown()
         server.server_close()
         batcher.stop()
-    emit("serve_trained", shape=list(answer.shape),
-         launches=counts["serve_trained"])
+    emit("serve_trained", form=form, shape=list(answer.shape),
+         launches=counts["serve_trained" + tag], expected=want)
     require(answer.shape == (12, N_CITY) and np.isfinite(answer).all(),
             f"bad forecast of the trained checkpoint: {answer.shape}")
-    want = {"gathered_block_mix_flat2": layers * sum(fused),
-            "gathered_block_mix_flat": 2 * layers * (len(fused) - sum(fused)),
-            "gathered_block_outer_flat": 0}
-    require(counts["serve_trained"] == want,
-            f"serve launches {counts['serve_trained']} do not match {want}")
+    require(counts["serve_trained" + tag] == want,
+            f"serve launches {counts['serve_trained' + tag]} do not match "
+            f"{want}")
+    del run
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -909,60 +999,32 @@ def post_json(url: str, payload: dict, timeout: float = 600):
         return json.loads(r.read())
 
 
-def phase_serve(graph, tmp: str) -> dict:
-    """The main path: a city checkpoint at full width served through the
-    port's entry points. Returns the launch counts of its runs."""
+def serve_run(path: str, gpath: str, form: str, layers: int):
+    """One city checkpoint through the port's serve CLI: 4 concurrent
+    requests coalesced into device calls, the launch counters held to the
+    layout, predict latency at batch 1 and 8 and a profile at batch 8.
+    Returns the requests' launch counts and a batch-1 forecast."""
     import numpy as np
     import torch
 
     from graph_wavenet_tpu_torch.cli import serve
-    from graph_wavenet_tpu_torch.config import ModelConfig
-    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
-    from graph_wavenet_tpu_torch.graphs import city
-    from graph_wavenet_tpu_torch.models.gwnet import GWNet
-    from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-    from graph_wavenet_tpu_torch.train import checkpoint as ckpt
-    from graph_wavenet_tpu_torch.train.serving import Forecaster
 
-    pos, src, dst, w = graph
     t0 = time.perf_counter()
-    gpath = os.path.join(tmp, "city_graph.npz")
-    city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
-    _, _, layout = city.build_city_supports(src, dst, w, N_CITY, pos=pos,
-                                            ordering="best", form="flat",
-                                            device="cuda")
-    cfg = ModelConfig(num_nodes=layout["n_pad"], in_dim=2, out_dim=12,
-                      residual_channels=32, dilation_channels=32,
-                      skip_channels=256, end_channels=512, blocks=4,
-                      layers=2, addaptadj=False, n_supports=2,
-                      dtype="bfloat16")
-    model = GWNet(cfg, device="cuda", seed=0)
-    scaler = StandardScaler(50.0, 10.0)
-    paths = {}
-    for form in ("flat", "flat-rect"):
-        paths[form] = os.path.join(tmp, f"city_{form}.pt")
-        ckpt.save_checkpoint(paths[form], model.state_dict(), model_cfg=cfg,
-                             scaler=scaler, extra={"graph_layout": dict(
-                                 layout, form=form)})
-    del model
-    emit("serve_setup", seconds=round(time.perf_counter() - t0, 3),
-         nodes=N_CITY, ordering=layout["ordering"],
-         n_blocks=layout["n_blocks"], fused2=layout["fused2"])
-
-    layers = cfg.blocks * cfg.layers
-    run = serve.main(["--checkpoint", paths["flat"], "--graph_npz", gpath,
+    run = serve.main(["--checkpoint", path, "--graph_npz", gpath,
                       "--device", "cuda", "--port", "0", "--window_ms",
                       "3000", "--max_batch", "8"], serve_forever=False)
     server, batcher, fc = run["server"], run["batcher"], run["forecaster"]
-    counts = {}
     try:
-        fused = [isinstance(s, Fused2FlatSupport) for s in fc.supports]
-        emit("serve_layout", fused2=fused,
+        emit("serve_layout", form=form,
+             startup_seconds=round(time.perf_counter() - t0, 3),
+             supports=[type(s).__name__ for s in fc.supports],
+             fused2=[_fused(s) for s in fc.supports],
              ring_w=[getattr(s, "ring_w", None) for s in fc.supports],
              delay=[getattr(s, "delay", None) for s in fc.supports],
              lag=[getattr(s, "lag", None) for s in fc.supports],
-             live_blocks=[s.n_live for s in fc.supports])
+             padded_slots=[list(s.block_idx.shape) for s in fc.supports
+                           if hasattr(s, "block_idx")])
         url = f"http://127.0.0.1:{server.server_port}"
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -992,7 +1054,7 @@ def phase_serve(graph, tmp: str) -> dict:
             t.join(timeout=600)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t1
-        counts["serve"] = dict(bd.LAUNCHES)
+        counts = dict(bd.LAUNCHES)
         require(not errors and not any(t.is_alive() for t in threads),
                 f"requests failed: {errors}")
         stats = json.loads(urllib.request.urlopen(
@@ -1001,23 +1063,15 @@ def phase_serve(graph, tmp: str) -> dict:
         for a in answers:
             require(a.shape == (12, N_CITY) and np.isfinite(a).all(),
                     f"bad answer shape {a.shape} or non-finite values")
-        # per forward: one kernel-3 launch per layer for each support
-        # that fuses, two kernel-1 launches (one per hop) for each that
-        # does not
-        want_k3 = layers * calls * sum(fused)
-        want_k1 = 2 * layers * calls * (len(fused) - sum(fused))
-        emit("serve", requests=n_req, device_calls=calls,
+        want = {k: v * calls for k, v in
+                forward_launches(fc.supports, layers).items()}
+        emit("serve", form=form, requests=n_req, device_calls=calls,
              batch_histogram=stats["batch_histogram"],
-             seconds=round(serve_s, 3), launches=counts["serve"],
-             expected={"gathered_block_mix_flat2": want_k3,
-                       "gathered_block_mix_flat": want_k1})
-        require(counts["serve"] == {"gathered_block_mix_flat": want_k1,
-                                    "gathered_block_mix_flat2": want_k3,
-                                    "gathered_block_outer_flat": 0},
-                f"launch counts {counts['serve']} do not match the layout")
+             seconds=round(serve_s, 3), launches=counts, expected=want)
+        require(counts == want,
+                f"launch counts {counts} do not match the layout {want}")
 
         # predict latency through the Forecaster, batch 1 and 8
-        timing = {}
         for b in (1, 8):
             x = np.random.default_rng(3).normal(
                 size=(b, 12, N_CITY, 2)).astype(np.float32)
@@ -1033,25 +1087,77 @@ def phase_serve(graph, tmp: str) -> dict:
                 times.append((time.perf_counter() - t2) * 1e3)
             require(bool(torch.isfinite(out).all()), "non-finite forecast")
             med = sorted(times)[len(times) // 2]
-            timing[b] = dict(
-                batch=b, median_ms=med, min_ms=min(times),
-                max_ms=max(times),
-                forecast_node_steps_per_s=b * cfg.out_dim * N_CITY
-                / (med / 1e3),
-                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-            emit("predict_latency", layout="flat", **timing[b])
-        emit("predict_profile", layout="flat", batch=8,
+            emit("predict_latency", layout=form, batch=b, median_ms=med,
+                 min_ms=min(times), max_ms=max(times),
+                 forecast_node_steps_per_s=b * 12 * N_CITY / (med / 1e3),
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        emit("predict_profile", layout=form, batch=8,
              **profile_step(lambda: fc.predict(xt)))
         x1 = torch.randn(1, 12, N_CITY, 2, device="cuda",
                          generator=torch.Generator(
                              device="cuda").manual_seed(4))
-        fused_pred = fc.predict(x1)
+        pred = fc.predict(x1)
     finally:
         server.shutdown()
         server.server_close()
         batcher.stop()
     del fc, run
     torch.cuda.empty_cache()
+    return counts, x1, pred
+
+
+def phase_serve(graph, tmp: str) -> dict:
+    """The serving paths: one city checkpoint at full width served through
+    the port's entry points under the flat layout and under the padded
+    ("pallas") one, then under the 128x512 layout. Returns the launch
+    counts of its runs."""
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs import city
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+    from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import checkpoint as ckpt
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    pos, src, dst, w = graph
+    t0 = time.perf_counter()
+    gpath = os.path.join(tmp, "city_graph.npz")
+    city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
+    _, _, layout = city.build_city_supports(src, dst, w, N_CITY, pos=pos,
+                                            ordering="best", form="flat",
+                                            device="cuda")
+    cfg = ModelConfig(num_nodes=layout["n_pad"], in_dim=2, out_dim=12,
+                      residual_channels=32, dilation_channels=32,
+                      skip_channels=256, end_channels=512, blocks=4,
+                      layers=2, addaptadj=False, n_supports=2,
+                      dtype="bfloat16")
+    model = GWNet(cfg, device="cuda", seed=0)
+    scaler = StandardScaler(50.0, 10.0)
+    paths = {}
+    for form in ("flat", "flat-rect", "pallas"):
+        paths[form] = os.path.join(tmp, f"city_{form}.pt")
+        ckpt.save_checkpoint(paths[form], model.state_dict(), model_cfg=cfg,
+                             scaler=scaler, extra={"graph_layout": dict(
+                                 layout, form=form,
+                                 fused2=layout["fused2"] and form == "flat")})
+    del model
+    emit("serve_setup", seconds=round(time.perf_counter() - t0, 3),
+         nodes=N_CITY, ordering=layout["ordering"],
+         n_blocks=layout["n_blocks"], fused2=layout["fused2"])
+
+    layers = cfg.blocks * cfg.layers
+    counts = {}
+    counts["serve"], x1, fused_pred = serve_run(paths["flat"], gpath, "flat",
+                                                layers)
+    counts["serve_padded"], _, padded_pred = serve_run(
+        paths["pallas"], gpath, "pallas", layers)
+    emit("predict_padded_vs_flat", batch=1,
+         bitwise_equal=bool(torch.equal(padded_pred, fused_pred)),
+         max_abs_diff=float((padded_pred - fused_pred).abs().max()))
+    require(bool(torch.isfinite(padded_pred).all()), "non-finite forecast")
 
     # the same checkpoint under the 128x512 layout: no support fuses, so
     # every hop runs kernel 1
@@ -1063,8 +1169,7 @@ def phase_serve(graph, tmp: str) -> dict:
     rect_pred = rect.predict(x1)
     torch.cuda.synchronize()
     counts["rect"] = dict(bd.LAUNCHES)
-    want = {"gathered_block_mix_flat": 2 * 2 * layers,
-            "gathered_block_mix_flat2": 0, "gathered_block_outer_flat": 0}
+    want = forward_launches(rect.supports, layers)
     diff = float((rect_pred - fused_pred).abs().max())
     med = sorted(
         cuda_ms(lambda: rect.predict(x1), 1) for _ in range(10))[5]
@@ -1075,6 +1180,359 @@ def phase_serve(graph, tmp: str) -> dict:
             f"launch counts {counts['rect']} do not match the layout")
     require(bool(torch.isfinite(rect_pred).all()), "non-finite forecast")
     return counts
+
+
+def padded_cost(sp, r: int, isz: int, table_entries: int,
+                out_isz: int | None = None) -> tuple[float, float]:
+    """Operations and bytes of one launch on a padded support: the live
+    slots' products only (sentinels need none), the table read once, and
+    for kernel 4 (``out_isz`` None) the padded blocks, x and the output
+    once each; for kernel 5 x and g once and the output, sentinel slots
+    included, once."""
+    nb, mb, bs, _ = sp.blocks.shape
+    n_live = int((sp.block_idx < nb).sum())
+    flops = 2.0 * n_live * bs * bs * r
+    rows = nb * bs * r * isz
+    if out_isz is None:
+        nbytes = nb * mb * bs * bs * isz + 2 * rows
+    else:
+        nbytes = 2 * rows + nb * mb * bs * bs * out_isz
+    return flops, nbytes + 4 * table_entries
+
+
+def padded_outer_check(got, x, g, src) -> tuple[float, bool]:
+    """Kernel 5 against its plain version: within rtol 1e-5 of the sum of
+    |terms| of the fp32 sums, plus one ulp where the output is bf16 (both
+    round the fp32 sum once). Returns the largest difference from the plain
+    version in the output's dtype, and the verdict."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    with torch.no_grad():
+        want = bd.outer_padded_plain(x, g, src, out_dtype=torch.float32)
+        tol = bd.outer_padded_plain(x.abs(), g.abs(), src,
+                                    out_dtype=torch.float32).mul_(1e-5)
+        if got.dtype == torch.bfloat16:
+            mag = torch.maximum(got.float().abs(), want.abs()).clamp_min(
+                1e-30)
+            tol += torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        diff = (got.float() - want).abs()
+        ok = bool((diff <= tol + 1e-30).all())
+        err = float((got.float() - want.to(got.dtype).float()).abs().max())
+    return err, ok
+
+
+def phase_padded_kernels(graph):
+    """Kernels 4 and 5 at the padded form's shapes: the 40,960-node RCM
+    doubletransition supports built with form="pallas" (the host build
+    timed beside the flat one). Returns the supports (fp32 storage) and
+    the numbers for the kernels line."""
+    import torch
+
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+    from graph_wavenet_tpu_torch.graphs.spatial import (
+        doubletransition_block_supports,
+    )
+    from graph_wavenet_tpu_torch.ops.block_sparse import as_flat_pallas
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    _, src, dst, w = graph
+    perm = rcm_order_edges(src, dst, N_CITY)
+    t0 = time.perf_counter()
+    sups = doubletransition_block_supports(src, dst, w, N_CITY, perm=perm,
+                                           form="pallas", device="cuda")
+    torch.cuda.synchronize()
+    padded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doubletransition_block_supports(src, dst, w, N_CITY, perm=perm,
+                                    form="flat", device="cuda")
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    sp = sups[0]
+    nb, mb, bs, _ = sp.blocks.shape
+    n_live = int((sp.block_idx < nb).sum())
+    emit("padded_supports", ordering="rcm", host_build_seconds=padded_s,
+         flat_host_build_seconds=flat_s, nb=nb, mb=mb, live_blocks=n_live,
+         sentinel_share=1 - n_live / (nb * mb), mbt=sp.idx_t.shape[1],
+         blocks_bytes_fp32=sp.blocks.numel() * 4)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        spd = sp.astype(dtype)
+        flat = as_flat_pallas(spd)
+        bflat = spd.blocks.reshape(nb * mb, bs, bs)
+        for tl, rs in ((True, (3072, 32)), (False, (1536, 128))):
+            slot, srct = ((spd.slot, spd.block_idx) if tl
+                          else (spd.perm_t, spd.idx_t))
+            for r in rs:
+                reps = 5 if r > 256 else 20
+                x = torch.randn(nb, bs, r, generator=gen,
+                                device="cuda").to(dtype)
+
+                def k4():
+                    return bd.gathered_block_mix(bflat, slot, x, srct,
+                                                 transpose_lhs=tl)
+
+                def plain():
+                    return bd.mix_padded_plain(bflat, slot, x, srct,
+                                               transpose_lhs=tl)
+
+                got, want = k4(), plain()
+                if tl:
+                    k1 = bd.gathered_block_mix_flat(
+                        flat.blocks_flat, flat.slot_tbl, x, flat.src_tbl,
+                        flat.row_tbl, nb=flat.nb, transpose_lhs=True,
+                        row_ptr=flat.row_ptr)
+                else:
+                    k1 = bd.gathered_block_mix_flat(
+                        flat.blocks_flat, flat.slot_t, x, flat.src_t,
+                        flat.row_t, nb=flat.nb_t, transpose_lhs=False,
+                        row_ptr=flat.row_ptr_t)
+                torch.cuda.synchronize()
+                err, ok, rule = close_err(got, want)
+                bitwise = bool(torch.equal(got, k1))
+                k1_diff = float((got.float() - k1.float()).abs().max())
+                del want, k1
+                rec = dict(kernel="gathered_block_mix", dtype=dname, R=r,
+                           orientation="forward" if tl else "transpose",
+                           slots=[nb, slot.shape[1]], max_abs_err=err,
+                           tolerance=rule, bitwise_vs_kernel1_flat=bitwise,
+                           max_abs_diff_vs_kernel1_flat=k1_diff)
+                require(ok, f"kernel 4 disagrees with its plain version: "
+                            f"{rec}")
+                require(bitwise, f"kernel 4 is not bitwise equal to kernel "
+                                 f"1 on the flat tables: {rec}")
+                rec["kernel_ms"] = cuda_ms(k4, reps)
+                rec["plain_ms"] = cuda_ms(plain, max(2, reps // 5))
+                lib_fn, lib_name, lib_out = library_hop(flat, x.reshape(-1, r),
+                                                        tl)
+                rec["library_max_abs_diff"], _, _ = close_err(
+                    lib_out.reshape(got.shape).to(dtype), got)
+                del lib_out
+                rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+                rec["library"] = lib_name + " (as_flat_pallas tables)"
+                del lib_fn
+                flops, nbytes = padded_cost(spd, r, isz, 2 * slot.numel())
+                rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+                emit("kernel_check", **rec)
+                if (tl, dname, r) == (True, "bfloat16", 3072):
+                    summary["k4"] = rec
+                del got, x
+                torch.cuda.empty_cache()
+
+        # kernel 5 at the training shapes, out in the blocks' storage dtype
+        live = spd.block_idx < nb
+        for r in (1536, 128):
+            reps = 5 if r > 256 else 20
+            x = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+
+            def k5():
+                return bd.gathered_block_outer(x, g, spd.block_idx,
+                                               out_dtype=dtype)
+
+            def k5_plain():
+                return bd.outer_padded_plain(x, g, spd.block_idx,
+                                             out_dtype=dtype)
+
+            got = k5()
+            again = k5()
+            torch.cuda.synchronize()
+            deterministic = bool(torch.equal(got, again))
+            del again
+            err, ok = padded_outer_check(got, x, g, spd.block_idx)
+            sentinel_zero = not bool(got[~live].any())
+            del got
+            rec = dict(kernel="gathered_block_outer", dtype=dname,
+                       out_dtype=dname, R=r, slots=nb * mb, live=n_live,
+                       max_abs_err=err, tolerance="rtol 1e-5 of sum |terms| "
+                       "of the fp32 sums (+1 ulp of a bf16 output)",
+                       sentinel_slots_zero=sentinel_zero,
+                       deterministic=deterministic)
+            require(ok, f"kernel 5 disagrees with its plain version: {rec}")
+            require(sentinel_zero and deterministic,
+                    f"kernel 5 sentinels or repeat: {rec}")
+            rec["kernel_ms"] = cuda_ms(k5, reps)
+            rec["plain_ms"] = cuda_ms(k5_plain, max(2, reps // 5))
+            xs = x.index_select(0, spd.block_idx[live].long())
+            gs = g.index_select(0, torch.nonzero(live)[:, 0]).transpose(1, 2)
+            rec["library_ms"] = cuda_ms(lambda: torch.bmm(xs, gs),
+                                        max(2, reps // 5))
+            rec["library"] = ("torch.bmm on the live slots' operands "
+                              "gathered beforehand (gather and sentinel "
+                              "zeros excluded)")
+            del xs, gs
+            flops, nbytes = padded_cost(spd, r, isz, nb * mb, out_isz=isz)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+            emit("kernel_check", **rec)
+            if (dname, r) == ("bfloat16", 1536):
+                summary["k5"] = rec
+            del x, g
+            torch.cuda.empty_cache()
+        del spd, flat, bflat
+    return sups, summary
+
+
+def phase_small_padded(seed: int = 0) -> None:
+    """2,048 nodes, fp32, padded ("pallas") supports: the forecast on the
+    card against the CPU (2e-4) and bitwise against the flat form (kernel
+    4 equals kernel 1, and kernel 3 two kernel-1 launches); 3 train steps
+    with the adaptive adjacency against the CPU; one gradient with respect
+    to the padded blocks against the CPU, sentinel slots zero."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    pos, src, dst, w = city_graph(N_SMALL)
+    cfg = ModelConfig(num_nodes=N_SMALL, addaptadj=False, dropout=0.0,
+                      dtype="float32")
+    layers = cfg.blocks * cfg.layers
+    x = np.random.default_rng(1).normal(
+        size=(2, 12, N_SMALL, 2)).astype(np.float32)
+    preds, counts, sups = {}, {}, {}
+    for where, dev, form in (("card", "cuda", "pallas"),
+                             ("host", "cpu", "pallas"),
+                             ("card", "cuda", "flat")):
+        sup, _, layout = build_city_supports(src, dst, w, N_SMALL, pos=pos,
+                                             ordering="rcm", form=form,
+                                             device=dev)
+        sups[where, form] = sup
+        fc = Forecaster(cfg, GWNet(cfg, device=dev, seed=seed), sup,
+                        StandardScaler(50.0, 10.0), node_layout=layout)
+        bd.reset_launch_counts()
+        preds[where, form] = fc.predict(x)
+        torch.cuda.synchronize()
+        counts[where, form] = dict(bd.LAUNCHES)
+    card, cpu = preds["card", "pallas"], preds["host", "pallas"]
+    err = float((card.cpu() - cpu).abs().max())
+    bitwise = bool(torch.equal(card, preds["card", "flat"]))
+    want = forward_launches(sups["card", "pallas"], layers)
+    emit("small_padded_e2e", nodes=N_SMALL, dtype="float32",
+         mb=sups["card", "pallas"][0].block_idx.shape[1],
+         max_abs_err_vs_cpu=err, tolerance="rtol/atol 2e-4",
+         bitwise_equal_flat_form=bitwise,
+         max_abs_diff_vs_flat_form=float(
+             (card - preds["card", "flat"]).abs().max()),
+         launches=counts["card", "pallas"], expected=want)
+    require(bool(torch.allclose(card.cpu(), cpu, rtol=2e-4, atol=2e-4)),
+            f"padded card vs CPU forecast differ by {err}")
+    require(bitwise, "the padded forecast is not bitwise equal to the flat")
+    require(counts["card", "pallas"] == want,
+            f"launch counts {counts['card', 'pallas']} do not match {want}")
+
+    engine, sup, _, counts = small_train_run("pallas", seed)
+    want = {k: 3 * v for k, v in expected_step_launches(sup, layers).items()}
+    emit("small_padded_train_launches", launches=counts, expected=want)
+    require(counts == want, f"3 padded train steps launched {counts}, "
+                            f"expected {want}")
+
+    # one gradient with respect to the padded blocks, card against CPU
+    rng = np.random.default_rng(9)
+    x2 = rng.normal(size=(N_SMALL, 96)).astype(np.float32)
+    cot = rng.normal(size=(N_SMALL, 96)).astype(np.float32)
+    grads = {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        sp = sups[where, "pallas"][0]
+        blocks = sp.blocks.clone().requires_grad_(True)
+        out = dataclasses.replace(sp, blocks=blocks).mix_2d(
+            torch.as_tensor(x2, device=dev))
+        bd.reset_launch_counts()
+        grads[where], = torch.autograd.grad(out, blocks,
+                                            torch.as_tensor(cot, device=dev))
+        torch.cuda.synchronize()
+        if where == "card":
+            k5 = bd.LAUNCHES["gathered_block_outer"]
+    sp = sups["card", "pallas"][0]
+    sent = sp.block_idx == sp.block_idx.shape[0]
+    got, want_g = grads["card"].cpu(), grads["host"]
+    gerr = float((got - want_g).abs().max())
+    ok = bool(torch.allclose(got, want_g, rtol=1e-5,
+                             atol=1e-5 * float(want_g.abs().max())))
+    zero = not bool(grads["card"][sent].any())
+    emit("small_padded_blocks_grad", max_abs_err_vs_cpu=gerr,
+         tolerance="rtol 1e-5, atol 1e-5 x max|cpu|",
+         sentinel_slots=int(sent.sum()), sentinel_slots_zero=zero,
+         kernel5_launches=k5)
+    require(ok and zero and k5 == 1,
+            f"padded blocks gradient: err {gerr}, zero {zero}, k5 {k5}")
+
+
+def phase_kernel5_path(sups) -> dict:
+    """Kernel 5 on its path at full width: one forward and backward of the
+    gcn at the first layer's training shape (40,960 nodes, batch 4, bf16,
+    R = 1,536) over the two padded supports with bf16 blocks that require a
+    gradient (the fixed supports' blocks do not, so no CLI path runs it).
+    Each kernel-5 launch is held against the plain version on the card at
+    the inputs the path gave it. Returns the window's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from graph_wavenet_tpu_torch.ops import block_sparse as bsp
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.diffusion import gcn_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    c, t = 32, 12
+    leaves = [s.blocks.to(torch.bfloat16).requires_grad_(True) for s in sups]
+    grad_sups = [dataclasses.replace(s, blocks=b)
+                 for s, b in zip(sups, leaves)]
+    x = torch.randn(TRAIN_BATCH, t, N_CITY, c, generator=gen, device="cuda"
+                    ).to(torch.bfloat16).requires_grad_(True)
+    weight = torch.randn(c, 5 * c, 1, 1, generator=gen,
+                         device="cuda") / (5 * c) ** 0.5
+    bias = torch.zeros(c, device="cuda")
+    cot = torch.randn(TRAIN_BATCH, t, N_CITY, c, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    calls = []
+    kernel5 = bsp.gathered_block_outer
+
+    def recording(x_pad, g, src, *, out_dtype):
+        out = kernel5(x_pad, g, src, out_dtype=out_dtype)
+        calls.append((x_pad.detach(), g.detach(), src, out.detach()))
+        return out
+
+    bsp.gathered_block_outer = recording
+    try:
+        bd.reset_launch_counts()
+        t0 = time.perf_counter()
+        gcn_apply(weight, bias, x, grad_sups, 2).backward(cot)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(bd.LAUNCHES)
+    finally:
+        bsp.gathered_block_outer = kernel5
+    errs = []
+    for x_pad, g, src, got in calls:
+        err, ok = padded_outer_check(got, x_pad, g, src)
+        errs.append(err)
+        require(ok and got.dtype == torch.bfloat16,
+                f"kernel 5 on its path disagrees with its plain version: "
+                f"{err}")
+    nb = sups[0].block_idx.shape[0]
+    zero = all(not bool(b.grad[s.block_idx == nb].any())
+               for s, b in zip(sups, leaves))
+    want = dict.fromkeys(bd.LAUNCHES, 0)
+    want.update(gathered_block_mix=8, gathered_block_outer=4)
+    emit("kernel5_path", nodes=N_CITY, batch=TRAIN_BATCH, dtype="bfloat16",
+         R=TRAIN_BATCH * t * c, launches=counts, expected=want,
+         max_abs_err=errs, sentinel_slots_zero=zero, wall_ms=wall_ms)
+    require(counts == want, f"kernel-5 path launched {counts}, not {want}")
+    require(zero, "the sentinel slots' gradient is not zero")
+    del calls, leaves, grad_sups, x, cot
+    torch.cuda.empty_cache()
+    return {"kernel5_path": counts}
 
 
 def main() -> int:
@@ -1105,20 +1563,31 @@ def main() -> int:
     graph = city_graph(N_CITY)
     summary = phase_kernels(graph)
     summary.update(phase_train_kernels(graph))
+    padded, padded_summary = phase_padded_kernels(graph)
+    summary.update(padded_summary)
     phase_small_e2e()
     phase_small_train()
+    phase_small_padded()
     with tempfile.TemporaryDirectory(prefix="gwt_chip_smoke_") as tmp:
         counts = phase_serve(graph, tmp)
-        counts.update(phase_train(graph, tmp))
+        counts.update(phase_train(graph, tmp, "flat"))
+        counts.update(phase_train(graph, tmp, "pallas"))
+    counts.update(phase_kernel5_path(padded))
 
     # launches on the main paths: kernel 1 serving the 128x512 layout,
-    # kernel 2 in a train step, kernel 3 serving and in a train step
+    # kernel 2 in a train step, kernel 3 serving and in a train step,
+    # kernel 4 serving and training the padded form, kernel 5 on the
+    # gradient through padded blocks
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU, ("rect",)),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU, ("train",)),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
-             ("serve", "train"))):
+             ("serve", "train")),
+            ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
+             ("serve_padded", "train_padded")),
+            ("k5", "gathered_block_outer", K5_SRC, K5_TPU,
+             ("kernel5_path",))):
         rec = summary[key]
         launches = sum(counts[w][name] for w in windows)
         require(all(counts[w][name] > 0 for w in windows),

@@ -1,11 +1,12 @@
 """Training CLI for city-scale graphs.
 
 Counterpart of ``graph_wavenet_tpu/cli/train.py``'s ``--graph_npz``
-branch: ordered flat block-sparse doubletransition supports from an
-edge-list graph, the data's node axis permuted and padded to match, the
-block-masked adaptive adjacency under ``--addaptadj``, and the node layout
-recorded in every checkpoint sidecar, so the serve CLI rebuilds the same
-supports. Then the runner fits and tests.
+branch: ordered block-sparse doubletransition supports (flat, or padded
+under ``--sparse block|pallas``) from an edge-list graph, the data's node
+axis permuted and padded to match, the block-masked adaptive adjacency
+under ``--addaptadj``, and the node layout recorded in every checkpoint
+sidecar, so the serve CLI rebuilds the same supports. Then the runner fits
+and tests.
 
     python -m graph_wavenet_tpu_torch.cli.train --graph_npz city.npz \\
         --data data/CITY --gcn_bool --addaptadj --dtype bfloat16 \\
@@ -42,8 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ordering", type=str, default="best",
                    choices=("best", "rcm", "hilbert", "identity"))
     p.add_argument("--sparse", type=str, default="auto",
-                   choices=("auto", "flat"),
-                   help="support form (auto = flat live-block kernels)")
+                   choices=("auto", "flat", "block", "pallas"),
+                   help="support form: flat live-block kernels (auto) or "
+                        "blocks padded per block-row (block, pallas: both "
+                        "run the padded kernels)")
     p.add_argument("--block_size", type=int, default=128,
                    help="node block size (the CUDA kernels need 128)")
     p.add_argument("--support_dtype", type=str, default="auto",

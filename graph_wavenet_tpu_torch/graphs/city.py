@@ -1,13 +1,14 @@
-"""City-scale graph pipeline: edge-list graph -> ordered flat block-sparse
+"""City-scale graph pipeline: edge-list graph -> ordered block-sparse
 supports + a persisted node layout.
 
 A copy of ``graph_wavenet_tpu/graphs/city.py``. The layout record
-(permutation, padding, ordering, graph fingerprint, and ``adaptive_hops``
-when the model learns the block-masked adaptive adjacency) has the same
-keys and values as the reference's, so a checkpoint sidecar written by
-either package rebuilds the same supports in the other. ``form="auto"``
-resolves to ``"flat"`` on every device: the flat kernels are the port's
-only block-sparse kernels.
+(permutation, padding, ordering, form, graph fingerprint, and
+``adaptive_hops`` when the model learns the block-masked adaptive
+adjacency) has the same keys and values as the reference's, so a checkpoint
+sidecar written by either package rebuilds the same supports in the other,
+whichever of the four forms it records. ``form="auto"`` resolves to
+``"flat"`` on every device (the reference picks ``"block"`` off the TPU):
+the flat kernels do the least work.
 
 Graph file format (``--graph_npz``): an .npz with ``src``, ``dst`` int
 arrays (A[src, dst] = weight), optional ``weight``, ``pos`` (N, 2) and
@@ -82,7 +83,8 @@ def build_city_supports(src, dst, weight, n_nodes: int, *, pos=None,
 
     ordering: "best" (fewest live blocks among RCM/Hilbert, preferring a
     fusable band), "rcm", "hilbert" (needs ``pos``) or "identity".
-    form: "flat", "flat-rect", or "auto" (= "flat"). ``addaptadj``: also
+    form: "flat", "flat-rect", "block", "pallas" (the padded forms; their
+    layout records ``fused2`` false) or "auto" (= "flat"). ``addaptadj``: also
     build the block-masked adaptive mask on the union of the supports'
     patterns, widened to the ``adaptive_hops``-hop block closure; the layout
     records ``adaptive_hops`` so every rebuild reproduces the trained

@@ -1,10 +1,10 @@
 """Spatial (road-network-like) graphs on edge lists, and the
-doubletransition support pair in flat block-sparse form.
+doubletransition support pair in block-sparse form.
 
 A copy of ``graph_wavenet_tpu/graphs/spatial.py``: a k-NN graph on sensor
 coordinates with Gaussian kernel weights (kd-tree, O(N k log N)),
-normalized directly on the edge list. Only the flat forms are built here;
-the padded forms (``"block"``, ``"pallas"``) wait for the padded kernels.
+normalized directly on the edge list, in any of the reference's four
+block-sparse forms: flat (kernels 1-3) or padded (kernels 4 and 5).
 """
 
 from __future__ import annotations
@@ -64,19 +64,20 @@ def doubletransition_block_supports(src: np.ndarray, dst: np.ndarray,
                                     block_size: int = 128, *,
                                     device: torch.device | str = "cuda"
                                     ) -> list:
-    """The doubletransition pair ``[asym_adj(A), asym_adj(A^T)]`` in flat
+    """The doubletransition pair ``[asym_adj(A), asym_adj(A^T)]`` in
     block-sparse form, straight from the edge list, under node ordering
     ``perm`` (``new = perm[old]``).
 
     form: "flat" (square live blocks; banded layouts are upgraded to the
-    fused order-2 kernel by ``as_fused2``) or "flat-rect" (block_size x
-    4*block_size rectangular destination blocks; N must divide by both).
+    fused order-2 kernel by ``as_fused2``), "flat-rect" (block_size x
+    4*block_size rectangular destination blocks; N must divide by both),
+    "block" or "pallas" (blocks padded per block-row to the row maximum).
+    The two padded forms run the same kernels in the port (in the
+    reference, "block" is an XLA gather-and-einsum); each keeps its class
+    name so a layout records the form it was asked for.
     """
-    if form not in ("flat", "flat-rect"):
-        raise NotImplementedError(
-            f"form={form!r}: the padded block forms need the padded "
-            "kernels (gathered_block_mix / gathered_block_outer), queued in "
-            "ROADMAP.md; use form='flat'")
+    if form not in ("flat", "flat-rect", "block", "pallas"):
+        raise ValueError(f"unknown support form {form!r}")
     sup = []
     for s, d in ((src, dst), (dst, src)):        # A and A^T transitions
         wt = transition_edge_weights(s, d, w, n)
@@ -84,8 +85,13 @@ def doubletransition_block_supports(src: np.ndarray, dst: np.ndarray,
             sup.append(block_sparse.as_fused2(block_sparse.from_edges_flat(
                 s, d, wt, n, block_size, block_size, perm=perm,
                 device=device)))
-        else:
+        elif form == "flat-rect":
             sup.append(block_sparse.from_edges_flat(
                 s, d, wt, n, block_size, 4 * block_size, perm=perm,
                 device=device))
+        else:
+            sp = block_sparse.from_edges_blocked(
+                s, d, wt, n, block_size=block_size, perm=perm, device=device)
+            sup.append(block_sparse.as_pallas(sp) if form == "pallas"
+                       else sp)
     return sup

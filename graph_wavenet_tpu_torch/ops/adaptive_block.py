@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch.ops.block_sparse import (
+    BlockSparseSupport,
     FlatBlockSparseSupport,
     Fused2FlatSupport,
     from_edges_flat,
@@ -135,13 +136,19 @@ def adaptive_blocks(mask: BlockAdaptiveMask, nodevec1: torch.Tensor,
     return (ex / row_sum.index_select(0, seg)[:, :, None]).to(dt)
 
 
-def _live_pairs(sp: FlatBlockSparseSupport):
-    """(dst_block, src_block) live pairs and block geometry of a flat
-    support (host side)."""
+def _live_pairs(sp):
+    """(dst_block, src_block) live pairs and block geometry of a flat or
+    padded support (host side)."""
+    if isinstance(sp, BlockSparseSupport):
+        bidx = sp.block_idx.cpu().numpy().astype(np.int64)
+        nb = bidx.shape[0]
+        dst, m = np.nonzero(bidx < nb)
+        bs = sp.block_size
+        return dst, bidx[dst, m], bs, bs, nb, nb
     if not isinstance(sp, FlatBlockSparseSupport):
         raise TypeError(
             f"cannot derive a block mask from {type(sp).__name__}; pass "
-            "flat block-sparse supports (the padded form is not ported)")
+            "flat or padded block-sparse supports")
     slot = sp.slot_tbl.cpu().numpy().astype(np.int64)
     live = slot < sp.n_live
     dst = sp.row_tbl.cpu().numpy().astype(np.int64)[live]
@@ -202,7 +209,7 @@ def mask_from_supports(supports: list, add_diagonal: bool = True,
                                  np.concatenate(all_src), max(nbs, nbd),
                                  hops)
     return mask_from_pairs(dst, src, bs_s, nbs,
-                           device=supports[0].blocks_flat.device)
+                           device=supports[0].device)
 
 
 def mask_from_pairs(dst_block: np.ndarray, src_block: np.ndarray,

@@ -1,19 +1,35 @@
-"""Flat block-sparse diffusion supports (the city-scale form).
+"""Block-sparse diffusion supports: the padded and the flat form.
 
-Counterpart of the flat half of ``graph_wavenet_tpu/ops/block_sparse.py``.
-A support stores its live nonzero blocks once, sorted by destination
-block-row, plus a trailing all-zero block that dummy entries point at so
-every destination row is visited:
+Counterpart of ``graph_wavenet_tpu/ops/block_sparse.py``. ``A[src, dst] =
+weight`` and a hop is ``out[dst] += weight * x[src]`` (the ``nconv``
+orientation). Hops run the CUDA kernels of ``ops.cuda.block_diffusion`` on a
+CUDA device and their plain versions on the CPU, forward and backward, as
+the reference's custom VJPs do.
+
+**Padded form** (:class:`BlockSparseSupport`, :class:`PallasBlockSparseSupport`)::
+
+    blocks    (NB, MB, BS, BS)  nonzero blocks, padded per block-row
+    block_idx (NB, MB) int32    source block-row of each; NB = sentinel
+    idx_t / perm_t (NB, MBt)    transpose table: dest block-row and flat
+                                slot per t-edge; padding idx_t = the row
+                                itself, perm_t = NB * MB (the zero block)
+
+One hop is kernel 4 over ``(slot = i * MB + m, block_idx)``; its dx is
+kernel 4 over ``(perm_t, idx_t)``; the blocks' cotangent is kernel 5. x and
+the blocks reach the kernels unpadded, so the sentinels fall outside them
+and are skipped. Both classes run these kernels (the reference's
+``BlockSparseSupport`` runs an XLA gather-and-einsum, which is the plain
+version here).
+
+**Flat form** (:class:`FlatBlockSparseSupport`, the city-scale form): the
+live nonzero blocks stored once, sorted by destination block-row, plus a
+trailing all-zero block that dummy entries point at so every destination
+row is visited::
 
     blocks_flat (L+1, BSs, BSd)  [L] = zero block
     row_tbl / src_tbl / slot_tbl (Lt,) int32: destination row, source
         x block-row and storage slot per entry, sorted by row
     row_t / src_t / slot_t: the same for the transpose (dx) orientation
-
-``A[src, dst] = weight`` and a hop is ``out[dst] += weight * x[src]`` (the
-``nconv`` orientation). Hops run the CUDA kernels of
-``ops.cuda.block_diffusion`` on a CUDA device and their plain versions on
-the CPU, forward and backward, as the reference's custom VJPs do:
 
 - one hop (``mix_2d``): dx is kernel 1 over the transpose tables; the
   blocks' cotangent is kernel 2 (one fp32 outer product per forward-table
@@ -26,16 +42,17 @@ the CPU, forward and backward, as the reference's custom VJPs do:
 
 The blocks are an input of the autograd functions, so a support whose
 blocks require a gradient (the materialized adaptive adjacency) passes it
-on; fixed supports' blocks do not, and their backward launches no kernel 2.
+on; fixed supports' blocks do not, and their backward launches no kernel 2
+or 5.
 
-``nb`` (destination block-rows) is a Python int on the support, so a hop
+``nb`` (destination block-rows) is a Python int on a flat support, so a hop
 never reads a table back from the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,12 +61,246 @@ from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.ops.cuda.block_diffusion import (
     fused2_lag,
     fused2_schedule,
+    gathered_block_mix,
     gathered_block_mix_flat,
     gathered_block_mix_flat2,
+    gathered_block_outer,
     gathered_block_outer_flat,
     row_pointer,
 )
+from graph_wavenet_tpu_torch.ops.sparse import nconv_sparse
 
+
+# ---------------------------------------------------------------------------
+# padded form
+# ---------------------------------------------------------------------------
+
+@dataclass(eq=False)
+class BlockSparseSupport:
+    """Nonzero blocks of a support matrix, padded per block-row to MB
+    slots; hops via ``mix_2d``."""
+
+    blocks: torch.Tensor      # (NB, MB, BS, BS)
+    block_idx: torch.Tensor   # (NB, MB) int32; NB = zero-block sentinel
+    idx_t: torch.Tensor       # (NB, MBt) int32: dest block-row per t-edge
+    perm_t: torch.Tensor      # (NB, MBt) int32 into the NB*MB slots
+    # storage slot of each (i, m) of the forward table: i * MB + m
+    slot: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        nb, mb = self.block_idx.shape
+        self.slot = torch.arange(nb * mb, dtype=torch.int32,
+                                 device=self.block_idx.device).reshape(nb, mb)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.blocks.shape[0] * self.blocks.shape[2]
+
+    @property
+    def block_size(self) -> int:
+        return self.blocks.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    def mix_2d(self, x2: torch.Tensor) -> torch.Tensor:
+        """Node-leading (N, R) -> (N, R): one diffusion hop."""
+        return _MixPadded.apply(x2, self.blocks, self)
+
+    def astype(self, dtype: torch.dtype):
+        """Copy with block values stored in ``dtype`` (tables shared).
+        Under a matching activation dtype this is numerically free: every
+        hop casts the blocks to the activation dtype anyway."""
+        return dataclasses.replace(self, blocks=self.blocks.to(dtype))
+
+    def to_dense(self) -> np.ndarray:
+        """Dense (N, N) support with the same ``nconv`` semantics."""
+        nb, mb, bs, _ = self.blocks.shape
+        dense = np.zeros((nb * bs, nb * bs), np.float32)
+        blocks = self.blocks.float().cpu().numpy()
+        bidx = self.block_idx.cpu().numpy()
+        for r in range(nb):
+            for m in range(mb):
+                s = bidx[r, m]
+                if s < nb:
+                    dense[s * bs:(s + 1) * bs, r * bs:(r + 1) * bs] += (
+                        blocks[r, m])
+        return dense
+
+
+@dataclass(eq=False)
+class PallasBlockSparseSupport(BlockSparseSupport):
+    """The reference's name for a padded support whose hops run the
+    gathered-block kernels; build with :func:`as_pallas`. In the port every
+    padded support runs them (kernels 4 and 5 on the card)."""
+
+
+class _MixPadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, blocks, sp: BlockSparseSupport):
+        n, r = x2.shape
+        nb, mb, bs, _ = blocks.shape
+        if n != nb * bs:
+            raise ValueError(f"x has {n} nodes, the support {nb * bs}")
+        x2 = x2.contiguous()
+        ctx.sp = sp
+        ctx.save_for_backward(x2, blocks)
+        out = gathered_block_mix(
+            blocks.to(x2.dtype).reshape(nb * mb, bs, bs), sp.slot,
+            x2.reshape(nb, bs, r), sp.block_idx, transpose_lhs=True)
+        return out.reshape(n, r)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x2, blocks = ctx.saved_tensors
+        sp = ctx.sp
+        n, r = x2.shape
+        nb, mb, bs, _ = blocks.shape
+        g = gout.to(x2.dtype).contiguous().reshape(nb, bs, r)
+        dx = dblocks = None
+        if ctx.needs_input_grad[0]:
+            # dx[v] = sum over transposed edges: blocks[r, m] (contract the
+            # destination axis) g[r]; perm_t's sentinel NB * MB lies outside
+            # the unpadded blocks
+            dx = gathered_block_mix(
+                blocks.to(x2.dtype).reshape(nb * mb, bs, bs), sp.perm_t, g,
+                sp.idx_t, transpose_lhs=False).reshape(n, r)
+        if ctx.needs_input_grad[1]:
+            dblocks = gathered_block_outer(x2.reshape(nb, bs, r), g,
+                                           sp.block_idx,
+                                           out_dtype=blocks.dtype)
+        return dx, dblocks, None
+
+
+def _finish(blocks: np.ndarray, bidx: np.ndarray,
+            device: torch.device) -> BlockSparseSupport:
+    """Derive the transpose block table (scatter-free backward)."""
+    nb, mb = bidx.shape
+    live = bidx.reshape(-1) < nb
+    flat = np.arange(nb * mb, dtype=np.int64)
+    targets = bidx.reshape(-1)                     # source block-row
+    order = np.argsort(targets[live], kind="stable")
+    tgt_sorted = targets[live][order]
+    flat_sorted = flat[live][order]
+    counts = np.bincount(tgt_sorted, minlength=nb)
+    mbt = max(int(counts.max()) if counts.size else 0, 1)
+    idx_t = np.tile(np.arange(nb, dtype=np.int64)[:, None], (1, mbt))
+    perm_t = np.full((nb, mbt), nb * mb, dtype=np.int64)
+    starts = np.zeros(nb + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(len(tgt_sorted), dtype=np.int64) - starts[tgt_sorted]
+    idx_t[tgt_sorted, pos] = flat_sorted // mb     # dest block-row r
+    perm_t[tgt_sorted, pos] = flat_sorted
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return BlockSparseSupport(torch.as_tensor(blocks, device=device),
+                              i32(bidx), i32(idx_t), i32(perm_t))
+
+
+def from_dense(a: np.ndarray, block_size: int = 128, *,
+               device: torch.device | str = "cuda") -> BlockSparseSupport:
+    """Partition a dense support into blocks and keep the nonzero ones. N
+    must divide by ``block_size`` (zero rows and columns are inert)."""
+    device = resolve_device(device)
+    a = np.asarray(a, np.float32)
+    n = a.shape[0]
+    if n % block_size:
+        raise ValueError(f"N={n} must divide by block_size={block_size}; "
+                         "zero-pad the support first (zero rows are inert)")
+    nb = n // block_size
+    # block (s, r): rows of source block s, columns of dest block-row r
+    tiles = a.reshape(nb, block_size, nb, block_size)
+    nz = np.abs(tiles).sum((1, 3)).T != 0          # (dest r, src s)
+    mb = max(int(nz.sum(1).max()), 1)
+    blocks = np.zeros((nb, mb, block_size, block_size), np.float32)
+    bidx = np.full((nb, mb), nb, np.int64)
+    for r in range(nb):
+        for m, s in enumerate(np.nonzero(nz[r])[0]):
+            blocks[r, m] = tiles[s, :, r, :]
+            bidx[r, m] = s
+    return _finish(blocks, bidx, device)
+
+
+def from_edges_blocked(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
+                       n_nodes: int, block_size: int = 128,
+                       perm: np.ndarray | None = None, *,
+                       device: torch.device | str = "cuda"
+                       ) -> BlockSparseSupport:
+    """Build straight from an edge list: O(E) memory, no dense
+    intermediate. Edge (src -> dst, weight): ``A[src, dst] = weight``
+    (duplicates accumulate). ``perm``: node reordering applied first
+    (``new = perm[old]``). N is zero-padded up to a multiple of
+    ``block_size``. Tables equal the reference builder's."""
+    device = resolve_device(device)
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    weight = np.asarray(weight, np.float32)
+    if perm is not None:
+        perm = np.asarray(perm, np.int64)
+        src, dst = perm[src], perm[dst]
+    n_pad = -(-n_nodes // block_size) * block_size
+    nb = n_pad // block_size
+    sb, db = src // block_size, dst // block_size
+    pair = db * nb + sb                             # dest-major block pair
+    uniq, inv = np.unique(pair, return_inverse=True)
+    u_db, u_sb = uniq // nb, uniq % nb
+    counts = np.bincount(u_db, minlength=nb)
+    mb = max(int(counts.max()) if counts.size else 0, 1)
+    starts = np.zeros(nb + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot_of_uniq = np.arange(len(uniq), dtype=np.int64) - starts[u_db]
+    bidx = np.full((nb, mb), nb, np.int64)
+    bidx[u_db, slot_of_uniq] = u_sb
+    blocks = np.zeros((nb, mb, block_size, block_size), np.float32)
+    np.add.at(blocks,
+              (db, slot_of_uniq[inv], src % block_size, dst % block_size),
+              weight)
+    return _finish(blocks, bidx, device)
+
+
+def random_block_support(n_blocks: int, blocks_per_row: int,
+                         block_size: int = 128,
+                         rng: np.random.Generator | None = None, *,
+                         device: torch.device | str = "cuda"
+                         ) -> BlockSparseSupport:
+    """Synthetic clustered support built in block form: each block-row gets
+    its own diagonal block plus ``blocks_per_row - 1`` random others;
+    columns are normalized within the materialized blocks. The same ``rng``
+    gives the reference builder's support."""
+    device = resolve_device(device)
+    rng = rng or np.random.default_rng()
+    mb = min(blocks_per_row, n_blocks)
+    bidx = np.zeros((n_blocks, mb), np.int64)
+    blocks = rng.random((n_blocks, mb, block_size, block_size)).astype(
+        np.float32)
+    for r in range(n_blocks):
+        pool = np.delete(np.arange(n_blocks), r)
+        others = (rng.choice(pool, size=mb - 1, replace=False) if mb > 1
+                  else np.empty(0, np.int64))
+        bidx[r] = np.concatenate([[r], others])[:mb]
+    blocks = blocks / blocks.sum((1, 2), keepdims=True)
+    return _finish(blocks, bidx, device)
+
+
+def as_pallas(sp: BlockSparseSupport) -> PallasBlockSparseSupport:
+    """Rewrap a padded support under the reference's kernel-backed class."""
+    return PallasBlockSparseSupport(sp.blocks, sp.block_idx, sp.idx_t,
+                                    sp.perm_t)
+
+
+def nconv_block_sparse(x: torch.Tensor, sp) -> torch.Tensor:
+    """Block-sparse diffusion step, same contract as ``nconv``: x (B, T, N,
+    C) -> (B, T, N, C). Alias of :func:`ops.sparse.nconv_sparse`, which
+    takes any support with ``mix_2d``."""
+    return nconv_sparse(x, sp)
+
+
+# ---------------------------------------------------------------------------
+# flat form
+# ---------------------------------------------------------------------------
 
 @dataclass(eq=False)
 class FlatBlockSparseSupport:
@@ -92,6 +343,10 @@ class FlatBlockSparseSupport:
     def n_live(self) -> int:
         """Live (nonzero) blocks, without the trailing zero block."""
         return self.blocks_flat.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks_flat.device
 
     def mix_2d(self, x2: torch.Tensor) -> torch.Tensor:
         """Node-leading (N, R) -> (N, R): one diffusion hop."""
@@ -253,6 +508,31 @@ def _with_dummies(row, src, slot, n_rows: int, zero_slot: int):
     return row, src, slot
 
 
+def _flat_support(blocks_flat: torch.Tensor, dst: np.ndarray, src: np.ndarray,
+                  n_dst: int, n_src: int) -> FlatBlockSparseSupport:
+    """A flat support from its storage (``blocks_flat``, the zero block
+    last) and the destination and source block-row of each live block in
+    storage order (sorted by destination): the forward and transpose tables
+    with their dummy entries, and ``inv_slot``."""
+    n_live = len(dst)
+    slots = np.arange(n_live, dtype=np.int64)
+    row, srct, slot = _with_dummies(dst, src, slots, n_dst, n_live)
+    inv_slot = np.zeros(n_live + 1, np.int64)
+    inv_slot[slot] = np.arange(len(slot), dtype=np.int64)
+    inv_slot[n_live] = len(slot)
+    order_t = np.argsort(src, kind="stable")
+    row_t, src_t, slot_t = _with_dummies(src[order_t], dst[order_t],
+                                         slots[order_t], n_src, n_live)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32),
+                               device=blocks_flat.device)
+
+    return FlatBlockSparseSupport(
+        blocks_flat, i32(row), i32(srct), i32(slot), i32(row_t), i32(src_t),
+        i32(slot_t), i32(inv_slot), nb=n_dst)
+
+
 def from_edges_flat(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
                     n_nodes: int, bs_src: int = 128, bs_dst: int = 512,
                     perm: np.ndarray | None = None, *,
@@ -279,30 +559,24 @@ def from_edges_flat(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
     sb, gd = src // bs_src, dst // bs_dst
     pair = gd * nbs + sb                            # dest-major
     uniq, inv = np.unique(pair, return_inverse=True)
-    u_gd, u_sb = uniq // nbs, uniq % nbs
     n_live = len(uniq)
     blocks_flat = np.zeros((n_live + 1, bs_src, bs_dst), np.float32)
     np.add.at(blocks_flat, (inv, src % bs_src, dst % bs_dst), weight)
+    return _flat_support(torch.as_tensor(blocks_flat, device=device),
+                         uniq // nbs, uniq % nbs, nbd, nbs)
 
-    row, srct, slot = _with_dummies(u_gd, u_sb,
-                                    np.arange(n_live, dtype=np.int64),
-                                    nbd, n_live)
-    inv_slot = np.zeros(n_live + 1, np.int64)
-    inv_slot[slot] = np.arange(len(slot), dtype=np.int64)
-    inv_slot[n_live] = len(slot)
 
-    order_t = np.argsort(u_sb, kind="stable")
-    row_t, src_t, slot_t = _with_dummies(
-        u_sb[order_t], u_gd[order_t],
-        np.arange(n_live, dtype=np.int64)[order_t], nbs, n_live)
-
-    def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
-
-    return FlatBlockSparseSupport(
-        torch.as_tensor(blocks_flat, device=device), i32(row), i32(srct),
-        i32(slot), i32(row_t), i32(src_t), i32(slot_t), i32(inv_slot),
-        nb=nbd)
+def as_flat_pallas(sp: BlockSparseSupport) -> FlatBlockSparseSupport:
+    """The flat live-block form of a padded support, on its device and in
+    its storage dtype: the live slots in row-major order, so every row's
+    entries keep their padded order. Tables equal the reference's."""
+    bidx = sp.block_idx.cpu().numpy().astype(np.int64)
+    nb = bidx.shape[0]
+    rr, mm = np.nonzero(bidx < nb)                 # row-major => row-sorted
+    live = sp.blocks[torch.as_tensor(rr, device=sp.device),
+                     torch.as_tensor(mm, device=sp.device)]
+    blocks_flat = torch.cat([live, live.new_zeros((1,) + live.shape[1:])])
+    return _flat_support(blocks_flat, rr, bidx[rr, mm], nb, nb)
 
 
 def as_unfused(sp: FlatBlockSparseSupport) -> FlatBlockSparseSupport:

@@ -1,7 +1,6 @@
-"""Flat block-sparse diffusion kernels: wrappers, plain versions, schedule.
+"""Block-sparse diffusion kernels: wrappers, plain versions, schedule.
 
-Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``'s flat
-kernels:
+Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
 
 - :func:`gathered_block_mix_flat` (kernel 1, ``csrc/mix_flat.cu``): for
   every live entry ``l``, ``out[row[l]] += blocks[slot[l]] (contract)
@@ -11,6 +10,10 @@ kernels:
   cast; bitwise equal to two calls of kernel 1;
 - :func:`gathered_block_outer_flat` (kernel 2, ``csrc/outer_flat.cu``): the
   per-entry weight cotangent ``x[src[l]] . g[row[l]]^T`` over R, fp32 out;
+- :func:`gathered_block_mix` (kernel 4, ``csrc/mix_padded.cu``): kernel 1
+  over a padded ``(NB, MB)`` table, sentinel slots skipped;
+- :func:`gathered_block_outer` (kernel 5, ``csrc/outer_padded.cu``): the
+  padded weight cotangent ``x[src[i, m]] . g[i]^T``, sentinel slots zero;
 - :func:`fused2_schedule`: the reference's host-side (delay, ring width)
   schedule, copied verbatim; it decides which layouts fuse;
 - :func:`fused2_lag`: the row lag the CUDA kernel orders its work by.
@@ -32,7 +35,8 @@ from graph_wavenet_tpu_torch.ops.cuda import build
 
 # kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,
-            "gathered_block_outer_flat": 0}
+            "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
+            "gathered_block_outer": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
@@ -93,6 +97,40 @@ def outer_flat_plain(x: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
     xs = x.index_select(0, src.long()).float()
     gs = g.index_select(0, row.long()).float()
     return torch.einsum("lxr,lgr->lxg", xs, gs)
+
+
+def _sentinels_to_zero(t: torch.Tensor, idx: torch.Tensor):
+    """``t`` with one zero row appended, and ``idx`` (long) with every index
+    outside ``t`` pointed at it: a sentinel reads zeros."""
+    n = t.shape[0]
+    idx = idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    return torch.cat([t, t.new_zeros((1,) + t.shape[1:])]), idx
+
+
+def mix_padded_plain(blocks: torch.Tensor, slot: torch.Tensor,
+                     x: torch.Tensor, src: torch.Tensor, *,
+                     transpose_lhs: bool) -> torch.Tensor:
+    """Kernel 4's function in PyTorch: gather the (NB, MB) slots' blocks and
+    x rows (a sentinel reads zeros), fp32 einsum summing over the slots,
+    cast to x's dtype."""
+    nb, mb = src.shape
+    bz, k = _sentinels_to_zero(blocks, slot.reshape(-1))
+    xz, s = _sentinels_to_zero(x, src.reshape(-1))
+    b = bz.index_select(0, k).float().reshape(nb, mb, *blocks.shape[1:])
+    xs = xz.index_select(0, s).float().reshape(nb, mb, *x.shape[1:])
+    eq = "nmko,nmkr->nor" if transpose_lhs else "nmok,nmkr->nor"
+    return torch.einsum(eq, b, xs).to(x.dtype)
+
+
+def outer_padded_plain(x: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
+                       *, out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel 5's function: gather ``x[src]`` (a sentinel reads zeros), an
+    fp32 einsum over R with ``g`` of the slot's row, one cast."""
+    nb, mb = src.shape
+    xz, s = _sentinels_to_zero(x, src.reshape(-1))
+    xs = xz.index_select(0, s).float().reshape(nb, mb, *x.shape[1:])
+    return torch.einsum("nmxr,ngr->nmxg", xs, g.float()).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +330,98 @@ def gathered_block_outer_flat(x: torch.Tensor, g: torch.Tensor,
                                 out.data_ptr(), lt, bs_x, bs_g, r, stream)
     _raise_on(lib, rc, "gathered_block_outer_flat")
     LAUNCHES["gathered_block_outer_flat"] += 1
+    return out
+
+
+def gathered_block_mix(blocks_flat: torch.Tensor, slot_tbl: torch.Tensor,
+                       x_pad: torch.Tensor, src_tbl: torch.Tensor, *,
+                       transpose_lhs: bool) -> torch.Tensor:
+    """out (NB, BS, R): for each block-row i, the sum over its MB slots of
+    ``blocks_flat[slot_tbl[i, m]] (contract) x_pad[src_tbl[i, m]]``, fp32
+    accumulation, cast to x's dtype. blocks_flat (L, BS, BS); x_pad (NBx,
+    BS, R); slot/src (NB, MB). transpose_lhs contracts the block's first
+    axis (the ``nconv`` orientation), else its second.
+
+    A slot outside ``blocks_flat`` or a source outside ``x_pad`` is a
+    sentinel and contributes zero. So the reference's contract (a zero block
+    and a zero block-row appended, the tables pointing at them) gives its
+    result, and a caller may leave both out and save the copies."""
+    if slot_tbl.ndim != 2 or src_tbl.shape != slot_tbl.shape:
+        raise ValueError("pass slot/src tables as (NB, MB)")
+    bs = blocks_flat.shape[1]
+    if blocks_flat.ndim != 3 or blocks_flat.shape[2] != bs:
+        raise ValueError(f"blocks {tuple(blocks_flat.shape)} must be "
+                         "(L, BS, BS): the padded form has square blocks")
+    if x_pad.ndim != 3 or x_pad.shape[1] != bs:
+        raise ValueError(f"x {tuple(x_pad.shape)} must be (nbx, {bs}, R)")
+    if x_pad.device.type == "cpu":
+        return mix_padded_plain(blocks_flat, slot_tbl, x_pad, src_tbl,
+                                transpose_lhs=transpose_lhs)
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_pad.device}")
+    if bs % 128:
+        raise ValueError(f"CUDA kernel needs block size % 128 == 0, got {bs}")
+    slot, src = slot_tbl.reshape(-1), src_tbl.reshape(-1)
+    code = _check_cuda(x_pad, blocks_flat, slot, src)
+    nb, mb = src_tbl.shape
+    r = x_pad.shape[2]
+    out = torch.empty((nb, bs, r), dtype=x_pad.dtype, device=x_pad.device)
+    if r == 0 or nb == 0:
+        return out
+    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 7)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream(x_pad.device).cuda_stream
+        rc = lib.gwt_mix_padded(code, blocks_flat.data_ptr(), slot.data_ptr(),
+                                x_pad.data_ptr(), src.data_ptr(),
+                                out.data_ptr(), nb, mb, blocks_flat.shape[0],
+                                x_pad.shape[0], bs, r, int(transpose_lhs),
+                                stream)
+    _raise_on(lib, rc, "gathered_block_mix")
+    LAUNCHES["gathered_block_mix"] += 1
+    return out
+
+
+def gathered_block_outer(x_pad: torch.Tensor, g_blocks: torch.Tensor,
+                         src_tbl: torch.Tensor, *,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """dblocks (NB, MB, BS, BS) in ``out_dtype``: per slot (i, m),
+    ``x_pad[src_tbl[i, m]]`` (BS, R) contracted over R with ``g_blocks[i]``
+    (BS, R), fp32 accumulation, one cast. x_pad (NBx, BS, R) and g_blocks
+    (NB, BS, R) share a dtype. A source outside ``x_pad`` is a sentinel:
+    its slot comes out exactly zero (as the reference's zero row gives)."""
+    if (src_tbl.ndim != 2 or x_pad.ndim != 3 or g_blocks.shape
+            != (src_tbl.shape[0],) + tuple(x_pad.shape[1:])):
+        raise ValueError(f"x {tuple(x_pad.shape)}, g {tuple(g_blocks.shape)} "
+                         f"and src {tuple(src_tbl.shape)} must be (nbx, BS, "
+                         "R), (NB, BS, R) and (NB, MB)")
+    if x_pad.device.type == "cpu":
+        return outer_padded_plain(x_pad, g_blocks, src_tbl,
+                                  out_dtype=out_dtype)
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_pad.device}")
+    bs, r = x_pad.shape[1], x_pad.shape[2]
+    if bs % 128:
+        raise ValueError(f"CUDA kernel needs block size % 128 == 0, got {bs}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    src = src_tbl.reshape(-1)
+    code = _check_cuda(x_pad, g_blocks, src, name="g")
+    nb, mb = src_tbl.shape
+    out = torch.empty((nb, mb, bs, bs), dtype=out_dtype, device=x_pad.device)
+    if nb * mb == 0:
+        return out
+    if r == 0:
+        return out.zero_()
+    lib = _lib("outer_padded.cu", "gwt_outer_padded", 4, 6)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream(x_pad.device).cuda_stream
+        rc = lib.gwt_outer_padded(code, x_pad.data_ptr(), g_blocks.data_ptr(),
+                                  src.data_ptr(), out.data_ptr(),
+                                  _DTYPE_CODE[out_dtype], nb * mb, mb,
+                                  x_pad.shape[0], bs, r, stream)
+    _raise_on(lib, rc, "gathered_block_outer")
+    LAUNCHES["gathered_block_outer"] += 1
     return out
 
 

@@ -11,9 +11,13 @@ machine need not have; this file imports only torch and the port.) It adds
 what ``chip_smoke.py`` does not cover: ragged R (including R not a multiple
 of 8, which takes the kernels' scalar load path), kernel 3 in the transpose
 orientation, and the wrappers' refusals; kernel 2 (the weight cotangent)
-at ragged R on square, rectangular and tall blocks; and the hops'
-backward on the card against the CPU's plain versions.
+at ragged R on square, rectangular and tall blocks; the hops' backward on
+the card against the CPU's plain versions; kernels 4 and 5 (the padded
+form) at ragged R with both kinds of sentinel, kernel 4 bitwise against
+kernel 1 on ``as_flat_pallas`` tables, and the padded hop's backward.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -172,8 +176,6 @@ def test_kernel2_matches_plain(card, dtype, r, shape):
 def test_hop_backward_matches_cpu(card, fused):
     """dx and dblocks of both hops of a 128-block support on the card
     (kernels 1, 2, 3) against the CPU's plain versions."""
-    import dataclasses
-
     from graph_wavenet_tpu_torch.ops import block_sparse as tbs
 
     n = 1024
@@ -230,3 +232,181 @@ def test_cuda_tensors_never_take_the_plain_version(card):
         bd.gathered_block_outer_flat(
             torch.zeros(4, 64, 8, device=card),
             torch.zeros(4, 64, 8, device=card), t[1], t[2])
+
+
+def padded_tables(seed, nb, nbx, mb, n_blocks):
+    """(NB, MB) int64 slot/src tables: live slots first in every row (row 1
+    has none), then sentinels of both kinds, the zero block-row ``nbx`` of
+    x with a real slot and the zero block ``n_blocks`` with a real source."""
+    rng = np.random.default_rng(seed)
+    slot = np.empty((nb, mb), np.int64)
+    src = np.empty((nb, mb), np.int64)
+    for i in range(nb):
+        k = 0 if i == 1 else int(rng.integers(1, mb))
+        slot[i, :k] = rng.choice(n_blocks, size=k, replace=False)
+        src[i, :k] = rng.integers(0, nbx, size=k)
+        for m in range(k, mb):
+            if rng.random() < 0.5:
+                slot[i, m], src[i, m] = rng.integers(0, n_blocks), nbx
+            else:
+                slot[i, m], src[i, m] = n_blocks, min(i, nbx - 1)
+    return slot, src
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "dx"])
+def test_kernel4_matches_plain(card, dtype, r, transpose_lhs):
+    """Unpadded operands (the sentinels fall outside and are skipped) and
+    the reference's padded ones (a zero block and row) give one result."""
+    nb, nbx, mb, n_blocks = 6, 5, 4, 9
+    slot, src = padded_tables(300 + r, nb, nbx, mb, n_blocks)
+    gen = torch.Generator(device=card).manual_seed(r)
+    blocks = (torch.rand(n_blocks + 1, 128, 128, device=card, generator=gen)
+              / 16).to(dtype)
+    blocks[n_blocks] = 0
+    x = torch.randn(nbx + 1, 128, r, device=card, generator=gen).to(dtype)
+    x[nbx] = 0
+    tbl = (i32(slot, card).reshape(nb, mb), i32(src, card).reshape(nb, mb))
+    before = bd.LAUNCHES["gathered_block_mix"]
+    got = bd.gathered_block_mix(blocks[:n_blocks], tbl[0], x[:nbx], tbl[1],
+                                transpose_lhs=transpose_lhs)
+    padded = bd.gathered_block_mix(blocks, tbl[0], x, tbl[1],
+                                   transpose_lhs=transpose_lhs)
+    assert bd.LAUNCHES["gathered_block_mix"] == before + 2
+    want = bd.mix_padded_plain(blocks, tbl[0], x, tbl[1],
+                               transpose_lhs=transpose_lhs)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, 128, r) and got.dtype == dtype
+    assert torch.equal(got, padded)
+    assert not got[1].any()
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "dx"])
+def test_kernel4_bitwise_kernel1_on_flat_tables(card, dtype, transpose_lhs):
+    """A padded support's hop equals kernel 1 on ``as_flat_pallas``'s
+    tables bit for bit: the same live entries in the same order."""
+    from graph_wavenet_tpu_torch.ops import block_sparse as tbs
+
+    n, r = 1024, 200
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, n, size=6000)
+    dst = np.clip(src + rng.integers(-300, 300, size=6000), 0, n - 1)
+    w = rng.random(6000).astype(np.float32)
+    sp = tbs.from_edges_blocked(src, dst, w, n, 128, device=card)
+    sp = sp.astype(dtype)
+    nb, mb = sp.block_idx.shape
+    assert (sp.block_idx == nb).any(), "the layout must leave sentinels"
+    flat = tbs.as_flat_pallas(sp)
+    x = torch.randn(nb, 128, r, device=card,
+                    generator=torch.Generator(device=card).manual_seed(0)
+                    ).to(dtype)
+    bflat = sp.blocks.reshape(nb * mb, 128, 128)
+    if transpose_lhs:
+        got = bd.gathered_block_mix(bflat, sp.slot, x, sp.block_idx,
+                                    transpose_lhs=True)
+        want = bd.gathered_block_mix_flat(
+            flat.blocks_flat, flat.slot_tbl, x, flat.src_tbl, flat.row_tbl,
+            nb=flat.nb, transpose_lhs=True, row_ptr=flat.row_ptr)
+    else:
+        got = bd.gathered_block_mix(bflat, sp.perm_t, x, sp.idx_t,
+                                    transpose_lhs=False)
+        want = bd.gathered_block_mix_flat(
+            flat.blocks_flat, flat.slot_t, x, flat.src_t, flat.row_t,
+            nb=flat.nb_t, transpose_lhs=False, row_ptr=flat.row_ptr_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("r", [24, 130, 256])
+def test_kernel5_matches_plain(card, dtype, out_dtype, r):
+    """fp32 sums to rtol 1e-5 of the sum of |terms|, plus one ulp of the
+    output where it is bf16; sentinel slots exactly zero (the output is
+    allocated uninitialised); a repeat bit-identical."""
+    nb, mb = 6, 4
+    slot, src = padded_tables(400 + r, nb, nb, mb, nb * mb)
+    src = np.where(slot == nb * mb, nb, src)
+    gen = torch.Generator(device=card).manual_seed(r)
+    x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    g = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    tbl = i32(src, card).reshape(nb, mb)
+    before = bd.LAUNCHES["gathered_block_outer"]
+    got = bd.gathered_block_outer(x, g, tbl, out_dtype=out_dtype)
+    assert bd.LAUNCHES["gathered_block_outer"] == before + 1
+    want = bd.outer_padded_plain(x, g, tbl, out_dtype=torch.float32)
+    terms = bd.outer_padded_plain(x.abs(), g.abs(), tbl,
+                                  out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, mb, 128, 128) and got.dtype == out_dtype
+    tol = 1e-5 * terms + 1e-30
+    if out_dtype == torch.bfloat16:
+        mag = torch.maximum(got.float().abs(), want.abs()).clamp_min(1e-30)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((got.float() - want).abs() <= tol).all())
+    sent = torch.as_tensor(src == nb, device=card)
+    assert sent.any() and not got[sent].any()
+    assert torch.equal(got, bd.gathered_block_outer(x, g, tbl,
+                                                    out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_padded_hop_backward_matches_cpu(card, dtype):
+    """Forward, dx and dblocks of a padded hop on the card (kernels 4 and
+    5) against the CPU's plain versions, in the blocks' storage dtype."""
+    from graph_wavenet_tpu_torch.ops import block_sparse as tbs
+
+    n = 1024
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, n, size=6000)
+    dst = np.clip(src + rng.integers(-200, 200, size=6000), 0, n - 1)
+    w = rng.random(6000).astype(np.float32)
+    x_np = rng.normal(size=(n, 96)).astype(np.float32)
+    g_np = rng.normal(size=(n, 96)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        sp = tbs.as_pallas(tbs.from_edges_blocked(src, dst, w, n, 128,
+                                                  device=dev)).astype(dtype)
+        blocks = sp.blocks.clone().requires_grad_(True)
+        x = torch.as_tensor(x_np, device=dev).to(dtype).requires_grad_(True)
+        out = dataclasses.replace(sp, blocks=blocks).mix_2d(x)
+        out.backward(torch.as_tensor(g_np, device=dev).to(dtype))
+        res[dev] = [t.float().cpu() for t in (out.detach(), x.grad,
+                                              blocks.grad)]
+        assert blocks.grad.dtype == dtype
+    for got, want in zip(res["cuda"], res["cpu"]):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+        else:   # bf16 rounds at other places on the CPU
+            torch.testing.assert_close(got, want, rtol=2e-2,
+                                       atol=2e-2 * float(want.abs().max()))
+
+
+def test_padded_wrappers_launch_or_raise(card):
+    tbl = torch.zeros(4, 2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="% 128"):
+        bd.gathered_block_mix(torch.zeros(2, 16, 16, device=card), tbl,
+                              torch.zeros(4, 16, 8, device=card), tbl,
+                              transpose_lhs=True)
+    with pytest.raises(TypeError, match="x's dtype"):
+        bd.gathered_block_mix(
+            torch.zeros(2, 128, 128, device=card), tbl,
+            torch.zeros(4, 128, 8, device=card, dtype=torch.bfloat16), tbl,
+            transpose_lhs=True)
+    with pytest.raises(ValueError, match="% 128"):
+        bd.gathered_block_outer(torch.zeros(4, 64, 8, device=card),
+                                torch.zeros(4, 64, 8, device=card), tbl,
+                                out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="g .* must be in x's dtype"):
+        bd.gathered_block_outer(
+            torch.zeros(4, 128, 8, device=card),
+            torch.zeros(4, 128, 8, device=card, dtype=torch.bfloat16), tbl,
+            out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="out_dtype"):
+        bd.gathered_block_outer(torch.zeros(4, 128, 8, device=card),
+                                torch.zeros(4, 128, 8, device=card), tbl,
+                                out_dtype=torch.float16)

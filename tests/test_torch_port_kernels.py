@@ -165,11 +165,20 @@ def test_cpu_tensor_takes_plain_version_and_no_launch(rng):
     dw = tbd.gathered_block_outer_flat(torch.ones(4, 128, 8),
                                        torch.ones(4, 64, 8), as_t(src),
                                        as_t(row))
+    tbl = torch.zeros(4, 2, dtype=torch.int32)
+    padded = tbd.gathered_block_mix(torch.zeros(2, 16, 16), tbl,
+                                    torch.ones(4, 16, 8), tbl,
+                                    transpose_lhs=True)
+    db = tbd.gathered_block_outer(torch.ones(4, 16, 8), torch.ones(4, 16, 8),
+                                  tbl, out_dtype=torch.bfloat16)
     assert out.shape == (4, 128, 8) and o2.shape == (4, 16, 8)
     assert dw.shape == (len(row), 128, 64)
+    assert padded.shape == (4, 16, 8) and db.shape == (4, 2, 16, 16)
     assert tbd.LAUNCHES == {"gathered_block_mix_flat": 0,
                             "gathered_block_mix_flat2": 0,
-                            "gathered_block_outer_flat": 0}
+                            "gathered_block_outer_flat": 0,
+                            "gathered_block_mix": 0,
+                            "gathered_block_outer": 0}
 
 
 def test_wrappers_refuse_bad_shapes():

@@ -154,9 +154,18 @@ def test_doubletransition_supports_match_jax(rng, form):
     assert len(t_sup) == len(j_sup) == 2
     for t_sp, j_sp in zip(t_sup, j_sup):
         assert_same_support(t_sp, j_sp)
-    with pytest.raises(NotImplementedError, match="padded"):
-        tspatial.doubletransition_block_supports(
-            src, dst, w, n, perm=perm, form="block", device=CPU)
+    # the padded form builds too, with the reference's tables
+    for t_sp, j_sp in zip(
+            tspatial.doubletransition_block_supports(
+                src, dst, w, n, perm=perm, form="block", block_size=16,
+                device=CPU),
+            jspatial.doubletransition_block_supports(
+                src, dst, w, n, perm=perm, form="block", block_size=16)):
+        assert isinstance(t_sp, tbs.BlockSparseSupport)
+        for name in ("blocks", "block_idx", "idx_t", "perm_t"):
+            np.testing.assert_array_equal(getattr(t_sp, name).numpy(),
+                                          np.asarray(getattr(j_sp, name)),
+                                          err_msg=name)
 
 
 @pytest.mark.parametrize("form", ["flat", "unfused", "flat-rect"])
