@@ -12,7 +12,11 @@ exits non-zero:
    supports, R = 3,072 and 32, fp32 and bf16): kernel 1 in both
    orientations on 128x128 and 128x512 blocks and kernel 3 with and
    without ``add`` against their plain versions, kernel 3 bitwise against
-   two launches of kernel 1, with kernel, plain and library times;
+   two launches of kernel 1 (and timed against them: chain vs fused),
+   with kernel, plain and library times; each line of kernels 1, 3 and 4
+   names its tile width (``ct``) and product (fp32 FMAs, or ``wgmma`` in
+   bf16); bf16 kernel 1 forward timed at every tile width at four R (the
+   evidence for ``tile_cols``);
 4. kernel checks at the training path's shapes (the 40,960-node adaptive
    mask, R = 1,536 and 128, fp32 and bf16): kernel 2 against its plain
    version (and once on 128x512 blocks), kernel 3 over the transpose
@@ -110,7 +114,10 @@ def require(ok: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up. At
+    small R a launch takes ~40 us, so the callers time 100 there: over 20,
+    kernel 4's R = 32 row read 0.037 to 0.075 ms across runs (H100 80GB
+    HBM3, 700 W)."""
     import torch
 
     fn()
@@ -123,6 +130,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tile_of(r: int, dtype) -> dict:
+    """The tile width kernels 1, 3 and 4 take at R = r, and the product
+    they run it on."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    return {"ct": bd.tile_cols(r, dtype),
+            "product": "wgmma" if dtype == torch.bfloat16 else "fp32 FMA"}
 
 
 def close_err(got, want, summand=None) -> tuple[float, bool, str]:
@@ -280,7 +298,7 @@ def phase_kernels(graph) -> dict:
         dname = str(dtype).split(".")[1]
         isz = torch.tensor([], dtype=dtype).element_size()
         for r in (3072, 32):
-            reps = 5 if r > 256 else 20
+            reps = 5 if r > 256 else 100
             for sp, label in ((sq, "128x128"), (rect, "128x512")):
                 bsd = sp.astype(dtype)
                 blocks = bsd.blocks_flat
@@ -313,7 +331,8 @@ def phase_kernels(graph) -> dict:
                     err, ok, rule = close_err(got, want)
                     del want
                     rec = dict(kernel="gathered_block_mix_flat",
-                               dtype=dname, R=r, blocks=label,
+                               dtype=dname, R=r, **tile_of(r, dtype),
+                               blocks=label,
                                orientation="forward" if tl else "transpose",
                                max_abs_err=err, tolerance=rule)
                     require(ok, f"kernel 1 disagrees with its plain "
@@ -357,16 +376,19 @@ def phase_kernels(graph) -> dict:
                     return bd.mix_flat2_plain(*args, nb=sq.nb,
                                               transpose_lhs=True, add=add)
 
+                def chain():
+                    c1 = bd.gathered_block_mix_flat(*args, nb=sq.nb,
+                                                    transpose_lhs=True,
+                                                    row_ptr=sq.row_ptr)
+                    if add is not None:
+                        c1 = c1 + add
+                    return c1, bd.gathered_block_mix_flat(
+                        blocks, sq.slot_tbl, c1, sq.src_tbl, sq.row_tbl,
+                        nb=sq.nb, transpose_lhs=True, row_ptr=sq.row_ptr)
+
                 o1, o2 = k3()
                 # bitwise against two launches of kernel 1
-                c1 = bd.gathered_block_mix_flat(*args, nb=sq.nb,
-                                                transpose_lhs=True,
-                                                row_ptr=sq.row_ptr)
-                if add is not None:
-                    c1 = c1 + add
-                c2 = bd.gathered_block_mix_flat(
-                    blocks, sq.slot_tbl, c1, sq.src_tbl, sq.row_tbl,
-                    nb=sq.nb, transpose_lhs=True, row_ptr=sq.row_ptr)
+                c1, c2 = chain()
                 torch.cuda.synchronize()
                 bitwise = bool(torch.equal(o1, c1) and torch.equal(o2, c2))
                 del c1, c2
@@ -380,7 +402,8 @@ def phase_kernels(graph) -> dict:
                 err2, ok2, _ = close_err(o2, p2)
                 del p2, o1, o2
                 rec = dict(kernel="gathered_block_mix_flat2", dtype=dname,
-                           R=r, blocks="128x128", add=with_add,
+                           R=r, **tile_of(r, dtype), blocks="128x128",
+                           add=with_add,
                            max_abs_err_out1=err1, max_abs_err_out2=err2,
                            tolerance=rule, bitwise_vs_two_kernel1=bitwise)
                 require(ok1 and ok2, f"kernel 3 disagrees with its plain "
@@ -388,6 +411,7 @@ def phase_kernels(graph) -> dict:
                 require(bitwise, f"kernel 3 is not bitwise equal to two "
                                  f"launches of kernel 1: {rec}")
                 rec["kernel_ms"] = cuda_ms(k3, reps)
+                rec["chain_ms"] = cuda_ms(chain, reps)
                 rec["plain_ms"] = cuda_ms(k3_plain, max(2, reps // 5))
                 rec["library_ms"] = None
                 flops, nbytes = hop_cost(sq, r, isz, fused=True,
@@ -399,7 +423,42 @@ def phase_kernels(graph) -> dict:
                     summary["k3"] = rec
                 del add
                 torch.cuda.empty_cache()
+    tile_widths(sq, gen)
     return summary
+
+
+def tile_widths(sq, gen) -> None:
+    """bf16 kernel 1 forward on the square support at each tile width the
+    product builds, through the library's entry point (the wrapper always
+    takes ``tile_cols``'s width): the measurement behind that rule. These
+    launches are not counted."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    blocks = sq.astype(torch.bfloat16).blocks_flat
+    lib = bd._lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
+    for r in (384, 640, 1152, 3072):
+        x = torch.randn(sq.nb, 128, r, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = torch.empty_like(x)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def at(ct):
+            rc = lib.gwt_mix_flat(
+                1, blocks.data_ptr(), sq.slot_tbl.data_ptr(), x.data_ptr(),
+                sq.src_tbl.data_ptr(), sq.row_ptr.data_ptr(), out.data_ptr(),
+                sq.nb, blocks.shape[0], x.shape[0], 128, 128, r, 1, ct,
+                stream)
+            require(rc == 0, f"kernel 1 at {ct} columns: "
+                             f"{lib.gwt_error_string(rc).decode()}")
+
+        ms = {ct: cuda_ms(lambda: at(ct), 20 if r < 1000 else 5)
+              for ct in (64, 128, 256)}
+        emit("tile_widths", kernel="gathered_block_mix_flat", dtype="bfloat16",
+             R=r, orientation="forward", ms_by_ct=ms,
+             tile_cols=bd.tile_cols(r, torch.bfloat16))
+        del x, out
 
 
 def outer_cost(mask, r: int, isz: int) -> tuple[float, float]:
@@ -462,7 +521,7 @@ def phase_train_kernels(graph) -> dict:
         sp = mask.materialize(nv1, nv2, out_dtype=dtype)
         blocks = sp.blocks_flat
         for r in (1536, 128):
-            reps = 5 if r > 256 else 20
+            reps = 5 if r > 256 else 100
             x = torch.randn(nb, bs, r, generator=gen,
                             device="cuda").to(dtype)
             g = torch.randn(nb, bs, r, generator=gen,
@@ -517,14 +576,16 @@ def phase_train_kernels(graph) -> dict:
                 return bd.mix_flat2_plain(*args, nb=nb, transpose_lhs=False,
                                           add=x)
 
+            def chain():
+                c1 = bd.gathered_block_mix_flat(*args, nb=nb,
+                                                transpose_lhs=False,
+                                                row_ptr=sp.row_ptr_t) + x
+                return c1, bd.gathered_block_mix_flat(
+                    blocks, sp.slot_t, c1, sp.src_t, sp.row_t, nb=nb,
+                    transpose_lhs=False, row_ptr=sp.row_ptr_t)
+
             o1, o2 = k3t()
-            c1 = bd.gathered_block_mix_flat(*args, nb=nb,
-                                            transpose_lhs=False,
-                                            row_ptr=sp.row_ptr_t) + x
-            c2 = bd.gathered_block_mix_flat(blocks, sp.slot_t, c1, sp.src_t,
-                                            sp.row_t, nb=nb,
-                                            transpose_lhs=False,
-                                            row_ptr=sp.row_ptr_t)
+            c1, c2 = chain()
             torch.cuda.synchronize()
             bitwise = bool(torch.equal(o1, c1) and torch.equal(o2, c2))
             del c1, c2
@@ -536,7 +597,7 @@ def phase_train_kernels(graph) -> dict:
             err2, ok2, _ = close_err(o2, p2)
             del p2, o1, o2
             rec = dict(kernel="gathered_block_mix_flat2", dtype=dname, R=r,
-                       tables="transpose", add=True,
+                       **tile_of(r, dtype), tables="transpose", add=True,
                        max_abs_err_out1=err1, max_abs_err_out2=err2,
                        tolerance=rule, bitwise_vs_kernel1_add_kernel1=bitwise)
             require(ok1 and ok2, f"kernel 3 over the transpose tables "
@@ -545,6 +606,7 @@ def phase_train_kernels(graph) -> dict:
                              f"bitwise equal to kernel 1 + add + kernel 1: "
                              f"{rec}")
             rec["kernel_ms"] = cuda_ms(k3t, reps)
+            rec["chain_ms"] = cuda_ms(chain, reps)
             rec["plain_ms"] = cuda_ms(k3t_plain, max(2, reps // 5))
             rec["library_ms"] = None
             flops, nbytes = hop_cost(sp, r, isz, fused=True, with_add=True)
@@ -562,8 +624,8 @@ def phase_train_kernels(graph) -> dict:
             err, ok, rule = close_err(got, want)
             del got, want
             rec = dict(kernel="gathered_block_mix_flat", dtype=dname, R=r,
-                       tables="transpose (mask)", max_abs_err=err,
-                       tolerance=rule)
+                       **tile_of(r, dtype), tables="transpose (mask)",
+                       max_abs_err=err, tolerance=rule)
             require(ok, f"kernel 1 (transpose, mask) disagrees with its "
                         f"plain version: {rec}")
             rec["kernel_ms"] = cuda_ms(k1t, reps)
@@ -1268,7 +1330,7 @@ def phase_padded_kernels(graph):
             slot, srct = ((spd.slot, spd.block_idx) if tl
                           else (spd.perm_t, spd.idx_t))
             for r in rs:
-                reps = 5 if r > 256 else 20
+                reps = 5 if r > 256 else 100
                 x = torch.randn(nb, bs, r, generator=gen,
                                 device="cuda").to(dtype)
 
@@ -1297,6 +1359,7 @@ def phase_padded_kernels(graph):
                 k1_diff = float((got.float() - k1.float()).abs().max())
                 del want, k1
                 rec = dict(kernel="gathered_block_mix", dtype=dname, R=r,
+                           **tile_of(r, dtype),
                            orientation="forward" if tl else "transpose",
                            slots=[nb, slot.shape[1]], max_abs_err=err,
                            tolerance=rule, bitwise_vs_kernel1_flat=bitwise,
@@ -1326,7 +1389,7 @@ def phase_padded_kernels(graph):
         # kernel 5 at the training shapes, out in the blocks' storage dtype
         live = spd.block_idx < nb
         for r in (1536, 128):
-            reps = 5 if r > 256 else 20
+            reps = 5 if r > 256 else 100
             x = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
             g = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
 

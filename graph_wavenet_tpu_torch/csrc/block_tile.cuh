@@ -1,28 +1,28 @@
-// Shared tile product of the flat block-sparse diffusion kernels
-// (mix_flat.cu, mix_flat2.cu).
+// Shared tiles of the block-sparse diffusion kernels: the fp32 product of
+// the mix kernels 1, 3 and 4 (mix_flat.cu, mix_flat2.cu, mix_padded.cu),
+// and the pieces the weight-cotangent tiles (outer_tile.cuh) build on. The
+// mix kernels' bf16 product is hopper_tile.cuh's.
 //
-// One thread block of 256 threads owns an output tile of OT = 128
+// fp32: one thread block of 256 threads owns an output tile of OT = 128
 // destination rows by CT = 64 columns of R and accumulates it in fp32
-// registers, 32 values a thread. One live entry contracts the entry's
-// block with one (BSc, R) source tile; the contraction axis is staged
-// through shared memory in chunks of KC = 32 rows. All global loads of a
-// chunk are issued before any of them is stored, so their latencies
-// overlap. Two products, chosen by the element type:
+// registers, 32 values a thread, with plain FMAs (__fmaf_rn), the only way
+// to hold the plain fp32 result to 1e-5. One live entry contracts the
+// entry's block with one (BSc, R) source tile; the contraction axis is
+// staged through shared memory in chunks of KC = 32 rows. All global loads
+// of a chunk are issued before any of them is stored, so their latencies
+// overlap. Thread (ty, tx) of a 16 x 16 grid owns rows 8*ty + i and columns
+// 4*tx + j, read from shared memory as 16-byte vectors. What bounds it: the
+// 67 TFLOP/s FMA rate; kernel 4 in fp32 ran at 48% of it at R = 3,072 on an
+// H100 80GB HBM3 at 700 W (PERF.md).
 //
-// - float: plain fp32 FMAs (__fmaf_rn), the only way to hold the plain
-//   fp32 result to 1e-5. Thread (ty, tx) of a 16 x 16 grid owns rows
-//   8*ty + i and columns 4*tx + j, read from shared memory as 16-byte
-//   vectors; chunks are converted to fp32 on the way in.
-// - bfloat16: tensor cores, mma.sync m16n8k16 with fp32 accumulation.
-//   Warp w owns rows 32*(w % 4) .. +31 and columns 32*(w / 4) .. +31 (two
-//   16-row by four 8-column mma tiles); chunks stay bf16 in shared memory
-//   in their global layout, and ldmatrix (.trans where the contraction
-//   axis is the slow one) builds the fragments. Rows are padded by 16
-//   bytes so the eight rows of every ldmatrix hit distinct banks.
+// bf16 pieces: mma.sync m16n8k16 with fp32 accumulation, ldmatrix (.trans
+// where the contraction axis is the slow one) and the accumulator layout
+// of a warp owning rows 32*(w % 4) .. +31 and columns 32*(w / 4) .. +31
+// (two 16-row by four 8-column mma tiles); outer_tile.cuh's bf16 tile.
 //
-// Both kernels call entry_product for every entry of a destination row, in
-// list order, on tiles of the same shape. So each output element sees the
-// same chain of operations in the same order, which is what makes the
+// Every mix kernel runs entry_product for every entry of a destination row,
+// in list order, on tiles of the same shape. So each output element sees
+// the same chain of operations in the same order, which is what makes the
 // fused order-2 kernel bitwise equal to two launches of the single-hop
 // kernel.
 
@@ -37,7 +37,7 @@ namespace gwt {
 
 constexpr int OT = 128;           // output rows per tile
 constexpr int KC = 32;            // contraction rows per staged chunk
-constexpr int CT = 64;            // R columns per tile
+constexpr int CT = 64;            // R columns per fp32 tile
 constexpr int NTHREADS = 256;
 constexpr int ACC_I = 8;          // acc[ACC_I][ACC_J]: 32 fp32 a thread
 constexpr int ACC_J = 4;
@@ -175,18 +175,10 @@ __device__ __forceinline__ void tile_coord(float*, int i, int j, int& row,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bfloat16 pieces: mma.sync m16n8k16, fp32 accumulation
 // ---------------------------------------------------------------------------
 
 constexpr int PAD16 = 8;          // 16 bytes of bf16 padding per row
-
-struct SmemBf16 {
-  union {
-    __nv_bfloat16 km[KC][OT + PAD16];   // forward: blk rows k, o contiguous
-    __nv_bfloat16 mk[OT][KC + PAD16];   // transpose: blk rows o, k contiguous
-  } a;
-  __nv_bfloat16 x[KC][CT + PAD16];
-};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -217,87 +209,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[ACC_J],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The same contraction as the float product, on tensor cores. acc[4 mt +
-// nt][e] is element e of the warp's mma tile (mt, nt); see tile_coord.
-template <bool kL2>
-__device__ __forceinline__ void entry_product(
-    Acc& acc, SmemBf16& sm, const __nv_bfloat16* blk,
-    const __nv_bfloat16* xs, int bs_c, int bs_o, int o0, int c0, int r,
-    bool transpose_lhs) {
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int wm = 32 * (warp % 4), wn = 32 * (warp / 4);
-  // the x chunk: row k = tid / 8, eight columns from c0 + 8 * (tid % 8)
-  const int xk = tid / 8, xc = c0 + 8 * (tid % 8);
-  const bool x_vec = (r % 8 == 0) &&
-                     (reinterpret_cast<uintptr_t>(xs) % 16 == 0);
-  for (int k0 = 0; k0 < bs_c; k0 += KC) {
-    // two 16-byte block loads and one 16-byte source load a thread
-    uint4 av[2];
-    int ar, ac;                   // where av[0] goes in shared memory
-    if (transpose_lhs) {          // KC rows of 128: rows tid / 16 (+16)
-      ar = tid / 16;
-      ac = 8 * (tid % 16);
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        av[u] = *reinterpret_cast<const uint4*>(
-            blk + (size_t)(k0 + ar + 16 * u) * bs_o + o0 + ac);
-    } else {                      // 128 rows of KC: rows tid / 4 (+64)
-      ar = tid / 4;
-      ac = 8 * (tid % 4);
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        av[u] = *reinterpret_cast<const uint4*>(
-            blk + (size_t)(o0 + ar + 64 * u) * bs_c + k0 + ac);
-    }
-    union {
-      uint4 v;
-      __nv_bfloat16 h[8];
-    } xv;
-    const __nv_bfloat16* xp = xs + (size_t)(k0 + xk) * r + xc;
-    if (x_vec && xc + 8 <= r) {
-      xv.v = load16<kL2>(xp);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        xv.h[u] = xc + u < r ? load1<kL2>(xp + u) : __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();              // the previous chunk has been consumed
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (transpose_lhs)
-        *reinterpret_cast<uint4*>(&sm.a.km[ar + 16 * u][ac]) = av[u];
-      else
-        *reinterpret_cast<uint4*>(&sm.a.mk[ar + 64 * u][ac]) = av[u];
-    }
-    *reinterpret_cast<uint4*>(&sm.x[xk][8 * (tid % 8)]) = xv.v;
-    __syncthreads();
-    const int q = lane / 8, l8 = lane % 8;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      unsigned a[2][4], b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int m0 = wm + 16 * mt;
-        if (transpose_lhs)        // matrices (m +0/+8, k +0/+8) of A^T
-          ldsm_x4_t(a[mt], &sm.a.km[kk + 8 * (q / 2) + l8][m0 + 8 * (q % 2)]);
-        else
-          ldsm_x4(a[mt], &sm.a.mk[m0 + 8 * (q % 2) + l8][kk + 8 * (q / 2)]);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np)  // n tiles 2np, 2np+1: (k +0/+8, n +0/+8)
-        ldsm_x4_t(b[np], &sm.x[kk + 8 * (q % 2) + l8][wn + 16 * np +
-                                                      8 * (q / 2)]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[4 * mt + nt], a[mt], b[nt / 2][2 * (nt % 2)],
-                   b[nt / 2][2 * (nt % 2) + 1]);
-    }
-  }
-}
-
 __device__ __forceinline__ void tile_coord(__nv_bfloat16*, int i, int j,
                                            int& row, int& col) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -305,10 +216,6 @@ __device__ __forceinline__ void tile_coord(__nv_bfloat16*, int i, int j,
   row = 32 * (warp % 4) + 16 * mt + lane / 4 + 8 * (j / 2);
   col = 32 * (warp / 4) + 8 * nt + 2 * (lane % 4) + j % 2;
 }
-
-template <typename T> struct SmemOf;
-template <> struct SmemOf<float> { using type = SmemF32; };
-template <> struct SmemOf<__nv_bfloat16> { using type = SmemBf16; };
 
 // ---------------------------------------------------------------------------
 

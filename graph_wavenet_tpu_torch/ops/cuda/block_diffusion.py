@@ -16,7 +16,9 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
   padded weight cotangent ``x[src[i, m]] . g[i]^T``, sentinel slots zero;
 - :func:`fused2_schedule`: the reference's host-side (delay, ring width)
   schedule, copied verbatim; it decides which layouts fuse;
-- :func:`fused2_lag`: the row lag the CUDA kernel orders its work by.
+- :func:`fused2_lag`: the row lag the CUDA kernel orders its work by;
+- :func:`tile_cols`: the R columns of one output tile of kernels 1, 3 and
+  4, by one rule for all three.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
 PyTorch version beside it (gather, fp32 einsum, and for the mixes
@@ -46,6 +48,31 @@ _I = ctypes.c_int
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def tile_cols(r: int, dtype: torch.dtype) -> int:
+    """R columns per output tile of kernels 1, 3 and 4 for ``r`` columns of
+    ``dtype``: 64 in fp32 (the FMA product's tile). In bf16 64 up to R = 64,
+    where reading the blocks binds and a wider tile does idle tensor-core
+    work; past it 256, unless 128 pads R to fewer columns by more than the
+    ~1/8 more a 128-column tile costs per column (it reads the blocks twice
+    as often; ``chip_smoke.py``'s ``tile_widths`` phase times all three
+    widths). One rule for the
+    three kernels keeps kernel 3 bitwise equal to two kernel-1 launches and
+    kernel 4 to kernel 1."""
+    if dtype != torch.bfloat16:
+        return 64
+    if r <= 64:
+        return 64
+    pad128, pad256 = -(-r // 128) * 128, -(-r // 256) * 256
+    return 128 if 9 * pad128 < 8 * pad256 else 256
+
+
+def flag_count(nb: int, r: int, dtype: torch.dtype) -> int:
+    """Length of kernel 3's int32 flags buffer: a completion flag per
+    (destination row, R tile), then the ticket counter."""
+    ct = tile_cols(r, dtype)
+    return nb * -(-r // ct) + 1
 
 
 def row_pointer(row_tbl: torch.Tensor, nb: int) -> torch.Tensor:
@@ -176,10 +203,16 @@ def _lib(source: str, fn: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
         f.restype = _I
         lib.gwt_error_string.argtypes = [_I]
         lib.gwt_error_string.restype = ctypes.c_char_p
-        if hasattr(lib, "gwt_mix_flat2_tiles"):
-            lib.gwt_mix_flat2_tiles.argtypes = [_I]
-            lib.gwt_mix_flat2_tiles.restype = _I
     return lib
+
+
+def _check_aligned(blocks: torch.Tensor) -> None:
+    """The bf16 kernels read the blocks with TMA, which needs a 16-byte
+    aligned base."""
+    if blocks.dtype == torch.bfloat16 and blocks.data_ptr() % 16:
+        raise ValueError("bf16 blocks must start on a 16-byte boundary; "
+                         "pass a fresh tensor (e.g. .clone()), not a view "
+                         "at an odd offset")
 
 
 def gathered_block_mix_flat(blocks: torch.Tensor, slot: torch.Tensor,
@@ -205,12 +238,14 @@ def gathered_block_mix_flat(blocks: torch.Tensor, slot: torch.Tensor,
                               transpose_lhs=transpose_lhs)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if bs_o % 128 or bs_c % 32:
+    kc = 64 if blocks.dtype == torch.bfloat16 else 32
+    if bs_o % 128 or bs_c % kc:
         raise ValueError(f"CUDA kernel needs output rows % 128 == 0 and "
-                         f"contracted rows % 32 == 0, got {bs_o}, {bs_c}")
+                         f"contracted rows % {kc} == 0, got {bs_o}, {bs_c}")
     if row_ptr is None:
         row_ptr = row_pointer(row, nb)
     code = _check_cuda(x, blocks, slot, src, row_ptr)
+    _check_aligned(blocks)
     if row_ptr.numel() != nb + 1:
         raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
                          f"expected nb + 1 = {nb + 1}")
@@ -218,13 +253,15 @@ def gathered_block_mix_flat(blocks: torch.Tensor, slot: torch.Tensor,
     out = torch.empty((nb, bs_o, r), dtype=x.dtype, device=x.device)
     if r == 0 or nb == 0:
         return out
-    lib = _lib("mix_flat.cu", "gwt_mix_flat", 6, 5)
+    lib = _lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gwt_mix_flat(code, blocks.data_ptr(), slot.data_ptr(),
                               x.data_ptr(), src.data_ptr(),
-                              row_ptr.data_ptr(), out.data_ptr(), nb, bs_c,
-                              bs_o, r, int(transpose_lhs), stream)
+                              row_ptr.data_ptr(), out.data_ptr(), nb,
+                              blocks.shape[0], x.shape[0], bs_c, bs_o, r,
+                              int(transpose_lhs), tile_cols(r, x.dtype),
+                              stream)
     _raise_on(lib, rc, "gathered_block_mix_flat")
     LAUNCHES["gathered_block_mix_flat"] += 1
     return out
@@ -265,6 +302,7 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
     if row_ptr is None:
         row_ptr = row_pointer(row, nb)
     code = _check_cuda(x, blocks, slot, src, row_ptr)
+    _check_aligned(blocks)
     if row_ptr.numel() != nb + 1:
         raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
                          f"expected nb + 1 = {nb + 1}")
@@ -277,18 +315,17 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
     out2 = torch.empty_like(x)
     if r == 0 or nb == 0:
         return out1, out2
-    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 5)
-    # completion flag per (row, R tile), then the ticket counter
-    flags = torch.zeros(nb * lib.gwt_mix_flat2_tiles(r) + 1,
-                        dtype=torch.int32, device=x.device)
+    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 7)
+    flags = torch.zeros(flag_count(nb, r, x.dtype), dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gwt_mix_flat2(
             code, blocks.data_ptr(), slot.data_ptr(), x.data_ptr(),
             src.data_ptr(), row_ptr.data_ptr(),
             None if add is None else add.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), flags.data_ptr(), nb, lag, bs, r,
-            int(transpose_lhs), stream)
+            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], lag, bs,
+            r, int(transpose_lhs), tile_cols(r, x.dtype), stream)
     _raise_on(lib, rc, "gathered_block_mix_flat2")
     LAUNCHES["gathered_block_mix_flat2"] += 1
     return out1, out2
@@ -363,19 +400,20 @@ def gathered_block_mix(blocks_flat: torch.Tensor, slot_tbl: torch.Tensor,
         raise ValueError(f"CUDA kernel needs block size % 128 == 0, got {bs}")
     slot, src = slot_tbl.reshape(-1), src_tbl.reshape(-1)
     code = _check_cuda(x_pad, blocks_flat, slot, src)
+    _check_aligned(blocks_flat)
     nb, mb = src_tbl.shape
     r = x_pad.shape[2]
     out = torch.empty((nb, bs, r), dtype=x_pad.dtype, device=x_pad.device)
     if r == 0 or nb == 0:
         return out
-    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 7)
+    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 8)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream(x_pad.device).cuda_stream
         rc = lib.gwt_mix_padded(code, blocks_flat.data_ptr(), slot.data_ptr(),
                                 x_pad.data_ptr(), src.data_ptr(),
                                 out.data_ptr(), nb, mb, blocks_flat.shape[0],
                                 x_pad.shape[0], bs, r, int(transpose_lhs),
-                                stream)
+                                tile_cols(r, x_pad.dtype), stream)
     _raise_on(lib, rc, "gathered_block_mix")
     LAUNCHES["gathered_block_mix"] += 1
     return out

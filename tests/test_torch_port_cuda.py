@@ -8,9 +8,12 @@ with a card and nvcc:
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have; this file imports only torch and the port.) It adds
-what ``chip_smoke.py`` does not cover: ragged R (including R not a multiple
-of 8, which takes the kernels' scalar load path), kernel 3 in the transpose
-orientation, and the wrappers' refusals; kernel 2 (the weight cotangent)
+what ``chip_smoke.py`` does not cover: ragged R just below, at and above
+every tile width ``tile_cols`` can pick (including R not a multiple of 8,
+where the bf16 kernels copy x by element loads instead of TMA), rows with
+no entries, kernel 3 in the transpose orientation, repeated bit for bit and
+with an ``add`` one element into its storage, and the wrappers' refusals;
+kernel 2 (the weight cotangent)
 at ragged R on square, rectangular and tall blocks; the hops' backward on
 the card against the CPU's plain versions; kernels 4 and 5 (the padded
 form) at ragged R with both kinds of sentinel, kernel 4 bitwise against
@@ -82,10 +85,13 @@ def assert_close(got, want, summand=None):
 
 
 DTYPES = [torch.float32, torch.bfloat16]
+# just below, at and above each bf16 tile width (64, 128, 256), R that are
+# not multiples of 8 (no TMA for x), and 384 (three 128-column tiles)
+R_CASES = [24, 63, 64, 65, 127, 128, 129, 130, 255, 256, 257, 384]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("r", R_CASES)
 @pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("shape", [(128, 128), (128, 512)],
                          ids=["sq", "rect"])
@@ -111,11 +117,14 @@ def test_kernel1_matches_plain(card, dtype, r, transpose_lhs, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("r", R_CASES)
 @pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
-@pytest.mark.parametrize("with_add", [False, True], ids=["plain", "add"])
+@pytest.mark.parametrize("with_add", [None, "aligned", "offset"],
+                         ids=["plain", "add", "add_offset"])
 def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
                                      with_add):
+    """``add_offset``: an add that is a view one element into its storage
+    (not 4-byte aligned in bf16)."""
     nb = 9
     row, src, slot, n_live = tables(100 + r, nb, nb, band=3)
     gen = torch.Generator(device=card).manual_seed(r)
@@ -123,8 +132,11 @@ def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
               / 16).to(dtype)
     blocks[n_live] = 0
     x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
-    add = (torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
-           if with_add else None)
+    add = None
+    if with_add is not None:
+        off = int(with_add == "offset")
+        add = torch.randn(nb * 128 * r + off, device=card,
+                          generator=gen).to(dtype)[off:].view(nb, 128, r)
     args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
     before = bd.LAUNCHES["gathered_block_mix_flat2"]
     o1, o2 = bd.gathered_block_mix_flat2(
@@ -170,6 +182,66 @@ def test_kernel2_matches_plain(card, dtype, r, shape):
     assert bool(((got - want).abs() <= 1e-5 * terms + 1e-30).all())
     again = bd.gathered_block_outer_flat(*args)
     assert torch.equal(got, again), "kernel 2 must be deterministic"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("shape", [(128, 128), (128, 512)],
+                         ids=["sq", "rect"])
+def test_kernel1_rows_without_entries(card, dtype, transpose_lhs, shape):
+    """Rows that no entry names (no dummy entry either) come out zero; the
+    others match the plain version."""
+    bs_a, bs_b = shape
+    bs_c = bs_a if transpose_lhs else bs_b
+    nb, nbx, r = 7, 5, 200
+    row, src, slot, n_live = tables(7, nb, nbx, band=2)
+    # drop the dummy entries, and every entry of row 2
+    keep = (slot < n_live) & (row != 2)
+    row, src, slot = row[keep], src[keep], slot[keep]
+    gen = torch.Generator(device=card).manual_seed(7)
+    blocks = torch.rand(n_live, bs_a, bs_b, device=card,
+                        generator=gen).to(dtype)
+    x = torch.randn(nbx, bs_c, r, device=card, generator=gen).to(dtype)
+    args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
+    got = bd.gathered_block_mix_flat(*args, nb=nb,
+                                     transpose_lhs=transpose_lhs)
+    want = bd.mix_flat_plain(*args, nb=nb, transpose_lhs=transpose_lhs)
+    torch.cuda.synchronize()
+    empty = torch.as_tensor(np.setdiff1d(np.arange(nb), row), device=card)
+    assert not got[empty].any()
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("r", [512, 200], ids=["tma", "elementwise"])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
+def test_kernel3_repeats_bit_for_bit(card, r, transpose_lhs):
+    """Kernel 3 with add, five times in a row on the same inputs: every run
+    bitwise equal to the first and to kernel 1 + add + kernel 1. Hop 2 reads
+    out1 that other thread blocks write during the launch; a missing fence
+    or flag shows as a run that differs."""
+    nb = 48
+    row, src, slot, n_live = tables(11, nb, nb, band=4, per_row=6)
+    gen = torch.Generator(device=card).manual_seed(11)
+    blocks = (torch.rand(n_live + 1, 128, 128, device=card, generator=gen)
+              / 16).to(torch.bfloat16)
+    blocks[n_live] = 0
+    x = torch.randn(nb, 128, r, device=card,
+                    generator=gen).to(torch.bfloat16)
+    add = torch.randn(nb, 128, r, device=card,
+                      generator=gen).to(torch.bfloat16)
+    args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
+    lag = bd.fused2_lag(row, src)
+    assert lag > 0
+    runs = [bd.gathered_block_mix_flat2(*args, nb=nb, lag=lag,
+                                        transpose_lhs=transpose_lhs, add=add)
+            for _ in range(5)]
+    c1 = bd.gathered_block_mix_flat(*args, nb=nb,
+                                    transpose_lhs=transpose_lhs) + add
+    c2 = bd.gathered_block_mix_flat(blocks, args[1], c1, args[3], args[4],
+                                    nb=nb, transpose_lhs=transpose_lhs)
+    torch.cuda.synchronize()
+    for o1, o2 in runs:
+        assert torch.equal(o1, c1) and torch.equal(o2, c2)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "chained"])
@@ -232,6 +304,13 @@ def test_cuda_tensors_never_take_the_plain_version(card):
         bd.gathered_block_outer_flat(
             torch.zeros(4, 64, 8, device=card),
             torch.zeros(4, 64, 8, device=card), t[1], t[2])
+    odd = torch.zeros((n_live + 1) * 128 * 128 + 1, device=card,
+                      dtype=torch.bfloat16)[1:].view(n_live + 1, 128, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        bd.gathered_block_mix_flat(
+            odd, t[0], torch.zeros(4, 128, 8, device=card,
+                                   dtype=torch.bfloat16),
+            t[1], t[2], nb=4, transpose_lhs=True)
 
 
 def padded_tables(seed, nb, nbx, mb, n_blocks):
@@ -254,7 +333,7 @@ def padded_tables(seed, nb, nbx, mb, n_blocks):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("r", R_CASES)
 @pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "dx"])
 def test_kernel4_matches_plain(card, dtype, r, transpose_lhs):
     """Unpadded operands (the sentinels fall outside and are skipped) and

@@ -194,3 +194,30 @@ def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match="nbg, BSg, R"):
         tbd.gathered_block_outer_flat(torch.zeros(1, 16, 4),
                                       torch.zeros(1, 16, 5), one, one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tile_cols_rule(dtype):
+    """Kernels 1, 3 and 4 take their R tile width from one host rule: 64
+    in fp32; in bf16 64 up to R = 64, else 256 unless 128 pads R to fewer
+    columns by more than 1/8."""
+    bf16 = {1: 64, 24: 64, 63: 64, 64: 64, 65: 128, 96: 128, 127: 128,
+            128: 128, 129: 256, 192: 256, 255: 256, 256: 256, 257: 128,
+            384: 128, 416: 256, 640: 128, 1152: 256, 1536: 256, 1664: 256,
+            2304: 256, 3072: 256}
+    for r, ct in bf16.items():
+        want = 64 if dtype == torch.float32 else ct
+        assert tbd.tile_cols(r, dtype) == want, r
+
+
+@pytest.mark.parametrize("r", [32, 64, 65, 128, 130, 256, 3072])
+def test_flag_count_covers_every_tile(r):
+    """Kernel 3's flags: one per (row, R tile) of the width kernel 1 takes
+    for the same R and dtype, then the ticket counter."""
+    nb = 7
+    for dtype in (torch.float32, torch.bfloat16):
+        ct = tbd.tile_cols(r, dtype)
+        n = tbd.flag_count(nb, r, dtype)
+        assert n == nb * -(-r // ct) + 1
+        assert (n - 1) * ct >= nb * r and (n - 1 - nb) * ct < nb * r
