@@ -18,10 +18,13 @@ exits non-zero:
    bf16); bf16 kernel 1 forward timed at every tile width at four R (the
    evidence for ``tile_cols``);
 4. kernel checks at the training path's shapes (the 40,960-node adaptive
-   mask, R = 1,536 and 128, fp32 and bf16): kernel 2 against its plain
-   version (and once on 128x512 blocks), kernel 3 over the transpose
-   tables with ``add`` against its plain version and bitwise against
-   kernel 1 + add + kernel 1, kernel 1 in the transpose orientation;
+   mask, R = 1,536 and 128, fp32 and bf16): kernel 2 per entry against its
+   plain version (and once on 128x512 blocks) and in storage order (as
+   the flat backward launches it) against its plain version and bitwise
+   against the per-entry launch gathered by ``inv_slot`` and cast, each
+   line naming its product and tile; kernel 3 over the transpose tables
+   with ``add`` against its plain version and bitwise against kernel 1 +
+   add + kernel 1, kernel 1 in the transpose orientation;
 5. small-N end to end: a 2,048-node fp32 city model at full width on the
    card matches the same model on the CPU (plain versions) to 2e-4, and
    its unfused supports give a bitwise-equal forecast;
@@ -44,8 +47,9 @@ exits non-zero:
    and 32) and over the transpose tables (R = 1,536 and 128) against its
    plain version and bitwise against kernel 1 on ``as_flat_pallas``'s
    tables, kernel 5 (R = 1,536 and 128, output in the storage dtype)
-   against its plain version, sentinel slots zero, a repeat bit-identical;
-   the host build of the padded supports timed beside the flat one;
+   against its plain version, sentinel slots zero, a repeat bit-identical,
+   and (fp32 output) bitwise against kernel 2 on ``as_flat_pallas``'s
+   tables; the host build of the padded supports timed beside the flat one;
 10. small-N padded: the 2,048-node fp32 model over "pallas" supports on the
    card against the CPU (2e-4) and bitwise against the flat form, 3 train
    steps with the adaptive adjacency against the CPU, one gradient with
@@ -461,28 +465,66 @@ def tile_widths(sq, gen) -> None:
         del x, out
 
 
-def outer_cost(mask, r: int, isz: int) -> tuple[float, float]:
+def outer_tile_of(dtype, bs_g: int) -> dict:
+    """The product kernels 2 and 5 run on ``dtype`` inputs, and its output
+    tile (x rows x g rows)."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return {"product": "wgmma (TMA ring)",
+                "tile": f"128x{128 if bs_g % 128 == 0 else 64}"}
+    return {"product": "fp32 FMA", "tile": "128x64"}
+
+
+def outer_cost(mask, r: int, isz: int,
+               storage_isz: int | None = None) -> tuple[float, float]:
     """Operations and bytes of one kernel-2 launch over the mask's forward
-    table: one (BS, BS) product over R per table entry, x and g read once,
-    the fp32 output written once."""
+    table, x and g read once and the output written once. Per entry: one
+    (BS, BS) product over R per table entry, fp32 out. In storage order
+    (``storage_isz``: the output's element size): the live entries'
+    products only (the dummies are skipped), L + 1 blocks out."""
     lt = mask.row_tbl.numel()
     bs = mask.bs_src
-    flops = 2.0 * lt * bs * bs * r
-    nbytes = 2 * mask.n_nodes * r * isz + lt * bs * bs * 4 + 8 * lt
+    if storage_isz is None:
+        flops = 2.0 * lt * bs * bs * r
+        nbytes = 2 * mask.n_nodes * r * isz + lt * bs * bs * 4 + 8 * lt
+    else:
+        flops = 2.0 * mask.n_live * bs * bs * r
+        nbytes = (2 * mask.n_nodes * r * isz
+                  + (mask.n_live + 1) * bs * bs * storage_isz + 12 * lt)
     return flops, nbytes
 
 
-def outer_check(got, x, g, src, row) -> tuple[float, bool]:
+def rounded_check(got, want, tol) -> tuple[float, bool]:
+    """``got`` against the fp32 sums ``want`` within ``tol``, plus one ulp
+    where ``got`` is bf16 (both round the fp32 sum once). Returns the
+    largest difference from ``want`` in got's dtype, and the verdict."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(got.float().abs(), want.abs()).clamp_min(1e-30)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got.float() - want).abs()
+    ok = bool((diff <= tol + 1e-30).all())
+    err = float((got.float() - want.to(got.dtype).float()).abs().max())
+    return err, ok
+
+
+def outer_check(got, x, g, src, row, slot=None) -> tuple[float, bool]:
     """Kernel 2 against its plain version: rtol 1e-5 of the sum of |terms|
-    (bf16 inputs multiply exactly in fp32, so the bound holds for both)."""
+    (bf16 inputs multiply exactly in fp32, so the bound holds for both),
+    plus one ulp of a bf16 output. ``slot``: ``got`` is in storage order."""
+    import torch
+
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
-    want = bd.outer_flat_plain(x, g, src, row)
-    diff = (got - want).abs()
-    del want
-    terms = bd.outer_flat_plain(x.abs(), g.abs(), src, row)
-    ok = bool((diff <= 1e-5 * terms + 1e-30).all())
-    return float(diff.max()), ok
+    store = (() if slot is None
+             else (slot, got.shape[0], torch.float32))
+    with torch.no_grad():
+        want = bd.outer_flat_plain(x, g, src, row, *store)
+        tol = bd.outer_flat_plain(x.abs(), g.abs(), src, row,
+                                  *store).mul_(1e-5)
+        return rounded_check(got, want, tol)
 
 
 def phase_train_kernels(graph) -> dict:
@@ -542,7 +584,8 @@ def phase_train_kernels(graph) -> dict:
             deterministic = bool(torch.equal(got, again))
             del got, again
             rec = dict(kernel="gathered_block_outer_flat", dtype=dname, R=r,
-                       blocks="128x128", table_entries=sp.row_tbl.numel(),
+                       **outer_tile_of(dtype, bs), blocks="128x128",
+                       form="per entry", table_entries=sp.row_tbl.numel(),
                        max_abs_err=err, tolerance="rtol 1e-5 of sum |terms|",
                        deterministic=deterministic)
             require(ok, f"kernel 2 disagrees with its plain version: {rec}")
@@ -551,12 +594,62 @@ def phase_train_kernels(graph) -> dict:
             rec["plain_ms"] = cuda_ms(k2_plain, max(2, reps // 5))
             xs = x.index_select(0, sp.src_tbl.long())
             gs = g.index_select(0, sp.row_tbl.long()).transpose(1, 2)
-            rec["library_ms"] = cuda_ms(lambda: torch.bmm(xs, gs),
-                                        max(2, reps // 5))
-            rec["library"] = ("torch.bmm on operands gathered beforehand "
-                              "(gather excluded; output in the input dtype)")
+            lib_ms = cuda_ms(lambda: torch.bmm(xs, gs), max(2, reps // 5))
+            lib_name = ("torch.bmm on operands gathered beforehand (gather "
+                        "excluded; output in the input dtype)")
+            rec["library_ms"], rec["library"] = lib_ms, lib_name
             del xs, gs
             flops, nbytes = outer_cost(mask, r, isz)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+            emit("kernel_check", **rec)
+            torch.cuda.empty_cache()
+
+            # kernel 2 in storage order and the blocks' dtype, as the flat
+            # backward launches it, against the per-entry launch gathered by
+            # inv_slot and cast (the path it replaced)
+            n_slots = blocks.shape[0]
+            store = dict(slot=sp.slot_tbl, n_slots=n_slots, out_dtype=dtype)
+
+            def k2s():
+                return bd.gathered_block_outer_flat(x, g, sp.src_tbl,
+                                                    sp.row_tbl, **store)
+
+            def per_entry_gathered():
+                d = k2()
+                return torch.cat([d, d.new_zeros((1,) + d.shape[1:])]
+                                 ).index_select(0, sp.inv_slot.long()
+                                                ).to(dtype)
+
+            got, want, again = k2s(), per_entry_gathered(), k2s()
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got, want))
+            deterministic = bool(torch.equal(got, again))
+            zero_slot = not bool(got[n_slots - 1].any())
+            del want, again
+            err, ok = outer_check(got, x, g, sp.src_tbl, sp.row_tbl,
+                                  sp.slot_tbl)
+            del got
+            rec = dict(kernel="gathered_block_outer_flat", dtype=dname, R=r,
+                       **outer_tile_of(dtype, bs), blocks="128x128",
+                       form="storage order", out_dtype=dname,
+                       n_slots=n_slots, live_entries=sp.n_live,
+                       max_abs_err=err, tolerance="rtol 1e-5 of sum |terms| "
+                       "(+1 ulp of a bf16 output)",
+                       bitwise_vs_per_entry_gathered=bitwise,
+                       zero_slot_zero=zero_slot, deterministic=deterministic)
+            require(ok, f"kernel 2 in storage order disagrees with its "
+                        f"plain version: {rec}")
+            require(bitwise and zero_slot and deterministic,
+                    f"kernel 2 in storage order is not the per-entry launch "
+                    f"gathered, bit for bit: {rec}")
+            rec["kernel_ms"] = cuda_ms(k2s, reps)
+            rec["per_entry_gathered_ms"] = cuda_ms(per_entry_gathered, reps)
+            rec["plain_ms"] = cuda_ms(
+                lambda: bd.outer_flat_plain(x, g, sp.src_tbl, sp.row_tbl,
+                                            sp.slot_tbl, n_slots, dtype),
+                max(2, reps // 5))
+            rec["library_ms"], rec["library"] = lib_ms, lib_name
+            flops, nbytes = outer_cost(mask, r, isz, storage_isz=isz)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
             if (dname, r) == ("bfloat16", 1536):
@@ -826,9 +919,19 @@ def phase_small_train(seed: int = 0) -> None:
             f"unfused gradients are not bitwise equal: {differ}")
 
 
+# each hand kernel's device functions, by a part of their names in a
+# profile (kernels 2 and 5 share one template, told apart by its job type)
+HAND_KERNELS = {"gathered_block_mix_flat": "mix_flat_",
+                "gathered_block_outer_flat": "FlatJobs",
+                "gathered_block_mix_flat2": "mix_flat2_",
+                "gathered_block_mix": "mix_padded_",
+                "gathered_block_outer": "PaddedJobs"}
+
+
 def profile_step(fn) -> dict:
     """Device time by kernel over one call of ``fn``: the busy share of the
-    wall time and the kernels that take the most device time."""
+    wall time, the kernels that take the most device time, and the device
+    time and launches of each hand kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -838,19 +941,30 @@ def profile_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events, less the ranges the profiler draws on the device
+    # timeline for user annotations (``Optimizer.step#Adam.step``): they
+    # span kernels that are counted on their own
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.device_time / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    hand = {}
+    for wrapper, part in HAND_KERNELS.items():
+        hits = [v for k, v in by_name.items() if part in k]
+        if hits:
+            hand[wrapper] = {"ms": sum(t for t, _ in hits),
+                             "launches": sum(n for _, n in hits)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if kernels
             else None,
             "top_kernels": [{"name": k[:90], "ms": t, "launches": n}
-                            for k, (t, n) in top]}
+                            for k, (t, n) in top],
+            "hand_kernels": hand}
 
 
 def write_city_data(root: str, n: int) -> None:
@@ -1275,14 +1389,7 @@ def padded_outer_check(got, x, g, src) -> tuple[float, bool]:
         want = bd.outer_padded_plain(x, g, src, out_dtype=torch.float32)
         tol = bd.outer_padded_plain(x.abs(), g.abs(), src,
                                     out_dtype=torch.float32).mul_(1e-5)
-        if got.dtype == torch.bfloat16:
-            mag = torch.maximum(got.float().abs(), want.abs()).clamp_min(
-                1e-30)
-            tol += torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        diff = (got.float() - want).abs()
-        ok = bool((diff <= tol + 1e-30).all())
-        err = float((got.float() - want.to(got.dtype).float()).abs().max())
-    return err, ok
+        return rounded_check(got, want, tol)
 
 
 def phase_padded_kernels(graph):
@@ -1409,15 +1516,29 @@ def phase_padded_kernels(graph):
             err, ok = padded_outer_check(got, x, g, spd.block_idx)
             sentinel_zero = not bool(got[~live].any())
             del got
+            # fp32 out, bitwise against kernel 2 on as_flat_pallas's tables
+            # (its live slots in row-major order)
+            k5f = bd.gathered_block_outer(x, g, spd.block_idx,
+                                          out_dtype=torch.float32)
+            k2f = bd.gathered_block_outer_flat(
+                x, g, flat.src_tbl, flat.row_tbl, slot=flat.slot_tbl,
+                n_slots=flat.n_live + 1)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(k5f[live], k2f[:flat.n_live]))
+            del k5f, k2f
             rec = dict(kernel="gathered_block_outer", dtype=dname,
-                       out_dtype=dname, R=r, slots=nb * mb, live=n_live,
+                       out_dtype=dname, R=r, **outer_tile_of(dtype, bs),
+                       slots=nb * mb, live=n_live,
                        max_abs_err=err, tolerance="rtol 1e-5 of sum |terms| "
                        "of the fp32 sums (+1 ulp of a bf16 output)",
                        sentinel_slots_zero=sentinel_zero,
-                       deterministic=deterministic)
+                       deterministic=deterministic,
+                       bitwise_vs_kernel2_flat_fp32_out=bitwise)
             require(ok, f"kernel 5 disagrees with its plain version: {rec}")
             require(sentinel_zero and deterministic,
                     f"kernel 5 sentinels or repeat: {rec}")
+            require(bitwise, f"kernel 5 is not bitwise equal to kernel 2 on "
+                             f"the flat tables: {rec}")
             rec["kernel_ms"] = cuda_ms(k5, reps)
             rec["plain_ms"] = cuda_ms(k5_plain, max(2, reps // 5))
             xs = x.index_select(0, spd.block_idx[live].long())

@@ -1,7 +1,8 @@
 // Shared tiles of the block-sparse diffusion kernels: the fp32 product of
 // the mix kernels 1, 3 and 4 (mix_flat.cu, mix_flat2.cu, mix_padded.cu),
-// and the pieces the weight-cotangent tiles (outer_tile.cuh) build on. The
-// mix kernels' bf16 product is hopper_tile.cuh's.
+// and the pieces the weight-cotangent tile (outer_tile.cuh) builds on. The
+// bf16 products are hopper_tile.cuh's (mix) and hopper_outer.cuh's
+// (weight cotangents).
 //
 // fp32: one thread block of 256 threads owns an output tile of OT = 128
 // destination rows by CT = 64 columns of R and accumulates it in fp32
@@ -14,11 +15,6 @@
 // 4*tx + j, read from shared memory as 16-byte vectors. What bounds it: the
 // 67 TFLOP/s FMA rate; kernel 4 in fp32 ran at 48% of it at R = 3,072 on an
 // H100 80GB HBM3 at 700 W (PERF.md).
-//
-// bf16 pieces: mma.sync m16n8k16 with fp32 accumulation, ldmatrix (.trans
-// where the contraction axis is the slow one) and the accumulator layout
-// of a warp owning rows 32*(w % 4) .. +31 and columns 32*(w / 4) .. +31
-// (two 16-row by four 8-column mma tiles); outer_tile.cuh's bf16 tile.
 //
 // Every mix kernel runs entry_product for every entry of a destination row,
 // in list order, on tiles of the same shape. So each output element sees
@@ -69,11 +65,6 @@ template <bool kL2>
 __device__ __forceinline__ __nv_bfloat16 load1(const __nv_bfloat16* p) {
   const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
   return __ushort_as_bfloat16(kL2 ? __ldcg(q) : *q);
-}
-template <bool kL2>
-__device__ __forceinline__ uint4 load16(const void* p) {
-  const uint4* q = static_cast<const uint4*>(p);
-  return kL2 ? __ldcg(q) : *q;
 }
 
 __device__ __forceinline__ void zero_acc(Acc& acc) {
@@ -174,47 +165,8 @@ __device__ __forceinline__ void tile_coord(float*, int i, int j, int& row,
   col = CPT * (threadIdx.x % TX) + j;
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 pieces: mma.sync m16n8k16, fp32 accumulation
-// ---------------------------------------------------------------------------
-
-constexpr int PAD16 = 8;          // 16 bytes of bf16 padding per row
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[ACC_J],
-                                         const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void tile_coord(__nv_bfloat16*, int i, int j,
-                                           int& row, int& col) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int mt = i / 4, nt = i % 4;
-  row = 32 * (warp % 4) + 16 * mt + lane / 4 + 8 * (j / 2);
-  col = 32 * (warp / 4) + 8 * nt + 2 * (lane % 4) + j % 2;
 }
 
 // ---------------------------------------------------------------------------

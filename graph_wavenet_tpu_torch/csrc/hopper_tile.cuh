@@ -42,7 +42,9 @@
 // Kernels 1, 3 and 4 all run tile_product on tiles of the same shape for
 // the same R, so each output element sees the same chain of operations in
 // all three: kernel 3 equals two kernel-1 launches and kernel 4 equals
-// kernel 1 on as_flat_pallas's tables, bit for bit.
+// kernel 1 on as_flat_pallas's tables, bit for bit. The barrier, TMA,
+// swizzle and wgmma pieces below also build hopper_outer.cuh's product
+// (kernels 2 and 5).
 
 #pragma once
 
@@ -152,10 +154,11 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 }
 
 // d (64 x N, fp32) += A (64 x 16) B (16 x N), N = 2 x the floats in d: one
-// wgmma m64nNk16. B is N-major; A M-major when kTransA, else K-major. d[i]
-// is row 16 w + lane / 4 + 8 ((i % 4) / 2), column 8 (i / 4) + 2 (lane % 4)
-// + i % 2 of the 64 x N tile (w: the warp in the warpgroup).
-template <int kTransA>
+// wgmma m64nNk16. A is M-major when kTransA, else K-major; B N-major when
+// kTransB, else K-major. d[i] is row 16 w + lane / 4 + 8 ((i % 4) / 2),
+// column 8 (i / 4) + 2 (lane % 4) + i % 2 of the 64 x N tile (w: the warp
+// in the warpgroup).
+template <int kTransA, int kTransB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
                                       uint64_t db) {
   asm volatile(
@@ -164,7 +167,7 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, 1;\n\t}"
+      "}, %32, %33, p, 1, 1, %35, %36;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -172,10 +175,11 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA),
+        "n"(kTransB));
 }
 
-template <int kTransA>
+template <int kTransA, int kTransB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
                                       uint64_t db) {
   asm volatile(
@@ -186,7 +190,7 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 1;\n\t}"
+      "}, %64, %65, p, 1, 1, %67, %68;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -200,10 +204,11 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA),
+        "n"(kTransB));
 }
 
-template <int kTransA>
+template <int kTransA, int kTransB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
                                       uint64_t db) {
   asm volatile(
@@ -220,7 +225,7 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127"
-      "}, %128, %129, p, 1, 1, %131, 1;\n\t}"
+      "}, %128, %129, p, 1, 1, %131, %132;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -247,7 +252,8 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA),
+        "n"(kTransB));
 }
 
 // Keeps the compiler from moving accumulator accesses across wgmma.
@@ -273,6 +279,29 @@ __device__ __forceinline__ void wgmma_wait() {
 // ---------------------------------------------------------------------------
 // the ring and its two roles
 // ---------------------------------------------------------------------------
+
+// A ring of `stages` stages of `stage_bytes` in dynamic shared memory from
+// its first 1 KB boundary (the swizzle's period), then a full and an empty
+// barrier per stage, set up by thread 0: full takes the producer's one
+// arrival (with its bytes), empty one arrival per consumer warp. Returns the
+// ring's base. Ends in a block barrier: every thread must call it.
+__device__ __forceinline__ uint8_t* setup_ring(int stages, int stage_bytes,
+                                               uint64_t*& full,
+                                               uint64_t*& empty) {
+  extern __shared__ uint8_t ring_smem[];
+  uint8_t* base = ring_smem + ((1024 - (smem_addr(ring_smem) & 1023)) & 1023);
+  full = reinterpret_cast<uint64_t*>(base + stages * stage_bytes);
+  empty = full + stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return base;
+}
 
 template <int CT>
 struct Ring {
@@ -427,21 +456,9 @@ template <int CT, bool kL2, class Live, class Wait>
 __device__ bool tile_product(WideAcc<CT>& acc, const Operands& op,
                              const int* slot, const int* src, int begin,
                              int end, Live live, Wait wait) {
-  constexpr int S = Tile<CT>::STAGES;
-  extern __shared__ uint8_t wide_smem[];
   Ring<CT> ring;
-  ring.base = wide_smem + ((1024 - (smem_addr(wide_smem) & 1023)) & 1023);
-  ring.full = reinterpret_cast<uint64_t*>(ring.base +
-                                          S * Tile<CT>::STAGE_BYTES);
-  ring.empty = ring.full + S;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      bar_init(ring.full + s, 1);
-      bar_init(ring.empty + s, CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  ring.base = setup_ring(Tile<CT>::STAGES, Tile<CT>::STAGE_BYTES, ring.full,
+                         ring.empty);
   if (threadIdx.x >= 32 * CONSUMER_WARPS) {
     produce<CT, kL2>(ring, op, slot, src, begin, end, live, wait);
     return false;

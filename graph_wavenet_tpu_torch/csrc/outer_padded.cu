@@ -7,71 +7,41 @@
 //   out[i, m] = x[src[i, m]] (BS, R) . g[i] (BS, R)^T          (BS, BS)
 // contracted over R, in fp32, cast once to the output type (the blocks'
 // storage type, fp32 or bf16): the padded hop's gradient with respect to
-// its blocks. A sentinel slot (src >= nbx: the reference's zero block-row)
-// reads nothing and stores exact zeros, so x is passed unpadded and the
-// output, allocated uninitialised, is written everywhere.
+// its blocks. A sentinel slot (src outside x: the reference's zero
+// block-row) reads nothing and stores exact zeros, so x is passed unpadded
+// and the output, allocated uninitialised, is written everywhere.
 //
 // What bounds it: the output, NB * MB blocks of BS x BS written once (231 MB
 // in fp32, 115 MB in bf16 at the 40,960-node city layout, sentinels
 // included), and 2 * n_live * BS * BS * R operations for the live slots. At
 // the last layer's R = 128 the writes bind; at the first layer's R = 1,536
-// the operations do (tensor cores for bf16 inputs, the FMA rate for fp32).
+// the operations do on paper (bf16: 0.123 ms), and moving each live slot's
+// x and g tiles from L2 to its SM is this design's floor, as for kernel 2.
+// On an H100 80GB HBM3 at 700 W (PERF.md), bf16: 0.26-0.35 ms at R = 1,536
+// across runs (the product before, 1.02; torch.bmm on the live slots'
+// gathered operands 0.81), 0.07-0.09 ms at R = 128 (bound 0.04).
 //
-// Design: kernel 2 with row = l / MB. Every (slot, 128 x 64 output tile) is
-// its own thread block (thousands, enough to fill the 132 SMs without
-// splitting R); it walks R in chunks of 32 in a fixed order through
-// outer_tile.cuh's product, accumulates in registers and writes its tile
-// once: no atomics, and a repeat is bit-identical. Ragged R is masked in
-// the kernel (no pad-to-128 copy).
+// Design: kernel 2 with row = l / MB, on the same products (outer_flat.cu,
+// hopper_outer.cuh): a thread block per (slot, output tile), the tile
+// index fastest, R in a fixed order, no atomics, a repeat bit-identical.
+// Sentinels leave the producer's stream: their consumers store zeros.
+// Every live slot runs the tile product kernel 2 runs for its entry, so on
+// as_flat_pallas's tables kernel 5 equals kernel 2 bit for bit.
 
-#include "outer_tile.cuh"
+#include "hopper_outer.cuh"
 
 namespace {
 
-using gwt::MT;
-using gwt::NT;
-
-// grid (slot, BS / 64, BS / 128)
-template <typename T, typename O>
-__global__ void __launch_bounds__(gwt::NTHREADS, 2)
-outer_padded_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                    const int* __restrict__ src, O* __restrict__ out, int mb,
-                    int nbx, int bs, int r) {
-  __shared__ __align__(16) typename gwt::SmemOuterOf<T>::type sm;
-  const size_t l = blockIdx.x;
-  const int n0 = blockIdx.y * NT;
-  const int m0 = blockIdx.z * MT;
-  const int s = src[l];
-  gwt::Acc acc;
-  gwt::zero_acc(acc);
-  if (s >= 0 && s < nbx)          // the same test for every thread
-    gwt::outer_tile(acc, sm, x + ((size_t)s * bs + m0) * r,
-                    g + ((l / mb) * bs + n0) * r, r);
-  gwt::store_outer<T>(acc, out + l * bs * bs, bs, m0, n0);
-}
-
-template <typename T, typename O>
-int launch(const void* x, const void* g, const void* src, void* out,
-           int n_slots, int mb, int nbx, int bs, int r, cudaStream_t stream) {
-  dim3 grid(n_slots, bs / NT, bs / MT);
-  dim3 block(gwt::NTHREADS);
-  outer_padded_kernel<T, O><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const int*>(src), static_cast<O*>(out), mb, nbx, bs, r);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_as(int out_dtype, const void* x, const void* g, const void* src,
-              void* out, int n_slots, int mb, int nbx, int bs, int r,
-              cudaStream_t stream) {
-  if (out_dtype == 0)
-    return launch<T, float>(x, g, src, out, n_slots, mb, nbx, bs, r, stream);
-  if (out_dtype == 1)
-    return launch<T, __nv_bfloat16>(x, g, src, out, n_slots, mb, nbx, bs, r,
-                                    stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// Slot l: x block-row src[l] (a sentinel outside [0, nbx) gives zeros), g
+// block-row l / mb, output block l.
+struct PaddedJobs {
+  const int* src;
+  int mb, nbx;
+  __device__ gwt::Job operator()(int l) const {
+    const int s = src[l];
+    return {s >= 0 && s < nbx ? s : -1, l / mb, l};
+  }
+};
 
 }  // namespace
 
@@ -84,16 +54,11 @@ extern "C" int gwt_outer_padded(int dtype, const void* x, const void* g,
                                 const void* src, void* out, int out_dtype,
                                 int n_slots, int mb, int nbx, int bs, int r,
                                 void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bs % MT || n_slots < 1 || mb < 1 || r < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_as<float>(out_dtype, x, g, src, out, n_slots, mb, nbx, bs,
-                            r, s);
-  if (dtype == 1)
-    return launch_as<__nv_bfloat16>(out_dtype, x, g, src, out, n_slots, mb,
-                                    nbx, bs, r, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (mb < 1 || n_slots % mb) return static_cast<int>(cudaErrorInvalidValue);
+  const PaddedJobs jobs{static_cast<const int*>(src), mb, nbx};
+  return gwt::outer::launch(dtype, out_dtype, x, g, out, jobs, n_slots, nbx,
+                            n_slots / mb, bs, bs, r,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gwt_error_string(int code) {

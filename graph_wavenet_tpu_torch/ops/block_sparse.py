@@ -33,7 +33,8 @@ row is visited::
 
 - one hop (``mix_2d``): dx is kernel 1 over the transpose tables; the
   blocks' cotangent is kernel 2 (one fp32 outer product per forward-table
-  entry) gathered into storage order by ``inv_slot``;
+  entry), written straight into storage order (the reference's gather by
+  ``inv_slot``) and the blocks' dtype;
 - both order-2 hops (``mix2_2d``, fused supports): the transpose chain
   ``g1_eff = g1 + mixT(g2); dx = mixT(g1_eff)`` is one kernel-3 launch over
   the transpose tables with ``add = g1`` where the transpose band fuses
@@ -359,21 +360,15 @@ class FlatBlockSparseSupport:
         return dataclasses.replace(self, blocks_flat=self.blocks_flat.to(dtype))
 
 
-def _outer(sp: FlatBlockSparseSupport, xb: torch.Tensor,
-           gb: torch.Tensor) -> torch.Tensor:
-    """Kernel 2 over the forward table: (Lt, BSs, BSd) fp32."""
-    return gathered_block_outer_flat(xb, gb, sp.src_tbl, sp.row_tbl)
-
-
-def _to_storage(sp: FlatBlockSparseSupport, dflat: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """Per-entry cotangents -> storage order: each live slot appears once
-    in the forward table, so this is a gather by ``inv_slot``. Dummy
-    entries belong to the shared trailing zero block, whose gradient is
-    pinned to zero: ``inv_slot``'s sentinel points at a zero pad row."""
-    pad = dflat.new_zeros((1,) + dflat.shape[1:])
-    return torch.cat([dflat, pad]).index_select(
-        0, sp.inv_slot.long()).to(dtype)
+def _outer(sp: FlatBlockSparseSupport, xb: torch.Tensor, gb: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The blocks' cotangent (L+1, BSs, BSd) in ``dtype``: kernel 2 over the
+    forward table, each entry's product written to its storage slot. Each
+    live slot appears once in the table; the dummy entries belong to the
+    shared trailing zero block, whose gradient is pinned to zero."""
+    return gathered_block_outer_flat(
+        xb, gb, sp.src_tbl, sp.row_tbl, slot=sp.slot_tbl,
+        n_slots=sp.blocks_flat.shape[0], out_dtype=dtype)
 
 
 def _mix_t(sp: FlatBlockSparseSupport, blocks: torch.Tensor,
@@ -415,9 +410,8 @@ class _MixFlat(torch.autograd.Function):
             dx = _mix_t(sp, blocks.to(x2.dtype), g, r)
         if ctx.needs_input_grad[1]:
             bs_s, bs_d = blocks.shape[1], blocks.shape[2]
-            dflat = _outer(sp, x2.reshape(n // bs_s, bs_s, r),
-                           g.reshape(sp.nb, bs_d, r))
-            dblocks = _to_storage(sp, dflat, blocks.dtype)
+            dblocks = _outer(sp, x2.reshape(n // bs_s, bs_s, r),
+                             g.reshape(sp.nb, bs_d, r), blocks.dtype)
         return dx, dblocks, None
 
 
@@ -486,12 +480,15 @@ class _MixFlat2(torch.autograd.Function):
             dx = _mix_t(sp, bf, g1_eff, r)
         d2 = d1 = None
         shape = (sp.nb, bs, r)
+        # two launches, one per cotangent: summing both products in one
+        # accumulator would round otherwise than the unfused support's two
+        # hops, whose gradients these equal bit for bit
         if ctx.needs_input_grad[1]:
-            d2 = _to_storage(sp, _outer(sp, o1.reshape(shape),
-                                        g2.reshape(shape)), blocks.dtype)
+            d2 = _outer(sp, o1.reshape(shape), g2.reshape(shape),
+                        blocks.dtype)
         if ctx.needs_input_grad[2]:
-            d1 = _to_storage(sp, _outer(sp, x2.reshape(shape),
-                                        g1_eff.reshape(shape)), blocks.dtype)
+            d1 = _outer(sp, x2.reshape(shape), g1_eff.reshape(shape),
+                        blocks.dtype)
         return dx, d2, d1, None
 
 

@@ -9,7 +9,8 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
   order-2 hops in one launch, with an optional ``add`` after the inter-hop
   cast; bitwise equal to two calls of kernel 1;
 - :func:`gathered_block_outer_flat` (kernel 2, ``csrc/outer_flat.cu``): the
-  per-entry weight cotangent ``x[src[l]] . g[row[l]]^T`` over R, fp32 out;
+  per-entry weight cotangent ``x[src[l]] . g[row[l]]^T`` over R, fp32 out,
+  or, given the storage slots, written straight in storage order and dtype;
 - :func:`gathered_block_mix` (kernel 4, ``csrc/mix_padded.cu``): kernel 1
   over a padded ``(NB, MB)`` table, sentinel slots skipped;
 - :func:`gathered_block_outer` (kernel 5, ``csrc/outer_padded.cu``): the
@@ -118,12 +119,22 @@ def mix_flat2_plain(blocks: torch.Tensor, slot: torch.Tensor,
 
 
 def outer_flat_plain(x: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
-                     row: torch.Tensor) -> torch.Tensor:
+                     row: torch.Tensor, slot: torch.Tensor | None = None,
+                     n_slots: int | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Kernel 2's function: gather ``x[src]`` and ``g[row]``, then an fp32
-    einsum over R."""
+    einsum over R. With ``slot``: entry l's product goes to row ``slot[l]``
+    of an (n_slots, BSx, BSg) result, the zero slot ``n_slots - 1`` (where
+    the dummy entries point) stays zero, and one cast to ``out_dtype``."""
     xs = x.index_select(0, src.long()).float()
     gs = g.index_select(0, row.long()).float()
-    return torch.einsum("lxr,lgr->lxg", xs, gs)
+    per_entry = torch.einsum("lxr,lgr->lxg", xs, gs)
+    if slot is None:
+        return per_entry
+    out = per_entry.new_empty((n_slots,) + per_entry.shape[1:])
+    out.index_copy_(0, slot.long(), per_entry)
+    out[n_slots - 1] = 0
+    return out.to(out_dtype or torch.float32)
 
 
 def _sentinels_to_zero(t: torch.Tensor, idx: torch.Tensor):
@@ -332,39 +343,62 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
 
 
 def gathered_block_outer_flat(x: torch.Tensor, g: torch.Tensor,
-                              src: torch.Tensor, row: torch.Tensor
+                              src: torch.Tensor, row: torch.Tensor, *,
+                              slot: torch.Tensor | None = None,
+                              n_slots: int | None = None,
+                              out_dtype: torch.dtype | None = None
                               ) -> torch.Tensor:
     """dW (Lt, BSx, BSg) fp32: for each table entry l (dummies included),
     ``x[src[l]] (BSx, R)`` contracted over R with ``g[row[l]] (BSg, R)``.
     x (nbx, BSx, R) and g (nbg, BSg, R) share a dtype; blocks may be
-    rectangular."""
+    rectangular.
+
+    Given ``slot`` (the forward table's storage slot per entry) and
+    ``n_slots`` (L + 1), the result is in storage order instead: (n_slots,
+    BSx, BSg) in ``out_dtype`` (default fp32), entry l's product cast once
+    into row ``slot[l]``, the dummy entries (``slot[l] == L``) skipped and
+    row L exact zeros: the per-entry result gathered by ``inv_slot`` and
+    cast, bit for bit."""
     if x.ndim != 3 or g.ndim != 3 or x.shape[2] != g.shape[2]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must "
                          "be (nbx, BSx, R) and (nbg, BSg, R)")
     if src.shape != row.shape:
         raise ValueError("src and row tables must have one entry each")
+    if slot is None:
+        if n_slots is not None or out_dtype not in (None, torch.float32):
+            raise ValueError("n_slots and out_dtype need slot: the "
+                             "per-entry result is fp32")
+    elif slot.shape != src.shape or n_slots is None or n_slots < 1:
+        raise ValueError("slot needs one entry per table entry and "
+                         "n_slots >= 1")
     if x.device.type == "cpu":
-        return outer_flat_plain(x, g, src, row)
+        # positional, so a stand-in that takes *args (a counting test) works
+        return outer_flat_plain(x, g, src, row, slot, n_slots, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     bs_x, bs_g, r = x.shape[1], g.shape[1], x.shape[2]
     if bs_x % 128 or bs_g % 64:
         raise ValueError(f"CUDA kernel needs x rows % 128 == 0 and g rows "
                          f"% 64 == 0, got {bs_x}, {bs_g}")
-    code = _check_cuda(x, g, src, row, name="g")
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    tables = (src, row) if slot is None else (src, row, slot)
+    code = _check_cuda(x, g, *tables, name="g")
     lt = src.numel()
-    out = torch.empty((lt, bs_x, bs_g), dtype=torch.float32,
-                      device=x.device)
-    if lt == 0:
-        return out
-    if r == 0:
+    n_out = lt if slot is None else n_slots
+    out = torch.empty((n_out, bs_x, bs_g), dtype=out_dtype, device=x.device)
+    if lt == 0 or r == 0:
         return out.zero_()
-    lib = _lib("outer_flat.cu", "gwt_outer_flat", 5, 4)
+    lib = _lib("outer_flat.cu", "gwt_outer_flat", 6, 8)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gwt_outer_flat(code, x.data_ptr(), g.data_ptr(),
-                                src.data_ptr(), row.data_ptr(),
-                                out.data_ptr(), lt, bs_x, bs_g, r, stream)
+        rc = lib.gwt_outer_flat(
+            code, x.data_ptr(), g.data_ptr(), src.data_ptr(), row.data_ptr(),
+            None if slot is None else slot.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[out_dtype], lt, n_slots or 0, x.shape[0], g.shape[0],
+            bs_x, bs_g, r, stream)
     _raise_on(lib, rc, "gathered_block_outer_flat")
     LAUNCHES["gathered_block_outer_flat"] += 1
     return out

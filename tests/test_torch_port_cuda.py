@@ -14,10 +14,12 @@ where the bf16 kernels copy x by element loads instead of TMA), rows with
 no entries, kernel 3 in the transpose orientation, repeated bit for bit and
 with an ``add`` one element into its storage, and the wrappers' refusals;
 kernel 2 (the weight cotangent)
-at ragged R on square, rectangular and tall blocks; the hops' backward on
-the card against the CPU's plain versions; kernels 4 and 5 (the padded
-form) at ragged R with both kinds of sentinel, kernel 4 bitwise against
-kernel 1 on ``as_flat_pallas`` tables, and the padded hop's backward.
+at ragged R on square, rectangular and tall blocks, per entry and in
+storage order (bitwise against the per-entry result gathered); the hops'
+backward on the card against the CPU's plain versions; kernels 4 and 5
+(the padded form) at ragged R with both kinds of sentinel, kernel 4
+bitwise against kernel 1 and kernel 5 against kernel 2 on
+``as_flat_pallas`` tables, and the padded hop's backward.
 """
 
 import dataclasses
@@ -182,6 +184,74 @@ def test_kernel2_matches_plain(card, dtype, r, shape):
     assert bool(((got - want).abs() <= 1e-5 * terms + 1e-30).all())
     again = bd.gathered_block_outer_flat(*args)
     assert torch.equal(got, again), "kernel 2 must be deterministic"
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [24, 130, 256])
+@pytest.mark.parametrize("shape", [(128, 128), (128, 512), (256, 64)],
+                         ids=["sq", "rect", "tall"])
+def test_kernel2_storage_order_bitwise_gather(card, dtype, out_dtype, r,
+                                              shape):
+    """Kernel 2 with the storage slots equals its per-entry launch gathered
+    by ``inv_slot`` (a zero row for the zero slot) and cast, bit for bit:
+    the dummy entries, whose per-entry products are not zero, land nowhere
+    and the zero slot's block is exact zeros (the output is allocated
+    uninitialised)."""
+    bs_x, bs_g = shape
+    row, src, slot, n_live = tables(501 + r, 6, 5, band=2)
+    assert (slot == n_live).any(), "the tables must hold dummy entries"
+    gen = torch.Generator(device=card).manual_seed(r)
+    x = torch.randn(5, bs_x, r, device=card, generator=gen).to(dtype)
+    g = torch.randn(6, bs_g, r, device=card, generator=gen).to(dtype)
+    args = (x, g, i32(src, card), i32(row, card))
+    inv = np.zeros(n_live + 1, np.int64)
+    inv[slot] = np.arange(len(slot))
+    inv[n_live] = len(slot)
+    before = bd.LAUNCHES["gathered_block_outer_flat"]
+    got = bd.gathered_block_outer_flat(*args, slot=i32(slot, card),
+                                       n_slots=n_live + 1,
+                                       out_dtype=out_dtype)
+    assert bd.LAUNCHES["gathered_block_outer_flat"] == before + 1
+    per_entry = bd.gathered_block_outer_flat(*args)
+    want = torch.cat([per_entry, per_entry.new_zeros((1, bs_x, bs_g))])
+    want = want.index_select(0, torch.as_tensor(inv, device=card))
+    torch.cuda.synchronize()
+    assert got.shape == (n_live + 1, bs_x, bs_g) and got.dtype == out_dtype
+    assert torch.equal(got, want.to(out_dtype))
+    assert not got[n_live].any()
+    assert per_entry[torch.as_tensor(slot == n_live, device=card)].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [130, 1536])
+def test_kernel5_bitwise_kernel2_on_flat_tables(card, dtype, r):
+    """A padded support's blocks cotangent (kernel 5, fp32 output) equals
+    kernel 2 on ``as_flat_pallas``'s tables bit for bit: the same live
+    products on the same tiles in the same R order; sentinel slots zero."""
+    from graph_wavenet_tpu_torch.ops import block_sparse as tbs
+
+    n = 1024
+    rng = np.random.default_rng(6)
+    src = rng.integers(0, n, size=6000)
+    dst = np.clip(src + rng.integers(-300, 300, size=6000), 0, n - 1)
+    w = rng.random(6000).astype(np.float32)
+    sp = tbs.from_edges_blocked(src, dst, w, n, 128, device=card)
+    nb, mb = sp.block_idx.shape
+    live = sp.block_idx < nb
+    assert not live.all(), "the layout must leave sentinels"
+    flat = tbs.as_flat_pallas(sp)
+    gen = torch.Generator(device=card).manual_seed(r)
+    x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    g = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    got = bd.gathered_block_outer(x, g, sp.block_idx,
+                                  out_dtype=torch.float32)
+    want = bd.gathered_block_outer_flat(
+        x, g, flat.src_tbl, flat.row_tbl, slot=flat.slot_tbl,
+        n_slots=flat.n_live + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[live], want[:flat.n_live])
+    assert not got[~live].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

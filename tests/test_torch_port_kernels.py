@@ -124,6 +124,98 @@ def test_outer_flat_plain_matches_pallas(rng, shape, r):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def inv_slot_of(slot, n_live):
+    """The flat support's ``inv_slot``: the table position of each storage
+    slot, and for the zero slot the row past the table."""
+    inv = np.zeros(n_live + 1, np.int64)
+    inv[slot] = np.arange(len(slot))
+    inv[n_live] = len(slot)
+    return inv
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 16), (16, 32), (32, 16)],
+                         ids=["square", "rect", "tall"])
+def test_outer_flat_storage_order_matches_gather(rng, shape, out_dtype):
+    """Kernel 2 in storage order equals the per-entry result gathered by
+    ``inv_slot`` (a zero row appended for the zero slot) and cast, bit for
+    bit: dummy entries land nowhere and the zero slot stays zero."""
+    bs_x, bs_g = shape
+    nb, nbx, r = 6, 5, 40
+    row, src, slot, n_live, n_empty = flat_tables(rng, nb, nbx, 3)
+    assert n_empty >= 1 and n_live >= 2
+    x = torch.as_tensor(rng.normal(size=(nbx, bs_x, r)).astype(np.float32))
+    g = torch.as_tensor(rng.normal(size=(nb, bs_g, r)).astype(np.float32))
+    per_entry = tbd.gathered_block_outer_flat(x, g, as_t(src), as_t(row))
+    pad = per_entry.new_zeros((1, bs_x, bs_g))
+    want = torch.cat([per_entry, pad]).index_select(
+        0, torch.as_tensor(inv_slot_of(slot, n_live))).to(out_dtype)
+    got = tbd.gathered_block_outer_flat(x, g, as_t(src), as_t(row),
+                                        slot=as_t(slot), n_slots=n_live + 1,
+                                        out_dtype=out_dtype)
+    assert got.shape == (n_live + 1, bs_x, bs_g) and got.dtype == out_dtype
+    assert torch.equal(got, want)
+    assert not got[n_live].any()
+    assert torch.equal(got, tbd.outer_flat_plain(
+        x, g, as_t(src), as_t(row), slot=as_t(slot), n_slots=n_live + 1,
+        out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 16), (16, 32)],
+                         ids=["square", "rect"])
+def test_outer_flat_storage_order_matches_pallas(rng, shape, out_dtype):
+    """Against the reference's backward: the Pallas kernel per entry, then
+    ``jnp.take`` by ``inv_slot`` over a zero pad row and a cast to the
+    blocks' dtype (``graph_wavenet_tpu/ops/block_sparse.py:604-611``).
+    fp32 inputs; 1e-5 before the cast, so a bf16 result may differ by the
+    one ulp that 1e-5 can move a rounding by."""
+    bs_x, bs_g = shape
+    nb, nbx, r = 5, 4, 130
+    row, src, slot, n_live, n_empty = flat_tables(rng, nb, nbx, 3)
+    assert n_empty >= 1
+    x = rng.normal(size=(nbx, bs_x, r)).astype(np.float32)
+    g = rng.normal(size=(nb, bs_g, r)).astype(np.float32)
+    dflat = jbd.gathered_block_outer_flat(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(src), jnp.asarray(row),
+        out_dtype=jnp.float32, interpret=True)
+    dflat_pad = jnp.concatenate([dflat, jnp.zeros((1, bs_x, bs_g),
+                                                  dflat.dtype)])
+    want = jnp.take(dflat_pad, jnp.asarray(inv_slot_of(slot, n_live)),
+                    axis=0).astype(out_dtype)
+    t_dtype = torch.float32 if out_dtype == jnp.float32 else torch.bfloat16
+    got = tbd.gathered_block_outer_flat(
+        torch.as_tensor(x), torch.as_tensor(g), as_t(src), as_t(row),
+        slot=as_t(slot), n_slots=n_live + 1, out_dtype=t_dtype)
+    assert got.shape == (n_live + 1, bs_x, bs_g) and got.dtype == t_dtype
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    if t_dtype == torch.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert (np.abs(got - want) <= ulp + 1e-5 * np.abs(want) + 1e-5).all()
+    assert not got[n_live].any()
+
+
+def test_outer_flat_storage_arguments_refused():
+    x, g = torch.zeros(2, 16, 4), torch.zeros(2, 16, 4)
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="need slot"):
+        tbd.gathered_block_outer_flat(x, g, one, one, n_slots=2)
+    with pytest.raises(ValueError, match="need slot"):
+        tbd.gathered_block_outer_flat(x, g, one, one,
+                                      out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="n_slots >= 1"):
+        tbd.gathered_block_outer_flat(x, g, one, one, slot=one)
+    with pytest.raises(ValueError, match="one entry per table entry"):
+        tbd.gathered_block_outer_flat(x, g, one, one,
+                                      slot=torch.zeros(2, dtype=torch.int32),
+                                      n_slots=2)
+
+
 @pytest.mark.parametrize("band", [1, 3, None], ids=["b1", "b3", "wide"])
 def test_fused2_schedule_matches_reference(rng, band):
     nb = 40
