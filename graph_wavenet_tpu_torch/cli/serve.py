@@ -35,6 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--graph_npz", type=str, required=True,
                    help="edge-list graph the checkpoint was trained on "
                         "(fingerprint-verified)")
+    p.add_argument("--aptonly", action="store_true",
+                   help="accepted for the reference CLI's sake; a checkpoint "
+                        "trained with --aptonly (n_supports 0) is served with "
+                        "the learned adjacency alone either way")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on (default cuda)")
     p.add_argument("--host", type=str, default="127.0.0.1")

@@ -1,19 +1,33 @@
-"""Training CLI for city-scale graphs.
+"""Training CLI: the METR-format dense path and city-scale graphs.
 
-Counterpart of ``graph_wavenet_tpu/cli/train.py``'s ``--graph_npz``
-branch: ordered block-sparse doubletransition supports (flat, or padded
-under ``--sparse block|pallas``) from an edge-list graph, the data's node
-axis permuted and padded to match, the block-masked adaptive adjacency
-under ``--addaptadj``, and the node layout recorded in every checkpoint
-sidecar, so the serve CLI rebuilds the same supports. Then the runner fits
-and tests.
+Counterpart of ``graph_wavenet_tpu/cli/train.py``'s METR and
+``--graph_npz`` branches:
 
+- **METR** (``--data DIR --adjdata adj_mx.pkl``): the ``--adjtype``
+  supports of a DCRNN-format adjacency pickle, dense, the adaptive
+  embeddings SVD-initialized from the first support unless
+  ``--randomadj``; ``--aptonly`` drops the fixed supports and keeps the
+  adaptive adjacency.
+- **City** (``--graph_npz g.npz``): ordered block-sparse doubletransition
+  supports (flat, or padded under ``--sparse block|pallas``) from an
+  edge-list graph, the data's node axis permuted and padded to match, the
+  block-masked adaptive adjacency under ``--addaptadj`` (alone under
+  ``--aptonly``), and the node layout, with the supports' storage dtype,
+  recorded in every checkpoint sidecar, so the serve and test CLIs rebuild
+  the same supports.
+
+Then the runner fits and tests.
+
+    python -m graph_wavenet_tpu_torch.cli.train --data data/METR-LA \\
+        --adjdata data/sensor_graph/adj_mx.pkl --num_nodes 207 --gcn_bool \\
+        --addaptadj --seq_length 12 --save ckpt/
     python -m graph_wavenet_tpu_torch.cli.train --graph_npz city.npz \\
         --data data/CITY --gcn_bool --addaptadj --dtype bfloat16 \\
         --batch_size 4 --seq_length 12 --epochs 1 --save ckpt/
 
-The METR dense path, the synthetic and CRASH datasets and the runner's
-options listed in :data:`LATER` wait for later slices (ROADMAP.md).
+The synthetic and CRASH datasets (``--data syn|crash``) wait for the diff-G
+slice, and the options listed in :data:`LATER` for the slice each names
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,20 +36,28 @@ import argparse
 import time
 import warnings
 
-# flags of the reference CLI that wait for a later slice: (type, the
-# default that keeps them off); a bool is a store_true switch
-LATER = {"scan_steps": (int, 1), "grad_accum": (int, 1),
-         "early_stop": (int, 0), "epoch_timeout": (float, 0.0),
-         "resume": (str, None), "mesh_model": (int, 1),
-         "mesh_time": (int, 1), "mesh_dp": (bool, False)}
+# flags of the reference CLI that wait for a later slice of ROADMAP.md:
+# (type, the default that keeps them off, the slice); a bool is a
+# store_true switch
+LATER = {"scan_steps": (int, 1, "4b"), "grad_accum": (int, 1, "4b"),
+         "early_stop": (int, 0, "4b"), "epoch_timeout": (float, 0.0, "4b"),
+         "resume": (str, None, "4b"), "resident": (str, "host", "4b"),
+         "mesh_model": (int, 1, "7"), "mesh_time": (int, 1, "7"),
+         "mesh_dp": (bool, False, "7")}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        "gwt-torch-train", description="Train Graph WaveNet on a "
-        "city-scale graph (--graph_npz) with the port's CUDA kernels")
+        "gwt-torch-train", description="Train Graph WaveNet on a METR-format "
+        "dataset or a city-scale graph (--graph_npz) with the port")
     p.add_argument("--data", type=str, default="data/METR-LA",
                    help="directory of train/val/test.npz window splits")
+    p.add_argument("--adjdata", type=str,
+                   default="data/sensor_graph/adj_mx.pkl",
+                   help="METR: DCRNN-format adjacency pickle")
+    p.add_argument("--adjtype", type=str, default="doubletransition",
+                   help="METR: support normalization (graphs.normalize."
+                        "mod_adj)")
     p.add_argument("--graph_npz", type=str, default=None,
                    help="edge-list graph (.npz with src, dst, weight[, pos, "
                         "n_nodes]); builds the ordered block-sparse "
@@ -59,10 +81,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "mask to the k-hop block closure of the supports' "
                         "pattern")
     p.add_argument("--gcn_bool", action="store_true")
+    p.add_argument("--aptonly", action="store_true",
+                   help="no fixed supports: the adaptive adjacency alone")
     p.add_argument("--addaptadj", action="store_true")
+    p.add_argument("--randomadj", action="store_true",
+                   help="METR: random adaptive embeddings instead of the "
+                        "SVD of the first support")
     p.add_argument("--seq_length", type=int, default=48)
     p.add_argument("--nhid", type=int, default=32)
     p.add_argument("--in_dim", type=int, default=2)
+    p.add_argument("--num_nodes", type=int, default=80,
+                   help="METR: sensors in the dataset (207 for METR-LA)")
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--blocks", type=int, default=4)
     p.add_argument("--batch_size", type=int, default=32)
@@ -84,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to train on (default cuda)")
     later = p.add_argument_group("not ported yet (ROADMAP.md); refused "
                                  "unless left at their defaults")
-    for name, (kind, default) in LATER.items():
+    for name, (kind, default, _) in LATER.items():
         if kind is bool:
             later.add_argument(f"--{name}", action="store_true")
         else:
@@ -94,34 +123,110 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    later = [f"--{k}" for k, (_, v) in LATER.items()
-             if getattr(args, k) != v]
+    later = {f"--{k}": where for k, (_, v, where) in LATER.items()
+             if getattr(args, k) != v}
     if later:
-        raise SystemExit(f"{', '.join(later)}: not ported yet (the "
-                         "dense/runner and parallelism slices of ROADMAP.md)")
-    if not args.graph_npz:
         raise SystemExit(
-            f"--data {args.data} without --graph_npz: the METR dense path "
-            "is the dense slice and --data syn/crash the diff-G slice of "
-            "ROADMAP.md; this CLI trains --graph_npz graphs")
-    if not args.gcn_bool:
-        raise SystemExit("--graph_npz builds graph supports; pass "
-                         "--gcn_bool")
+            f"{', '.join(later)}: not ported yet (slice "
+            f"{', '.join(sorted(set(later.values())))} of ROADMAP.md)")
+    if args.data in ("syn", "crash"):
+        raise SystemExit(
+            f"--data {args.data}: the synthetic and CRASH datasets come with "
+            "the diff-G slice (slice 6 of ROADMAP.md)")
     t0 = time.time()
-    result, runner, supports = _run_city(args)
+    if args.graph_npz:
+        result, runner, supports = _run_city(args)
+    else:
+        result, runner, supports = _run_metr(args)
     print(f"Total time spent: {time.time() - t0:.4f}", flush=True)
     return {"result": result, "runner": runner, "supports": supports}
 
 
-def _run_city(args):
-    import torch
+def model_config(args, num_nodes: int):
+    from graph_wavenet_tpu_torch.config import ModelConfig
 
-    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
-    from graph_wavenet_tpu_torch.data.metr import load_dataset
-    from graph_wavenet_tpu_torch.graphs import city
+    return ModelConfig(
+        num_nodes=num_nodes, in_dim=args.in_dim, out_dim=args.seq_length,
+        residual_channels=args.nhid, dilation_channels=args.nhid,
+        skip_channels=args.nhid * 8, end_channels=args.nhid * 16,
+        blocks=args.blocks, layers=args.layers, dropout=args.dropout,
+        gcn_bool=args.gcn_bool, addaptadj=args.addaptadj,
+        n_supports=0 if args.aptonly else 2, dtype=args.dtype)
+
+
+def train_config(args):
+    from graph_wavenet_tpu_torch.config import TrainConfig
+
+    return TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay, epochs=args.epochs,
+        print_every=args.print_every, seed=args.seed, save_dir=args.save,
+        expid=args.expid, lr_decay=args.lr_decay,
+        lr_decay_every=args.lr_decay_every, async_checkpoint=False)
+
+
+def _check_horizon(args, data: dict) -> None:
+    horizon = int(data["y_train"].shape[1])
+    if args.seq_length != horizon:
+        raise SystemExit(
+            f"--seq_length {args.seq_length} does not match the dataset's "
+            f"target horizon {horizon} ({args.data} was built with "
+            f"seq_length_y={horizon}); pass --seq_length {horizon}")
+
+
+def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None):
     from graph_wavenet_tpu_torch.train.engine import Engine
     from graph_wavenet_tpu_torch.train.runner import Runner
 
+    train_cfg = train_config(args)
+    engine = Engine(cfg, train_cfg, data["scaler"], device=args.device,
+                    seed=args.seed,
+                    steps_per_epoch=data["train_loader"].num_batch,
+                    aptinit=aptinit)
+    runner = Runner(engine, train_cfg, extra_meta=extra_meta)
+    result = runner.fit(data, supports)
+    runner.test(data, supports, result)
+    return result, runner, supports
+
+
+def _run_metr(args):
+    """The METR branch: dense supports from the adjacency pickle."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch import resolve_device
+    from graph_wavenet_tpu_torch.data.metr import load_dataset
+    from graph_wavenet_tpu_torch.graphs.normalize import load_adj
+
+    device = resolve_device(args.device)
+    _, _, adj = load_adj(args.adjdata, args.adjtype)
+    data = load_dataset(args.data, args.batch_size, seed=args.seed)
+    _check_horizon(args, data)
+    cfg = model_config(args, args.num_nodes)
+    n_data = int(data["x_train"].shape[2])
+    if n_data != cfg.num_nodes or adj[0].shape[0] != cfg.num_nodes:
+        raise SystemExit(
+            f"--num_nodes {args.num_nodes}, but the data has {n_data} nodes "
+            f"and {args.adjdata} {adj[0].shape[0]}")
+    aptinit = (np.asarray(adj[0]) if cfg.gcn_bool and cfg.addaptadj
+               and not args.randomadj else None)
+    # [] (not None) under aptonly: the adaptive adjacency stays on with no
+    # fixed supports, as the test CLI evaluates it
+    supports = ([] if args.aptonly else
+                [torch.as_tensor(a, device=device) for a in adj])
+    return _fit(args, cfg, data, supports, aptinit=aptinit)
+
+
+def _run_city(args):
+    """The --graph_npz branch: ordered block-sparse supports."""
+    import torch
+
+    from graph_wavenet_tpu_torch.data.metr import load_dataset
+    from graph_wavenet_tpu_torch.graphs import city
+
+    if not args.gcn_bool:
+        raise SystemExit("--graph_npz builds graph supports; pass "
+                         "--gcn_bool")
     g = city.load_graph_npz(args.graph_npz)
     supports, mask, layout = city.build_city_supports(
         g["src"], g["dst"], g["weight"], g["n_nodes"], pos=g["pos"],
@@ -136,6 +241,8 @@ def _run_city(args):
                       "longer computes in fp32", stacklevel=2)
     if sup_dtype != "float32":
         supports = [s.astype(getattr(torch, sup_dtype)) for s in supports]
+    # the serve and test CLIs rebuild the supports in this dtype
+    layout["support_dtype"] = sup_dtype
     print(f"graph: {g['n_nodes']} nodes (+{layout['n_pad'] - g['n_nodes']}"
           f" pad), ordering={layout['ordering']}, form={layout['form']}, "
           f"{layout['n_blocks']} live blocks "
@@ -146,35 +253,17 @@ def _run_city(args):
 
     data = load_dataset(args.data, args.batch_size, seed=args.seed,
                         node_layout=layout)
-    horizon = int(data["y_train"].shape[1])
-    if args.seq_length != horizon:
-        raise SystemExit(
-            f"--seq_length {args.seq_length} does not match the dataset's "
-            f"target horizon {horizon}; pass --seq_length {horizon}")
-    cfg = ModelConfig(
-        num_nodes=layout["n_pad"], in_dim=args.in_dim,
-        out_dim=args.seq_length, residual_channels=args.nhid,
-        dilation_channels=args.nhid, skip_channels=args.nhid * 8,
-        end_channels=args.nhid * 16, blocks=args.blocks, layers=args.layers,
-        dropout=args.dropout, gcn_bool=args.gcn_bool,
-        addaptadj=args.addaptadj, n_supports=2, dtype=args.dtype)
-    train_cfg = TrainConfig(
-        batch_size=args.batch_size, learning_rate=args.learning_rate,
-        weight_decay=args.weight_decay, epochs=args.epochs,
-        print_every=args.print_every, seed=args.seed, save_dir=args.save,
-        expid=args.expid, lr_decay=args.lr_decay,
-        lr_decay_every=args.lr_decay_every, async_checkpoint=False)
-    sup_list = list(supports) + ([mask] if args.addaptadj else [])
-    engine = Engine(cfg, train_cfg, data["scaler"], device=args.device,
-                    seed=args.seed,
-                    steps_per_epoch=data["train_loader"].num_batch)
-    runner = Runner(engine, train_cfg, extra_meta={"graph_layout": layout})
-    result = runner.fit(data, sup_list)
-    runner.test(data, sup_list, result)
-    return result, runner, sup_list
+    _check_horizon(args, data)
+    cfg = model_config(args, layout["n_pad"])
+    sup_list = ([] if args.aptonly else list(supports)) + (
+        [mask] if args.addaptadj else [])
+    return _fit(args, cfg, data, sup_list,
+                extra_meta={"graph_layout": layout})
 
 
 def cli() -> None:
+    """Console-script entry: ``main``'s dict would become the exit
+    status, so drop it."""
     main()
 
 

@@ -37,7 +37,7 @@ class ModelConfig:
     fresh_nodevec: bool = False
     dtype: str = "float32"       # activation dtype ("float32" | "bfloat16")
     param_dtype: str = "float32"
-    gcn_mode: str = "auto"       # dense-support dataflow; unused by the port
+    gcn_mode: str = "auto"       # dense-support dataflow (ops.diffusion)
     remat: bool = False
 
     def __post_init__(self):
@@ -48,6 +48,15 @@ class ModelConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"dtype must be float32 or bfloat16, got {self.dtype!r}")
+
+    @property
+    def resolved_gcn_mode(self) -> str:
+        """The reference's rule, measured on the TPU: ``concat`` for bf16
+        activations, ``fused`` for fp32 (``chip_smoke.py`` times all three
+        modes on the H100)."""
+        if self.gcn_mode != "auto":
+            return self.gcn_mode
+        return "concat" if self.dtype == "bfloat16" else "fused"
 
     @property
     def supports_len(self) -> int:

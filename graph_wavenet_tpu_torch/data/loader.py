@@ -1,10 +1,12 @@
-"""Host-side in-memory batcher.
+"""Host-side batchers.
 
-A copy of ``graph_wavenet_tpu/data/loader.py``'s ``DataLoader`` (without
-the per-sample-graph variant): the tail is padded with copies of the last
-sample so the count divides the batch size, ``shuffle()`` permutes from a
-seeded numpy Generator, and iteration yields numpy slices. ``num_real``
-keeps the unpadded count.
+Copies of ``graph_wavenet_tpu/data/loader.py``'s ``DataLoader`` (without
+the per-sample-graph variant) and ``data/native_loader.py``'s
+``WindowDataLoader`` with its numpy gather (the reference's threaded
+native library is not carried over). Both pad the tail with copies of the
+last sample so the count divides the batch size, shuffle from a seeded
+numpy Generator, and yield numpy batches; ``num_real`` keeps the unpadded
+count. The device-resident loaders wait for slice 4b (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,3 +48,66 @@ class DataLoader:
         for i in range(self.num_batch):
             lo, hi = i * self.batch_size, (i + 1) * self.batch_size
             yield self.xs[lo:hi], self.ys[lo:hi]
+
+
+def gather_windows(series: np.ndarray, anchors: np.ndarray,
+                   window: int) -> np.ndarray:
+    """series (T, N, F), anchors (B,) window-start rows -> (B, window, N, F)
+    float32."""
+    series = np.asarray(series, dtype=np.float32)
+    anchors = np.asarray(anchors, dtype=np.int64)
+    t = series.shape[0]
+    if len(anchors) and (anchors.min() < 0 or anchors.max() > t - window):
+        raise ValueError(
+            f"window anchors out of range: starts must lie in "
+            f"[0, {t - window}] for a {window}-row window over {t} rows "
+            f"(got [{anchors.min()}, {anchors.max()}])")
+    return series[anchors[:, None] + np.arange(window)[None, :]]
+
+
+class WindowDataLoader:
+    """Batcher over a raw feature series: ``(x, y)`` = (the ``window``
+    rows ending at an anchor, the rows ``y_start .. horizon`` after it),
+    assembled per batch, the samples of the materialized windows without
+    the windowed copy. ``horizon`` is the last y offset, so y has ``horizon
+    - y_start + 1`` rows; ``anchors`` selects a split; ``y_series`` gives
+    the targets their own series (raw units while x is standardized)."""
+
+    def __init__(self, series: np.ndarray, window: int, horizon: int,
+                 batch_size: int, y_start: int = 1,
+                 anchors: np.ndarray | None = None,
+                 y_series: np.ndarray | None = None,
+                 rng: np.random.Generator | None = None):
+        self.series = np.ascontiguousarray(series, dtype=np.float32)
+        self.y_series = (self.series if y_series is None else
+                         np.ascontiguousarray(y_series, dtype=np.float32))
+        self.window = window
+        self.horizon = horizon
+        self.batch_size = batch_size
+        self.y_start = y_start
+        self.y_len = horizon - y_start + 1
+        self.rng = rng if rng is not None else np.random.default_rng()
+        if anchors is None:
+            anchors = self.valid_anchors(series.shape[0], window, horizon)
+        anchors = np.asarray(anchors, dtype=np.int64)
+        self.num_real = len(anchors)
+        self.anchors = pad_with_last(anchors, batch_size)
+        self.size = len(self.anchors)
+        self.num_batch = self.size // batch_size
+
+    @staticmethod
+    def valid_anchors(t: int, window: int, horizon: int) -> np.ndarray:
+        """Every anchor (the last observed row) with a full window before it
+        and ``horizon`` rows after it."""
+        return np.arange(window - 1, t - horizon, dtype=np.int64)
+
+    def shuffle(self):
+        self.anchors = self.anchors[self.rng.permutation(self.size)]
+
+    def get_iterator(self):
+        for i in range(self.num_batch):
+            a = self.anchors[i * self.batch_size:(i + 1) * self.batch_size]
+            x = gather_windows(self.series, a - (self.window - 1),
+                               self.window)
+            y = gather_windows(self.y_series, a + self.y_start, self.y_len)
+            yield x, y

@@ -6,7 +6,9 @@ A copy of ``graph_wavenet_tpu/graphs/city.py``. The layout record
 ``adaptive_hops`` when the model learns the block-masked adaptive
 adjacency) has the same keys and values as the reference's, so a checkpoint
 sidecar written by either package rebuilds the same supports in the other,
-whichever of the four forms it records. ``form="auto"`` resolves to
+whichever of the four forms it records. The port's training CLI adds
+``support_dtype``, the storage dtype of the blocks it trained on, which
+:func:`supports_from_layout` restores. ``form="auto"`` resolves to
 ``"flat"`` on every device (the reference picks ``"block"`` off the TPU):
 the flat kernels do the least work.
 
@@ -142,6 +144,53 @@ def build_city_supports(src, dst, weight, n_nodes: int, *, pos=None,
         "fused2": any(isinstance(s, Fused2FlatSupport) for s in supports),
     }
     return supports, mask, layout
+
+
+def layout_support_dtype(layout: dict, model_dtype: str) -> str:
+    """Storage dtype of the fixed supports' blocks a checkpoint trained
+    with: the layout's ``support_dtype``. Where the key is absent (the
+    reference package's checkpoints, the port's before it recorded one):
+    bf16 for a bf16 model, whose hops cast the blocks to bf16 on every use,
+    so storing them so changes no bit; fp32 otherwise."""
+    return layout.get("support_dtype",
+                      "bfloat16" if model_dtype == "bfloat16" else "float32")
+
+
+def supports_from_layout(graph_npz: str, layout: dict, model_cfg, *,
+                         device: torch.device | str = "cuda") -> list:
+    """The supports a city checkpoint trained on, rebuilt from the graph
+    file under its persisted layout: the graph fingerprint verified, never a
+    fresh ordering, the blocks stored in :func:`layout_support_dtype`, and
+    the adaptive mask (widened by the layout's ``adaptive_hops``) appended
+    when the model learned one. A model trained aptonly (``n_supports``
+    0) gets the mask alone, as the reference's ``from_city_checkpoint``
+    gives it under ``aptonly=True``."""
+    from graph_wavenet_tpu_torch.graphs.spatial import (
+        doubletransition_block_supports,
+    )
+
+    g = load_graph_npz(graph_npz)
+    fp = graph_fingerprint(g["src"], g["dst"], g["weight"], g["n_nodes"])
+    if fp != layout["fingerprint"]:
+        raise ValueError(
+            f"graph fingerprint mismatch: checkpoint trained on "
+            f"{layout['fingerprint']}, {graph_npz} is {fp}")
+    supports = doubletransition_block_supports(
+        g["src"], g["dst"], g["weight"], layout["n_pad"],
+        perm=np.asarray(layout["perm"], np.int64), form=layout["form"],
+        block_size=layout["block_size"], device=device)
+    sup_dtype = layout_support_dtype(layout, model_cfg.dtype)
+    if sup_dtype != "float32":
+        supports = [s.astype(getattr(torch, sup_dtype)) for s in supports]
+    fixed = supports if model_cfg.n_supports else []
+    if model_cfg.addaptadj:
+        from graph_wavenet_tpu_torch.ops.adaptive_block import (
+            mask_from_supports,
+        )
+
+        return fixed + [mask_from_supports(
+            supports, hops=int(layout.get("adaptive_hops", 1)))]
+    return fixed
 
 
 def apply_node_layout(arr: np.ndarray, layout: dict,

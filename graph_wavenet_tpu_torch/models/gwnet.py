@@ -1,5 +1,5 @@
-"""Graph WaveNet as an ``nn.Module`` over block-sparse supports, with the
-block-masked adaptive adjacency; eval and train mode.
+"""Graph WaveNet as an ``nn.Module``: dense or block-sparse supports, the
+adaptive adjacency dense or block-masked; eval and train mode.
 
 Counterpart of ``graph_wavenet_tpu/models/gwnet.py``. Activations stay
 channels-last ``(B, T, N, C)``; parameters carry the reference state-dict
@@ -10,24 +10,43 @@ left-padded to the true receptive field, activations run in ``cfg.dtype``
 over fp32 parameters, each layer's skip projection sees only the last
 ``T_final`` steps, and predictions leave in fp32.
 
-With ``addaptadj`` the model holds ``nodevec1 (N, r)`` and ``nodevec2 (r,
-N)`` and, given a :class:`ops.adaptive_block.BlockAdaptiveMask` among the
-supports, materializes the learned adjacency on the mask's live blocks
-every forward (in ``cfg.dtype``) and appends it to the fixed supports. In
-train mode BatchNorm uses batch statistics and the graph convolutions take
-dropout, drawn from the generator passed to :meth:`GWNet.forward`. The
-dense adaptive adjacency (no mask) waits for the dense slice.
+Supports: dense (N, N) tensors, block-sparse supports (``mix_2d``), ``[]``
+for the adaptive-only model (``aptonly``) or None for the temporal-only
+one. With ``addaptadj`` the model holds ``nodevec1 (N, r)`` and ``nodevec2
+(r, N)`` (random, or the SVD of ``aptinit``) and appends the learned
+adjacency to the fixed supports every forward: materialized on the live
+blocks of a :class:`ops.adaptive_block.BlockAdaptiveMask` among the
+supports (in ``cfg.dtype``), else dense, which the model refuses at 16,384
+nodes and more. Dense supports take ``cfg.resolved_gcn_mode``; in
+``stacked`` mode their power stacks are computed once per forward.
+
+In train mode BatchNorm uses batch statistics and the graph convolutions
+take dropout, drawn from the generator passed to :meth:`GWNet.forward`
+before each layer runs. ``cfg.remat`` recomputes every layer but the first
+in the backward (``torch.utils.checkpoint``); the dropout masks drawn
+outside and the BatchNorm statistics folded in outside the recomputed
+function keep a remat step equal to a plain one.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.config import ModelConfig
-from graph_wavenet_tpu_torch.ops.adaptive import random_nodevecs
-from graph_wavenet_tpu_torch.ops.diffusion import GCN
+from graph_wavenet_tpu_torch.ops.adaptive import (
+    adaptive_adjacency,
+    random_nodevecs,
+    svd_nodevecs,
+)
+from graph_wavenet_tpu_torch.ops.diffusion import (
+    GCN,
+    dropout_scale,
+    support_powers,
+)
 from graph_wavenet_tpu_torch.ops.linear import Linear
 from graph_wavenet_tpu_torch.ops.normalization import BatchNorm
 from graph_wavenet_tpu_torch.ops.temporal import (
@@ -38,10 +57,15 @@ from graph_wavenet_tpu_torch.ops.temporal import (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# the reference refuses the dense O(N^2) adaptive adjacency from here up
+DENSE_ADAPTIVE_MAX_NODES = 16384
+
 
 class GWNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str =
-                 "cuda", seed: int = 0):
+                 "cuda", seed: int = 0, aptinit: np.ndarray | None = None):
+        """``aptinit``: an (N, N) adjacency whose SVD initializes the
+        adaptive embeddings (None: standard-normal ones)."""
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -75,7 +99,12 @@ class GWNet(nn.Module):
         self.end_conv_1 = Linear(cfg.skip_channels, cfg.end_channels, **kw)
         self.end_conv_2 = Linear(cfg.end_channels, cfg.out_dim, **kw)
         if cfg.gcn_bool and cfg.addaptadj and not cfg.fresh_nodevec:
-            nv1, nv2 = random_nodevecs(cfg.num_nodes, cfg.adapt_rank, **kw)
+            if aptinit is None:
+                nv1, nv2 = random_nodevecs(cfg.num_nodes, cfg.adapt_rank,
+                                           **kw)
+            else:
+                e1, e2 = svd_nodevecs(aptinit, cfg.adapt_rank)
+                nv1, nv2 = (torch.as_tensor(e, dtype=pdt) for e in (e1, e2))
             self.nodevec1 = nn.Parameter(nv1)
             self.nodevec2 = nn.Parameter(nv2)
         # parameters are drawn on the CPU from one seeded generator, so a
@@ -86,38 +115,72 @@ class GWNet(nn.Module):
     def forward(self, x: torch.Tensor, supports: list | None, *,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """x (B, T, N, in_dim) -> (B, T_out, N, out_dim) fp32. ``supports``:
-        block-sparse supports, with at most one adaptive mask under
-        ``addaptadj``, or None for the temporal-only model. ``generator``:
-        the dropout stream in train mode."""
+        dense or block-sparse supports, with at most one adaptive mask under
+        ``addaptadj``; ``[]`` for the adaptive-only model, None for the
+        temporal-only one. ``generator``: the dropout stream in train
+        mode."""
         cfg = self.cfg
         x = left_pad_time(x, cfg.receptive_field)
         x = x.to(_DTYPES[cfg.dtype])
         x = self.start_conv(x)
         supports = self._with_adaptive(supports)
         use_gcn = cfg.gcn_bool and supports is not None
+        mode = cfg.resolved_gcn_mode
+        stacks = None
+        if (use_gcn and mode == "stacked" and supports
+                and all(getattr(a, "ndim", None) in (2, 3)
+                        for a in supports)):
+            stacks = [support_powers(a, cfg.diffusion_order)
+                      for a in supports]
         t_final = x.shape[1] - (cfg.kernel_size - 1) * sum(cfg.dilations())
+        draw = self.training and use_gcn and cfg.dropout > 0.0
         skip = None
         for i, dilation in enumerate(cfg.dilations()):
-            residual = x
-            x = gated_tcn_apply(self.filter_convs[i], self.gate_convs[i],
-                                residual, dilation)
-            s = self.skip_convs[i](x[:, -t_final:])
-            skip = s if skip is None else s + skip
-            if use_gcn:
-                x = self.gconv[i](x, supports, cfg.dropout, generator)
+            drop = None
+            if draw:
+                b, t, n, _ = x.shape
+                shape = (b, t - dilation * (cfg.kernel_size - 1), n,
+                         cfg.residual_channels)
+                drop = dropout_scale(generator, cfg.dropout, shape, x.dtype,
+                                     x.device)
+            args = (i, dilation, t_final, x, skip, supports, stacks, drop)
+            if cfg.remat and skip is not None and torch.is_grad_enabled():
+                x, skip, stats = checkpoint(self._layer, *args,
+                                            use_reentrant=False)
             else:
-                x = self.residual_convs[i](x)
-            x = x + residual[:, -x.shape[1]:]
-            x = self.bn[i](x)
+                x, skip, stats = self._layer(*args)
+            if stats is not None:
+                self.bn[i].track(*stats)
         out = torch.relu(skip)
         out = torch.relu(self.end_conv_1(out))
         out = self.end_conv_2(out)
         return out.float()
 
+    def _layer(self, i: int, dilation: int, t_final: int, x: torch.Tensor,
+               skip: torch.Tensor | None, supports: list | None,
+               stacks: list | None, drop: torch.Tensor | None):
+        """One WaveNet layer: gated TCN, skip projection, graph conv (or the
+        residual 1x1 of the temporal-only model), residual, BatchNorm.
+        Returns ``(x, skip, bn_stats)``; the caller folds ``bn_stats``
+        into the running statistics."""
+        residual = x
+        x = gated_tcn_apply(self.filter_convs[i], self.gate_convs[i],
+                            residual, dilation)
+        s = self.skip_convs[i](x[:, -t_final:])
+        skip = s if skip is None else s + skip
+        if supports is not None and self.cfg.gcn_bool:
+            x = self.gconv[i](x, supports, drop=drop,
+                              mode=self.cfg.resolved_gcn_mode, stacks=stacks)
+        else:
+            x = self.residual_convs[i](x)
+        x = x + residual[:, -x.shape[1]:]
+        x, stats = self.bn[i].normalize(x)
+        return x, skip, stats
+
     def _with_adaptive(self, supports: list | None) -> list | None:
         """The supports the layers diffuse over: the fixed ones, plus the
-        adaptive adjacency materialized from the mask under ``addaptadj``
-        (the reference's ``apply_gwnet`` checks, in its order)."""
+        adaptive adjacency under ``addaptadj`` (the reference's
+        ``apply_gwnet`` checks, in its order)."""
         cfg = self.cfg
         if supports is None:
             return None
@@ -135,12 +198,6 @@ class GWNet(nn.Module):
                 "fresh_nodevec=True reproduces the diff-G per-forward "
                 "random embeddings; the shared-graph model has no such "
                 "mode; unset fresh_nodevec")
-        if not masks:
-            raise NotImplementedError(
-                "addaptadj without a BlockAdaptiveMask needs the dense "
-                "adaptive adjacency, which comes with the dense slice "
-                "(ROADMAP.md); put ops.adaptive_block.mask_from_supports("
-                "fixed) in the supports list")
         if len(masks) > 1:
             raise ValueError(
                 f"supports contain {len(masks)} BlockAdaptiveMasks; the "
@@ -148,6 +205,16 @@ class GWNet(nn.Module):
                 "single mask")
         fixed = [s for s in supports
                  if not getattr(s, "adaptive_mask", False)]
-        adp = masks[0].materialize(self.nodevec1, self.nodevec2,
-                                   out_dtype=_DTYPES[cfg.dtype])
+        if masks:
+            adp = masks[0].materialize(self.nodevec1, self.nodevec2,
+                                       out_dtype=_DTYPES[cfg.dtype])
+        elif cfg.num_nodes >= DENSE_ADAPTIVE_MAX_NODES:
+            raise ValueError(
+                "addaptadj without a BlockAdaptiveMask at "
+                f"num_nodes={cfg.num_nodes} would materialize the dense "
+                "O(N^2) adaptive adjacency; put a mask in the supports list "
+                "(ops.adaptive_block.mask_from_supports(fixed), or "
+                "mask_from_pairs with a chosen pattern for aptonly)")
+        else:
+            adp = adaptive_adjacency(self.nodevec1, self.nodevec2)
         return fixed + [adp]

@@ -35,11 +35,13 @@ row is visited::
   blocks' cotangent is kernel 2 (one fp32 outer product per forward-table
   entry), written straight into storage order (the reference's gather by
   ``inv_slot``) and the blocks' dtype;
-- both order-2 hops (``mix2_2d``, fused supports): the transpose chain
-  ``g1_eff = g1 + mixT(g2); dx = mixT(g1_eff)`` is one kernel-3 launch over
+- both order-2 hops (``mix2_2d``, fused supports): forward, one kernel-3
+  launch or kernel 1 twice, as ``fused2_dispatch`` picks; the transpose
+  chain ``g1_eff = g1 + mixT(g2); dx = mixT(g1_eff)`` is the same pair over
   the transpose tables with ``add = g1`` where the transpose band fuses
-  (``delay_t > 0``), two kernel-1 launches otherwise; the blocks' cotangent
-  is two kernel-2 launches, ``x (x) g1_eff`` and ``out1 (x) g2``.
+  (``delay_t > 0``), two kernel-1 launches otherwise; the blocks'
+  cotangent is two kernel-2 launches, ``x (x) g1_eff`` and ``out1 (x)
+  g2``.
 
 The blocks are an input of the autograd functions, so a support whose
 blocks require a gradient (the materialized adaptive adjacency) passes it
@@ -435,7 +437,8 @@ class Fused2FlatSupport(FlatBlockSparseSupport):
     lag_t: int = 0
 
     def mix2_2d(self, x2: torch.Tensor):
-        """(N, R) -> ((N, R), (N, R)): hop and hop-of-hop in one pass."""
+        """(N, R) -> ((N, R), (N, R)): hop and hop-of-hop, kernel 3 or two
+        kernel-1 launches as ``fused2_dispatch`` picks for R and dtype."""
         # the blocks enter twice, hop 2's cotangent first, so that autograd
         # sums the two in the order two chained mix_2d hops deliver them
         # and the gradients equal the unfused support's bit for bit

@@ -7,7 +7,8 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
   x[src[l]]``, fp32 accumulation, one cast per output tile;
 - :func:`gathered_block_mix_flat2` (kernel 3, ``csrc/mix_flat2.cu``): both
   order-2 hops in one launch, with an optional ``add`` after the inter-hop
-  cast; bitwise equal to two calls of kernel 1;
+  cast; bitwise equal to two calls of kernel 1, which it makes instead
+  where :func:`fused2_dispatch` says they are faster;
 - :func:`gathered_block_outer_flat` (kernel 2, ``csrc/outer_flat.cu``): the
   per-entry weight cotangent ``x[src[l]] . g[row[l]]^T`` over R, fp32 out,
   or, given the storage slots, written straight in storage order and dtype;
@@ -67,6 +68,30 @@ def tile_cols(r: int, dtype: torch.dtype) -> int:
         return 64
     pad128, pad256 = -(-r // 128) * 128, -(-r // 256) * 256
     return 128 if 9 * pad128 < 8 * pad256 else 256
+
+
+DISPATCHES = ("auto", "chain", "fused")
+
+# R at which kernel 3 beats kernel 1 + add + kernel 1 on the H100, by
+# activation dtype and whether the pair has ``add``: (least, most), None
+# unbounded. fp32: one pass saves a read of out1 once the FMA product runs
+# long enough; bf16: two launches cost more than one pass only at R <= 128,
+# where a launch is mostly fixed cost. chip_smoke.py's ``dispatch`` phase
+# times both branches at every R of the main paths; PERF.md has the table.
+FUSED2_R = {(torch.float32, False): (512, None),
+            (torch.float32, True): (448, None),
+            (torch.bfloat16, False): (0, 128),
+            (torch.bfloat16, True): (0, 128)}
+
+
+def fused2_dispatch(r: int, dtype: torch.dtype, *, add: bool) -> str:
+    """``"fused"`` (kernel 3) or ``"chain"`` (two kernel-1 launches) for an
+    order-2 hop pair of ``r`` columns of ``dtype``, with or without
+    ``add``: the faster of the two on the H100 (:data:`FUSED2_R`)."""
+    least, most = FUSED2_R.get((dtype, bool(add)), (None, None))
+    fused = (least is not None and r >= least
+             and (most is None or r <= most))
+    return "fused" if fused else "chain"
 
 
 def flag_count(nb: int, r: int, dtype: torch.dtype) -> int:
@@ -283,16 +308,25 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
                              row: torch.Tensor, *, nb: int, lag: int,
                              transpose_lhs: bool,
                              add: torch.Tensor | None = None,
-                             row_ptr: torch.Tensor | None = None):
-    """Both order-2 hops in one launch: ``(out1, out2)``, each (nb, BS, R),
-    out1 = mix(x) [+ add after the cast], out2 = mix(out1). Square blocks.
-    Every destination row must appear in ``row`` (the flat builders add
+                             row_ptr: torch.Tensor | None = None,
+                             dispatch: str = "auto"):
+    """Both order-2 hops: ``(out1, out2)``, each (nb, BS, R), out1 = mix(x)
+    [+ add after the cast], out2 = mix(out1). Square blocks. Every
+    destination row must appear in ``row`` (the flat builders add
     zero-block dummy entries).
 
+    ``dispatch``: ``"fused"`` launches kernel 3 (one pass), ``"chain"``
+    kernel 1, then ``+ add``, then kernel 1 again, which is the same
+    function bit for bit; ``"auto"`` takes :func:`fused2_dispatch`'s
+    choice for this dtype, R and ``add``.
+
     ``lag`` (:func:`fused2_lag`) replaces the reference's ``delay`` and
-    ``ring_w``: the kernel runs hop 2 of row ``i`` after hop 1 of row
+    ``ring_w``: kernel 3 runs hop 2 of row ``i`` after hop 1 of row
     ``i + lag``, and keeps finished out1 rows in device memory rather than
     in a ring."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"dispatch must be one of {DISPATCHES}, got "
+                         f"{dispatch!r}")
     bs = blocks.shape[1]
     if blocks.shape[2] != bs:
         raise ValueError("the fused order-2 chain needs square blocks")
@@ -301,6 +335,17 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
     if add is not None and add.shape != x.shape:
         raise ValueError(f"add {tuple(add.shape)} must match x "
                          f"{tuple(x.shape)}")
+    if dispatch == "auto":
+        dispatch = fused2_dispatch(x.shape[2], x.dtype, add=add is not None)
+    if dispatch == "chain":
+        o1 = gathered_block_mix_flat(blocks, slot, x, src, row, nb=nb,
+                                     transpose_lhs=transpose_lhs,
+                                     row_ptr=row_ptr)
+        if add is not None:
+            o1 = o1 + add.to(o1.dtype)
+        return o1, gathered_block_mix_flat(blocks, slot, o1, src, row, nb=nb,
+                                           transpose_lhs=transpose_lhs,
+                                           row_ptr=row_ptr)
     if x.device.type == "cpu":
         return mix_flat2_plain(blocks, slot, x, src, row, nb=nb,
                                transpose_lhs=transpose_lhs, add=add)

@@ -1,15 +1,32 @@
-"""Diffusion graph convolution over block-sparse supports.
+"""Diffusion graph convolution: dense supports and block-sparse ones.
 
-Counterpart of ``graph_wavenet_tpu/ops/diffusion.py``'s all-sparse path
-(``_gcn_apply_sparse``): the node axis moves to the front once for the
-whole hop block, ``(B, T, N, C) -> (N, R)`` with ``R = B*T*C``; every hop
-is a support's ``mix_2d`` (or both order-2 hops at once through a fused
-support's ``mix2_2d``); every hop is projected in place and accumulated in
-fp32. The projection weight's row blocks follow the reference concat
-order ``[x, s1 hop1, s1 hop2, ..., sS hop1, sS hop2]``. In training the
-projected output takes inverted dropout.
+Counterpart of ``graph_wavenet_tpu/ops/diffusion.py``. The diffusion step
+:func:`nconv` is ``x[b,t,v,c] A[v,w] -> [b,t,w,c]``: it contracts the
+support's *first* axis. The projection weight's row blocks follow the
+reference concat order ``[x, s1 hop1, s1 hop2, ..., sS hop1, sS hop2]``; in
+training the projected output takes inverted dropout.
 
-Dense supports (the flagship's modes) come with a later slice.
+Dense supports ((N, N), or (B, N, N) per sample) run one of three modes,
+equal to accumulation rounding:
+
+- ``fused``: ``h += hop_k @ W_k`` with the weight split per hop;
+- ``concat``: the concatenated hops, then one matmul;
+- ``stacked``: the power stack ``[A, ..., A^order]`` of each support
+  (:func:`support_powers`, computed once per forward and passed as
+  ``stacks``) makes all hops of a support in one wide contraction, then one
+  (hop, channel) projection. A list that mixes sparse and dense supports
+  runs ``fused``.
+
+Every product casts its weight or support to the activation dtype and
+accumulates in fp32 by an upcast of both operands (``ops.linear``'s
+convention), then casts once. These products are plain ``torch.matmul`` and
+``einsum``: the reference computes them outside any Pallas kernel.
+
+All-sparse lists (every support has ``mix_2d``) take the reference's
+``_gcn_apply_sparse``: the node axis moves to the front once for the whole
+hop block, ``(B, T, N, C) -> (N, R)`` with ``R = B*T*C``; every hop is a
+support's ``mix_2d`` (or both order-2 hops at once through a fused
+support's ``mix2_2d``), projected in place and accumulated in fp32.
 """
 
 from __future__ import annotations
@@ -18,6 +35,9 @@ import torch
 from torch import nn
 
 from graph_wavenet_tpu_torch.ops.linear import Linear, channel_matmul
+from graph_wavenet_tpu_torch.ops.sparse import nconv_sparse
+
+GCN_MODES = ("fused", "stacked", "concat")
 
 
 class _Mlp(nn.Module):
@@ -44,12 +64,15 @@ class GCN(nn.Module):
                                generator=generator, device=device,
                                dtype=dtype))
 
-    def forward(self, x: torch.Tensor, supports: list, dropout: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, supports: list, *,
+                drop: torch.Tensor | None = None, mode: str = "fused",
+                stacks: list | None = None) -> torch.Tensor:
+        """``drop``: a :func:`dropout_scale` mask drawn beforehand, applied
+        in train mode only."""
         lin = self.mlp.mlp
         return gcn_apply(lin.weight, lin.bias, x, supports, self.order,
-                         dropout=dropout if self.training else 0.0,
-                         generator=generator)
+                         drop=drop if self.training else None, mode=mode,
+                         stacks=stacks)
 
 
 def dropout_scale(generator: torch.Generator | None, p: float, shape,
@@ -61,24 +84,125 @@ def dropout_scale(generator: torch.Generator | None, p: float, shape,
     return keep.to(dtype) / torch.tensor(1.0 - p, dtype=dtype, device=device)
 
 
+def nconv(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """One diffusion step over a shared dense support: x (B, T, N, C), A
+    (N, N) -> (B, T, N, C), ``out[w] = sum_v x[v] A[v, w]``."""
+    return torch.einsum("btvc,vw->btwc", x.float(),
+                        a.to(x.dtype).float()).to(x.dtype)
+
+
+def nconv_batched(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """One diffusion step over per-sample supports A (B, N, N)."""
+    return torch.einsum("btvc,bvw->btwc", x.float(),
+                        a.to(x.dtype).float()).to(x.dtype)
+
+
+def _is_sparse(a) -> bool:
+    return hasattr(a, "mix_2d")
+
+
+def diffusion_hops(x: torch.Tensor, supports: list,
+                   order: int) -> list[torch.Tensor]:
+    """``[x, A1 x, A1^2 x, ..., AS x, ..., AS^order x]`` in the reference
+    concat order. A support is (N, N), batched (B, N, N), or sparse (any
+    support with ``mix_2d``, stepped by :func:`ops.sparse.nconv_sparse`)."""
+    hops = [x]
+    for a in supports:
+        if _is_sparse(a):
+            step = nconv_sparse
+        else:
+            step = nconv_batched if a.ndim == 3 else nconv
+        xk = x
+        for _ in range(order):
+            xk = step(xk, a)
+            hops.append(xk)
+    return hops
+
+
+def support_powers(a: torch.Tensor, order: int) -> torch.Tensor:
+    """``[A, A^2, ..., A^order]`` stacked on a hop axis: (N, N) ->
+    (order, N, N), (B, N, N) -> (B, order, N, N), in the support's dtype."""
+    powers = [a]
+    for _ in range(order - 1):
+        powers.append(powers[-1] @ a)
+    return torch.stack(powers, dim=-3)
+
+
+def _stacked_hops_project(x: torch.Tensor, pw: torch.Tensor,
+                          wk: torch.Tensor, order: int) -> torch.Tensor:
+    """All ``order`` hops of one support from its power stack ``pw`` in one
+    contraction, projected with one (hop, channel) contraction by ``wk``
+    (order*C, F), this support's rows in concat order. Returns fp32."""
+    c_in, f = x.shape[-1], wk.shape[-1]
+    pw = pw.to(x.dtype).float()
+    eq = "btvc,bkvw->btkwc" if pw.ndim == 4 else "btvc,kvw->btkwc"
+    hops = torch.einsum(eq, x.float(), pw).to(x.dtype)
+    wk = wk.reshape(order, c_in, f).to(x.dtype).float()
+    return torch.einsum("btkwc,kcf->btwf", hops.float(), wk)
+
+
 def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
-              supports: list, order: int = 2, *, dropout: float = 0.0,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              supports: list, order: int = 2, *,
+              drop: torch.Tensor | None = None, mode: str = "fused",
+              stacks: list | None = None) -> torch.Tensor:
     """Diffusion conv: x (B, T, N, C) -> (B, T, N, F). weight (F,
-    n_hops*C, 1, 1) in the reference Conv2d shape. ``dropout`` > 0 (train
-    mode only) multiplies the output by a :func:`dropout_scale` mask drawn
-    from ``generator``."""
-    if not supports or not all(hasattr(s, "mix_2d") for s in supports):
-        raise NotImplementedError(
-            "the port runs the all-sparse gcn path only; dense supports "
-            "come with the flagship slice (ROADMAP.md)")
-    b, t, n, c_in = x.shape
+    n_hops*C, 1, 1) in the reference Conv2d shape. ``mode``: the dense
+    dataflow (``fused``, ``stacked`` or ``concat``); ``stacks``: the
+    supports' :func:`support_powers`, precomputed for ``stacked``. ``drop``
+    (a :func:`dropout_scale` mask, train mode only) multiplies the
+    output."""
+    if mode not in GCN_MODES:
+        raise ValueError(f"mode must be one of {GCN_MODES}, got {mode!r}")
+    c_in = x.shape[-1]
     w = weight[:, :, 0, 0].t()                     # (n_hops*C, F)
     n_hops = len(supports) * order + 1
     if w.shape[0] != n_hops * c_in:
         raise ValueError(
             f"gcn weight expects {w.shape[0] // c_in} hops, got {n_hops}: "
             "n_supports at init must match the supports list")
+    if supports and all(_is_sparse(s) for s in supports):
+        b, t, n, _ = x.shape
+        h = (_sparse_hops_project(w, x, supports, order)
+             + bias.float()).to(x.dtype)                # (N, B*T, F)
+        h = h.reshape(n, b, t, -1).permute(1, 2, 0, 3).contiguous()
+    else:
+        h = (_dense_hops_project(w, x, supports, order, mode, stacks)
+             + bias.float()).to(x.dtype)
+    if drop is not None:
+        h = h * drop
+    return h
+
+
+def _dense_hops_project(w: torch.Tensor, x: torch.Tensor, supports: list,
+                        order: int, mode: str,
+                        stacks: list | None) -> torch.Tensor:
+    """Dense or mixed supports in ``mode`` (``stacked`` falls back to
+    ``fused`` when a support is sparse); returns the fp32 sum (B, T, N, F)
+    before the bias."""
+    c_in = x.shape[-1]
+    if mode == "stacked" and not any(_is_sparse(s) for s in supports):
+        if stacks is None:
+            stacks = [support_powers(a, order) for a in supports]
+        h = channel_matmul(x, w[:c_in])
+        for s, pw in enumerate(stacks):
+            lo = (1 + s * order) * c_in
+            h = h + _stacked_hops_project(x, pw, w[lo:lo + order * c_in],
+                                          order)
+        return h
+    hops = diffusion_hops(x, supports, order)
+    if mode == "concat":
+        return channel_matmul(torch.cat(hops, dim=-1), w)
+    h = channel_matmul(hops[0], w[:c_in])
+    for k in range(1, len(hops)):
+        h = h + channel_matmul(hops[k], w[k * c_in:(k + 1) * c_in])
+    return h
+
+
+def _sparse_hops_project(w: torch.Tensor, x: torch.Tensor, supports: list,
+                         order: int) -> torch.Tensor:
+    """The all-sparse path: every hop node-leading, projected in place;
+    returns the fp32 sum (N, B*T, F) before the bias."""
+    b, t, n, c_in = x.shape
     xn = x.permute(2, 0, 1, 3).reshape(n, b * t * c_in)
 
     def project(xk, k):
@@ -98,9 +222,4 @@ def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
             xk = sp.mix_2d(xk)
             h = h + project(xk, k)
             k += 1
-    h = (h + bias.float()).to(x.dtype)             # (N, B*T, F)
-    f = h.shape[-1]
-    h = h.reshape(n, b, t, f).permute(1, 2, 0, 3).contiguous()
-    if dropout > 0.0:
-        h = h * dropout_scale(generator, dropout, h.shape, h.dtype, h.device)
     return h

@@ -35,22 +35,38 @@ class BatchNorm(nn.Module):
                              torch.zeros((), device=device, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, stats = self.normalize(x)
+        if stats is not None:
+            self.track(*stats)
+        return y
+
+    def normalize(self, x: torch.Tensor):
+        """``(y, stats)`` without touching the running statistics: in train
+        mode ``stats`` = (batch mean, biased variance, count) for
+        :meth:`track`, in eval mode None. The model's rematerialized layers
+        call this, so a recomputation does not count a batch twice."""
         xf = x.float()
+        stats = None
         if self.training:
             dims = tuple(range(x.ndim - 1))
             mean = xf.mean(dim=dims)
             var = ((xf - mean) ** 2).mean(dim=dims)        # biased
-            n = float(x.numel() // x.shape[-1])
-            with torch.no_grad():
-                m = MOMENTUM
-                unbiased = var * (n / max(n - 1.0, 1.0))
-                self.running_mean.copy_(
-                    (1 - m) * self.running_mean.float() + m * mean)
-                self.running_var.copy_(
-                    (1 - m) * self.running_var.float() + m * unbiased)
-                self.num_batches_tracked += 1
+            stats = (mean.detach(), var.detach(),
+                     float(x.numel() // x.shape[-1]))
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         inv = torch.rsqrt(var + self.eps)
         y = (xf - mean) * inv * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        return y.to(x.dtype), stats
+
+    @torch.no_grad()
+    def track(self, mean: torch.Tensor, var: torch.Tensor, n: float) -> None:
+        """Fold one batch's statistics into the running ones (unbiased
+        variance, momentum 0.1)."""
+        m = MOMENTUM
+        unbiased = var * (n / max(n - 1.0, 1.0))
+        self.running_mean.copy_((1 - m) * self.running_mean.float()
+                                + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var.float()
+                               + m * unbiased)
+        self.num_batches_tracked += 1

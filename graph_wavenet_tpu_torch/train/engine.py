@@ -51,12 +51,14 @@ class Engine:
     """The model, its optimizer and the dropout generator, on ``device``.
     ``seed`` (default ``train_cfg.seed``) draws the weights and seeds the
     dropout stream; ``steps_per_epoch`` converts the step decay's epochs to
-    optimizer steps."""
+    optimizer steps; ``aptinit``: the adjacency whose SVD initializes the
+    adaptive embeddings (:class:`models.gwnet.GWNet`)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  scaler: StandardScaler | None, *,
                  device: torch.device | str = "cuda",
-                 seed: int | None = None, steps_per_epoch: int = 0):
+                 seed: int | None = None, steps_per_epoch: int = 0,
+                 aptinit=None):
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -68,7 +70,8 @@ class Engine:
         self.scaler = scaler or StandardScaler(0.0, 1.0)
         self.steps_per_epoch = steps_per_epoch
         seed = train_cfg.seed if seed is None else seed
-        self.model = GWNet(model_cfg, device=self.device, seed=seed)
+        self.model = GWNet(model_cfg, device=self.device, seed=seed,
+                           aptinit=aptinit)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=train_cfg.learning_rate,
             weight_decay=train_cfg.weight_decay, eps=1e-8)

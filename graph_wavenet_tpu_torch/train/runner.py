@@ -115,10 +115,12 @@ class Runner:
                      f"{result.best_val_loss:.4f}")
         return result
 
-    def test(self, data: dict, supports,
-             result: RunResult | None = None) -> RunResult:
+    def test(self, data: dict, supports, result: RunResult | None = None,
+             return_predictions: bool = False) -> RunResult:
         """Per-horizon test: predictions are truncated to the real test
-        count, inverse-transformed and scored per horizon step."""
+        count, inverse-transformed by the engine's scaler and scored per
+        horizon step. ``return_predictions``: also keep the standardized
+        predictions (n, N, H) as ``test_metrics["yhat"]``, a numpy array."""
         result = result or RunResult()
         engine = self.engine
         outputs = [engine.predict_step(x, supports)[:, 0]     # (B, N, H)
@@ -138,6 +140,8 @@ class Runner:
         result.test_metrics = {
             name: float(np.mean([m[i] for m in per_h]))
             for i, name in enumerate(("mae", "mape", "rmse"))}
+        if return_predictions:
+            result.test_metrics["yhat"] = yhat.cpu().numpy()
         self.log("On average over seq_length horizons, Test MAE: "
                  f"{result.test_metrics['mae']:.4f}, Test MAPE: "
                  f"{result.test_metrics['mape']:.4f}, Test RMSE: "

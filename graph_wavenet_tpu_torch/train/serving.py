@@ -66,13 +66,12 @@ class Forecaster:
                              ) -> "Forecaster":
         """City-scale checkpoint: verifies the sidecar's graph fingerprint
         against ``graph_npz``, rebuilds the block-sparse supports under the
-        persisted node permutation (and the adaptive mask, widened by the
-        layout's ``adaptive_hops``, when the model learned one), and
-        returns a Forecaster that predicts in original node order."""
+        persisted node permutation in the dtype they trained in (and the
+        adaptive mask, widened by the layout's ``adaptive_hops``, when the
+        model learned one; the mask alone for a model trained aptonly,
+        ``n_supports`` 0, which the reference asks ``aptonly=True`` for),
+        and returns a Forecaster that predicts in original node order."""
         from graph_wavenet_tpu_torch.graphs import city
-        from graph_wavenet_tpu_torch.graphs.spatial import (
-            doubletransition_block_supports,
-        )
         from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 
         device = resolve_device(device)
@@ -82,25 +81,8 @@ class Forecaster:
             raise ValueError(
                 f"{path} has no graph_layout sidecar record; it was not "
                 "trained on a city graph, use from_checkpoint")
-        g = city.load_graph_npz(graph_npz)
-        fp = city.graph_fingerprint(g["src"], g["dst"], g["weight"],
-                                    g["n_nodes"])
-        if fp != layout["fingerprint"]:
-            raise ValueError(
-                f"graph fingerprint mismatch: checkpoint trained on "
-                f"{layout['fingerprint']}, {graph_npz} is {fp}")
-        supports = doubletransition_block_supports(
-            g["src"], g["dst"], g["weight"], layout["n_pad"],
-            perm=np.asarray(layout["perm"], np.int64),
-            form=layout["form"], block_size=layout["block_size"],
-            device=device)
-        if meta["model_cfg"].addaptadj:
-            from graph_wavenet_tpu_torch.ops.adaptive_block import (
-                mask_from_supports,
-            )
-
-            supports = supports + [mask_from_supports(
-                supports, hops=int(layout.get("adaptive_hops", 1)))]
+        supports = city.supports_from_layout(graph_npz, layout,
+                                             meta["model_cfg"], device=device)
         fc = cls.from_checkpoint(path, supports, device=device)
         fc.node_layout = layout
         return fc

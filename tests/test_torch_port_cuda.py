@@ -12,7 +12,9 @@ what ``chip_smoke.py`` does not cover: ragged R just below, at and above
 every tile width ``tile_cols`` can pick (including R not a multiple of 8,
 where the bf16 kernels copy x by element loads instead of TMA), rows with
 no entries, kernel 3 in the transpose orientation, repeated bit for bit and
-with an ``add`` one element into its storage, and the wrappers' refusals;
+with an ``add`` one element into its storage, its ``dispatch`` branches
+bit for bit (``"auto"`` launching what ``fused2_dispatch`` picks), and the
+wrappers' refusals;
 kernel 2 (the weight cotangent)
 at ragged R on square, rectangular and tall blocks, per entry and in
 storage order (bitwise against the per-entry result gathered); the hops'
@@ -143,7 +145,7 @@ def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
     before = bd.LAUNCHES["gathered_block_mix_flat2"]
     o1, o2 = bd.gathered_block_mix_flat2(
         *args, nb=nb, lag=bd.fused2_lag(row, src),
-        transpose_lhs=transpose_lhs, add=add)
+        transpose_lhs=transpose_lhs, add=add, dispatch="fused")
     assert bd.LAUNCHES["gathered_block_mix_flat2"] == before + 1
     c1 = bd.gathered_block_mix_flat(*args, nb=nb,
                                     transpose_lhs=transpose_lhs)
@@ -159,6 +161,43 @@ def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
     assert_close(o2, bd.mix_flat_plain(blocks, args[1], o1, args[3],
                                        args[4], nb=nb,
                                        transpose_lhs=transpose_lhs))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [96, 384, 520])
+@pytest.mark.parametrize("with_add", [False, True], ids=["plain", "add"])
+def test_kernel3_dispatch_branches_agree(card, dtype, r, with_add):
+    """``dispatch="chain"`` and ``"fused"`` give the same bits; ``"auto"``
+    launches what ``fused2_dispatch`` picks: kernel 3 once, or kernel 1
+    twice."""
+    nb = 9
+    row, src, slot, n_live = tables(300 + r, nb, nb, band=3)
+    gen = torch.Generator(device=card).manual_seed(r)
+    blocks = (torch.rand(n_live + 1, 128, 128, device=card, generator=gen)
+              / 16).to(dtype)
+    blocks[n_live] = 0
+    x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    add = (torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+           if with_add else None)
+    args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
+    outs, launches = {}, {}
+    for d in bd.DISPATCHES:
+        before = dict(bd.LAUNCHES)
+        outs[d] = bd.gathered_block_mix_flat2(
+            *args, nb=nb, lag=bd.fused2_lag(row, src), transpose_lhs=True,
+            add=add, dispatch=d)
+        launches[d] = {k: bd.LAUNCHES[k] - before[k]
+                       for k in ("gathered_block_mix_flat",
+                                 "gathered_block_mix_flat2")}
+    torch.cuda.synchronize()
+    for d in ("chain", "auto"):
+        assert all(torch.equal(a, b) for a, b in zip(outs[d], outs["fused"]))
+    assert launches["fused"] == {"gathered_block_mix_flat": 0,
+                                 "gathered_block_mix_flat2": 1}
+    assert launches["chain"] == {"gathered_block_mix_flat": 2,
+                                 "gathered_block_mix_flat2": 0}
+    pick = bd.fused2_dispatch(r, dtype, add=with_add)
+    assert launches["auto"] == launches[pick]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -303,7 +342,8 @@ def test_kernel3_repeats_bit_for_bit(card, r, transpose_lhs):
     lag = bd.fused2_lag(row, src)
     assert lag > 0
     runs = [bd.gathered_block_mix_flat2(*args, nb=nb, lag=lag,
-                                        transpose_lhs=transpose_lhs, add=add)
+                                        transpose_lhs=transpose_lhs, add=add,
+                                        dispatch="fused")
             for _ in range(5)]
     c1 = bd.gathered_block_mix_flat(*args, nb=nb,
                                     transpose_lhs=transpose_lhs) + add
@@ -317,7 +357,9 @@ def test_kernel3_repeats_bit_for_bit(card, r, transpose_lhs):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "chained"])
 def test_hop_backward_matches_cpu(card, fused):
     """dx and dblocks of both hops of a 128-block support on the card
-    (kernels 1, 2, 3) against the CPU's plain versions."""
+    (kernels 1, 2, 3: fp32 R = 512 is inside kernel 3's range of the
+    dispatch rule, forward and over the transpose tables) against the
+    CPU's plain versions."""
     from graph_wavenet_tpu_torch.ops import block_sparse as tbs
 
     n = 1024
@@ -325,7 +367,10 @@ def test_hop_backward_matches_cpu(card, fused):
     src = rng.integers(0, n, size=6000)
     dst = np.clip(src + rng.integers(-200, 200, size=6000), 0, n - 1)
     w = rng.random(6000).astype(np.float32)
-    x_np = rng.normal(size=(n, 96)).astype(np.float32)
+    r = 512
+    assert all(bd.fused2_dispatch(r, torch.float32, add=a) == "fused"
+               for a in (False, True))
+    x_np = rng.normal(size=(n, r)).astype(np.float32)
     grads = {}
     for dev in ("cpu", "cuda"):
         sp = tbs.as_fused2(tbs.from_edges_flat(src, dst, w, n, 128, 128,
@@ -364,7 +409,7 @@ def test_cuda_tensors_never_take_the_plain_version(card):
         bd.gathered_block_mix_flat2(
             torch.zeros(n_live + 1, 16, 16, device=card), t[0],
             torch.zeros(4, 16, 8, device=card), t[1], t[2], nb=4, lag=1,
-            transpose_lhs=True)
+            transpose_lhs=True, dispatch="fused")
     with pytest.raises(TypeError, match="x's dtype"):
         bd.gathered_block_mix_flat(
             torch.zeros(n_live + 1, 128, 128, device=card), t[0],

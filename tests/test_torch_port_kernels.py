@@ -313,3 +313,99 @@ def test_flag_count_covers_every_tile(r):
         n = tbd.flag_count(nb, r, dtype)
         assert n == nb * -(-r // ct) + 1
         assert (n - 1) * ct >= nb * r and (n - 1 - nb) * ct < nb * r
+
+
+# ---------------------------------------------------------------------------
+# kernel 3's dispatch: one fused pass or kernel 1 + add + kernel 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_add", [False, True], ids=["plain", "add"])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "dx"])
+def test_mix_flat2_chain_equals_fused_bit_for_bit(rng, with_add,
+                                                  transpose_lhs):
+    """The chain (two kernel-1 plain versions, ``+ add`` after the cast)
+    and the fused plain version agree bit for bit, and ``"auto"`` gives the
+    same numbers; no branch launches a kernel on CPU tensors."""
+    nb, bs, r = 6, 16, 40
+    row, src, slot, n_live, _ = flat_tables(rng, nb, nb, 3, band=2)
+    blocks = torch.as_tensor(rng.normal(size=(n_live + 1, bs, bs)).astype(
+        np.float32))
+    blocks[n_live] = 0
+    x = torch.as_tensor(rng.normal(size=(nb, bs, r)).astype(np.float32))
+    add = (torch.as_tensor(rng.normal(size=(nb, bs, r)).astype(np.float32))
+           if with_add else None)
+    tbd.reset_launch_counts()
+    outs = {d: tbd.gathered_block_mix_flat2(
+        blocks, as_t(slot), x, as_t(src), as_t(row), nb=nb, lag=2,
+        transpose_lhs=transpose_lhs, add=add, dispatch=d)
+        for d in tbd.DISPATCHES}
+    for d in ("chain", "auto"):
+        for got, want in zip(outs[d], outs["fused"]):
+            assert torch.equal(got, want), d
+    assert not any(tbd.LAUNCHES.values())
+
+
+def test_mix_flat2_dispatch_is_validated():
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dispatch must be one of"):
+        tbd.gathered_block_mix_flat2(torch.zeros(2, 16, 16), one,
+                                     torch.zeros(1, 16, 4), one, one, nb=1,
+                                     lag=0, transpose_lhs=True,
+                                     dispatch="fuse")
+
+
+def test_fused2_dispatch_rule():
+    """The card's rule (PERF.md's table): fp32 fuses from R = 512 forward
+    and from 448 with ``add``; bf16 fuses only at R <= 128, where two
+    launches cost more than one pass."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    want = {(f32, False): {32: "chain", 448: "chain", 512: "fused",
+                           3072: "fused"},
+            (f32, True): {384: "chain", 448: "fused", 1536: "fused"},
+            (bf16, False): {32: "fused", 128: "fused", 129: "chain",
+                            384: "chain", 3072: "chain"},
+            (bf16, True): {128: "fused", 384: "chain", 1536: "chain"}}
+    for (dtype, add), cases in want.items():
+        for r, branch in cases.items():
+            assert tbd.fused2_dispatch(r, dtype, add=add) == branch, (
+                dtype, add, r)
+    assert tbd.fused2_dispatch(512, torch.float16, add=False) == "chain"
+
+
+@pytest.mark.parametrize("r", [24, 512])
+def test_fused_support_follows_the_dispatch_rule(rng, monkeypatch, r):
+    """A fused support's forward and transpose-table backward take the
+    branch ``fused2_dispatch`` picks for their R (fp32: the chain at 24,
+    kernel 3 at 512, with and without ``add``); either way its outputs and
+    gradients equal the unfused support's bit for bit."""
+    from graph_wavenet_tpu_torch.ops import block_sparse as tbs
+
+    n = 96
+    src = rng.integers(0, n, size=400)
+    dst = np.clip(src + rng.integers(-20, 20, size=400), 0, n - 1)
+    w = rng.random(400).astype(np.float32)
+    flat = tbs.from_edges_flat(src, dst, w, n, 16, 16, device="cpu")
+    fused = tbs.as_fused2(flat)
+    assert isinstance(fused, tbs.Fused2FlatSupport) and fused.delay_t > 0
+    assert tbs.as_fused2(fused) is fused
+    passes = []
+    plain = tbd.mix_flat2_plain
+    monkeypatch.setattr(tbd, "mix_flat2_plain",
+                        lambda *a, **k: passes.append(k["add"] is not None)
+                        or plain(*a, **k))
+    x_np = rng.normal(size=(n, r)).astype(np.float32)
+    got = {}
+    for name, sp in (("fused", fused), ("unfused", tbs.as_unfused(fused))):
+        x = torch.as_tensor(x_np).requires_grad_(True)
+        if name == "fused":
+            o1, o2 = sp.mix2_2d(x)
+        else:
+            o1 = sp.mix_2d(x)
+            o2 = sp.mix_2d(o1)
+        (o1.square().sum() + (o2 * o2.detach().sign()).sum()).backward()
+        got[name] = (o1.detach(), o2.detach(), x.grad)
+    want = [add for add in (False, True)
+            if tbd.fused2_dispatch(r, torch.float32, add=add) == "fused"]
+    assert passes == want
+    for a, b in zip(got["fused"], got["unfused"]):
+        assert torch.equal(a, b)

@@ -112,18 +112,23 @@ def test_gcn_dropout_only_in_train_mode(rng):
     gcn = GCN(4, 6, 2, generator=torch.Generator().manual_seed(0))
     x = torch.as_tensor(rng.normal(size=(2, 3, n, 4)).astype(np.float32))
     plain = gcn(x, sups)
+    drop = dropout_scale(torch.Generator().manual_seed(1), 0.5, plain.shape,
+                         plain.dtype, plain.device)
     gcn.eval()
-    assert torch.equal(gcn(x, sups, 0.5, torch.Generator()), plain)
+    assert torch.equal(gcn(x, sups, drop=drop), plain)
     gcn.train()
-    out = gcn(x, sups, 0.5, torch.Generator().manual_seed(1))
+    out = gcn(x, sups, drop=drop)
     kept = out != 0
+    assert torch.equal(kept, drop > 0)
     assert 0 < kept.float().mean() < 1
     torch.testing.assert_close(out[kept], plain[kept] * 2.0)
 
 
 def test_model_refuses_what_waits_and_what_is_wrong(rng):
-    """The dense adaptive adjacency (no mask) waits for the dense slice; a
-    mask without addaptadj and two masks are errors, as in the reference."""
+    """The dense adaptive adjacency (no mask) is refused at city scale
+    (16,384 nodes and more) and diffuses beside sparse supports below it; a
+    mask without addaptadj and two masks are errors, as in the
+    reference."""
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
 
     n = 32
@@ -135,8 +140,10 @@ def test_model_refuses_what_waits_and_what_is_wrong(rng):
                       skip_channels=8, end_channels=8, blocks=1, layers=2,
                       out_dim=3)
     x = torch.zeros(1, 4, n, 2)
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        GWNet(cfg, device=CPU)(x, sups)
+    assert GWNet(cfg, device=CPU)(x, sups).shape == (1, 1, n, 3)
+    city = dataclasses.replace(cfg, num_nodes=16384, adapt_rank=1)
+    with pytest.raises(ValueError, match="num_nodes=16384"):
+        GWNet(city, device=CPU)(torch.zeros(1, 4, 16384, 2), [])
     with pytest.raises(ValueError, match="exactly one learned adjacency"):
         GWNet(cfg, device=CPU)(x, sups + [mask, mask])
     off = dataclasses.replace(cfg, addaptadj=False)
@@ -290,6 +297,7 @@ def test_trained_checkpoint_forecasts_like_jax(trained_city):
         trained_city["src"], trained_city["dst"], trained_city["w"], 40,
         pos=trained_city["pos"], ordering="rcm", form="flat",
         block_size=16, addaptadj=True, adaptive_hops=2)
+    assert layout.pop("support_dtype") == "float32"
     assert j_layout == layout
     jfc = jserving.Forecaster(
         jcfg, jax.tree.map(jnp.asarray, params),
@@ -309,5 +317,5 @@ def test_train_cli_refuses_what_waits():
     with pytest.raises(SystemExit, match="--grad_accum, --resume"):
         train.main(["--graph_npz", "g.npz", "--gcn_bool", "--grad_accum",
                     "2", "--resume", "x.pt"])
-    with pytest.raises(SystemExit, match="dense slice"):
+    with pytest.raises(SystemExit, match="diff-G slice"):
         train.main(["--data", "syn", "--device", CPU])
