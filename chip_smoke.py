@@ -66,15 +66,33 @@ exits non-zero:
 11. city ``aptonly`` at 2,048 nodes: the training CLI trains the adaptive
    adjacency alone and the serve CLI serves it;
 12. the METR path: the port's ETL writes a synthetic 207-node dataset,
-   ``gwt-torch-train`` trains the bf16 dense model one epoch and the test
-   CLI reproduces its test metrics from the checkpoint;
+   ``gwt-torch-train`` trains the bf16 dense model one epoch (dataset on
+   the device, the CLI's default) and the test CLI reproduces its test
+   metrics from the checkpoint;
 13. the dense model at ``bench.py``'s width (207 nodes, batch 64): card
    fp32 against CPU fp32, card bf16 against card fp32, 12 train steps
    timed and profiled, and the step time of each ``gcn_mode``;
-14. kernel 5's path at full width: one forward and backward of the gcn at
+14. device-resident training (``phase_resident``): the dense model of 13
+   (dropout 0.3) on device-resident arrays, two fused calls of S = 22
+   steps (``Engine.train_steps_resident``: one eager warm-up step, one
+   captured CUDA graph replayed for the rest) bit for bit against 44 eager
+   steps (metrics, weights, BatchNorm buffers, Adam, the dropout
+   generator), then step time, node-timesteps/s, profiled idle share and
+   peak memory of host-resident eager, device-resident eager and graphed
+   steps; the same comparison (S = 4, under deterministic algorithms) for
+   the 40,960-node city train step with the adaptive adjacency in the flat
+   and the padded form, kernels 1-4 inside the graph, each replay's
+   launches held to the layout, and eager against graphed step times and
+   idle shares; and the METR CLI (12) with ``--resident device
+   --scan_steps 8``, ``--resume`` of its epoch-1 checkpoint, ``--early_stop
+   1`` on data whose validation cannot improve, and ``--grad_accum 2``;
+15. kernel 5's path at full width: one forward and backward of the gcn at
    the first layer's training shape (batch 4, bf16, R = 1,536) over the
    padded supports with blocks that require a gradient (4 kernel-5
    launches), each launch held against its plain version on the card.
+
+The launch counts of a graphed window add each replay's launches (a
+wrapper counts its Python calls, so a capture counts a step once).
 
 Before the last line it prints one ``{"kernels": [...]}`` line and the
 card's name and power limit; the last line is
@@ -2335,6 +2353,375 @@ def phase_metr_cli(tmp: str) -> dict:
             f"the METR path launched a block kernel: {counts}")
     del out
     torch.cuda.empty_cache()
+    metr_cli_flags(tmp, data_dir, adj)
+    return counts
+
+
+def metr_cli_flags(tmp: str, data_dir: str, adj: str) -> None:
+    """The runner's flags through ``gwt-torch-train`` on the METR data:
+    ``--resident device --scan_steps 8`` (two fused calls and six
+    remainder steps per 22-step epoch), ``--resume`` of its epoch-1
+    checkpoint for epoch 2, ``--early_stop 1`` on a copy of the data whose
+    validation targets are all missing (its masked loss is 0 every epoch
+    and cannot improve), and ``--grad_accum 2``; each run's history and
+    step count as its flag promises."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import train
+
+    flat = os.path.join(tmp, "METR_flat_val")
+    os.makedirs(flat, exist_ok=True)
+    for split in ("train", "val", "test"):
+        with np.load(os.path.join(data_dir, split + ".npz")) as f:
+            arrays = {k: f[k] for k in f.files}
+        if split == "val":
+            arrays["y"][..., 0] = 0.0
+        np.savez(os.path.join(flat, split + ".npz"), **arrays)
+    base = ["--adjdata", adj, "--num_nodes", str(DENSE_NODES), "--gcn_bool",
+            "--addaptadj", "--dtype", "bfloat16", "--seq_length", "12",
+            "--batch_size", str(DENSE_BATCH), "--print_every", "100",
+            "--device", "cuda"]
+    runs = {}
+
+    def run(name, *argv, data=data_dir):
+        t0 = time.perf_counter()
+        out = train.main(["--data", data, *base, *argv])
+        torch.cuda.synchronize()
+        res = out["result"]
+        runs[name] = {"seconds": round(time.perf_counter() - t0, 3),
+                      "epochs": [h.epoch for h in res.history],
+                      "steps": out["runner"].engine.step,
+                      "valid_loss": [h.valid["loss"] for h in res.history],
+                      "train_epoch_seconds": [round(h.train_time, 3)
+                                              for h in res.history],
+                      "test_mae": res.test_metrics["mae"]}
+        return out
+
+    save = os.path.join(tmp, "metr_flags")
+    run("scan_steps", "--resident", "device", "--scan_steps", "8",
+        "--epochs", "1", "--save", save)
+    per_epoch = runs["scan_steps"]["steps"]
+    (ck,) = glob.glob(os.path.join(save, "*_epoch_1_*.pt"))
+    run("resume", "--resume", ck, "--epochs", "2", "--save", save)
+    run("early_stop", "--early_stop", "1", "--epochs", "3", "--save",
+        os.path.join(tmp, "metr_stop"), data=flat)
+    run("grad_accum", "--grad_accum", "2", "--epochs", "1", "--save",
+        os.path.join(tmp, "metr_accum"))
+    emit("metr_cli_flags", runs=runs, steps_per_epoch=per_epoch)
+    require(per_epoch == 22 and runs["scan_steps"]["epochs"] == [1],
+            f"--scan_steps 8 ran {runs['scan_steps']}")
+    require(runs["resume"]["epochs"] == [2]
+            and runs["resume"]["steps"] == 2 * per_epoch,
+            f"--resume did not continue at epoch 2: {runs['resume']}")
+    require(runs["early_stop"]["epochs"] == [1, 2]
+            and runs["early_stop"]["valid_loss"] == [0.0, 0.0],
+            f"--early_stop 1 did not stop at epoch 2: {runs['early_stop']}")
+    require(runs["grad_accum"]["steps"] == per_epoch,
+            f"--grad_accum 2 ran {runs['grad_accum']}")
+    require(all(np.isfinite(r["test_mae"]) for r in runs.values()),
+            f"non-finite test MAE: {runs}")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# device-resident training: the fused steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# steps per fused call: the METR CLI's epoch on phase_metr_cli's data (1,395
+# training samples, batch 64) for the dense model; 4 for the city model
+RESIDENT_S_DENSE = 22
+RESIDENT_S_CITY = 4
+
+
+def step_state(engine) -> dict:
+    """Everything a train step changes: the module's state (BatchNorm
+    buffers included), Adam's moments and step counts, the dropout
+    generator."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in engine.model.state_dict().items()}
+    for i, st in engine.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"adam.{i}.{k}"] = v.detach().clone()
+    out["generator"] = engine.generator.get_state()
+    return out
+
+
+def first_difference(got: dict, want: dict):
+    """(name, max |diff|) of the first entry that is not bit for bit equal,
+    or None."""
+    import torch
+
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            return k, float((got[k].double() - want[k].double()).abs().max())
+    return None
+
+
+def metric_rows(m: dict):
+    import torch
+
+    return torch.stack([m[k].reshape(-1) for k in ("loss", "mape", "rmse")])
+
+
+def graphed_window_launches(engine, raw: dict) -> dict:
+    """Hand-kernel launches of a window in which the engine's step graphs
+    were captured: the wrappers' counts ``raw`` (Python calls: each capture
+    counts a step once, and launches nothing) plus each replay's launches
+    beyond that one."""
+    out = dict(raw)
+    for g in engine.step_graphs():
+        for k, n in g.launches.items():
+            out[k] += n * (g.replays - 1)
+    return out
+
+
+def graphed_vs_eager(eager, graphed, xs, ys, idx, sups) -> tuple:
+    """``len(idx)`` fused calls on ``graphed`` against as many eager steps
+    per call on ``eager``, the batches gathered from the resident arrays
+    by the rows of ``idx`` (C, S, B). Returns (the first differing state
+    entry or None, the largest metric difference, the hand-kernel launches
+    of both windows, the graph's per-replay launches)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    bd.reset_launch_counts()
+    got = [metric_rows(graphed.train_steps_resident(xs, ys, sel, sups))
+           for sel in idx]
+    torch.cuda.synchronize()
+    n_graphed = graphed_window_launches(graphed, bd.LAUNCHES)
+    bd.reset_launch_counts()
+    want = []
+    for sel in torch.as_tensor(idx, device="cuda"):
+        ms = [eager.train_step(xs.index_select(0, r), ys.index_select(0, r),
+                               sups) for r in sel]
+        want.append(torch.cat([metric_rows(m) for m in ms], 1))
+    torch.cuda.synchronize()
+    n_eager = dict(bd.LAUNCHES)
+    # 0.0 exactly when bit for bit equal (a NaN compares as a difference)
+    m_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    diff = first_difference(step_state(graphed), step_state(eager))
+    (g,) = graphed.step_graphs()
+    return diff, m_err, n_graphed, n_eager, dict(g.launches)
+
+
+def timed_steps(fn, reps: int, steps_per_call: int = 1) -> dict:
+    """Median, min and max ms per step of ``reps`` calls of ``fn`` (each
+    ``steps_per_call`` steps, host clock around a call that ends in a
+    sync), after one warm-up call, with the peak memory allocated and
+    reserved. A replayed graph allocates nothing, so only the reserved
+    peak holds its private pool (the step's activations)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps_per_call)
+    return {"median_ms": sorted(times)[len(times) // 2], "min_ms": min(times),
+            "max_ms": max(times),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def resident_dense(seed: int = 0) -> None:
+    """The dense METR model at ``bench.py``'s width (207 nodes, flagship
+    widths, two random row-normalized supports, the SVD-initialized
+    adaptive adjacency, batch 64, bf16, dropout 0.3) on device-resident
+    sample arrays: two fused calls of S = 22 steps (the first warms up,
+    captures and replays; the second only replays) bit for bit against 44
+    eager steps from the same start (metrics, weights, BatchNorm buffers,
+    Adam, the dropout generator); then the step time, node-timesteps/s,
+    profiled device idle share and peak memory of host-resident eager
+    steps (numpy batches copied per step, the path before this phase),
+    device-resident eager steps and graphed steps."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    sups_np, _, _ = dense_inputs(seed)
+    rng = np.random.default_rng(seed + 1)
+    n_samples, s, b = 4 * DENSE_BATCH, RESIDENT_S_DENSE, DENSE_BATCH
+    xs_np = rng.normal(size=(n_samples, 12, DENSE_NODES, 2)).astype(
+        np.float32)
+    ys_np = (rng.normal(size=(n_samples, 12, DENSE_NODES, 2)) * 10
+             + 55).astype(np.float32)
+    ys_np[rng.random(ys_np.shape) < 0.05] = 0.0
+    xs, ys = (torch.as_tensor(a, device="cuda") for a in (xs_np, ys_np))
+    sups = [torch.as_tensor(a, device="cuda") for a in sups_np]
+    idx = rng.integers(0, n_samples, size=(2, s, b)).astype(np.int32)
+    cfg = ModelConfig(num_nodes=DENSE_NODES, in_dim=2, out_dim=12,
+                      residual_channels=32, dilation_channels=32,
+                      skip_channels=256, end_channels=512, blocks=4,
+                      layers=2, gcn_bool=True, addaptadj=True, n_supports=2,
+                      dropout=0.3, dtype="bfloat16")
+
+    def engine():
+        return Engine(cfg, TrainConfig(), StandardScaler(55.0, 10.0),
+                      device="cuda", seed=seed, aptinit=sups_np[0])
+
+    eager, graphed = engine(), engine()
+    diff, m_err, _, _, per_replay = graphed_vs_eager(eager, graphed, xs, ys,
+                                                     idx, sups)
+    emit("resident_dense_bitwise", nodes=DENSE_NODES, batch=b,
+         dtype="bfloat16", dropout=cfg.dropout, scan_steps=s, calls=2,
+         replays=graphed.step_graphs()[0].replays,
+         max_abs_metric_diff=m_err, first_state_difference=diff,
+         per_replay_launches=per_replay, tolerance="bit for bit")
+    require(diff is None and m_err == 0.0,
+            f"graphed dense steps differ from eager ones: state {diff}, "
+            f"metrics by {m_err}")
+
+    host_batches = [(xs_np[r], ys_np[r]) for r in idx[0]]
+    dev_rows = torch.as_tensor(idx[0], device="cuda")
+    it = {"host": 0, "device": 0}
+
+    def host_step():
+        x, y = host_batches[it["host"] % s]
+        it["host"] += 1
+        return eager.train_step(x, y, sups)
+
+    def device_step():
+        r = dev_rows[it["device"] % s]
+        it["device"] += 1
+        return eager.train_step(xs.index_select(0, r), ys.index_select(0, r),
+                                sups)
+
+    def graphed_call():
+        return graphed.train_steps_resident(xs, ys, idx[1], sups)
+
+    node_steps = b * 12 * DENSE_NODES
+    for mode, fn, reps, per in (("host_eager", host_step, 12, 1),
+                                ("device_eager", device_step, 12, 1),
+                                ("graphed", graphed_call, 3, s)):
+        t = timed_steps(fn, reps, per)
+        prof = profile_step(fn)
+        emit("resident_dense_step", mode=mode, scan_steps=per, batch=b,
+             nodes=DENSE_NODES, dtype="bfloat16", **t,
+             node_timesteps_per_s=node_steps / (t["median_ms"] / 1e3),
+             profiled_steps=per, profiled_wall_ms_per_step=prof["wall_ms"]
+             / per, device_busy_ms_per_step=prof["device_busy_ms"] / per,
+             device_idle_share=prof["device_idle_share"],
+             device_kernels_per_step=prof["device_kernels"] / per,
+             top_host_ops=prof["top_host_ops"][:5])
+    del eager, graphed, xs, ys
+    torch.cuda.empty_cache()
+
+
+def resident_city(graph, form: str) -> dict:
+    """The 40,960-node city model with the block-masked adaptive adjacency
+    (bf16, batch 4, the training CLI's supports and widths) over ``form``
+    supports on device-resident sample arrays: a fused call of S = 4 steps
+    (warm-up, capture, three replays) bit for bit against four eager steps,
+    under deterministic algorithms (the adaptive softmax's ``index_add_``
+    and the nodevec gathers' backward use float atomics otherwise); the
+    graph's per-replay hand-kernel launches held to the layout; then, in
+    the default (nondeterministic) mode, eager and graphed step times and
+    profiled idle shares. Returns the launch counts of the graphed
+    window, replays counted (``train_graphed`` or
+    ``train_graphed_padded``)."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    tag = "" if form == "flat" else "_padded"
+    pos, src, dst, w = graph
+    sup, mask, layout = build_city_supports(src, dst, w, N_CITY, pos=pos,
+                                            form=form, addaptadj=True,
+                                            device="cuda")
+    sups = [sp.astype(torch.bfloat16) for sp in sup] + [mask]
+    n = layout["n_pad"]
+    cfg = ModelConfig(num_nodes=n, addaptadj=True, dtype="bfloat16")
+    rng = np.random.default_rng(8)
+    n_samples, s, b = 8, RESIDENT_S_CITY, TRAIN_BATCH
+    xs = torch.as_tensor(rng.normal(size=(n_samples, 12, n, 2)).astype(
+        np.float32), device="cuda")
+    ys_np = rng.normal(50.0, 10.0, size=(n_samples, 12, n, 2)).astype(
+        np.float32)
+    ys_np[rng.random(ys_np.shape) < 0.05] = 0.0
+    ys = torch.as_tensor(ys_np, device="cuda")
+    idx = rng.integers(0, n_samples, size=(1, s, b)).astype(np.int32)
+
+    def engine():
+        return Engine(cfg, TrainConfig(), StandardScaler(50.0, 10.0),
+                      device="cuda", seed=0)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graphed = engine(), engine()
+        diff, m_err, n_graphed, n_eager, per_replay = graphed_vs_eager(
+            eager, graphed, xs, ys, idx, sups)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = expected_step_launches(sups, layer_widths(cfg, b, 13),
+                                  torch.bfloat16)
+    emit("resident_city_bitwise", form=form, nodes=N_CITY, batch=b,
+         dtype="bfloat16", dropout=cfg.dropout, scan_steps=s,
+         deterministic=True, max_abs_metric_diff=m_err,
+         first_state_difference=diff, per_replay_launches=per_replay,
+         expected_per_step=want, graphed_window_launches=n_graphed,
+         eager_window_launches=n_eager, tolerance="bit for bit")
+    require(diff is None and m_err == 0.0,
+            f"graphed {form} city steps differ from eager ones: state "
+            f"{diff}, metrics by {m_err}")
+    require(per_replay == want,
+            f"a replayed {form} step launches {per_replay}, expected {want}")
+    require(n_graphed == n_eager,
+            f"graphed window launches {n_graphed} != eager {n_eager}")
+    del eager, graphed
+    torch.cuda.empty_cache()
+
+    eager, graphed = engine(), engine()
+    rows = torch.as_tensor(idx[0], device="cuda")
+    it = {"k": 0}
+
+    def eager_step():
+        r = rows[it["k"] % s]
+        it["k"] += 1
+        return eager.train_step(xs.index_select(0, r), ys.index_select(0, r),
+                                sups)
+
+    def graphed_call():
+        return graphed.train_steps_resident(xs, ys, idx[0], sups)
+
+    for mode, fn, reps, per in (("eager", eager_step, 6, 1),
+                                ("graphed", graphed_call, 3, s)):
+        t = timed_steps(fn, reps, per)
+        prof = profile_step(fn)
+        emit("resident_city_step", form=form, mode=mode, scan_steps=per,
+             batch=b, nodes=N_CITY, dtype="bfloat16", **t,
+             node_timesteps_per_s=b * 12 * N_CITY / (t["median_ms"] / 1e3),
+             profiled_wall_ms_per_step=prof["wall_ms"] / per,
+             device_busy_ms_per_step=prof["device_busy_ms"] / per,
+             device_idle_share=prof["device_idle_share"],
+             hand_kernels=prof["hand_kernels"])
+    del eager, graphed, xs, ys, sups, sup, mask
+    torch.cuda.empty_cache()
+    return {"train_graphed" + tag: n_graphed}
+
+
+def phase_resident(graph) -> dict:
+    """Device-resident training: the dense METR model and the city model
+    (flat and padded) graphed against eager steps, bit for bit, and timed.
+    Returns the city windows' launch counts."""
+    resident_dense()
+    counts = resident_city(graph, "flat")
+    counts.update(resident_city(graph, "pallas"))
     return counts
 
 
@@ -2379,23 +2766,26 @@ def main() -> int:
         counts.update(phase_aptonly(tmp))
         counts.update(phase_metr_cli(tmp))
     counts.update(phase_dense())
+    counts.update(phase_resident(graph))
     counts.update(phase_kernel5_path(padded))
 
     # launches on the main paths: kernel 1 serving the 128x512 layout and,
     # as the chain the dispatch rule picks, serving and in a train step,
-    # kernel 2 in a train step, kernel 3 serving and in a train step where
-    # the dispatch rule picks it (the last layers in bf16), kernel 4
-    # serving and training the padded form, kernel 5 on the gradient
-    # through padded blocks
+    # eager and graphed, kernel 2 in a train step, eager and graphed,
+    # kernel 3 serving and in a train step where the dispatch rule picks it
+    # (the last layers in bf16), eager and graphed, kernel 4 serving and
+    # training the padded form, eager and graphed, kernel 5 on the
+    # gradient through padded blocks; a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
-             ("rect", "serve", "train")),
-            ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU, ("train",)),
+             ("rect", "serve", "train", "train_graphed")),
+            ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
+             ("train", "train_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
-             ("serve", "train")),
+             ("serve", "train", "train_graphed")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
-             ("serve_padded", "train_padded")),
+             ("serve_padded", "train_padded", "train_graphed_padded")),
             ("k5", "gathered_block_outer", K5_SRC, K5_TPU,
              ("kernel5_path",))):
         rec = summary[key]

@@ -25,9 +25,13 @@ Then the runner fits and tests.
         --data data/CITY --gcn_bool --addaptadj --dtype bfloat16 \\
         --batch_size 4 --seq_length 12 --epochs 1 --save ckpt/
 
-The synthetic and CRASH datasets (``--data syn|crash``) wait for the diff-G
-slice, and the options listed in :data:`LATER` for the slice each names
-(ROADMAP.md).
+Both branches keep the dataset on the device by default (``--resident
+device``; ``host`` copies every batch from the host), and take the
+runner's ``--scan_steps`` (optimizer steps per fused call: a CUDA graph
+replayed per step on the card), ``--grad_accum``, ``--early_stop``,
+``--epoch_timeout`` and ``--resume``. The synthetic and CRASH datasets
+(``--data syn|crash``) wait for the diff-G slice, and the options listed in
+:data:`LATER` for the slice each names (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,10 +43,7 @@ import warnings
 # flags of the reference CLI that wait for a later slice of ROADMAP.md:
 # (type, the default that keeps them off, the slice); a bool is a
 # store_true switch
-LATER = {"scan_steps": (int, 1, "4b"), "grad_accum": (int, 1, "4b"),
-         "early_stop": (int, 0, "4b"), "epoch_timeout": (float, 0.0, "4b"),
-         "resume": (str, None, "4b"), "resident": (str, "host", "4b"),
-         "mesh_model": (int, 1, "7"), "mesh_time": (int, 1, "7"),
+LATER = {"mesh_model": (int, 1, "7"), "mesh_time": (int, 1, "7"),
          "mesh_dp": (bool, False, "7")}
 
 
@@ -111,6 +112,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "fp32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default cuda)")
+    p.add_argument("--resident", type=str, default="device",
+                   choices=("device", "host"),
+                   help="dataset residency: device = on --device with the "
+                        "batches gathered there (default), host = numpy "
+                        "batches copied per step")
+    p.add_argument("--scan_steps", type=int, default=1,
+                   help="fused multi-step training: optimizer steps per "
+                        "call (--resident device only; a CUDA graph "
+                        "replayed per step on the card)")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="micro-batches per optimizer step (averaged "
+                        "gradients; not with --scan_steps > 1)")
+    p.add_argument("--early_stop", type=int, default=0,
+                   help="stop after this many epochs without a validation "
+                        "improvement; 0 trains every epoch")
+    p.add_argument("--epoch_timeout", type=float, default=0.0,
+                   help="abort with save_dir/emergency.json if an epoch "
+                        "exceeds this many seconds; 0 disables")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint to resume training from (full train "
+                        "state); the run continues at its epoch + 1")
     later = p.add_argument_group("not ported yet (ROADMAP.md); refused "
                                  "unless left at their defaults")
     for name, (kind, default, _) in LATER.items():
@@ -162,7 +184,9 @@ def train_config(args):
         weight_decay=args.weight_decay, epochs=args.epochs,
         print_every=args.print_every, seed=args.seed, save_dir=args.save,
         expid=args.expid, lr_decay=args.lr_decay,
-        lr_decay_every=args.lr_decay_every, async_checkpoint=False)
+        lr_decay_every=args.lr_decay_every, scan_steps=args.scan_steps,
+        grad_accum=args.grad_accum, early_stop_patience=args.early_stop,
+        epoch_timeout_s=args.epoch_timeout)
 
 
 def _check_horizon(args, data: dict) -> None:
@@ -184,7 +208,7 @@ def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None):
                     steps_per_epoch=data["train_loader"].num_batch,
                     aptinit=aptinit)
     runner = Runner(engine, train_cfg, extra_meta=extra_meta)
-    result = runner.fit(data, supports)
+    result = runner.fit(data, supports, resume_from=args.resume)
     runner.test(data, supports, result)
     return result, runner, supports
 
@@ -200,7 +224,8 @@ def _run_metr(args):
 
     device = resolve_device(args.device)
     _, _, adj = load_adj(args.adjdata, args.adjtype)
-    data = load_dataset(args.data, args.batch_size, seed=args.seed)
+    data = load_dataset(args.data, args.batch_size, seed=args.seed,
+                        resident=args.resident, device=device)
     _check_horizon(args, data)
     cfg = model_config(args, args.num_nodes)
     n_data = int(data["x_train"].shape[2])
@@ -252,7 +277,8 @@ def _run_city(args):
                                    if mask is not None else ""), flush=True)
 
     data = load_dataset(args.data, args.batch_size, seed=args.seed,
-                        node_layout=layout)
+                        node_layout=layout, resident=args.resident,
+                        device=args.device)
     _check_horizon(args, data)
     cfg = model_config(args, layout["n_pad"])
     sup_list = ([] if args.aptonly else list(supports)) + (

@@ -83,11 +83,23 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization configuration. ``train.engine`` and ``train.runner``
-    read the optimizer, schedule, epoch and checkpoint fields; ``prefetch``,
-    ``async_checkpoint``, ``grad_accum``, ``early_stop_patience``,
-    ``epoch_timeout_s``, ``scan_steps`` and ``keep_checkpoints`` are carried
-    through sidecars only (their runner features are not ported yet)."""
+    """Optimization configuration, read by ``train.engine`` and
+    ``train.runner``:
+
+    - ``scan_steps``: optimizer steps per fused call on a device-resident
+      train loader (a CUDA graph replayed per step on the card); 1 runs a
+      call per step;
+    - ``grad_accum``: micro-batches per optimizer step, gradients averaged
+      before one clip and one Adam step (not with ``scan_steps`` > 1);
+    - ``early_stop_patience``: stop after this many epochs without a new
+      best validation loss (0: never);
+    - ``epoch_timeout_s``: an epoch that runs longer writes
+      ``emergency.json`` and raises ``DeviceWedgedError`` (0: no watchdog);
+    - ``async_checkpoint``: write epoch checkpoints on a thread;
+    - ``keep_checkpoints``: keep the best this many (0: all);
+    - ``prefetch``: a host prefetch depth, which the port refuses (its
+      slice waits, ROADMAP.md; the device-resident loaders need none).
+    """
 
     batch_size: int = 64
     learning_rate: float = 1e-3
@@ -109,6 +121,18 @@ class TrainConfig:
     early_stop_patience: int = 0
     epoch_timeout_s: float = 0.0
     scan_steps: int = 1
+
+    def __post_init__(self):
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got "
+                             f"{self.grad_accum}")
+        if self.grad_accum > 1 and self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide by "
+                f"grad_accum {self.grad_accum}")
+        if self.scan_steps < 1:
+            raise ValueError(f"scan_steps must be >= 1, got "
+                             f"{self.scan_steps}")
 
 
 def to_dict(cfg: Any) -> dict:

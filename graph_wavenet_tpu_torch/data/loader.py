@@ -6,7 +6,7 @@ the per-sample-graph variant) and ``data/native_loader.py``'s
 native library is not carried over). Both pad the tail with copies of the
 last sample so the count divides the batch size, shuffle from a seeded
 numpy Generator, and yield numpy batches; ``num_real`` keeps the unpadded
-count. The device-resident loaders wait for slice 4b (ROADMAP.md).
+count. ``data.device_loader`` holds their device-resident counterparts.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ Counterpart of ``graph_wavenet_tpu/data/metr.py``, host resident:
   (:class:`data.loader.WindowDataLoader`); the scaler equals the
   materialized fit through window-multiplicity weights.
 
-``resident="device"`` (the dataset on the card, batches gathered there)
-waits for slice 4b with the resident train loops (ROADMAP.md).
+``resident="device"`` keeps the splits on ``device`` instead and gathers
+every batch there (``data.device_loader``): the same batches in the same
+order as the host batchers for a seed, and the form the fused train steps
+(``Engine.train_steps_resident`` / ``train_steps_windows``) read.
 """
 
 from __future__ import annotations
@@ -21,7 +23,14 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from graph_wavenet_tpu_torch import resolve_device
+from graph_wavenet_tpu_torch.data.device_loader import (
+    DeviceArrayLoader,
+    DeviceWindowLoader,
+    resident as to_resident,
+)
 from graph_wavenet_tpu_torch.data.loader import (
     DataLoader,
     WindowDataLoader,
@@ -31,11 +40,7 @@ from graph_wavenet_tpu_torch.data.scaler import StandardScaler
 
 
 def _check_resident(resident: str) -> None:
-    if resident == "device":
-        raise NotImplementedError(
-            "resident='device' comes with slice 4b of ROADMAP.md (the "
-            "device-resident loaders and train loops); use resident='host'")
-    if resident != "host":
+    if resident not in ("host", "device"):
         raise ValueError(f"resident must be 'host' or 'device', got "
                          f"{resident!r}")
 
@@ -43,12 +48,15 @@ def _check_resident(resident: str) -> None:
 def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
                  resident: str = "host",
                  scaler: StandardScaler | None = None,
-                 node_layout: dict | None = None) -> dict:
+                 node_layout: dict | None = None,
+                 device: torch.device | str = "cuda") -> dict:
     """``scaler``: standardize with this one instead of fitting on this
     directory's ``x_train`` (evaluating a checkpoint takes its training
     statistics). ``node_layout`` (``graphs.city``): the node axis of every
     split is permuted into model order and zero-padded after the scaler
-    fit, so pad zeros do not bias the statistics."""
+    fit, so pad zeros do not bias the statistics. ``device``: where
+    ``resident="device"`` keeps the splits (the host arrays ``x_*``,
+    ``y_*`` stay in the dict either way)."""
     _check_resident(resident)
     rng = np.random.default_rng(seed)
     data: dict = {}
@@ -66,8 +74,10 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
 
         apply_layout_to_data(data, node_layout)
     for category in ("train", "val", "test"):
-        data[category + "_loader"] = DataLoader(
-            data["x_" + category], data["y_" + category], batch_size, rng)
+        xs, ys = data["x_" + category], data["y_" + category]
+        data[category + "_loader"] = (
+            DataLoader(xs, ys, batch_size, rng) if resident == "host" else
+            DeviceArrayLoader(xs, ys, batch_size, rng=rng, device=device))
     data["scaler"] = scaler
     return data
 
@@ -98,11 +108,13 @@ def load_dataset_streaming(values: np.ndarray, index=None,
                            seq_length_y: int = 12, y_start: int = 1,
                            add_time_in_day: bool = True,
                            add_day_in_week: bool = False,
-                           seed: int = 0, resident: str = "host") -> dict:
+                           seed: int = 0, resident: str = "host",
+                           device: torch.device | str = "cuda") -> dict:
     """Raw (T, N) readings -> window loaders with the ETL's samples, its
     chronological 70/10/20 split over anchors and its scaler. Returns
     :func:`load_dataset`'s surface (three loaders, ``scaler``, ``y_test``)
-    for the runner."""
+    for the runner. Under ``resident="device"`` the three splits share one
+    upload of each series to ``device``."""
     from graph_wavenet_tpu_torch.data.traffic_etl import build_features
 
     _check_resident(resident)
@@ -133,10 +145,16 @@ def load_dataset_streaming(values: np.ndarray, index=None,
     x_series = series.copy()
     x_series[..., 0] = scaler.transform(x_series[..., 0])
     data: dict = {"scaler": scaler}
+    if resident == "host":
+        window_cls, kw, xs, ys = WindowDataLoader, {}, x_series, series
+    else:
+        dev = resolve_device(device)
+        window_cls, kw = DeviceWindowLoader, {"device": dev}
+        xs, ys = to_resident(x_series, dev), to_resident(series, dev)
     for name, a in splits.items():
-        data[name + "_loader"] = WindowDataLoader(
-            x_series, seq_length_x, seq_length_y, batch_size,
-            y_start=y_start, anchors=a, y_series=series, rng=rng)
+        data[name + "_loader"] = window_cls(
+            xs, seq_length_x, seq_length_y, batch_size, y_start=y_start,
+            anchors=a, y_series=ys, rng=rng, **kw)
     # the per-horizon test needs the test targets; the rest stays windows
     # assembled per batch
     data["y_test"] = gather_windows(series, splits["test"] + y_start,

@@ -145,8 +145,12 @@ class GWNet(nn.Module):
                                      x.device)
             args = (i, dilation, t_final, x, skip, supports, stacks, drop)
             if cfg.remat and skip is not None and torch.is_grad_enabled():
+                # the layer draws no random numbers (its mask is an
+                # argument), so the global RNG is neither saved nor
+                # restored: a CUDA graph may capture the step
                 x, skip, stats = checkpoint(self._layer, *args,
-                                            use_reentrant=False)
+                                            use_reentrant=False,
+                                            preserve_rng_state=False)
             else:
                 x, skip, stats = self._layer(*args)
             if stats is not None:

@@ -79,9 +79,12 @@ def dropout_scale(generator: torch.Generator | None, p: float, shape,
                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Inverted-dropout mask: {0, 1/(1-p)} in ``dtype``, an element kept
     where a uniform draw from ``generator`` is below 1 - p (the reference's
-    ``bernoulli(1 - p)``)."""
+    ``bernoulli(1 - p)``). The divisor is 1 - p rounded to ``dtype`` and
+    filled on the device: no host copy, so the step can be captured in a
+    CUDA graph, and the mask is the one a host-made scalar gives."""
     keep = torch.rand(shape, generator=generator, device=device) < 1.0 - p
-    return keep.to(dtype) / torch.tensor(1.0 - p, dtype=dtype, device=device)
+    return keep.to(dtype) / torch.full((), 1.0 - p, dtype=dtype,
+                                       device=device)
 
 
 def nconv(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -2,20 +2,39 @@
 model, and the per-horizon test.
 
 Counterpart of ``graph_wavenet_tpu/train/runner.py``'s ``Runner.fit`` and
-``Runner.test`` for shared-graph datasets, trimmed: every epoch shuffles
-the training split, runs the train steps (logging every ``print_every``),
-runs the validation pass, appends a line to ``save_dir/history.jsonl`` and
-saves a checkpoint; after the last epoch the best-validation weights are
-reloaded and the test scores them per horizon on the real (unpadded) test
-samples. Step metrics stay on the device until the end of the epoch. The
-watchdog, early stop, resume, best-k pruning, asynchronous checkpoints,
-``scan_steps``, ``grad_accum`` and meshes wait (ROADMAP.md).
+``Runner.test`` for shared-graph datasets on one device: every epoch
+shuffles the training split and runs its steps through one of three feeds:
+
+- a device-resident window loader (``resident_series``) with
+  ``scan_steps`` > 1: ``Engine.train_steps_windows`` per superbatch of
+  ``scan_steps`` steps, the leftover batches one ``train_step`` each;
+- a device-resident array loader (``resident_arrays``) likewise, through
+  ``Engine.train_steps_resident``;
+- otherwise a ``train_step`` per batch, or ``train_step_accum`` under
+  ``grad_accum`` > 1 (which the fused feeds refuse);
+
+then the validation pass (one fused call over the split where the train
+feed is fused), a line in ``save_dir/history.jsonl`` and a checkpoint with
+the full train state, written on a thread under ``async_checkpoint`` and
+pruned to the best ``keep_checkpoints``. ``early_stop_patience`` ends the
+run after that many epochs without a new best validation loss;
+``epoch_timeout_s`` arms a SIGALRM watchdog per epoch that writes
+``emergency.json`` and raises :class:`DeviceWedgedError`; ``fit(...,
+resume_from=path)`` restores a checkpoint's train state and continues at
+its epoch + 1. After the last epoch the writes drain, the checkpoints are
+pruned once more and the best-validation weights reload; the test scores
+them per horizon on the real (unpadded) test samples. Step metrics stay on
+the device until the end of the epoch. Meshes wait for their slice
+(ROADMAP.md), and so does ``prefetch``, which the runner refuses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -28,14 +47,53 @@ from graph_wavenet_tpu_torch.train.engine import Engine
 from graph_wavenet_tpu_torch.train.metrics import metric
 
 
+class DeviceWedgedError(RuntimeError):
+    """An epoch ran longer than ``TrainConfig.epoch_timeout_s``. The runner
+    writes ``save_dir/emergency.json`` first; restart with ``resume_from=``
+    the last epoch's checkpoint (it holds the full train state)."""
+
+
+@contextlib.contextmanager
+def _epoch_watchdog(timeout_s: float, epoch: int):
+    """SIGALRM stall detector around one epoch, armed only in the main
+    thread of a platform with ``setitimer`` (a no-op elsewhere). CPython
+    runs a signal handler between bytecodes, so the alarm fires when the
+    epoch loop next runs Python (between steps, in a host wait that polls);
+    one C-level wait that never returns cannot be interrupted in-process,
+    and needs a supervisor outside plus ``resume_from=``."""
+    usable = (timeout_s > 0 and hasattr(signal, "setitimer")
+              and threading.current_thread() is threading.main_thread())
+    if not usable:
+        yield
+        return
+
+    def fire(signum, frame):
+        # re-arm first: if this raise is swallowed inside C code, the next
+        # alarm retries; the finally below disarms once it propagates
+        signal.setitimer(signal.ITIMER_REAL, max(timeout_s, 1.0))
+        raise DeviceWedgedError(
+            f"epoch {epoch} exceeded {timeout_s}s; the device appears "
+            "wedged; restart with resume_from= the last epoch checkpoint")
+
+    prev = signal.signal(signal.SIGALRM, fire)
+    signal.setitimer(signal.ITIMER_REAL, timeout_s)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0.0)
+        signal.signal(signal.SIGALRM, prev)
+
+
 def _epoch_mean(steps: list[dict]) -> dict:
-    """Mean of each metric over a list of step-metric dicts, with one
-    device sync."""
+    """Mean of each metric over step-metric dicts with one device sync.
+    An entry is a scalar (one step) or an (S,) vector (a fused call of S
+    steps); every step weighs the same."""
     if not steps:
         return {}
-    stacked = {k: torch.stack([s[k] for s in steps]).cpu().tolist()
-               for k in steps[0]}
-    return {k: float(np.mean(v)) for k, v in stacked.items()}
+    stacked = torch.stack([
+        torch.cat([s[k].reshape(-1) for s in steps]) for k in steps[0]])
+    host = stacked.cpu().double().numpy()
+    return {k: float(np.mean(host[i])) for i, k in enumerate(steps[0])}
 
 
 @dataclass
@@ -69,50 +127,114 @@ class Runner:
 
     def __init__(self, engine: Engine, train_cfg: TrainConfig,
                  log_fn=_print_flush, extra_meta: dict | None = None):
+        if train_cfg.prefetch > 0:
+            raise NotImplementedError(
+                "TrainConfig.prefetch > 0: the host prefetch pipeline is not "
+                "ported (ROADMAP.md); the device-resident loaders "
+                "(resident='device') need none")
         self.engine = engine
         self.cfg = train_cfg
         self.log = log_fn
         self.extra_meta = extra_meta or {}
+        self._ckpt_scores: dict[str, float] = {}
+        self._ckpt_writer = (ckpt.AsyncCheckpointer()
+                             if train_cfg.async_checkpoint else None)
 
-    def fit(self, data: dict, supports) -> RunResult:
-        result = RunResult()
+    def _train_epoch(self, loader, supports) -> list[dict]:
+        """One epoch's train steps through the loader's feed (see the
+        module docstring); their metrics, on the device."""
         engine = self.engine
-        self._append_history({"run_start": time.time(), "start_epoch": 1,
-                              "resumed_from": None})
-        for epoch in range(1, self.cfg.epochs + 1):
-            t1 = time.time()
-            loader = data["train_loader"]
-            loader.shuffle()
-            steps = []
+        scan = self.cfg.scan_steps
+        steps = []
+        if scan > 1 and hasattr(loader, "resident_series"):
+            sx, sy = loader.resident_series()
+            for sel in loader.superbatches(scan):
+                steps.append(engine.train_steps_windows(
+                    sx, sel, loader.window, loader.horizon, loader.y_start,
+                    supports, y_series=sy))
+        elif scan > 1 and hasattr(loader, "resident_arrays"):
+            xs, ys = loader.resident_arrays()
+            for sel in loader.superbatches(scan):
+                steps.append(engine.train_steps_resident(xs, ys, sel,
+                                                         supports))
+        else:
+            accum = self.cfg.grad_accum
             for it, (x, y) in enumerate(loader.get_iterator()):
-                m = engine.train_step(x, y, supports)
+                m = (engine.train_step_accum(x, y, supports, accum)
+                     if accum > 1 else engine.train_step(x, y, supports))
                 steps.append(m)
                 if it % self.cfg.print_every == 0:
                     mm = _epoch_mean([m])
                     self.log(f"Iter: {it:03d}, Train Loss: {mm['loss']:.4f}, "
                              f"Train MAPE: {mm['mape']:.4f}, Train RMSE: "
                              f"{mm['rmse']:.4f}")
-            train_m = _epoch_mean(steps)
-            t2 = time.time()
-            vsteps = [engine.eval_step(x, y, supports)
-                      for x, y in data["val_loader"].get_iterator()]
-            valid_m = _epoch_mean(vsteps)
-            log = EpochLog(epoch, train_m, valid_m, t2 - t1,
-                           time.time() - t2)
-            result.history.append(log)
-            self._append_history({
-                "epoch": epoch, "train": train_m, "valid": valid_m,
-                "train_time_s": log.train_time,
-                "valid_time_s": log.valid_time, "ts": time.time()})
-            self.log(f"Epoch: {epoch:03d}, Train Loss: {train_m['loss']:.4f}, "
-                     f"Valid Loss: {valid_m['loss']:.4f}, Training Time: "
-                     f"{log.train_time:.4f}/epoch")
-            self._save_epoch(epoch, valid_m["loss"], result)
-        if result.best_checkpoint:
-            engine.model.load_state_dict(ckpt.load_state_dict(
-                result.best_checkpoint, device=engine.device))
-            self.log(f"The valid loss on best model is "
-                     f"{result.best_val_loss:.4f}")
+            return steps
+        for x, y in loader.remainder_batches(scan):
+            steps.append(engine.train_step(x, y, supports))
+        return steps
+
+    def _eval_split(self, loader, supports) -> list[dict]:
+        """Eval metrics over a split: one fused call over the whole split
+        where the train feed is fused and the loader device-resident."""
+        engine = self.engine
+        if self.cfg.scan_steps > 1 and hasattr(loader, "resident_series"):
+            sx, sy = loader.resident_series()
+            sel = next(loader.superbatches(loader.num_batch))
+            return [engine.eval_steps_windows(
+                sx, sel, loader.window, loader.horizon, loader.y_start,
+                supports, y_series=sy)]
+        if self.cfg.scan_steps > 1 and hasattr(loader, "resident_arrays"):
+            xs, ys = loader.resident_arrays()
+            sel = next(loader.superbatches(loader.num_batch))
+            return [engine.eval_steps_resident(xs, ys, sel, supports)]
+        return [engine.eval_step(x, y, supports)
+                for x, y in loader.get_iterator()]
+
+    def fit(self, data: dict, supports,
+            resume_from: str | None = None) -> RunResult:
+        """The epoch loop. ``resume_from``: a checkpoint of this run's
+        configuration whose full train state (weights, BatchNorm buffers,
+        Adam, step, dropout generator) is restored; the run continues at
+        its epoch + 1."""
+        result = RunResult()
+        if (self.cfg.grad_accum > 1 and self.cfg.scan_steps > 1
+                and hasattr(data["train_loader"], "superbatches")):
+            raise ValueError(
+                "grad_accum > 1 does not combine with the fused multi-step "
+                "feed (scan_steps > 1 on a device-resident loader); set "
+                "scan_steps=1 to accumulate")
+        start_epoch = self._resume(resume_from)
+        for epoch in range(start_epoch, self.cfg.epochs + 1):
+            try:
+                with _epoch_watchdog(self.cfg.epoch_timeout_s, epoch):
+                    t1 = time.time()
+                    loader = data["train_loader"]
+                    loader.shuffle()
+                    train_m = _epoch_mean(self._train_epoch(loader,
+                                                            supports))
+                    t2 = time.time()      # after the sync: the real time
+                    valid_m = _epoch_mean(self._eval_split(
+                        data["val_loader"], supports))
+                    log = EpochLog(epoch, train_m, valid_m, t2 - t1,
+                                   time.time() - t2)
+                    result.history.append(log)
+                    self._log_epoch_jsonl(log)
+                    self.log(f"Epoch: {epoch:03d}, Train Loss: "
+                             f"{train_m['loss']:.4f}, Valid Loss: "
+                             f"{valid_m['loss']:.4f}, Training Time: "
+                             f"{log.train_time:.4f}/epoch")
+                    self._save_epoch(epoch, valid_m["loss"], result)
+                    patience = self.cfg.early_stop_patience
+                    if (patience > 0 and result.best_epoch > 0
+                            and epoch - result.best_epoch >= patience):
+                        self.log(f"early stop at epoch {epoch}: no val "
+                                 f"improvement for {patience} epochs "
+                                 f"(best epoch {result.best_epoch})")
+                        break
+            except DeviceWedgedError as e:
+                self._emergency_dump(result, epoch, str(e))
+                raise
+        self._finalize_best(result)
         return result
 
     def test(self, data: dict, supports, result: RunResult | None = None,
@@ -148,11 +270,58 @@ class Runner:
                  f"{result.test_metrics['rmse']:.4f}")
         return result
 
+    def _emergency_dump(self, result: RunResult, epoch: int,
+                        reason: str) -> None:
+        """Diagnostics of a wedged run, written without touching the
+        device: the epoch history and the last complete checkpoint."""
+        if self._ckpt_writer is not None:
+            try:
+                # the queued states are on the host already; let their
+                # writes land so the diagnostics point at whole files
+                self._ckpt_writer.wait()
+            except Exception as e:      # the dump must still be written
+                self.log(f"checkpoint writer failed: {e!r}")
+        os.makedirs(self.cfg.save_dir, exist_ok=True)
+        path = os.path.join(self.cfg.save_dir, "emergency.json")
+        info = {
+            "reason": reason,
+            "epoch": epoch,
+            "best_checkpoint": result.best_checkpoint,
+            "best_val_loss": (result.best_val_loss
+                              if np.isfinite(result.best_val_loss)
+                              else None),
+            "epochs_completed": len(result.history),
+            "history_val_loss": [h.valid["loss"] for h in result.history],
+        }
+        with open(path, "w") as f:
+            json.dump(info, f, indent=2)
+        self.log(f"device wedged at epoch {epoch}; diagnostics -> {path}")
+
+    def _resume(self, resume_from: str | None) -> int:
+        """Restore the train state of ``resume_from`` (if given) and return
+        the epoch to continue from; writes the run-start marker either
+        way."""
+        start_epoch = 1
+        if resume_from:
+            meta = ckpt.load_checkpoint(resume_from, self.engine)
+            start_epoch = int(meta.get("extra", {}).get("epoch", 0)) + 1
+            self.log(f"resumed from {resume_from} at epoch {start_epoch}")
+        self._append_history({"run_start": time.time(),
+                              "start_epoch": start_epoch,
+                              "resumed_from": resume_from})
+        return start_epoch
+
     def _append_history(self, rec: dict) -> None:
         os.makedirs(self.cfg.save_dir, exist_ok=True)
         with open(os.path.join(self.cfg.save_dir, "history.jsonl"),
                   "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def _log_epoch_jsonl(self, log: EpochLog) -> None:
+        self._append_history({
+            "epoch": log.epoch, "train": log.train, "valid": log.valid,
+            "train_time_s": log.train_time, "valid_time_s": log.valid_time,
+            "ts": time.time()})
 
     def _save_epoch(self, epoch: int, val_loss: float,
                     result: RunResult) -> None:
@@ -160,12 +329,37 @@ class Runner:
         path = os.path.join(
             self.cfg.save_dir,
             f"exp{self.cfg.expid}_epoch_{epoch}_{round(val_loss, 2)}.pt")
-        ckpt.save_checkpoint(
-            path, engine.model.state_dict(), model_cfg=engine.model_cfg,
-            train_cfg=self.cfg, scaler=engine.scaler,
-            extra={"epoch": epoch, "val_loss": val_loss, **self.extra_meta},
-            train_state=engine.train_state())
+        meta = dict(model_cfg=engine.model_cfg, train_cfg=self.cfg,
+                    scaler=engine.scaler,
+                    extra={"epoch": epoch, "val_loss": val_loss,
+                           **self.extra_meta},
+                    train_state=engine.train_state())
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.save(path, engine.model.state_dict(), **meta)
+        else:
+            ckpt.save_checkpoint(path, engine.model.state_dict(), **meta)
+        self._ckpt_scores[path] = val_loss
+        # 0 keeps every epoch's checkpoint, as the reference does; a
+        # just-queued path whose write has not landed stays tracked until
+        # a later prune (the last one runs in _finalize_best)
+        if self.cfg.keep_checkpoints > 0:
+            ckpt.prune_checkpoints(self.cfg.keep_checkpoints,
+                                   self._ckpt_scores)
         if val_loss < result.best_val_loss:
             result.best_val_loss = val_loss
             result.best_epoch = epoch
             result.best_checkpoint = path
+
+    def _finalize_best(self, result: RunResult) -> None:
+        """Drain the checkpoint writes, prune once more, and reload the
+        best-validation weights for the test."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+            if self.cfg.keep_checkpoints > 0:
+                ckpt.prune_checkpoints(self.cfg.keep_checkpoints,
+                                       self._ckpt_scores)
+        if result.best_checkpoint and os.path.exists(result.best_checkpoint):
+            self.engine.model.load_state_dict(ckpt.load_state_dict(
+                result.best_checkpoint, device=self.engine.device))
+            self.log(f"The valid loss on best model is "
+                     f"{result.best_val_loss:.4f}")

@@ -21,10 +21,16 @@ storage order (bitwise against the per-entry result gathered); the hops'
 backward on the card against the CPU's plain versions; kernels 4 and 5
 (the padded form) at ragged R with both kinds of sentinel, kernel 4
 bitwise against kernel 1 and kernel 5 against kernel 2 on
-``as_flat_pallas`` tables, and the padded hop's backward.
+``as_flat_pallas`` tables, and the padded hop's backward. And the fused
+train steps as CUDA graphs: S graphed steps of a small dense model and of a
+2,048-node flat city model (kernels 1, 2 and 3 inside the graph) bit for
+bit equal to S eager steps, with the dropout stream, Adam's state and the
+BatchNorm buffers; a graphed eval pass equal to eager eval steps; and a
+capture that fails raises instead of running the steps eagerly.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +45,9 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace, set before the process's first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -604,3 +613,198 @@ def test_padded_wrappers_launch_or_raise(card):
         bd.gathered_block_outer(torch.zeros(4, 128, 8, device=card),
                                 torch.zeros(4, 128, 8, device=card), tbl,
                                 out_dtype=torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# the fused train steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def step_state(engine) -> dict:
+    """Everything a train step changes: the module's state (BatchNorm
+    buffers included), Adam's moments and step counts, the dropout
+    generator."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in engine.model.state_dict().items()}
+    for i, st in engine.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"adam.{i}.{k}"] = v.detach().clone()
+    out["generator"] = engine.generator.get_state()
+    return out
+
+
+def assert_same_state(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), (
+            f"{k}: max |diff| "
+            f"{(got[k].double() - want[k].double()).abs().max().item()}")
+
+
+def dense_setup(card, dtype, seed=0, remat=False):
+    """A small dense METR model with dropout, its resident data and two
+    engines from one seed."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    n = 40
+    rng = np.random.default_rng(seed)
+    a = rng.random((2, n, n)).astype(np.float32)
+    sups = [torch.as_tensor(m / m.sum(-1, keepdims=True), device=card)
+            for m in a]
+    series = torch.as_tensor(rng.normal(size=(96, n, 2)).astype(np.float32),
+                             device=card)
+    cfg = ModelConfig(num_nodes=n, residual_channels=16, dilation_channels=16,
+                      skip_channels=32, end_channels=64, blocks=2, layers=2,
+                      dropout=0.3, n_supports=2, dtype=dtype, remat=remat)
+    tc = TrainConfig(lr_decay=0.5, lr_decay_every=1)
+    engines = [Engine(cfg, tc, StandardScaler(0.0, 1.0), device=card,
+                      seed=seed, steps_per_epoch=2, aptinit=a[0])
+               for _ in range(2)]
+    return engines, sups, series
+
+
+@pytest.mark.parametrize("feed,dtype,remat", [
+    ("resident", "float32", False), ("resident", "bfloat16", False),
+    ("windows", "float32", False), ("windows", "bfloat16", False),
+    ("resident", "bfloat16", True)])
+def test_graphed_dense_steps_equal_eager(card, feed, dtype, remat):
+    """Two fused calls of S = 3 steps (the first warms up, captures and
+    replays twice; the second replays three times, across a learning-rate
+    decay) against six eager steps on the same batches: metrics and state
+    bit for bit, dropout included; with remat too (its recompute touches
+    no RNG, so it captures)."""
+    from graph_wavenet_tpu_torch.data.device_loader import gather_window_rows
+
+    (eager, graphed), sups, series = dense_setup(card, dtype, remat=remat)
+    rng = np.random.default_rng(1)
+    s, b = 3, 4
+    if feed == "resident":
+        starts = torch.arange(series.shape[0] - 24, device=card)
+        xs = gather_window_rows(series, starts, 12)
+        ys = gather_window_rows(series, starts + 12, 12) * 5 + 50
+        idx = rng.integers(0, xs.shape[0], size=(2, s, b)).astype(np.int32)
+
+        def batch(sel):
+            return xs.index_select(0, sel), ys.index_select(0, sel)
+
+        def fused(sel):
+            return graphed.train_steps_resident(xs, ys, sel, sups)
+    else:
+        y_series = series * 5 + 50
+        idx = rng.integers(11, series.shape[0] - 12,
+                           size=(2, s, b)).astype(np.int32)
+
+        def batch(a):
+            return (gather_window_rows(series, a - 11, 12),
+                    gather_window_rows(y_series, a + 1, 12))
+
+        def fused(a):
+            return graphed.train_steps_windows(series, a, 12, 12, 1, sups,
+                                               y_series=y_series)
+    for call in range(2):
+        got = fused(idx[call])
+        want = [eager.train_step(*batch(torch.as_tensor(r, device=card)),
+                                 sups) for r in idx[call]]
+        for k in ("loss", "mape", "rmse"):
+            assert got[k].shape == (s,)
+            assert torch.equal(got[k], torch.stack([m[k] for m in want])), k
+        assert_same_state(step_state(graphed), step_state(eager))
+    (g,) = graphed.step_graphs()
+    assert g.replays == 2 * s - 1 and graphed.step == eager.step == 2 * s
+    assert not any(g.launches.values())       # no block kernel here
+
+
+def test_graphed_eval_equals_eager(card):
+    (engine, _), sups, series = dense_setup(card, "bfloat16")
+    idx = np.random.default_rng(2).integers(11, series.shape[0] - 12,
+                                            size=(5, 4)).astype(np.int32)
+    y_series = series * 5 + 50
+    got = engine.eval_steps_windows(series, idx, 12, 12, 1, sups,
+                                    y_series=y_series)
+    again = engine.eval_steps_windows(series, idx, 12, 12, 1, sups,
+                                      y_series=y_series)
+    from graph_wavenet_tpu_torch.data.device_loader import gather_window_rows
+
+    for k in ("loss", "mape", "rmse"):
+        want = torch.stack([engine.eval_step(
+            gather_window_rows(series, a - 11, 12),
+            gather_window_rows(y_series, a + 1, 12), sups)[k]
+            for a in torch.as_tensor(idx, device=card)])
+        assert torch.equal(got[k], want) and torch.equal(again[k], want), k
+
+
+def test_graphed_city_steps_equal_eager(card):
+    """S = 3 graphed steps of the 2,048-node fp32 city model (flat
+    supports and the adaptive mask, dropout on) against three eager steps,
+    bit for bit, under deterministic algorithms (the adaptive softmax's
+    index_add_ and the nodevec gathers' backward use float atomics
+    otherwise). Kernels 1, 2 and 3 run inside the graph: its per-replay
+    launches equal an eager step's."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.graphs.spatial import knn_graph_edges
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    n = 2048
+    pos = np.random.default_rng(0).random((n, 2))
+    src, dst, w = knn_graph_edges(pos, 8)
+    sup, mask, _ = build_city_supports(src, dst, w, n, pos=pos,
+                                       ordering="rcm", form="flat",
+                                       addaptadj=True, device=card)
+    sups = sup + [mask]
+    cfg = ModelConfig(num_nodes=n, addaptadj=True, dropout=0.3)
+    rng = np.random.default_rng(3)
+    xs = torch.as_tensor(rng.normal(size=(6, 12, n, 2)).astype(np.float32),
+                         device=card)
+    ys = torch.as_tensor(rng.normal(50, 10, size=(6, 12, n, 2)).astype(
+        np.float32), device=card)
+    idx = np.array([[0, 1], [2, 3], [4, 5]], np.int32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graphed = (Engine(cfg, TrainConfig(), StandardScaler(50, 10),
+                                 device=card, seed=0) for _ in range(2))
+        launches = []
+        want = []
+        for r in torch.as_tensor(idx, device=card):
+            bd.reset_launch_counts()
+            want.append(eager.train_step(xs.index_select(0, r),
+                                         ys.index_select(0, r), sups))
+            launches.append(dict(bd.LAUNCHES))
+        got = graphed.train_steps_resident(xs, ys, idx, sups)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got["loss"], torch.stack([m["loss"] for m in want]))
+    assert_same_state(step_state(graphed), step_state(eager))
+    (g,) = graphed.step_graphs()
+    assert g.launches == launches[0] and g.replays == 2
+    for k in ("gathered_block_mix_flat", "gathered_block_mix_flat2",
+              "gathered_block_outer_flat"):
+        assert g.launches[k] > 0, k
+
+
+@pytest.mark.parametrize("how", ["raise", "sync"])
+def test_capture_failure_raises_and_runs_no_step_eagerly(card, how):
+    """A step that fails under capture (an error, or a host sync, which a
+    capture refuses) makes the fused call raise after the warm-up step:
+    no eager step runs in the captured steps' place."""
+    (engine, _), sups, series = dense_setup(card, "float32")
+    xs = series[None].expand(4, -1, -1, -1)[:, :12].contiguous()
+    core = engine._train_core
+
+    def failing(x, y, s):
+        m = core(x, y, s)
+        if torch.cuda.is_current_stream_capturing():
+            if how == "raise":
+                raise RuntimeError("injected capture failure")
+            m[0].item()
+        return m
+
+    engine._train_core = failing
+    idx = np.array([[0, 1], [2, 3], [1, 2]], np.int32)
+    with pytest.raises(RuntimeError):
+        engine.train_steps_resident(xs, xs, idx, sups)
+    assert engine.step == 1 and not engine.step_graphs()
+    torch.cuda.synchronize()

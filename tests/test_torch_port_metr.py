@@ -157,8 +157,18 @@ def test_load_dataset_matches_jax(metr_data, given_scaler):
         for bg, bw in zip(batches(g), batches(w)):
             for a, b in zip(bg, bw):
                 np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        tmetr.load_dataset(metr_data["data"], 8, resident="device")
+    # resident on the device (here the CPU): the same batches, shuffled
+    # by the same seeded Generator
+    dev = tmetr.load_dataset(metr_data["data"], 8, seed=3, resident="device",
+                             scaler=scaler and scaler[0], device=CPU)
+    host = tmetr.load_dataset(metr_data["data"], 8, seed=3,
+                              scaler=scaler and scaler[0])
+    for split in ("train", "val", "test"):
+        d, h = dev[split + "_loader"], host[split + "_loader"]
+        assert (d.num_batch, d.num_real) == (h.num_batch, h.num_real)
+        for bd_, bh in zip(batches(d), batches(h)):
+            for a, b in zip(bd_, bh):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_load_dataset_streaming_matches_jax(metr_data):
@@ -312,7 +322,7 @@ def test_test_cli_matches_jax_on_a_converted_checkpoint(metr_data, tmp_path,
         rtol=2e-4, atol=2e-4)
 
 
-def test_train_cli_checks_horizon_and_nodes(metr_data):
+def test_train_cli_checks_horizon_and_nodes(metr_data, tmp_path):
     from graph_wavenet_tpu_torch.cli import train
 
     base = ["--data", metr_data["data"], "--adjdata", metr_data["adj"],
@@ -321,5 +331,10 @@ def test_train_cli_checks_horizon_and_nodes(metr_data):
         train.main(base + ["--num_nodes", str(N_NODES)])
     with pytest.raises(SystemExit, match="--num_nodes 5"):
         train.main(base + ["--num_nodes", "5", "--seq_length", "12"])
-    with pytest.raises(SystemExit, match="slice 4b"):
-        train.main(base + ["--resident", "device"])
+    # the device-resident feed (the default) trains where both match
+    out = train.main(base + ["--num_nodes", str(N_NODES), "--seq_length",
+                             "12", "--resident", "device", "--save",
+                             str(tmp_path / "ckpt")])
+    hist = out["result"].history
+    assert len(hist) == 1 and np.isfinite(hist[0].valid["loss"])
+    assert out["runner"].engine.step > 0

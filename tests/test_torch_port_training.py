@@ -314,8 +314,8 @@ def test_trained_checkpoint_forecasts_like_jax(trained_city):
 def test_train_cli_refuses_what_waits():
     from graph_wavenet_tpu_torch.cli import train
 
-    with pytest.raises(SystemExit, match="--grad_accum, --resume"):
-        train.main(["--graph_npz", "g.npz", "--gcn_bool", "--grad_accum",
-                    "2", "--resume", "x.pt"])
+    with pytest.raises(SystemExit, match="--mesh_model, --mesh_dp"):
+        train.main(["--graph_npz", "g.npz", "--gcn_bool", "--mesh_model",
+                    "2", "--mesh_dp"])
     with pytest.raises(SystemExit, match="diff-G slice"):
         train.main(["--data", "syn", "--device", CPU])
