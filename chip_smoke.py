@@ -89,7 +89,24 @@ exits non-zero:
 15. kernel 5's path at full width: one forward and backward of the gcn at
    the first layer's training shape (batch 4, bf16, R = 1,536) over the
    padded supports with blocks that require a gradient (4 kernel-5
-   launches), each launch held against its plain version on the card.
+   launches), each launch held against its plain version on the card;
+16. export (``phase_export``): ``gwt-torch-export`` at batch 8 of the
+   serving checkpoint of 9 (flat), the padded checkpoint of 10 (with the
+   masked adaptive adjacency) and the METR checkpoint of 12
+   (``--adjdata``); each artifact loaded and run in a fresh process that
+   imports only torch and the op library, its forecast bit for bit
+   ``Forecaster.predict``'s, its launches the layout's; export and load
+   seconds, artifact size, and the artifact's predict timed against the
+   Forecaster's;
+17. ``gwt-torch-serve --artifact`` on the flat artifact (4 concurrent
+   requests padded to its batch of 8) and ``--checkpoint --adjdata`` on
+   the METR checkpoint, answers against the Forecaster's;
+18. streaming (``phase_rolling``): ``rolling_forecast`` over 24 origins of
+   the 40,960-node flat model and over one day (288 origins) of the METR
+   model, the replayed CUDA graph bit for bit the eager loop of
+   ``predict``, each replay's launches one predict's, ms per origin and
+   idle share of both; ``autoregressive_forecast`` (city at batch 1, 3
+   rounds; METR with ``future_aux``) bit for bit its eager rounds.
 
 The launch counts of a graphed window add each replay's launches (a
 wrapper counts its Python calls, so a capture counts a step once).
@@ -132,8 +149,13 @@ TRAIN_BATCH = 4
 TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kv,
+                      "t": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 class CheckFailed(AssertionError):
@@ -148,6 +170,18 @@ def require(ok: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """Deterministic algorithms on (or off) inside the block, off after."""
+    import torch
+
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs after one warm-up. At
@@ -2466,13 +2500,13 @@ def metric_rows(m: dict):
     return torch.stack([m[k].reshape(-1) for k in ("loss", "mape", "rmse")])
 
 
-def graphed_window_launches(engine, raw: dict) -> dict:
-    """Hand-kernel launches of a window in which the engine's step graphs
-    were captured: the wrappers' counts ``raw`` (Python calls: each capture
-    counts a step once, and launches nothing) plus each replay's launches
-    beyond that one."""
+def graphed_window_launches(owner, raw: dict) -> dict:
+    """Hand-kernel launches of a window in which the step graphs of
+    ``owner`` (an engine or a forecaster) were captured: the wrappers'
+    counts ``raw`` (Python calls: each capture counts a step once, and
+    launches nothing) plus each replay's launches beyond that one."""
     out = dict(raw)
-    for g in engine.step_graphs():
+    for g in owner.step_graphs():
         for k, n in g.launches.items():
             out[k] += n * (g.replays - 1)
     return out
@@ -2661,13 +2695,10 @@ def resident_city(graph, form: str) -> dict:
         return Engine(cfg, TrainConfig(), StandardScaler(50.0, 10.0),
                       device="cuda", seed=0)
 
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic(True):
         eager, graphed = engine(), engine()
         diff, m_err, n_graphed, n_eager, per_replay = graphed_vs_eager(
             eager, graphed, xs, ys, idx, sups)
-    finally:
-        torch.use_deterministic_algorithms(False)
     want = expected_step_launches(sups, layer_widths(cfg, b, 13),
                                   torch.bfloat16)
     emit("resident_city_bitwise", form=form, nodes=N_CITY, batch=b,
@@ -2725,6 +2756,455 @@ def phase_resident(graph) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# export and streaming serving
+# ---------------------------------------------------------------------------
+
+# a fresh process that imports only torch and the op library loads an
+# artifact, counts its constants off a 16-byte boundary (the bf16 kernels'
+# TMA refuses them), predicts on a saved batch, times 10 more predicts and
+# prints one JSON line
+ARTIFACT_CHILD = r'''
+import json, sys, time
+import numpy as np
+import torch
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+path, x_path, y_path, deterministic = sys.argv[1:5]
+torch.use_deterministic_algorithms(deterministic == "1")
+t0 = time.perf_counter()
+ep = torch.export.load(path)
+odd = [k for k, t in ep.constants.items()
+       if torch.is_tensor(t) and t.data_ptr() % 16]
+module = ep.module()
+load_s = time.perf_counter() - t0
+x = torch.as_tensor(np.load(x_path), device="cuda")
+with torch.inference_mode():
+    module(x)
+    torch.cuda.synchronize()
+    bd.reset_launch_counts()
+    y = module(x)
+    torch.cuda.synchronize()
+    launches = dict(bd.LAUNCHES)
+    times = []
+    for _ in range(10):
+        t = time.perf_counter()
+        module(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+np.save(y_path, y.cpu().numpy())
+bad = [m for m in sys.modules if m == "jax" or m.startswith((
+    "jax.", "graph_wavenet_tpu.", "graph_wavenet_tpu_torch.models",
+    "graph_wavenet_tpu_torch.train"))]
+print(json.dumps({"load_seconds": load_s, "misaligned_constants": len(odd),
+                  "constants": len(ep.constants), "launches": launches,
+                  "predict_median_ms": sorted(times)[5],
+                  "predict_min_ms": min(times), "foreign_modules": bad}))
+'''
+
+
+def only_checkpoint(save_dir: str) -> str:
+    """The one checkpoint a one-epoch run wrote into ``save_dir``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(save_dir, "*.pt"))
+    return path
+
+
+def ab_ms(fns: dict, reps: int = 5, rounds: int = 4) -> dict:
+    """Wall ms of each of ``fns`` (host clock around a call that ends in a
+    sync), alternating their order over ``rounds`` after one warm-up each:
+    median and minimum per name."""
+    import torch
+
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            fns[name]()
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                t = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+    return {name: {"median_ms": sorted(v)[len(v) // 2], "min_ms": min(v)}
+            for name, v in times.items()}
+
+
+def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
+    """One checkpoint through ``gwt-torch-export`` at batch 8, its artifact
+    loaded and run in a fresh process (:data:`ARTIFACT_CHILD`) on a batch
+    of 12-step windows left-padded to the artifact's window, the output
+    held bit for bit to ``fc.predict`` on the unpadded windows and its
+    hand-kernel launches to the Forecaster's; then the artifact's predict
+    and the Forecaster's timed in turns in this process. ``det``:
+    deterministic algorithms in both (the adaptive softmax's atomics).
+    Returns the artifact predict's launch counts."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from graph_wavenet_tpu_torch.cli import export
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import serving
+
+    out = os.path.join(tmp, f"{name}.pt2")
+    t0 = time.perf_counter()
+    res = export.main([*argv, "--out", out, "--batch_size", "8",
+                       "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    b, t, n, f = res["in_shape"]
+    x = torch.randn(b, 12, n, f, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(9))
+    xp, yp = os.path.join(tmp, "art_x.npy"), os.path.join(tmp, "art_y.npy")
+    np.save(xp, F.pad(x, (0, 0, 0, 0, t - 12, 0)).cpu().numpy())
+    child = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, out, xp, yp, str(int(det))],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=900)
+    require(child.returncode == 0,
+            f"{name}: the artifact failed in a fresh process:\n"
+            f"{child.stderr[-4000:]}")
+    stats = json.loads(child.stdout.strip().splitlines()[-1])
+    with deterministic(det):
+        bd.reset_launch_counts()
+        want = fc.predict(x)
+        torch.cuda.synchronize()
+        live = dict(bd.LAUNCHES)
+        got = torch.as_tensor(np.load(yp), device="cuda")
+        art = serving.load_exported_forecaster(out)
+        times = ab_ms({"artifact": lambda: art.predict(x),
+                       "forecaster": lambda: fc.predict(x)})
+    diff = float((got - want).abs().max())
+    emit("export", name=name, in_shape=[b, t, n, f],
+         export_seconds=round(export_s, 3),
+         artifact_bytes=os.path.getsize(out), deterministic=det,
+         bitwise_equal=bool(torch.equal(got, want)), max_abs_diff=diff,
+         child=stats, forecaster_launches=live, in_process=times)
+    require(torch.equal(got, want),
+            f"{name}: the artifact differs from Forecaster.predict by {diff}")
+    require(stats["launches"] == live,
+            f"{name}: artifact launches {stats['launches']}, the "
+            f"Forecaster's {live}")
+    require(not stats["foreign_modules"],
+            f"{name}: the loader imported {stats['foreign_modules']}")
+    require(stats["misaligned_constants"] == 0,
+            f"{name}: {stats['misaligned_constants']} constants load off a "
+            "16-byte boundary")
+    del art
+    torch.cuda.empty_cache()
+    return stats["launches"]
+
+
+def phase_export(tmp: str) -> dict:
+    """The export path: ``phase_serve``'s 40,960-node bf16 flat checkpoint
+    (no adaptive adjacency), ``phase_train``'s padded checkpoint (with the
+    masked adaptive adjacency) and ``phase_metr_cli``'s dense METR
+    checkpoint (``--adjdata``), each exported at batch 8 and checked by
+    :func:`export_run`. Returns the launch counts of the city artifacts'
+    predicts (``artifact``, ``artifact_padded``)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    counts = {}
+    flat = [os.path.join(tmp, "city_flat.pt"),
+            os.path.join(tmp, "city_graph.npz")]
+    fc = Forecaster.from_city_checkpoint(*flat, device="cuda")
+    want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
+                            torch.bfloat16)
+    counts["artifact"] = export_run(
+        "city_flat", ["--checkpoint", flat[0], "--graph_npz", flat[1]], fc,
+        tmp, det=False)
+    require(counts["artifact"] == want,
+            f"flat artifact launches {counts['artifact']}, the layout {want}")
+    del fc
+    padded = [only_checkpoint(os.path.join(tmp, "train_ckpt_pallas")),
+              os.path.join(tmp, "train_graph.npz")]
+    fc = Forecaster.from_city_checkpoint(*padded, device="cuda")
+    want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
+                            torch.bfloat16)
+    counts["artifact_padded"] = export_run(
+        "city_padded", ["--checkpoint", padded[0], "--graph_npz", padded[1]],
+        fc, tmp, det=True)
+    require(counts["artifact_padded"] == want,
+            f"padded artifact launches {counts['artifact_padded']}, the "
+            f"layout {want}")
+    del fc
+    metr = ["--checkpoint", only_checkpoint(os.path.join(tmp, "metr_ckpt")),
+            "--adjdata", os.path.join(tmp, "adj_mx.pkl")]
+    dense = export_run("metr_dense", metr, metr_forecaster(tmp), tmp,
+                       det=False)
+    require(not any(dense.values()),
+            f"the dense artifact launched a block kernel: {dense}")
+    torch.cuda.empty_cache()
+    bd.reset_launch_counts()
+    return counts
+
+
+def metr_forecaster(tmp: str):
+    """``phase_metr_cli``'s dense checkpoint under the serve CLI's rules."""
+    import argparse
+
+    from graph_wavenet_tpu_torch.cli import serve
+
+    return serve.load_forecaster(argparse.Namespace(
+        checkpoint=only_checkpoint(os.path.join(tmp, "metr_ckpt")),
+        graph_npz=None, adjdata=os.path.join(tmp, "adj_mx.pkl"),
+        adjtype="doubletransition", graph_bank=None, device="cuda"))
+
+
+def serve_concurrently(argv: list, fc, n: int, seed: int):
+    """``gwt-torch-serve`` on ``argv``, ``n`` concurrent raw requests; each
+    answer against ``fc.predict`` on the standardized windows stacked in
+    request order and padded as the batcher pads (rows in another order
+    than the device call's, so held to half a bf16 ulp of the forecasts'
+    largest magnitude and their bitwise equality reported). Returns the
+    health and stats records, the launches and the largest difference."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import serve
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    run = serve.main([*argv, "--port", "0", "--window_ms", "3000",
+                      "--max_batch", "8"], serve_forever=False)
+    server, batcher = run["server"], run["batcher"]
+    try:
+        url = f"http://127.0.0.1:{server.server_port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        raw = np.random.default_rng(seed).normal(
+            50.0, 10.0, size=(n, 12, fc.input_nodes, 2)).astype(np.float32)
+        answers: list = [None] * n
+        errors: list = []
+
+        def ask(i):
+            try:
+                answers[i] = np.asarray(post_json(
+                    url + "/predict", {"x": raw[i].tolist()})["y"])
+            except Exception as e:         # reported below; fails the run
+                errors.append(f"{type(e).__name__}: {e}")
+
+        bd.reset_launch_counts()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = dict(bd.LAUNCHES)
+        require(not errors and not any(t.is_alive() for t in threads),
+                f"requests failed: {errors}")
+        stats = json.loads(urllib.request.urlopen(
+            url + "/stats", timeout=60).read())
+        bucket = batcher._bucket(n)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    xs = raw.copy()
+    xs[..., 0] = fc.scaler.transform(xs[..., 0])
+    xs = np.concatenate([xs, np.repeat(xs[-1:], bucket - n, axis=0)])
+    want = fc.predict(xs).cpu().numpy()[:n]
+    got = np.stack(answers)
+    diff = float(np.abs(got - want).max())
+    tol = 2.0 ** -9 * float(np.abs(want).max())
+    return health, stats, launches, diff, bool((got == want).all()), tol
+
+
+def phase_serve_artifact(tmp: str) -> dict:
+    """``gwt-torch-serve --artifact`` on the flat city artifact of
+    ``phase_export`` (scaler flags as the checkpoint's), 4 concurrent
+    requests padded to the artifact's batch of 8, and ``gwt-torch-serve
+    --checkpoint --adjdata`` on the dense METR checkpoint. Returns the
+    artifact server's launch counts (``serve_artifact``)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    fc = Forecaster.from_city_checkpoint(
+        os.path.join(tmp, "city_flat.pt"),
+        os.path.join(tmp, "city_graph.npz"), device="cuda")
+    health, stats, served, diff, bitwise, tol = serve_concurrently(
+        ["--artifact", os.path.join(tmp, "city_flat.pt2"), "--scaler_mean",
+         str(fc.scaler.mean), "--scaler_std", str(fc.scaler.std)], fc, 4, 11)
+    want = {k: v * stats["device_calls"] for k, v in forward_launches(
+        fc.supports, layer_widths(fc.cfg, 8), torch.bfloat16).items()}
+    emit("serve_artifact", source=health["source"], device=health["device"],
+         in_shape=health["in_shape"], requests=stats["requests"],
+         device_calls=stats["device_calls"],
+         batch_histogram=stats["batch_histogram"], padded_to=8,
+         launches=served, expected=want, max_abs_diff_vs_forecaster=diff,
+         tolerance=tol, bitwise_equal=bitwise)
+    require(health["source"] == "artifact" and health["in_shape"][0] == 8,
+            f"healthz: {health}")
+    require(stats["requests"] == 4 and served == want,
+            f"artifact server launches {served}, expected {want}")
+    require(diff <= tol, f"artifact answers differ from the Forecaster's by "
+            f"{diff} (tolerance {tol})")
+    del fc
+    fc = metr_forecaster(tmp)
+    health, stats, launches, diff, bitwise, tol = serve_concurrently(
+        ["--checkpoint", only_checkpoint(os.path.join(tmp, "metr_ckpt")),
+         "--adjdata", os.path.join(tmp, "adj_mx.pkl"), "--device", "cuda"],
+        fc, 4, 12)
+    emit("serve_dense", source=health["source"], device=health["device"],
+         supports=health["supports"], requests=stats["requests"],
+         device_calls=stats["device_calls"],
+         batch_histogram=stats["batch_histogram"], launches=launches,
+         max_abs_diff_vs_forecaster=diff, tolerance=tol,
+         bitwise_equal=bitwise)
+    require(health["source"] == "checkpoint" and stats["requests"] == 4,
+            f"dense server: {health}, {stats}")
+    require(diff <= tol and not any(launches.values()),
+            f"dense answers differ by {diff} or launched {launches}")
+    del fc
+    torch.cuda.empty_cache()
+    return {"serve_artifact": served}
+
+
+def ar_eager(fc, x, n_rounds: int, aux=None):
+    """``autoregressive_forecast``'s rounds as eager predicts: the round's
+    forecast, standardized, becomes the signal of H new steps, beside the
+    round's ``aux`` chunk (or the window's aux tail)."""
+    import torch
+
+    h = fc.cfg.out_dim
+    state, preds = x.clone(), []
+    for k in range(n_rounds):
+        pred = fc.predict(state)
+        tail = (state[:, -h:, :, 1:] if aux is None
+                else aux[:, k * h:(k + 1) * h])
+        new = torch.cat([((pred - fc.scaler.mean) / fc.scaler.std)[..., None],
+                         tail], -1)
+        state = torch.cat([state[:, h:], new], 1)
+        preds.append(pred)
+    return torch.cat(preds, 1)
+
+
+def rolling_run(name: str, fc, n_origins: int) -> dict:
+    """A rolling forecast over ``n_origins`` origins of a random history on
+    the card: the eager loop of ``predict`` per window against the
+    replayed graph (a first call that warms up, captures and replays, then
+    two of replays only), bit for bit; each replay's launches held to one
+    predict's; ms per origin of both (median of 3 calls) and their
+    profiled idle shares (over at most 24 origins). Returns the graphed
+    window's launch counts, every replay counted."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import serving
+
+    history = torch.randn(n_origins + 11, fc.input_nodes, 2, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(13))
+
+    def eager(h=history):
+        return torch.stack([fc.predict(h[None, k:k + 12])[0]
+                            for k in range(h.shape[0] - 11)])
+
+    bd.reset_launch_counts()
+    want = eager()
+    torch.cuda.synchronize()
+    one = {k: v // n_origins for k, v in bd.LAUNCHES.items()}
+    bd.reset_launch_counts()
+    got = [serving.rolling_forecast(fc, history, 12) for _ in range(3)]
+    torch.cuda.synchronize()
+    (g,) = fc.step_graphs()
+    window = graphed_window_launches(fc, bd.LAUNCHES)
+    # profiled over the first 24 origins at most: a profile of every
+    # kernel of 288 origins takes minutes to read back
+    short = history[:35] if n_origins > 24 else history
+    times = {}
+    for mode, fn, profiled in (
+            ("eager", eager, lambda: eager(short)),
+            ("graphed", lambda: serving.rolling_forecast(fc, history, 12),
+             lambda: serving.rolling_forecast(fc, short, 12))):
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3 / n_origins)
+        profiled()          # a graph of the short history: captured here
+        prof = profile_step(profiled)
+        times[mode] = {"ms_per_origin_median": sorted(t)[1],
+                       "ms_per_origin_min": min(t),
+                       "profiled_origins": short.shape[0] - 11,
+                       "profiled_wall_ms": prof["wall_ms"],
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "device_idle_share": prof["device_idle_share"],
+                       "hand_kernels": prof["hand_kernels"]}
+    equal = all(torch.equal(r, want) for r in got)
+    emit("rolling", name=name, nodes=fc.input_nodes, origins=n_origins,
+         window=12, bitwise_equal=equal, replays=g.replays,
+         per_replay_launches=g.launches, predict_launches=one,
+         window_launches=window, **times)
+    require(equal, f"{name}: the replayed rolling forecast differs from the "
+            "eager loop")
+    require(g.launches == one, f"{name}: a replay launches {g.launches}, a "
+            f"predict {one}")
+    return window
+
+
+def ar_run(name: str, fc, batch: int, n_rounds: int, with_aux: bool):
+    """``autoregressive_forecast`` on the card against :func:`ar_eager`,
+    bit for bit, two calls (the second replays every round); round 1
+    against ``predict``."""
+    import torch
+
+    from graph_wavenet_tpu_torch.train import serving
+
+    gen = torch.Generator("cuda").manual_seed(14)
+    h, n = fc.cfg.out_dim, fc.input_nodes
+    x = torch.randn(batch, 12, n, 2, device="cuda", generator=gen)
+    aux = (torch.rand(batch, n_rounds * h, n, 1, device="cuda",
+                      generator=gen) if with_aux else None)
+    want = ar_eager(fc, x, n_rounds, aux)
+    before = sum(g.replays for g in fc.step_graphs())
+    got = [serving.autoregressive_forecast(fc, x, n_rounds, future_aux=aux)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(r, want) for r in got)
+    first = torch.equal(got[0][:, :h], fc.predict(x))
+    emit("autoregressive", name=name, nodes=n, batch=batch, rounds=n_rounds,
+         future_aux=with_aux, bitwise_equal=equal, round1_equals_predict=first,
+         replays=sum(g.replays for g in fc.step_graphs()) - before)
+    require(equal and first, f"{name}: the replayed rounds differ from the "
+            "eager ones")
+
+
+def phase_rolling(tmp: str) -> dict:
+    """Streaming forecasts at full width: a rolling forecast over 24
+    origins of ``phase_serve``'s 40,960-node bf16 flat model and over one
+    day (288 origins) of the dense 207-node METR model
+    (:func:`rolling_run`), then ``autoregressive_forecast``: the city model
+    at batch 1 for 3 rounds (the aux tail repeated) and the dense model
+    with ``future_aux`` (:func:`ar_run`). Returns the city rolling
+    window's launch counts (``rolling``)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    fc = Forecaster.from_city_checkpoint(
+        os.path.join(tmp, "city_flat.pt"),
+        os.path.join(tmp, "city_graph.npz"), device="cuda")
+    counts = {"rolling": rolling_run("city_flat", fc, 24)}
+    ar_run("city_flat", fc, 1, 3, with_aux=False)
+    del fc
+    torch.cuda.empty_cache()
+    fc = metr_forecaster(tmp)
+    dense = rolling_run("metr_dense", fc, 288)
+    require(not any(dense.values()),
+            f"the dense rolling forecast launched a block kernel: {dense}")
+    ar_run("metr_dense", fc, 4, 3, with_aux=True)
+    del fc
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2765,27 +3245,35 @@ def main() -> int:
         counts.update(phase_train(graph, tmp, "pallas"))
         counts.update(phase_aptonly(tmp))
         counts.update(phase_metr_cli(tmp))
+        counts.update(phase_export(tmp))
+        counts.update(phase_serve_artifact(tmp))
+        counts.update(phase_rolling(tmp))
     counts.update(phase_dense())
     counts.update(phase_resident(graph))
     counts.update(phase_kernel5_path(padded))
 
     # launches on the main paths: kernel 1 serving the 128x512 layout and,
     # as the chain the dispatch rule picks, serving and in a train step,
-    # eager and graphed, kernel 2 in a train step, eager and graphed,
-    # kernel 3 serving and in a train step where the dispatch rule picks it
-    # (the last layers in bf16), eager and graphed, kernel 4 serving and
-    # training the padded form, eager and graphed, kernel 5 on the
-    # gradient through padded blocks; a graphed window counts every replay
+    # eager and graphed, in the flat and the padded artifact's predicts
+    # (the padded one's adaptive support), serving the artifact and
+    # replaying the rolling forecast, kernel 2 in a train step, eager and
+    # graphed, kernel 3 serving, in a train step and in the rolling
+    # forecast where the dispatch rule picks it (the last layers in bf16),
+    # kernel 4 serving and training the padded form, eager and graphed, and
+    # in the padded artifact, kernel 5 on the gradient through padded
+    # blocks; a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
-             ("rect", "serve", "train", "train_graphed")),
+             ("rect", "serve", "train", "train_graphed", "artifact",
+              "artifact_padded", "serve_artifact", "rolling")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
              ("train", "train_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
-             ("serve", "train", "train_graphed")),
+             ("serve", "train", "train_graphed", "rolling")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
-             ("serve_padded", "train_padded", "train_graphed_padded")),
+             ("serve_padded", "train_padded", "train_graphed_padded",
+              "artifact_padded")),
             ("k5", "gathered_block_outer", K5_SRC, K5_TPU,
              ("kernel5_path",))):
         rec = summary[key]

@@ -22,10 +22,13 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
 - :func:`tile_cols`: the R columns of one output tile of kernels 1, 3 and
   4, by one rule for all three.
 
-A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
-PyTorch version beside it (gather, fp32 einsum, and for the mixes
-``index_add_`` over the destination rows and a cast). Each wrapper counts
-its kernel launches in :data:`LAUNCHES`.
+Each kernel is a ``torch.library`` op (``torch.ops.gwt_torch.mix_flat``,
+``mix_flat2``, ``outer_flat``, ``mix_padded``, ``outer_padded``) with a fake
+kernel, so ``torch.export`` writes the ops into an artifact and a loader
+needs this module (not the model code) to run it. A CUDA tensor goes to the
+kernel or raises; a CPU tensor goes to the plain PyTorch version beside it
+(gather, fp32 einsum, and for the mixes ``index_add_`` over the destination
+rows and a cast). Each op counts its kernel launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -197,7 +200,7 @@ def outer_padded_plain(x: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# launch checks
 # ---------------------------------------------------------------------------
 
 def _check_tables(*tables: torch.Tensor) -> None:
@@ -251,6 +254,247 @@ def _check_aligned(blocks: torch.Tensor) -> None:
                          "at an odd offset")
 
 
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops
+# ---------------------------------------------------------------------------
+# One op per kernel in the ``gwt_torch`` namespace. Its CPU kernel is the
+# plain version, its CUDA kernel the ctypes launch (with the work on data
+# pointers and the launch count), and its fake kernel gives the output's
+# shape and dtype from the arguments alone, so ``torch.export`` traces the
+# ops into an artifact and a CUDA graph captures them like any ATen op. The
+# public wrappers check their arguments and call the ops; no other device
+# has a kernel.
+
+_LIB = torch.library.Library("gwt_torch", "DEF")
+
+
+class _Op:
+    """One kernel's op: its schema and CPU kernel at construction; the
+    decorators register its fake kernel and its CUDA kernel. Registered
+    straight with the dispatcher (``torch.library.Library``), with no
+    autograd kernel: the hops' autograd functions call the ops under
+    no-grad, and ``torch.library.custom_op``'s Python autograd layer would
+    double the host time of every launch."""
+
+    def __init__(self, name: str, schema: str, cpu):
+        _LIB.define(name + schema)
+        _LIB.impl(name, cpu, "CPU")
+        self.name = name
+
+    def register_fake(self, fn):
+        torch.library.register_fake(f"gwt_torch::{self.name}", fn, lib=_LIB)
+        return fn
+
+    def register_cuda(self, fn):
+        _LIB.impl(self.name, fn, "CUDA")
+        return fn
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+_mix_flat_op = _Op(
+    "mix_flat", "(Tensor blocks, Tensor slot, Tensor x, Tensor src, "
+    "Tensor row, Tensor? row_ptr, int nb, bool transpose_lhs) -> Tensor",
+    lambda blocks, slot, x, src, row, row_ptr, nb, transpose_lhs:
+    mix_flat_plain(blocks, slot, x, src, row, nb=nb,
+                   transpose_lhs=transpose_lhs))
+
+
+@_mix_flat_op.register_fake
+def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
+    bs_o = blocks.shape[2] if transpose_lhs else blocks.shape[1]
+    return x.new_empty((nb, bs_o, x.shape[2]))
+
+
+@_mix_flat_op.register_cuda
+def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
+    if row_ptr is None:
+        raise ValueError("the CUDA kernel reads the CSR row pointer; pass "
+                         "row_ptr")
+    _check_aligned(blocks)
+    bs_c, bs_o = ((blocks.shape[1], blocks.shape[2]) if transpose_lhs
+                  else (blocks.shape[2], blocks.shape[1]))
+    r = x.shape[2]
+    out = torch.empty((nb, bs_o, r), dtype=x.dtype, device=x.device)
+    if r == 0 or nb == 0:
+        return out
+    lib = _lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
+    with torch.cuda.device(x.device):
+        rc = lib.gwt_mix_flat(_DTYPE_CODE[x.dtype], blocks.data_ptr(),
+                              slot.data_ptr(), x.data_ptr(), src.data_ptr(),
+                              row_ptr.data_ptr(), out.data_ptr(), nb,
+                              blocks.shape[0], x.shape[0], bs_c, bs_o, r,
+                              int(transpose_lhs), tile_cols(r, x.dtype),
+                              _stream(x))
+    _raise_on(lib, rc, "gathered_block_mix_flat")
+    LAUNCHES["gathered_block_mix_flat"] += 1
+    return out
+
+
+_mix_flat2_op = _Op(
+    "mix_flat2", "(Tensor blocks, Tensor slot, Tensor x, Tensor src, "
+    "Tensor row, Tensor? row_ptr, Tensor? add, int nb, int lag, "
+    "bool transpose_lhs) -> (Tensor, Tensor)",
+    lambda blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs:
+    mix_flat2_plain(blocks, slot, x, src, row, nb=nb,
+                    transpose_lhs=transpose_lhs, add=add))
+
+
+@_mix_flat2_op.register_fake
+def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+@_mix_flat2_op.register_cuda
+def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
+    if row_ptr is None:
+        raise ValueError("the CUDA kernel reads the CSR row pointer; pass "
+                         "row_ptr")
+    _check_aligned(blocks)
+    r = x.shape[2]
+    out1 = torch.empty_like(x)
+    out2 = torch.empty_like(x)
+    if r == 0 or nb == 0:
+        return out1, out2
+    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 7)
+    # a completion flag per (row, R tile) and the ticket counter, zeroed
+    # per launch (a captured launch re-zeroes them on every replay)
+    flags = torch.zeros(flag_count(nb, r, x.dtype), dtype=torch.int32,
+                        device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.gwt_mix_flat2(
+            _DTYPE_CODE[x.dtype], blocks.data_ptr(), slot.data_ptr(),
+            x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
+            None if add is None else add.data_ptr(), out1.data_ptr(),
+            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], lag,
+            blocks.shape[1], r, int(transpose_lhs), tile_cols(r, x.dtype),
+            _stream(x))
+    _raise_on(lib, rc, "gathered_block_mix_flat2")
+    LAUNCHES["gathered_block_mix_flat2"] += 1
+    return out1, out2
+
+
+# positional: a stand-in for the plain version that takes *args (a
+# counting test) works
+_outer_flat_op = _Op(
+    "outer_flat", "(Tensor x, Tensor g, Tensor src, Tensor row, "
+    "Tensor? slot, int? n_slots, ScalarType? out_dtype) -> Tensor",
+    lambda x, g, src, row, slot, n_slots, out_dtype:
+    outer_flat_plain(x, g, src, row, slot, n_slots, out_dtype))
+
+
+@_outer_flat_op.register_fake
+def _(x, g, src, row, slot, n_slots, out_dtype):
+    n_out = src.numel() if slot is None else n_slots
+    return x.new_empty((n_out, x.shape[1], g.shape[1]),
+                       dtype=out_dtype or torch.float32)
+
+
+@_outer_flat_op.register_cuda
+def _(x, g, src, row, slot, n_slots, out_dtype):
+    out_dtype = out_dtype or torch.float32
+    bs_x, bs_g, r = x.shape[1], g.shape[1], x.shape[2]
+    lt = src.numel()
+    n_out = lt if slot is None else n_slots
+    out = torch.empty((n_out, bs_x, bs_g), dtype=out_dtype, device=x.device)
+    if lt == 0 or r == 0:
+        return out.zero_()
+    lib = _lib("outer_flat.cu", "gwt_outer_flat", 6, 8)
+    with torch.cuda.device(x.device):
+        rc = lib.gwt_outer_flat(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(), src.data_ptr(),
+            row.data_ptr(), None if slot is None else slot.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[out_dtype], lt, n_slots or 0,
+            x.shape[0], g.shape[0], bs_x, bs_g, r, _stream(x))
+    _raise_on(lib, rc, "gathered_block_outer_flat")
+    LAUNCHES["gathered_block_outer_flat"] += 1
+    return out
+
+
+_mix_padded_op = _Op(
+    "mix_padded", "(Tensor blocks_flat, Tensor slot_tbl, Tensor x_pad, "
+    "Tensor src_tbl, bool transpose_lhs) -> Tensor",
+    lambda blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs:
+    mix_padded_plain(blocks_flat, slot_tbl, x_pad, src_tbl,
+                     transpose_lhs=transpose_lhs))
+
+
+@_mix_padded_op.register_fake
+def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
+    return x_pad.new_empty((src_tbl.shape[0],) + tuple(x_pad.shape[1:]))
+
+
+@_mix_padded_op.register_cuda
+def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
+    _check_aligned(blocks_flat)
+    nb, mb = src_tbl.shape
+    bs, r = x_pad.shape[1], x_pad.shape[2]
+    out = torch.empty((nb, bs, r), dtype=x_pad.dtype, device=x_pad.device)
+    if r == 0 or nb == 0:
+        return out
+    slot, src = slot_tbl.reshape(-1), src_tbl.reshape(-1)
+    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 8)
+    with torch.cuda.device(x_pad.device):
+        rc = lib.gwt_mix_padded(
+            _DTYPE_CODE[x_pad.dtype], blocks_flat.data_ptr(),
+            slot.data_ptr(), x_pad.data_ptr(), src.data_ptr(),
+            out.data_ptr(), nb, mb, blocks_flat.shape[0], x_pad.shape[0], bs,
+            r, int(transpose_lhs), tile_cols(r, x_pad.dtype), _stream(x_pad))
+    _raise_on(lib, rc, "gathered_block_mix")
+    LAUNCHES["gathered_block_mix"] += 1
+    return out
+
+
+_outer_padded_op = _Op(
+    "outer_padded", "(Tensor x_pad, Tensor g_blocks, Tensor src_tbl, "
+    "ScalarType out_dtype) -> Tensor",
+    lambda x_pad, g_blocks, src_tbl, out_dtype:
+    outer_padded_plain(x_pad, g_blocks, src_tbl, out_dtype=out_dtype))
+
+
+@_outer_padded_op.register_fake
+def _(x_pad, g_blocks, src_tbl, out_dtype):
+    bs = x_pad.shape[1]
+    return x_pad.new_empty(tuple(src_tbl.shape) + (bs, bs), dtype=out_dtype)
+
+
+@_outer_padded_op.register_cuda
+def _(x_pad, g_blocks, src_tbl, out_dtype):
+    nb, mb = src_tbl.shape
+    bs, r = x_pad.shape[1], x_pad.shape[2]
+    out = torch.empty((nb, mb, bs, bs), dtype=out_dtype, device=x_pad.device)
+    if nb * mb == 0:
+        return out
+    if r == 0:
+        return out.zero_()
+    src = src_tbl.reshape(-1)
+    lib = _lib("outer_padded.cu", "gwt_outer_padded", 4, 6)
+    with torch.cuda.device(x_pad.device):
+        rc = lib.gwt_outer_padded(
+            _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), g_blocks.data_ptr(),
+            src.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
+            nb * mb, mb, x_pad.shape[0], bs, r, _stream(x_pad))
+    _raise_on(lib, rc, "gathered_block_outer")
+    LAUNCHES["gathered_block_outer"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public wrappers: argument checks, then the op
+# ---------------------------------------------------------------------------
+
+def _on_kernel_device(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU one (the
+    plain version runs); raises for any other device."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
 def gathered_block_mix_flat(blocks: torch.Tensor, slot: torch.Tensor,
                             x: torch.Tensor, src: torch.Tensor,
                             row: torch.Tensor, *, nb: int,
@@ -269,38 +513,20 @@ def gathered_block_mix_flat(blocks: torch.Tensor, slot: torch.Tensor,
     if x.ndim != 3 or x.shape[1] != bs_c:
         raise ValueError(f"x {tuple(x.shape)} must be (nbx, {bs_c}, R): "
                          "its rows match the contracted block axis")
-    if x.device.type == "cpu":
-        return mix_flat_plain(blocks, slot, x, src, row, nb=nb,
-                              transpose_lhs=transpose_lhs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    kc = 64 if blocks.dtype == torch.bfloat16 else 32
-    if bs_o % 128 or bs_c % kc:
-        raise ValueError(f"CUDA kernel needs output rows % 128 == 0 and "
-                         f"contracted rows % {kc} == 0, got {bs_o}, {bs_c}")
-    if row_ptr is None:
-        row_ptr = row_pointer(row, nb)
-    code = _check_cuda(x, blocks, slot, src, row_ptr)
-    _check_aligned(blocks)
-    if row_ptr.numel() != nb + 1:
-        raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
-                         f"expected nb + 1 = {nb + 1}")
-    r = x.shape[2]
-    out = torch.empty((nb, bs_o, r), dtype=x.dtype, device=x.device)
-    if r == 0 or nb == 0:
-        return out
-    lib = _lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gwt_mix_flat(code, blocks.data_ptr(), slot.data_ptr(),
-                              x.data_ptr(), src.data_ptr(),
-                              row_ptr.data_ptr(), out.data_ptr(), nb,
-                              blocks.shape[0], x.shape[0], bs_c, bs_o, r,
-                              int(transpose_lhs), tile_cols(r, x.dtype),
-                              stream)
-    _raise_on(lib, rc, "gathered_block_mix_flat")
-    LAUNCHES["gathered_block_mix_flat"] += 1
-    return out
+    if _on_kernel_device(x):
+        kc = 64 if blocks.dtype == torch.bfloat16 else 32
+        if bs_o % 128 or bs_c % kc:
+            raise ValueError(f"CUDA kernel needs output rows % 128 == 0 "
+                             f"and contracted rows % {kc} == 0, got {bs_o}, "
+                             f"{bs_c}")
+        if row_ptr is None:
+            row_ptr = row_pointer(row, nb)
+        _check_cuda(x, blocks, slot, src, row_ptr)
+        if row_ptr.numel() != nb + 1:
+            raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
+                             f"expected nb + 1 = {nb + 1}")
+    return torch.ops.gwt_torch.mix_flat(blocks, slot, x, src, row, row_ptr,
+                                        nb, transpose_lhs)
 
 
 def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
@@ -318,7 +544,8 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
     ``dispatch``: ``"fused"`` launches kernel 3 (one pass), ``"chain"``
     kernel 1, then ``+ add``, then kernel 1 again, which is the same
     function bit for bit; ``"auto"`` takes :func:`fused2_dispatch`'s
-    choice for this dtype, R and ``add``.
+    choice for this dtype, R and ``add`` (host values only, so the choice
+    is fixed in a trace).
 
     ``lag`` (:func:`fused2_lag`) replaces the reference's ``delay`` and
     ``ring_w``: kernel 3 runs hop 2 of row ``i`` after hop 1 of row
@@ -346,45 +573,24 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
         return o1, gathered_block_mix_flat(blocks, slot, o1, src, row, nb=nb,
                                            transpose_lhs=transpose_lhs,
                                            row_ptr=row_ptr)
-    if x.device.type == "cpu":
-        return mix_flat2_plain(blocks, slot, x, src, row, nb=nb,
-                               transpose_lhs=transpose_lhs, add=add)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if bs != 128:
-        raise ValueError(f"CUDA fused kernel needs 128-row blocks, got {bs}")
-    if lag < 0:
-        raise ValueError(f"lag must be >= 0, got {lag}")
-    if row_ptr is None:
-        row_ptr = row_pointer(row, nb)
-    code = _check_cuda(x, blocks, slot, src, row_ptr)
-    _check_aligned(blocks)
-    if row_ptr.numel() != nb + 1:
-        raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
-                         f"expected nb + 1 = {nb + 1}")
-    if add is not None:
-        add = add.to(x.dtype).contiguous()
-        if add.device != x.device:
-            raise ValueError(f"add on {add.device}, x on {x.device}")
-    r = x.shape[2]
-    out1 = torch.empty_like(x)
-    out2 = torch.empty_like(x)
-    if r == 0 or nb == 0:
-        return out1, out2
-    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 7)
-    flags = torch.zeros(flag_count(nb, r, x.dtype), dtype=torch.int32,
-                        device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gwt_mix_flat2(
-            code, blocks.data_ptr(), slot.data_ptr(), x.data_ptr(),
-            src.data_ptr(), row_ptr.data_ptr(),
-            None if add is None else add.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], lag, bs,
-            r, int(transpose_lhs), tile_cols(r, x.dtype), stream)
-    _raise_on(lib, rc, "gathered_block_mix_flat2")
-    LAUNCHES["gathered_block_mix_flat2"] += 1
-    return out1, out2
+    if _on_kernel_device(x):
+        if bs != 128:
+            raise ValueError(f"CUDA fused kernel needs 128-row blocks, got "
+                             f"{bs}")
+        if lag < 0:
+            raise ValueError(f"lag must be >= 0, got {lag}")
+        if row_ptr is None:
+            row_ptr = row_pointer(row, nb)
+        _check_cuda(x, blocks, slot, src, row_ptr)
+        if row_ptr.numel() != nb + 1:
+            raise ValueError(f"row_ptr has {row_ptr.numel()} entries, "
+                             f"expected nb + 1 = {nb + 1}")
+        if add is not None:
+            add = add.to(x.dtype).contiguous()
+            if add.device != x.device:
+                raise ValueError(f"add on {add.device}, x on {x.device}")
+    return torch.ops.gwt_torch.mix_flat2(blocks, slot, x, src, row, row_ptr,
+                                         add, nb, lag, transpose_lhs)
 
 
 def gathered_block_outer_flat(x: torch.Tensor, g: torch.Tensor,
@@ -416,37 +622,18 @@ def gathered_block_outer_flat(x: torch.Tensor, g: torch.Tensor,
     elif slot.shape != src.shape or n_slots is None or n_slots < 1:
         raise ValueError("slot needs one entry per table entry and "
                          "n_slots >= 1")
-    if x.device.type == "cpu":
-        # positional, so a stand-in that takes *args (a counting test) works
-        return outer_flat_plain(x, g, src, row, slot, n_slots, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    bs_x, bs_g, r = x.shape[1], g.shape[1], x.shape[2]
-    if bs_x % 128 or bs_g % 64:
-        raise ValueError(f"CUDA kernel needs x rows % 128 == 0 and g rows "
-                         f"% 64 == 0, got {bs_x}, {bs_g}")
-    out_dtype = out_dtype or torch.float32
-    if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
-                        f"{out_dtype}")
-    tables = (src, row) if slot is None else (src, row, slot)
-    code = _check_cuda(x, g, *tables, name="g")
-    lt = src.numel()
-    n_out = lt if slot is None else n_slots
-    out = torch.empty((n_out, bs_x, bs_g), dtype=out_dtype, device=x.device)
-    if lt == 0 or r == 0:
-        return out.zero_()
-    lib = _lib("outer_flat.cu", "gwt_outer_flat", 6, 8)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gwt_outer_flat(
-            code, x.data_ptr(), g.data_ptr(), src.data_ptr(), row.data_ptr(),
-            None if slot is None else slot.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[out_dtype], lt, n_slots or 0, x.shape[0], g.shape[0],
-            bs_x, bs_g, r, stream)
-    _raise_on(lib, rc, "gathered_block_outer_flat")
-    LAUNCHES["gathered_block_outer_flat"] += 1
-    return out
+    if _on_kernel_device(x):
+        bs_x, bs_g = x.shape[1], g.shape[1]
+        if bs_x % 128 or bs_g % 64:
+            raise ValueError(f"CUDA kernel needs x rows % 128 == 0 and g "
+                             f"rows % 64 == 0, got {bs_x}, {bs_g}")
+        if (out_dtype or torch.float32) not in _DTYPE_CODE:
+            raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                            f"{out_dtype}")
+        tables = (src, row) if slot is None else (src, row, slot)
+        _check_cuda(x, g, *tables, name="g")
+    return torch.ops.gwt_torch.outer_flat(x, g, src, row, slot, n_slots,
+                                          out_dtype)
 
 
 def gathered_block_mix(blocks_flat: torch.Tensor, slot_tbl: torch.Tensor,
@@ -470,32 +657,14 @@ def gathered_block_mix(blocks_flat: torch.Tensor, slot_tbl: torch.Tensor,
                          "(L, BS, BS): the padded form has square blocks")
     if x_pad.ndim != 3 or x_pad.shape[1] != bs:
         raise ValueError(f"x {tuple(x_pad.shape)} must be (nbx, {bs}, R)")
-    if x_pad.device.type == "cpu":
-        return mix_padded_plain(blocks_flat, slot_tbl, x_pad, src_tbl,
-                                transpose_lhs=transpose_lhs)
-    if x_pad.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x_pad.device}")
-    if bs % 128:
-        raise ValueError(f"CUDA kernel needs block size % 128 == 0, got {bs}")
-    slot, src = slot_tbl.reshape(-1), src_tbl.reshape(-1)
-    code = _check_cuda(x_pad, blocks_flat, slot, src)
-    _check_aligned(blocks_flat)
-    nb, mb = src_tbl.shape
-    r = x_pad.shape[2]
-    out = torch.empty((nb, bs, r), dtype=x_pad.dtype, device=x_pad.device)
-    if r == 0 or nb == 0:
-        return out
-    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 8)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream(x_pad.device).cuda_stream
-        rc = lib.gwt_mix_padded(code, blocks_flat.data_ptr(), slot.data_ptr(),
-                                x_pad.data_ptr(), src.data_ptr(),
-                                out.data_ptr(), nb, mb, blocks_flat.shape[0],
-                                x_pad.shape[0], bs, r, int(transpose_lhs),
-                                tile_cols(r, x_pad.dtype), stream)
-    _raise_on(lib, rc, "gathered_block_mix")
-    LAUNCHES["gathered_block_mix"] += 1
-    return out
+    if _on_kernel_device(x_pad):
+        if bs % 128:
+            raise ValueError(f"CUDA kernel needs block size % 128 == 0, got "
+                             f"{bs}")
+        _check_cuda(x_pad, blocks_flat, slot_tbl.reshape(-1),
+                    src_tbl.reshape(-1))
+    return torch.ops.gwt_torch.mix_padded(blocks_flat, slot_tbl, x_pad,
+                                          src_tbl, transpose_lhs)
 
 
 def gathered_block_outer(x_pad: torch.Tensor, g_blocks: torch.Tensor,
@@ -511,35 +680,16 @@ def gathered_block_outer(x_pad: torch.Tensor, g_blocks: torch.Tensor,
         raise ValueError(f"x {tuple(x_pad.shape)}, g {tuple(g_blocks.shape)} "
                          f"and src {tuple(src_tbl.shape)} must be (nbx, BS, "
                          "R), (NB, BS, R) and (NB, MB)")
-    if x_pad.device.type == "cpu":
-        return outer_padded_plain(x_pad, g_blocks, src_tbl,
-                                  out_dtype=out_dtype)
-    if x_pad.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x_pad.device}")
-    bs, r = x_pad.shape[1], x_pad.shape[2]
-    if bs % 128:
-        raise ValueError(f"CUDA kernel needs block size % 128 == 0, got {bs}")
-    if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
-                        f"{out_dtype}")
-    src = src_tbl.reshape(-1)
-    code = _check_cuda(x_pad, g_blocks, src, name="g")
-    nb, mb = src_tbl.shape
-    out = torch.empty((nb, mb, bs, bs), dtype=out_dtype, device=x_pad.device)
-    if nb * mb == 0:
-        return out
-    if r == 0:
-        return out.zero_()
-    lib = _lib("outer_padded.cu", "gwt_outer_padded", 4, 6)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream(x_pad.device).cuda_stream
-        rc = lib.gwt_outer_padded(code, x_pad.data_ptr(), g_blocks.data_ptr(),
-                                  src.data_ptr(), out.data_ptr(),
-                                  _DTYPE_CODE[out_dtype], nb * mb, mb,
-                                  x_pad.shape[0], bs, r, stream)
-    _raise_on(lib, rc, "gathered_block_outer")
-    LAUNCHES["gathered_block_outer"] += 1
-    return out
+    if _on_kernel_device(x_pad):
+        if x_pad.shape[1] % 128:
+            raise ValueError(f"CUDA kernel needs block size % 128 == 0, got "
+                             f"{x_pad.shape[1]}")
+        if out_dtype not in _DTYPE_CODE:
+            raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                            f"{out_dtype}")
+        _check_cuda(x_pad, g_blocks, src_tbl.reshape(-1), name="g")
+    return torch.ops.gwt_torch.outer_padded(x_pad, g_blocks, src_tbl,
+                                            out_dtype)
 
 
 # ---------------------------------------------------------------------------

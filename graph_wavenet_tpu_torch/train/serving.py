@@ -1,42 +1,66 @@
-"""Serving: a frozen model + supports + scaler bundle, and request batching.
+"""Serving: a frozen model + supports + scaler bundle, streaming forecasts,
+a deployment artifact, and request batching.
 
-Counterpart of ``graph_wavenet_tpu/train/serving.py``'s :class:`Forecaster`
-(``predict``, ``from_checkpoint``, ``from_city_checkpoint`` and the node
-layout gathers) and :class:`MicroBatcher`. PyTorch runs eagerly, so there
-is no compile cache: the model and the supports live on the forecaster's
-device, and a prediction is one forward under ``torch.inference_mode``.
-Rolling and autoregressive forecasts and export wait for a later slice.
+Counterpart of ``graph_wavenet_tpu/train/serving.py``:
+
+- :class:`Forecaster` (``predict``, ``from_checkpoint`` with dense, no or
+  block-sparse supports, ``from_city_checkpoint`` and the node layout
+  gathers): the model and the supports live on the forecaster's device,
+  and a prediction is one forward under ``torch.inference_mode``;
+- :func:`rolling_forecast` and :func:`autoregressive_forecast`, the
+  reference's ``lax.scan`` loops: on the card one forward is captured as a
+  CUDA graph (``train.step_graph``) and replayed per window or round, its
+  input selected on the device and its output written into a row of the
+  result; on the CPU the eager loop of the same forward;
+- :func:`reconstruct_sequence`: overlapping rolling forecasts averaged back
+  to one sequence;
+- :func:`export_forecaster` / :func:`load_exported_forecaster`: a
+  ``torch.export`` artifact (``.pt2``) of the predict forward with the
+  weights and supports baked in; it names the hand kernels' ops, so a
+  loader needs ``ops.cuda.block_diffusion`` and no model code;
+- :class:`MicroBatcher`: dynamic request batching, to power-of-two buckets
+  or to an artifact's fixed batch.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import json
 import queue
 import threading
 import time
+import zipfile
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.config import ModelConfig
 from graph_wavenet_tpu_torch.data.scaler import StandardScaler
-from graph_wavenet_tpu_torch.models.gwnet import GWNet
+from graph_wavenet_tpu_torch.train import step_graph
 
 
 @dataclass(eq=False)
 class Forecaster:
     """Inference bundle around a trained shared-graph model.
 
-    ``supports``: block-sparse supports on the model's device, or None for
-    the temporal-only model. ``node_layout`` (city checkpoints): when set,
-    :meth:`predict` speaks original node ids; inputs are permuted and
-    padded into model node order on the device and predictions mapped back.
+    ``supports``: dense (N, N) tensors or block-sparse supports on the
+    model's device (a :class:`ops.adaptive_block.BlockAdaptiveMask` among
+    them under a city ``addaptadj``), ``[]`` for the adaptive-only model,
+    or None for the temporal-only one. ``node_layout`` (city checkpoints):
+    when set, :meth:`predict` speaks original node ids; inputs are permuted
+    and padded into model node order on the device and predictions mapped
+    back.
+
+    The rolling and autoregressive forecasts keep their CUDA graphs on the
+    forecaster, one per kind: a call with other inputs (by identity), window
+    or round count replaces the graph of its kind.
     """
 
     cfg: ModelConfig
-    model: GWNet
+    model: torch.nn.Module
     supports: list | None
     scaler: StandardScaler = field(
         default_factory=lambda: StandardScaler(0.0, 1.0))
@@ -50,13 +74,21 @@ class Forecaster:
     def from_checkpoint(cls, path: str, supports,
                         device: torch.device | str = "cuda") -> "Forecaster":
         """Model, config and scaler from a port checkpoint
-        (:mod:`train.checkpoint`); ``supports`` as for the constructor."""
+        (:mod:`train.checkpoint`). ``supports``: dense (N, N) arrays or
+        tensors (put on the forecaster's device, as the test CLI does),
+        block-sparse supports already there, ``[]`` (aptonly) or None
+        (temporal-only)."""
+        from graph_wavenet_tpu_torch.models.gwnet import GWNet
         from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 
         device = resolve_device(device)
         meta = ckpt.load_metadata(path)
         model = GWNet(meta["model_cfg"], device=device)
         model.load_state_dict(ckpt.load_state_dict(path, device=device))
+        if supports is not None:
+            supports = [torch.as_tensor(s, device=device)
+                        if isinstance(s, (np.ndarray, torch.Tensor)) else s
+                        for s in supports]
         return cls(meta["model_cfg"], model, supports,
                    meta.get("scaler") or StandardScaler(0.0, 1.0))
 
@@ -110,21 +142,287 @@ class Forecaster:
                 torch.as_tensor(perm[:n_raw], device=self.device))
         return self.__dict__["_maps"]
 
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The predict forward on a (B, K, N, F) fp32 tensor on the device:
+        what :meth:`predict` runs, the forecasts replay and the artifact
+        holds."""
+        if self.node_layout is not None:
+            src_idx, out_idx = self._layout_maps()
+            xz = torch.cat([x, torch.zeros_like(x[:, :, :1])], dim=2)
+            x = xz.index_select(2, src_idx)
+        out = self.model(x, self.supports)
+        pred = out[:, -1].permute(0, 2, 1)          # (B, H, N)
+        if self.node_layout is not None:
+            pred = pred.index_select(2, out_idx)
+        return pred * self.scaler.std + self.scaler.mean
+
     def predict(self, x) -> torch.Tensor:
         """x: (B, K, N, F) standardized features (array or tensor) ->
         (B, H, N) fp32 forecasts in raw units on the forecaster's device.
         N = :attr:`input_nodes`, original node order under a city layout."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            if self.node_layout is not None:
-                src_idx, out_idx = self._layout_maps()
-                xz = torch.cat([x, torch.zeros_like(x[:, :, :1])], dim=2)
-                x = xz.index_select(2, src_idx)
-            out = self.model(x, self.supports)
-            pred = out[:, -1].permute(0, 2, 1)          # (B, H, N)
-            if self.node_layout is not None:
-                pred = pred.index_select(2, out_idx)
-            return pred * self.scaler.std + self.scaler.mean
+            return self._forward(x)
+
+    def _graph_slot(self, kind: str, key: tuple) -> dict:
+        """The graph cache of one kind of forecast for ``run_steps``: it
+        holds at most one graph, and a call with another ``key`` starts an
+        empty one (the old graph, its pool and its inputs are freed)."""
+        graphs = self.__dict__.setdefault("_graphs", {})
+        slot = graphs.get(kind)
+        if slot is None or key not in slot:
+            slot = graphs[kind] = {}
+        return slot
+
+    def _steps(self, slot: dict, key: tuple, body, idx: torch.Tensor,
+               keep: tuple) -> torch.Tensor:
+        """``body`` over the rows of ``idx`` (S, 1): on the card a replayed
+        CUDA graph of one step, on the CPU the eager loop. Returns the
+        outputs stacked."""
+        def step(sel):
+            with torch.inference_mode():
+                return body(sel)
+
+        if self.device.type != "cuda":
+            return torch.stack([step(sel) for sel in idx])
+        stream = self.__dict__.get("_stream")
+        if stream is None:
+            stream = self.__dict__["_stream"] = torch.cuda.Stream(self.device)
+        return step_graph.run_steps(slot, key, step, idx, stream, keep=keep)
+
+    def step_graphs(self) -> list:
+        """The captured forecasts (:class:`train.step_graph.StepGraph`), for
+        their per-replay launch counts."""
+        return [g for slot in self.__dict__.get("_graphs", {}).values()
+                for g in slot.values()]
+
+
+def _rows(n: int, device: torch.device) -> torch.Tensor:
+    """(n, 1) int32 step indices 0..n-1 on the device."""
+    return torch.arange(n, dtype=torch.int32, device=device)[:, None]
+
+
+def rolling_forecast(forecaster: Forecaster, history,
+                     window: int) -> torch.Tensor:
+    """Streaming forecasts at every origin of a long history.
+
+    history: (T_total, N, F) standardized features. Returns
+    (T_total - window + 1, H, N): the H-step forecast issued at each origin,
+    each equal to :meth:`Forecaster.predict` on its window. On the card
+    the history stays on the device and one forward is a CUDA graph,
+    replayed per origin, its window gathered through the graph's index
+    buffer; a later call on the same history tensor and window replays it
+    for every origin. Pass a device tensor: an array is copied anew per
+    call and so captured anew."""
+    fc = forecaster
+    history = torch.as_tensor(history, dtype=torch.float32, device=fc.device)
+    if history.ndim != 3 or not 1 <= window <= history.shape[0]:
+        raise ValueError(f"history {tuple(history.shape)} must be (T, N, F) "
+                         f"with T >= window = {window}")
+    offsets = torch.arange(window, dtype=torch.int32, device=fc.device)
+
+    def body(sel):
+        x = history.index_select(0, sel + offsets)[None]
+        return fc._forward(x)[0]
+
+    key = ("rolling", window, id(history))
+    slot = fc._graph_slot("rolling", key)
+    return fc._steps(slot, key, body,
+                     _rows(history.shape[0] - window + 1, fc.device),
+                     keep=(history, offsets))
+
+
+def autoregressive_forecast(forecaster: Forecaster, x, n_rounds: int,
+                            future_aux=None) -> torch.Tensor:
+    """Closed-loop rollout: forecast H steps, feed them back as the signal
+    channel, repeat.
+
+    x: (B, K, N, F) standardized features with K >= H; returns (B,
+    n_rounds * H, N) raw-unit forecasts, round 1 equal to
+    :meth:`Forecaster.predict` on x.
+
+    ``future_aux`` (B, n_rounds * H, N, F - 1): the auxiliary feature
+    channels of the forecast horizon (calendar features are known for the
+    future). Without it the last window's aux tail is repeated, which
+    matches the true calendar only when the aux pattern's period divides H.
+    On the card the rolled window is a device buffer and one round is a
+    CUDA graph, replayed per round, its ``future_aux`` chunk selected
+    through the graph's index buffer."""
+    fc = forecaster
+    h = fc.cfg.out_dim
+    x = torch.as_tensor(x, dtype=torch.float32, device=fc.device)
+    if x.ndim != 4 or x.shape[1] < h or n_rounds < 1:
+        raise ValueError(f"x {tuple(x.shape)} must be (B, K, N, F) with K "
+                         f">= H = {h}, and n_rounds >= 1")
+    b, _, n, f = x.shape
+    aux = None
+    if future_aux is not None and f > 1:
+        aux = torch.as_tensor(future_aux, dtype=torch.float32,
+                              device=fc.device)
+        if aux.shape != (b, n_rounds * h, n, f - 1):
+            raise ValueError(f"future_aux {tuple(aux.shape)} must be "
+                             f"{(b, n_rounds * h, n, f - 1)}")
+        # (B, rounds*H, N, F-1) -> (rounds, B, H, N, F-1): one chunk a round
+        aux = aux.reshape(b, n_rounds, h, n, f - 1).transpose(0, 1)
+    key = ("ar", n_rounds, id(x), None if future_aux is None
+           else id(future_aux))
+    slot = fc._graph_slot("ar", key)
+    g = slot.get(key)
+    if g is None:
+        state = x.clone()
+        chunks = None if aux is None else aux.contiguous()
+    else:
+        # the buffers the graph reads, refilled for this call
+        state, chunks = g.keep[-2:]
+        state.copy_(x)
+        if chunks is not None:
+            chunks.copy_(aux)
+
+    def body(sel):
+        pred = fc._forward(state)                        # (B, H, N)
+        feats = [((pred - fc.scaler.mean) / fc.scaler.std)[..., None]]
+        if f > 1:
+            feats.append(state[:, -h:, :, 1:] if chunks is None
+                         else chunks.index_select(0, sel)[0])
+        state.copy_(torch.cat([state[:, h:], torch.cat(feats, -1)], 1))
+        return pred
+
+    preds = fc._steps(slot, key, body, _rows(n_rounds, fc.device),
+                      keep=(x, future_aux, state, chunks))
+    # (rounds, B, H, N) -> (B, rounds*H, N)
+    return preds.transpose(0, 1).reshape(b, n_rounds * h, n)
+
+
+def reconstruct_sequence(rolling) -> torch.Tensor:
+    """Average overlapping rolling forecasts into one sequence.
+
+    rolling: (n_origins, H, N) stride-1 forecasts -> (n_origins + H - 1,
+    N), summing each step's forecasts in origin order as the reference's
+    loop does."""
+    rolling = torch.as_tensor(rolling, dtype=torch.float32)
+    n_origins, h, n = rolling.shape
+    total = rolling.new_zeros((n_origins + h - 1, n))
+    count = rolling.new_zeros((n_origins + h - 1, 1))
+    # step t gets origin i's lead t - i; the last lead first is origin order
+    for lead in range(h - 1, -1, -1):
+        total[lead:lead + n_origins] += rolling[:, lead]
+        count[lead:lead + n_origins] += 1.0
+    return total / count
+
+
+# ---------------------------------------------------------------------------
+# deployment artifact
+# ---------------------------------------------------------------------------
+
+_META = "gwt_torch.json"
+
+
+class _PredictModule(torch.nn.Module):
+    """:meth:`Forecaster.predict`'s forward as a module for
+    ``torch.export``: the model is a submodule (its weights become the
+    artifact's parameters and buffers); the supports, layout gathers and
+    scaler, reached through the forecaster, become its constants."""
+
+    def __init__(self, fc: Forecaster):
+        super().__init__()
+        self.model = fc.model
+        self.fc = fc
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc._forward(x)
+
+
+def export_forecaster(forecaster: Forecaster, path: str, batch_size: int,
+                      seq_len: int | None = None) -> str:
+    """Write the predict forward as a ``torch.export`` artifact (``.pt2``)
+    with the weights and supports baked in; it serves through
+    :func:`load_exported_forecaster` without the model code, config or
+    checkpoint. Its input is fixed: (batch_size, seq_len, input_nodes,
+    in_dim) fp32 on the forecaster's device, which is the device the
+    artifact runs on.
+
+    seq_len: the input window baked in (default: the model's receptive
+    field, the smallest window it reads in full). The loader left-pads
+    shorter inputs with zeros, as the model pads its own input, so a
+    default artifact serves K-step windows bit for bit."""
+    fc = forecaster
+    if fc.node_layout is not None:
+        # built for real before the trace, or the trace would cache fakes
+        fc._layout_maps()
+    seq_len = seq_len or fc.cfg.receptive_field
+    shape = (batch_size, seq_len, fc.input_nodes, fc.cfg.in_dim)
+    x = torch.zeros(shape, dtype=torch.float32, device=fc.device)
+    with torch.no_grad():
+        ep = torch.export.export(_PredictModule(fc).eval(), (x,))
+    ep.example_inputs = None          # the sample batch is not stored
+    meta = {"in_shape": list(shape), "device": str(fc.device)}
+    torch.export.save(ep, path, extra_files={_META: json.dumps(meta)})
+    return path
+
+
+def artifact_metadata(path: str) -> dict:
+    """The ``in_shape`` and ``device`` an artifact of
+    :func:`export_forecaster` was written with, read without loading
+    it."""
+    with zipfile.ZipFile(path) as z:
+        names = [n for n in z.namelist() if n.endswith("/extra/" + _META)]
+        if not names:
+            raise ValueError(f"{path} is not an artifact of "
+                             "export_forecaster (no extra/" + _META + ")")
+        return json.loads(z.read(names[0]))
+
+
+class ExportedForecaster:
+    """A loaded artifact (:func:`load_exported_forecaster`)."""
+
+    n_inputs = 1        # a shared-graph artifact takes x alone
+
+    def __init__(self, module: torch.nn.Module, in_shape: tuple,
+                 device: torch.device):
+        self._module = module
+        self.in_shape = in_shape
+        self.device = device
+
+    def predict(self, x) -> torch.Tensor:
+        """x: (B, K, N, F) standardized features, B and N and F as baked,
+        K at most the baked window (shorter windows are left-padded with
+        zeros) -> (B, H, N) raw-unit forecasts on the artifact's device."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        b, t, n, f = self.in_shape
+        if (x.ndim != 4 or (x.shape[0], x.shape[2], x.shape[3]) != (b, n, f)
+                or x.shape[1] > t):
+            raise ValueError(f"the artifact takes {self.in_shape} (a "
+                             f"shorter window is padded), got "
+                             f"{tuple(x.shape)}")
+        if x.shape[1] < t:
+            x = F.pad(x, (0, 0, 0, 0, t - x.shape[1], 0))
+        with torch.inference_mode():
+            return self._module(x)
+
+
+def load_exported_forecaster(path: str, device: torch.device | str | None
+                             = None) -> ExportedForecaster:
+    """Load an :func:`export_forecaster` artifact. It runs on the device
+    type it was exported on; ``device`` (default: that device) of another
+    type, or another card, raises. Needs the hand kernels' ops
+    (``ops.cuda.block_diffusion``, imported here), not the model code.
+    The loaded constants (the supports' blocks among them) sit in storage
+    of their own, on the 16-byte boundaries the bf16 kernels' TMA reads
+    need (the kernels refuse any other)."""
+    # registers the gwt_torch ops the artifact's graph names
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion  # noqa: F401
+
+    meta = artifact_metadata(path)
+    saved = torch.device(meta["device"])
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != saved.type or asked.index not in (None,
+                                                           saved.index):
+            raise ValueError(f"{path} was exported on {saved} and runs only "
+                             f"there; asked for {asked}")
+    resolve_device(saved)
+    ep = torch.export.load(path)
+    return ExportedForecaster(ep.module(), tuple(meta["in_shape"]), saved)
 
 
 class MicroBatcher:
@@ -134,17 +432,21 @@ class MicroBatcher:
     call: the worker thread drains requests arriving within ``window_ms``
     of the first (up to ``max_batch``), pads the stack up to the next
     power-of-two bucket (so the device sees a few batch shapes), runs
-    ``predict_fn`` once, and hands each caller its row. Pad rows repeat the
-    last real example and are dropped. Thread-safe; use as a context
-    manager or call :meth:`stop`.
+    ``predict_fn`` once, and hands each caller its row. ``fixed_batch``
+    pads every call to exactly that batch instead (an artifact bakes one)
+    and caps a call at it. Pad rows repeat the last real example and are
+    dropped. Thread-safe; use as a context manager or call :meth:`stop`.
     """
 
     def __init__(self, predict_fn, max_batch: int = 64,
-                 window_ms: float = 2.0):
+                 window_ms: float = 2.0, fixed_batch: int | None = None):
+        if fixed_batch is not None:
+            max_batch = fixed_batch
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._predict = predict_fn
         self.max_batch = max_batch
+        self.fixed_batch = fixed_batch
         self.window_s = window_ms / 1e3
         self._q: queue.Queue = queue.Queue()
         self._stopped = False
@@ -156,6 +458,8 @@ class MicroBatcher:
         self._worker.start()
 
     def _bucket(self, n: int) -> int:
+        if self.fixed_batch is not None:
+            return self.fixed_batch
         b = 1
         while b < n:
             b *= 2

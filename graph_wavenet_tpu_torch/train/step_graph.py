@@ -1,25 +1,27 @@
-"""One train or eval step as a CUDA graph: the fused steps' counterpart of
-the JAX engine's ``lax.scan`` body (``graph_wavenet_tpu/train/engine.py``,
-``train_steps_resident`` and its siblings).
+"""One step as a CUDA graph: the counterpart of a ``lax.scan`` body, for
+the engine's fused train and eval steps (``graph_wavenet_tpu/train/
+engine.py``, ``train_steps_resident`` and its siblings) and the rolling and
+autoregressive forecasts (``graph_wavenet_tpu/train/serving.py``).
 
-A :class:`StepGraph` holds one captured step, a static ``(B,)`` int32
-index buffer ``sel`` that selects its batch from device-resident inputs,
-and the step's static metric output. :func:`run_steps` runs S steps with
-it: the first call of a graph runs step 1 eagerly on the capture stream
-(PyTorch's warm-up before a capture; it also loads the hand kernels and
-sets their attributes outside the capture), captures one step (a capture
-executes nothing), and replays the graph for the other steps; a later
-call replays it for all S. Before each replay one device-to-device copy
-puts step k's row of the index matrix into ``sel`` and the caller's
-``before`` hook sets what else changes per step (the learning rate);
-after it, one copy puts the metrics into row k of the (S, 3) result.
+A :class:`StepGraph` holds one captured step, a static int32 index buffer
+``sel`` that selects its input from device-resident data (a batch of
+sample rows, a window's origin, a round), and the step's static output,
+of any shape. :func:`run_steps` runs S steps with it: the first call of a
+graph runs step 1 eagerly on the capture stream (PyTorch's warm-up before
+a capture; it also loads the hand kernels and sets their attributes
+outside the capture), captures one step (a capture executes nothing), and
+replays the graph for the other steps; a later call replays it for all S.
+Before each replay one device-to-device copy puts step k's row of the
+index matrix into ``sel`` and the caller's ``before`` hook sets what else
+changes per step (the learning rate); after it, one copy puts the output
+into row k of the (S, ...) result.
 
 Every tensor the graph reads must keep its address from the capture on:
-the resident arrays, the supports, the module's parameters and buffers,
-the optimizer's state and learning-rate tensor, and ``sel``. The graph
-keeps references to the caller's inputs (``keep``) so that none is freed
-under it. A failure of the capture or of a replay raises; nothing falls
-back to eager steps.
+the resident data, the supports, the module's parameters and buffers,
+the optimizer's state and learning-rate tensor, a carried state, and
+``sel``. The graph keeps references to the caller's inputs (``keep``) so
+that none is freed under it. A failure of the capture or of a replay
+raises; nothing falls back to eager steps.
 
 The hand kernels' launch counters (``ops.cuda.block_diffusion.LAUNCHES``)
 count Python calls, so the capture counts a step's launches once and a
@@ -37,10 +39,10 @@ from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
 
 class StepGraph:
-    """One captured step over the batch that ``sel`` selects."""
+    """One captured step over the input that ``sel`` selects."""
 
-    def __init__(self, batch: int, device: torch.device, keep: tuple):
-        self.sel = torch.empty((batch,), dtype=torch.int32, device=device)
+    def __init__(self, sel_shape: tuple, device: torch.device, keep: tuple):
+        self.sel = torch.empty(sel_shape, dtype=torch.int32, device=device)
         self.keep = keep
         self.graph = torch.cuda.CUDAGraph()
         self.out: torch.Tensor | None = None
@@ -52,7 +54,8 @@ class StepGraph:
                 generator: torch.Generator | None) -> None:
         """Capture ``body(sel)`` on ``stream``. ``generator``: a dropout
         stream the step draws from; a replay then draws what the next
-        eager step would and advances the generator as that step does."""
+        eager step would and advances the generator as that step does.
+        ``body`` returns one tensor, the step's output."""
         if generator is not None:
             register = getattr(self.graph, "register_generator_state", None)
             if register is None:
@@ -68,8 +71,8 @@ class StepGraph:
         self.launches = {k: bd.LAUNCHES[k] - before[k] for k in before}
 
     def replay(self, row: torch.Tensor) -> torch.Tensor:
-        """Run the step on the batch that ``row`` (B,) selects; returns the
-        static metric output, overwritten by the next replay."""
+        """Run the step on the input that ``row`` selects; returns the
+        static output, overwritten by the next replay."""
         self.sel.copy_(row)
         self.graph.replay()
         self.replays += 1
@@ -81,28 +84,34 @@ def run_steps(graphs: dict, key: tuple, body, idx: torch.Tensor,
               generator: torch.Generator | None = None,
               before: Callable[[], None] | None = None,
               after: Callable[[], None] | None = None) -> torch.Tensor:
-    """S steps of ``body`` over the rows of ``idx`` (S, B) int32 on the
-    card: metrics (S, 3). ``graphs`` caches a :class:`StepGraph` per
-    ``key``; ``before``/``after`` run around every step (the engine's
-    learning rate and step count)."""
-    s, b = idx.shape
-    out = torch.empty((s, 3), dtype=torch.float32, device=idx.device)
+    """S steps of ``body`` over the rows of ``idx`` (S, ...) int32 on the
+    card: the outputs stacked, (S, *output shape). ``graphs`` caches a
+    :class:`StepGraph` per ``key``; ``before``/``after`` run around every
+    step (the engine's learning rate and step count)."""
+    s = idx.shape[0]
     g = graphs.get(key)
-    k0 = 0
     if g is None:
-        g = StepGraph(b, idx.device, keep)
+        g = StepGraph(tuple(idx.shape[1:]), idx.device, keep)
         if before is not None:
             before()
         # the warm-up: step 1, eager, on the stream the capture uses
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            out[0].copy_(body(idx[0]))
+            first = body(idx[0])
         torch.cuda.current_stream().wait_stream(stream)
         if after is not None:
             after()
+        out = torch.empty((s,) + tuple(first.shape), dtype=first.dtype,
+                          device=first.device)
+        out[0].copy_(first)
+        del first
         g.capture(body, stream, generator)
         graphs[key] = g
         k0 = 1
+    else:
+        out = torch.empty((s,) + tuple(g.out.shape), dtype=g.out.dtype,
+                          device=g.out.device)
+        k0 = 0
     for k in range(k0, s):
         if before is not None:
             before()

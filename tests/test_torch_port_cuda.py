@@ -26,7 +26,12 @@ train steps as CUDA graphs: S graphed steps of a small dense model and of a
 2,048-node flat city model (kernels 1, 2 and 3 inside the graph) bit for
 bit equal to S eager steps, with the dropout stream, Adam's state and the
 BatchNorm buffers; a graphed eval pass equal to eager eval steps; and a
-capture that fails raises instead of running the steps eagerly.
+capture that fails raises instead of running the steps eagerly. And the
+kernels as ``torch.library`` ops: ``opcheck`` of each on CUDA tensors, a
+2,048-node exported city artifact (flat with the masked adaptive
+adjacency, and padded) bit for bit against its Forecaster, and rolling and
+autoregressive forecasts, replayed graphs, bit for bit against eager
+predicts.
 """
 
 import dataclasses
@@ -808,3 +813,173 @@ def test_capture_failure_raises_and_runs_no_step_eagerly(card, how):
         engine.train_steps_resident(xs, xs, idx, sups)
     assert engine.step == 1 and not engine.step_graphs()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the kernels as ops; export and the replayed forecasts
+# ---------------------------------------------------------------------------
+
+def op_case(name, card):
+    """Arguments of one kernel op at small card shapes (128x128 blocks,
+    R = 24, bf16 blocks for the mixes)."""
+    ops = torch.ops.gwt_torch
+    row, src, slot, n_live = tables(4, 6, 6, band=1)
+    row, src, slot = (i32(a, card) for a in (row, src, slot))
+    rng = np.random.default_rng(5)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=card).to(dtype)
+
+    blocks = rand(n_live + 1, 128, 128)
+    blocks[n_live] = 0
+    x = rand(6, 128, 24)
+    ptr = bd.row_pointer(row, 6)
+    if name == "mix_flat":
+        return ops.mix_flat, (blocks, slot, x, src, row, ptr, 6, True)
+    if name == "mix_flat2":
+        lag = bd.fused2_lag(row.cpu(), src.cpu())
+        return ops.mix_flat2, (blocks, slot, x, src, row, ptr,
+                               rand(6, 128, 24), 6, lag, True)
+    if name == "outer_flat":
+        return ops.outer_flat, (x, rand(6, 128, 24), src, row, None, None,
+                                None)
+    if name == "outer_flat_slots":
+        return ops.outer_flat, (x, rand(6, 128, 24), src, row, slot,
+                                n_live + 1, torch.bfloat16)
+    tbl = i32(np.array([[0, 1], [2, 3], [1, 4], [5, 6]]), card)
+    pblocks = rand(8, 128, 128)
+    if name == "mix_padded":
+        return ops.mix_padded, (pblocks, tbl, rand(4, 128, 24), tbl % 4,
+                                True)
+    return ops.outer_padded, (rand(4, 128, 24), rand(4, 128, 24), tbl % 4,
+                              torch.float32)
+
+
+@pytest.mark.parametrize("name", ["mix_flat", "mix_flat2", "outer_flat",
+                                  "outer_flat_slots", "mix_padded",
+                                  "outer_padded"])
+def test_kernel_ops_pass_opcheck_on_the_card(card, name):
+    """Each kernel's op on CUDA tensors: schema, autograd registration,
+    fake kernel (shapes, dtypes and strides against the launched kernel's
+    output) and AOT dispatch with dynamic shapes."""
+    op, args = op_case(name, card)
+    torch.library.opcheck(op, args)
+
+
+def city_forecaster(card, form, addaptadj, n=2048):
+    """A 2,048-node bf16 city Forecaster of random weights (seed 0) in
+    original node order, its supports built under ``form``."""
+    from graph_wavenet_tpu_torch.config import ModelConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.graphs.spatial import knn_graph_edges
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+    from graph_wavenet_tpu_torch.train.serving import Forecaster
+
+    pos = np.random.default_rng(0).random((n - 37, 2))
+    src, dst, w = knn_graph_edges(pos, 8)
+    sup, mask, layout = build_city_supports(
+        src, dst, w, n - 37, pos=pos, ordering="rcm", form=form,
+        addaptadj=addaptadj, device=card)
+    sups = [s.astype(torch.bfloat16) for s in sup]
+    cfg = ModelConfig(num_nodes=layout["n_pad"], addaptadj=addaptadj,
+                      dtype="bfloat16")
+    return Forecaster(cfg, GWNet(cfg, device=card, seed=0),
+                      sups + ([mask] if addaptadj else []),
+                      StandardScaler(50.0, 10.0), node_layout=layout)
+
+
+@pytest.mark.parametrize("form,addaptadj", [("flat", True),
+                                            ("pallas", False)])
+def test_exported_city_artifact_equals_forecaster(card, tmp_path, form,
+                                                  addaptadj):
+    """A 2,048-node bf16 city artifact (flat supports with the masked
+    adaptive adjacency; padded supports) at batch 2 predicts what the
+    Forecaster predicts, bit for bit (deterministic algorithms: the
+    adaptive softmax's index_add_), with the same hand-kernel launches; its
+    bf16 constants load on the 16-byte boundaries the kernels need."""
+    from graph_wavenet_tpu_torch.train import serving
+
+    fc = city_forecaster(card, form, addaptadj)
+    path = str(tmp_path / "city.pt2")
+    serving.export_forecaster(fc, path, batch_size=2)
+    art = serving.load_exported_forecaster(path)
+    assert art.device.type == "cuda"
+    ep = torch.export.load(path)
+    assert not [k for k, t in ep.constants.items()
+                if torch.is_tensor(t) and t.data_ptr() % 16]
+    x = torch.randn(2, 12, fc.input_nodes, 2, device=card,
+                    generator=torch.Generator(card).manual_seed(1))
+    torch.use_deterministic_algorithms(True)
+    try:
+        bd.reset_launch_counts()
+        want = fc.predict(x)
+        torch.cuda.synchronize()
+        live = dict(bd.LAUNCHES)
+        bd.reset_launch_counts()
+        got = art.predict(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, want)
+    assert dict(bd.LAUNCHES) == live
+    kernel = "gathered_block_mix" if form == "pallas" else (
+        "gathered_block_mix_flat")
+    assert live[kernel] > 0
+
+
+def test_rolling_forecast_graphed_equals_eager(card):
+    """A rolling forecast over 6 origins of the 2,048-node flat model: the
+    replayed graph equals ``predict`` on each window bit for bit, in the
+    first call (warm-up, capture, replays) and in a second one (replays
+    only); a replay launches what one predict launches."""
+    from graph_wavenet_tpu_torch.train import serving
+
+    fc = city_forecaster(card, "flat", False)
+    history = torch.randn(17, fc.input_nodes, 2, device=card,
+                          generator=torch.Generator(card).manual_seed(2))
+    bd.reset_launch_counts()
+    want = torch.stack([fc.predict(history[None, k:k + 12])[0]
+                        for k in range(6)])
+    one = {k: v // 6 for k, v in bd.LAUNCHES.items()}
+    for call in (1, 2):
+        got = serving.rolling_forecast(fc, history, 12)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+    (g,) = fc.step_graphs()
+    assert g.launches == one and g.replays == 5 + 6
+    assert one["gathered_block_mix_flat2"] > 0
+
+
+def test_autoregressive_forecast_graphed_equals_eager(card):
+    """Three replayed rounds with ``future_aux`` on the 2,048-node flat
+    model with the masked adaptive adjacency (deterministic algorithms)
+    against the same rounds run eagerly: bit for bit, round 1 equal to
+    ``predict``; a second call on the same inputs replays all three."""
+    from graph_wavenet_tpu_torch.train import serving
+
+    fc = city_forecaster(card, "flat", True)
+    gen = torch.Generator(card).manual_seed(3)
+    n = fc.input_nodes
+    x = torch.randn(1, 12, n, 2, device=card, generator=gen)
+    aux = torch.rand(1, 36, n, 1, device=card, generator=gen)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, want = x.clone(), []
+        for k in range(3):
+            pred = fc.predict(state)
+            new = torch.cat([((pred - fc.scaler.mean) / fc.scaler.std)[
+                ..., None], aux[:, 12 * k:12 * k + 12]], -1)
+            state = torch.cat([state[:, 12:], new], 1)
+            want.append(pred)
+        want = torch.cat(want, 1)
+        for _ in range(2):
+            got = serving.autoregressive_forecast(fc, x, 3, future_aux=aux)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        assert torch.equal(got[:, :12], fc.predict(x))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (g,) = fc.step_graphs()
+    assert g.replays == 2 + 3
