@@ -107,6 +107,22 @@ exits non-zero:
    ``predict``, each replay's launches one predict's, ms per origin and
    idle share of both; ``autoregressive_forecast`` (city at batch 1, 3
    rounds; METR with ``future_aux``) bit for bit its eager rounds.
+19. the per-sample-graph model (``phase_diffg``): README's diff-G run at
+   full width (80 nodes, K = 48, 4 x 2 layers from dilation 4, batch 32,
+   fp32; subjects cut to 8/2/4) through ``gwt-torch-train --data syn
+   --scan_steps 8`` for two epochs and its test, one ``--same_g`` epoch,
+   one ``--data crash`` epoch on stand-in records and a ``--fresh_nodevec``
+   run; graphed ``train_steps_syn_resident`` steps bit for bit against
+   eager ``train_step_syn`` ones (dropout 0.3, with and without
+   ``fresh_nodevec``), per-step ms and idle share of both; the checkpoint
+   served from a bank of the test split's graphs (4 concurrent requests
+   naming 4 graphs in one device call, against ``predict_indexed``;
+   ``predict_indexed`` against ``predict`` on the gathered supports;
+   ``/predict_modalities`` against the engine's ``eval_step_syn``),
+   predict ms at batch 1 and 32; ``gwt-torch-export --graph_bank``, the
+   artifact in a fresh process bit for bit ``predict_indexed``, served
+   once with ``--artifact``. The path launches no hand kernel
+   (``diffg_launches``).
 
 The launch counts of a graphed window add each replay's launches (a
 wrapper counts its Python calls, so a capture counts a step once).
@@ -121,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3205,6 +3222,522 @@ def phase_rolling(tmp: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the per-sample-graph (diff-G) path
+# ---------------------------------------------------------------------------
+
+# README's diff-G run at full width (80 nodes, K = 48, 4 blocks of
+# dilations 4 and 8: receptive field 49, batch 32, fp32, dropout 0.3), the
+# subject count cut from 80/20/4 to 8/2/4 for the script's time
+DIFFG_NODES, DIFFG_K, DIFFG_BATCH, DIFFG_S = 80, 48, 32, 8
+DIFFG_SUBJECTS = {"n_train": 8, "n_valid": 2, "n_test": 4}
+DIFFG_ARGV = ["--num_nodes", str(DIFFG_NODES), "--seq_length",
+              str(DIFFG_K), "--blocks", "4", "--layers", "2", "--nhid", "32",
+              "--batch_size", str(DIFFG_BATCH), "--gcn_bool", "--addaptadj",
+              "--device", "cuda"]
+DIFFG_CHILD = r'''
+import json, sys, time
+import numpy as np
+import torch
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+path, x_path, i_path, y_path = sys.argv[1:5]
+t0 = time.perf_counter()
+module = torch.export.load(path).module()
+load_s = time.perf_counter() - t0
+x = torch.as_tensor(np.load(x_path), device="cuda")
+idx = torch.as_tensor(np.load(i_path), device="cuda")
+with torch.inference_mode():
+    module(x, idx)
+    torch.cuda.synchronize()
+    bd.reset_launch_counts()
+    y = module(x, idx)
+    torch.cuda.synchronize()
+    launches = dict(bd.LAUNCHES)
+np.save(y_path, y.cpu().numpy())
+bad = [m for m in sys.modules if m == "jax" or m.startswith((
+    "jax.", "graph_wavenet_tpu.", "graph_wavenet_tpu_torch.models",
+    "graph_wavenet_tpu_torch.train"))]
+print(json.dumps({"load_seconds": load_s, "launches": launches,
+                  "foreign_modules": bad}))
+'''
+
+
+def diffg_cli(name: str, tmp: str, argv: list) -> dict:
+    """``gwt-torch-train`` on ``argv`` (saving under ``tmp/name``), timed,
+    its hand-kernel launches counted. Returns the CLI's dict with
+    ``seconds`` and ``launches``."""
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import train
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    bd.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(argv + ["--save", os.path.join(tmp, name)])
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, launches=dict(bd.LAUNCHES))
+    res, engine = out["result"], out["runner"].engine
+    emit("diffg_train", name=name, seconds=round(out["seconds"], 3),
+         diff_g=engine.diff_g, fresh_nodevec=engine.model_cfg.fresh_nodevec,
+         num_nodes=engine.model_cfg.num_nodes,
+         seq_length=engine.model_cfg.out_dim,
+         receptive_field=engine.model_cfg.receptive_field,
+         steps=engine.step,
+         graphs=[{"replays": g.replays} for g in engine.step_graphs()],
+         epochs=[{"epoch": h.epoch, "train_loss": h.train["loss"],
+                  "valid_loss": h.valid["loss"],
+                  "train_seconds": h.train_time} for h in res.history],
+         test={k: v for k, v in res.test_metrics.items()
+               if not hasattr(v, "shape")}, launches=out["launches"])
+    require(all(math.isfinite(h.train["loss"]) for h in res.history)
+            and math.isfinite(res.test_metrics["loss"]),
+            f"{name}: a loss is not finite")
+    return out
+
+
+def diffg_engines(cfg, n: int, seed: int = 0):
+    """Two diff-G engines of ``cfg`` from one seed on the card."""
+    from graph_wavenet_tpu_torch.config import TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    return [Engine(cfg, TrainConfig(), StandardScaler(0.5, 0.3),
+                   device="cuda", seed=seed, diff_g=True) for _ in range(n)]
+
+
+def diffg_graphed(cfg, resident: dict, F_t: int, mode: str) -> None:
+    """``DIFFG_S`` graphed ``train_steps_syn_resident`` steps, twice (the
+    first call warms up, captures and replays; the second only replays),
+    bit for bit against as many eager ``train_step_syn`` steps on the
+    gathered batches (metrics, weights, BatchNorm buffers, Adam, the
+    generator); then the per-step time and profiled idle share of both."""
+    import numpy as np
+    import torch
+
+    xs, ys, adj = resident["xs"], resident["ys"], resident["adj"]
+    sups, proj = resident["sups"], resident["proj"]
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, xs.shape[0], size=(2, DIFFG_S, DIFFG_BATCH)
+                       ).astype(np.int32)
+    eager, graphed = diffg_engines(cfg, 2)
+
+    def eager_step(r):
+        gids = adj.index_select(0, r)
+        return eager.train_step_syn(
+            xs.index_select(0, r), ys.index_select(0, r),
+            [s.index_select(0, gids) for s in sups],
+            proj.index_select(0, gids), F_t)
+
+    got = [metric_rows(graphed.train_steps_syn_resident(
+        xs, ys, sel, adj, sups, proj, F_t)) for sel in idx]
+    rows = torch.as_tensor(idx, device="cuda")
+    want = [torch.cat([metric_rows(eager_step(r)) for r in sel], 1)
+            for sel in rows]
+    torch.cuda.synchronize()
+    m_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    diff = first_difference(step_state(graphed), step_state(eager))
+    replays = [g.replays for g in graphed.step_graphs()]
+    emit("diffg_bitwise", mode=mode, dropout=cfg.dropout,
+         fresh_nodevec=cfg.fresh_nodevec, scan_steps=DIFFG_S, calls=2,
+         replays=replays, max_abs_metric_diff=m_err,
+         first_state_difference=diff, tolerance="bit for bit")
+    require(replays == [2 * DIFFG_S - 1],
+            f"the graphed diff-G steps ran {replays} replays")
+    require(diff is None and m_err == 0.0,
+            f"graphed diff-G steps ({mode}) differ from eager ones: state "
+            f"{diff}, metrics by {m_err}")
+    it = {"k": 0}
+
+    def one_eager():
+        r = rows[1, it["k"] % DIFFG_S]
+        it["k"] += 1
+        return eager_step(r)
+
+    def graphed_call():
+        return graphed.train_steps_syn_resident(xs, ys, idx[1], adj, sups,
+                                                proj, F_t)
+
+    node_steps = DIFFG_BATCH * DIFFG_K * DIFFG_NODES
+    for kind, fn, reps, per in (("eager", one_eager, 16, 1),
+                                ("graphed", graphed_call, 4, DIFFG_S)):
+        t = timed_steps(fn, reps, per)
+        prof = profile_step(fn)
+        emit("diffg_step", mode=mode, kind=kind, scan_steps=per,
+             batch=DIFFG_BATCH, nodes=DIFFG_NODES, seq_length=DIFFG_K, **t,
+             node_timesteps_per_s=node_steps / (t["median_ms"] / 1e3),
+             profiled_wall_ms_per_step=prof["wall_ms"] / per,
+             device_busy_ms_per_step=prof["device_busy_ms"] / per,
+             device_idle_share=prof["device_idle_share"],
+             device_kernels_per_step=prof["device_kernels"] / per,
+             top_kernels=prof["top_kernels"][:4],
+             top_host_ops=prof["top_host_ops"][:4])
+    del eager, graphed
+    torch.cuda.empty_cache()
+
+
+def diffg_vs_cpu(cfg, resident: dict, F_t: int) -> None:
+    """The diff-G model on the card against the same model on the host CPU
+    at full width and batch ``DIFFG_BATCH`` (dropout 0, so both draw
+    nothing): from one state, ``eval_step_syn`` (loss, ``pred_F``,
+    ``pred_E``), one ``train_step_syn`` (loss, the updated parameters and
+    BatchNorm buffers) and the backward of a train-mode forward against a
+    fixed cotangent (every parameter's gradient). Each is held at rtol
+    1e-5 with atol 1e-5 x the largest magnitude of its kind, which a TF32
+    product or a wrong per-sample gather would miss by orders of
+    magnitude. Adam's first step is the sign of the gradient, so the
+    gradients are held through the cotangent's backward, where they are a
+    smooth function of the inputs."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    xs, ys, adj = resident["xs"], resident["ys"], resident["adj"]
+    rows = torch.arange(DIFFG_BATCH, device="cuda") * 37 % xs.shape[0]
+    gids = adj.index_select(0, rows)
+    batch = {"cuda": (xs.index_select(0, rows), ys.index_select(0, rows),
+                      [s.index_select(0, gids) for s in resident["sups"]],
+                      resident["proj"].index_select(0, gids))}
+    batch["cpu"] = (batch["cuda"][0].cpu(), batch["cuda"][1].cpu(),
+                    [s.cpu() for s in batch["cuda"][2]],
+                    batch["cuda"][3].cpu())
+    engines = {dev: Engine(cfg, TrainConfig(), StandardScaler(0.5, 0.3),
+                           device=dev, seed=0, diff_g=True)
+               for dev in ("cuda", "cpu")}
+    engines["cpu"].model.load_state_dict(engines["cuda"].model.state_dict())
+    got: dict = {dev: {} for dev in engines}
+    for dev, eng in engines.items():
+        x, y, sup, proj = batch[dev]
+        ev = eng.eval_step_syn(x, y, sup, proj, F_t)
+        got[dev]["eval"] = {"loss": ev["loss"].reshape(1),
+                            "pred_F": ev["pred_F"], "pred_E": ev["pred_E"]}
+        got[dev]["train_loss"] = {"loss": eng.train_step_syn(
+            x, y, sup, proj, F_t)["loss"].reshape(1)}
+        got[dev]["updated_state"] = {
+            k: v for k, v in eng.model.state_dict().items()
+            if v.is_floating_point()}
+        eng.model.train()
+        params = dict(eng.model.named_parameters())
+        out = eng._forward(x, sup)
+        cot = np.random.default_rng(11).normal(size=tuple(out.shape))
+        grads = torch.autograd.grad(
+            out, list(params.values()),
+            torch.as_tensor(cot, dtype=out.dtype, device=out.device),
+            allow_unused=True)
+        got[dev]["gradients"] = {k: g for k, g in zip(params, grads)
+                                 if g is not None}
+    torch.cuda.synchronize()
+    readings = {}
+    for kind, want in got["cpu"].items():
+        card = {k: v.cpu() for k, v in got["cuda"][kind].items()}
+        require(card.keys() == want.keys(),
+                f"card vs CPU {kind}: the entries differ")
+        scale = max(float(v.abs().max()) for v in want.values())
+        ok = all(torch.allclose(card[k], v, rtol=1e-5, atol=1e-5 * scale)
+                 for k, v in want.items())
+        diff, at = max((float((card[k].double() - v.double()).abs().max()),
+                        k) for k, v in want.items())
+        readings[kind] = {"max_abs_diff": diff, "at": at,
+                          "max_abs_cpu": scale,
+                          "max_abs_diff_over_max_abs": diff / scale,
+                          "entries": len(want), "ok": ok}
+    emit("diffg_vs_cpu", batch=DIFFG_BATCH, nodes=DIFFG_NODES,
+         seq_length=DIFFG_K, dropout=cfg.dropout, readings=readings,
+         tolerance="rtol 1e-5, atol 1e-5 x max|cpu| of each kind")
+    require(all(r["ok"] for r in readings.values()),
+            f"the diff-G model on the card differs from the CPU: {readings}")
+    del engines, got, batch
+    torch.cuda.empty_cache()
+
+
+def diffg_serve(ckpt: str, bank: str, resident: dict, F_t: int) -> dict:
+    """The bank-serving checks of ``phase_diffg``; returns the launches of
+    the serving window."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import serve
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import serving
+
+    bd.reset_launch_counts()
+    fc = serving.DiffGForecaster.from_checkpoint(ckpt, device="cuda")
+    fc.bind_bank(serving.load_graph_bank(bank))
+    xs, ys = resident["test_xs"], resident["test_ys"]
+    n_graphs = fc.n_graphs
+    rows = torch.arange(4, device="cuda") * 101 % xs.shape[0]
+    x, y = xs.index_select(0, rows), ys.index_select(0, rows)
+    gids = torch.arange(4, device="cuda") % n_graphs
+    # predict_indexed is predict on the gathered supports
+    got = fc.predict_indexed(x, gids)
+    sup = [s.index_select(0, gids) for s in fc.sup_stack]
+    same_gather = bool(torch.equal(got, fc.predict(x, sup)))
+    # the modalities against the engine's eval step on the same batch
+    cfg = fc.cfg
+    (eng,) = diffg_engines(dataclasses.replace(cfg), 1)
+    eng.model.load_state_dict(fc.model.state_dict())
+    eng.scaler = fc.scaler
+    ev = eng.eval_step_syn(x, y, sup, fc.proj_stack.index_select(0, gids),
+                           F_t)
+    f, e = fc.predict_modalities_indexed(x, gids)
+    same_eval = bool(torch.equal(f, ev["pred_F"][:, -1].permute(0, 2, 1))
+                     and torch.equal(e, ev["pred_E"][:, -1].permute(0, 2, 1)))
+    # four concurrent requests naming four graphs: one device call
+    run = serve.main(["--checkpoint", ckpt, "--graph_bank", bank,
+                      "--device", "cuda", "--port", "0", "--window_ms",
+                      "3000", "--max_batch", "8"], serve_forever=False)
+    server, batcher = run["server"], run["batcher"]
+    raw = x.cpu().numpy().copy()
+    raw[..., 0] = fc.scaler.inverse_transform(raw[..., 0])
+    answers: list = [None] * 4
+    errors: list = []
+    try:
+        url = f"http://127.0.0.1:{server.server_port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+
+        def ask(i):
+            try:
+                answers[i] = np.asarray(post_json(
+                    url + "/predict", {"x": raw[i].tolist(),
+                                       "adj_idx": int(gids[i])})["y"],
+                    np.float32)
+            except Exception as err:       # reported below; fails the run
+                errors.append(f"{type(err).__name__}: {err}")
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        mod = post_json(url + "/predict_modalities",
+                        {"x": raw.tolist(), "adj_idx": gids.tolist()})
+        stats = json.loads(urllib.request.urlopen(url + "/stats",
+                                                  timeout=60).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    require(not errors, f"diff-G requests failed: {errors}")
+    # the server standardizes the raw rows again: compare its answers to
+    # predict_indexed on the rows it standardized
+    xs_srv = raw.copy()
+    xs_srv[..., 0] = fc.scaler.transform(xs_srv[..., 0])
+    want = fc.predict_indexed(xs_srv, gids.cpu().numpy()).cpu().numpy()
+    served = np.stack(answers)
+    serve_diff = float(np.abs(served - want).max())
+    f2, e2 = fc.predict_modalities_indexed(xs_srv, gids.cpu().numpy())
+    mod_diff = max(float(np.abs(np.asarray(mod["pred_F"], np.float32)
+                                - f2.cpu().numpy()).max()),
+                   float(np.abs(np.asarray(mod["pred_E"], np.float32)
+                                - e2.cpu().numpy()).max()))
+    # timed as the server calls it: host x and adj_idx
+    times = {}
+    for b in (1, DIFFG_BATCH):
+        xb = xs[:b].cpu().numpy()
+        ib = np.arange(b) % n_graphs
+        times[f"batch_{b}"] = ab_ms({"predict_indexed":
+                                     lambda: fc.predict_indexed(xb, ib)},
+                                    reps=20, rounds=2)["predict_indexed"]
+    launches = dict(bd.LAUNCHES)
+    emit("diffg_serve", health=health, requests=stats["requests"],
+         device_calls=stats["device_calls"],
+         batch_histogram=stats["batch_histogram"],
+         max_abs_diff_served=serve_diff, max_abs_diff_modalities=mod_diff,
+         tolerance="bit for bit", predict_indexed_equals_predict=same_gather,
+         modalities_equal_eval_step_syn=same_eval, predict_ms=times,
+         predict_inputs="host x and adj_idx, as the server passes them",
+         launches=launches)
+    require(health.get("diff_g") and health.get("modalities")
+            and health.get("n_graphs") == n_graphs, f"healthz: {health}")
+    require(stats["device_calls"] == 1 and stats["requests"] == 4,
+            f"4 requests took {stats['device_calls']} device calls")
+    require(serve_diff == 0.0 and mod_diff == 0.0,
+            f"served answers differ by {serve_diff}, modalities by "
+            f"{mod_diff} from predict_indexed (bit for bit)")
+    require(same_gather and same_eval,
+            "predict_indexed differs from predict on the gathered supports "
+            "or the modalities from eval_step_syn")
+    return launches
+
+
+def diffg_export(ckpt: str, bank: str, resident: dict, tmp: str) -> dict:
+    """``gwt-torch-export --graph_bank`` at batch 4, the artifact loaded in a
+    fresh process and held bit for bit to ``predict_indexed``, then served
+    once by ``gwt-torch-serve --artifact``. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import export, serve
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import serving
+
+    bd.reset_launch_counts()
+    out = os.path.join(tmp, "diffg.pt2")
+    t0 = time.perf_counter()
+    export.main(["--checkpoint", ckpt, "--graph_bank", bank, "--out", out,
+                 "--batch_size", "4", "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    fc = serving.DiffGForecaster.from_checkpoint(ckpt, device="cuda")
+    fc.bind_bank(serving.load_graph_bank(bank))
+    x = resident["test_xs"][:4]
+    idx = np.array([3, 0, 2, 1]) % fc.n_graphs
+    want = fc.predict_indexed(x, idx)
+    paths = [os.path.join(tmp, f"diffg_{k}.npy") for k in "xiy"]
+    np.save(paths[0], x.cpu().numpy())
+    np.save(paths[1], idx)
+    child = subprocess.run(
+        [sys.executable, "-c", DIFFG_CHILD, out, *paths], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=900)
+    require(child.returncode == 0, "the diff-G artifact failed in a fresh "
+            f"process:\n{child.stderr[-4000:]}")
+    stats = json.loads(child.stdout.strip().splitlines()[-1])
+    got = torch.as_tensor(np.load(paths[2]), device="cuda")
+    art = serving.load_exported_forecaster(out)
+    times = ab_ms({"artifact": lambda: art.predict(x, idx),
+                   "forecaster": lambda: fc.predict_indexed(x, idx)})
+    run = serve.main(["--artifact", out, "--scaler_mean",
+                      str(fc.scaler.mean), "--scaler_std",
+                      str(fc.scaler.std), "--port", "0"],
+                     serve_forever=False)
+    try:
+        raw = x[:1].cpu().numpy().copy()
+        raw[..., 0] = fc.scaler.inverse_transform(raw[..., 0])
+        served = np.asarray(post_json(
+            f"http://127.0.0.1:{run['server'].server_port}/predict",
+            {"x": raw[0].tolist(), "adj_idx": int(idx[0])})["y"], np.float32)
+    finally:
+        run["server"].shutdown()
+        run["server"].server_close()
+        run["batcher"].stop()
+    xs_srv = raw.copy()
+    xs_srv[..., 0] = fc.scaler.transform(xs_srv[..., 0])
+    want_srv = fc.predict_indexed(np.repeat(xs_srv, 4, 0),
+                                  np.full(4, idx[0]))[0].cpu().numpy()
+    srv_diff = float(np.abs(served - want_srv).max())
+    tol = 1e-5 * float(np.abs(want_srv).max())
+    launches = dict(bd.LAUNCHES)
+    emit("diffg_export", in_shape=list(art.in_shape), n_graphs=art.n_graphs,
+         export_seconds=round(export_s, 3),
+         artifact_bytes=os.path.getsize(out), child=stats,
+         bitwise_equal=bool(torch.equal(got, want)),
+         max_abs_diff=float((got - want).abs().max()), in_process=times,
+         served_max_abs_diff=srv_diff, tolerance=tol, launches=launches)
+    require(torch.equal(got, want), "the diff-G artifact differs from "
+            "predict_indexed")
+    require(not stats["foreign_modules"],
+            f"the loader imported {stats['foreign_modules']}")
+    require(srv_diff <= tol, f"the artifact server's answer differs by "
+            f"{srv_diff} (tolerance {tol})")
+    return launches
+
+
+def phase_diffg(tmp: str) -> dict:
+    """The per-sample-graph path on the card (``DIFFG_ARGV``): the training
+    CLI's diff-G run (2 epochs, ``--scan_steps 8``: the fused steps as a
+    replayed CUDA graph) and test; one ``--same_g`` epoch (K = 12, the
+    shared-graph model whose receptive field is 13, 2 training subjects);
+    one ``--data crash``
+    epoch on the stand-in records; a ``--fresh_nodevec`` run of one
+    subject (the last three's eager steps are host-bound, so their
+    subjects are cut further). Then the model on the card against the
+    host CPU (:func:`diffg_vs_cpu`); graphed ``train_steps_syn_resident``
+    bit for bit against
+    eager ``train_step_syn`` (dropout 0.3, with and without
+    ``fresh_nodevec``), timed and profiled; the trained checkpoint served
+    from a bank of the test split's graphs (labels and F_t) and exported.
+    The hand kernels are not on this path: every window's launches must be
+    0 (the ``diffg_launches`` line). Returns no kernel window."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import DataConfig
+    from graph_wavenet_tpu_torch.data.synthetic import (
+        load_dataset_syn,
+        stack_support_splits,
+    )
+    from graph_wavenet_tpu_torch.train import serving
+    from graph_wavenet_tpu_torch.train.engine import cluster_mean_projector
+
+    subjects = [a for k, v in DIFFG_SUBJECTS.items()
+                for a in (f"--{k}", str(v))]
+    windows = {}
+    run = diffg_cli("diffg_ckpt", tmp, ["--data", "syn", *DIFFG_ARGV,
+                                        *subjects, "--epochs", "2",
+                                        "--scan_steps", str(DIFFG_S)])
+    windows["train_syn"] = run["launches"]
+    engine = run["runner"].engine
+    require(engine.step_graphs() and all(
+        g.replays > 0 for g in engine.step_graphs()),
+        "the diff-G epochs replayed no CUDA graph")
+    ckpt = run["result"].best_checkpoint
+    cfg = engine.model_cfg
+    del run, engine
+    torch.cuda.empty_cache()
+    same = [a if a != str(DIFFG_K) else "12" for a in DIFFG_ARGV]
+    windows["same_g"] = diffg_cli("same_g_ckpt", tmp, [
+        "--data", "syn", "--same_g", *same, "--n_train", "2", "--n_valid",
+        "1", "--n_test", "1", "--epochs", "1"])["launches"]
+    windows["crash"] = diffg_cli("crash_ckpt", tmp, [
+        "--data", "crash", *DIFFG_ARGV, "--epochs", "1"])["launches"]
+    windows["fresh_nodevec"] = diffg_cli("fresh_ckpt", tmp, [
+        "--data", "syn", *DIFFG_ARGV, "--n_train", "1", "--n_valid", "1",
+        "--n_test", "1", "--epochs", "1", "--fresh_nodevec", "--scan_steps",
+        str(DIFFG_S)])["launches"]
+    torch.cuda.empty_cache()
+
+    # the graphs, resident stacks and test split of the checks below
+    dcfg = DataConfig(num_nodes=DIFFG_NODES, seq_length=DIFFG_K,
+                      n_train=2, n_valid=1, n_test=4)
+    data, adjs, F_t, G = load_dataset_syn(dcfg, DIFFG_BATCH, seed=0,
+                                          resident="device", device="cuda")
+    stacks = stack_support_splits(adjs, dcfg.n_train, dcfg.n_test)
+    n_comm = dcfg.n_communities
+    loader = data["train_loader"]
+    xs, ys = loader.resident_arrays()
+    resident = {
+        "xs": xs, "ys": ys, "adj": loader.resident_adj_idx(),
+        "sups": [torch.as_tensor(s, device="cuda") for s in stacks["train"]],
+        "proj": torch.as_tensor(np.stack(
+            [cluster_mean_projector(g.community_labels, n_comm)
+             for g in G["train"]]), device="cuda"),
+        "test_xs": data["test_loader"].resident_arrays()[0],
+        "test_ys": data["test_loader"].resident_arrays()[1]}
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    bd.reset_launch_counts()
+    diffg_vs_cpu(dataclasses.replace(cfg, dropout=0.0, fresh_nodevec=False),
+                 resident, F_t)
+    diffg_graphed(dataclasses.replace(cfg, dropout=0.3), resident, F_t,
+                  "trained")
+    diffg_graphed(dataclasses.replace(cfg, dropout=0.3, fresh_nodevec=True),
+                  resident, F_t, "fresh_nodevec")
+    windows["graphed"] = dict(bd.LAUNCHES)
+    bank = os.path.join(tmp, "diffg_bank.npz")
+    serving.save_graph_bank(
+        bank, np.stack([g.W for g in G["test"]]),
+        labels=np.stack([g.community_labels for g in G["test"]]), F_t=F_t)
+    windows["serve"] = diffg_serve(ckpt, bank, resident, F_t)
+    windows["export"] = diffg_export(ckpt, bank, resident, tmp)
+    emit("diffg_launches", windows=windows,
+         note="the diff-G path runs no hand kernel: its diffusion is the "
+              "batched dense product, outside any Pallas kernel in the "
+              "JAX package too")
+    require(not any(n for w in windows.values() for n in w.values()),
+            f"a diff-G window launched a hand kernel: {windows}")
+    del resident, data
+    torch.cuda.empty_cache()
+    return {}
+
+
 def main() -> int:
     try:
         import torch
@@ -3248,6 +3781,7 @@ def main() -> int:
         counts.update(phase_export(tmp))
         counts.update(phase_serve_artifact(tmp))
         counts.update(phase_rolling(tmp))
+        counts.update(phase_diffg(tmp))
     counts.update(phase_dense())
     counts.update(phase_resident(graph))
     counts.update(phase_kernel5_path(padded))

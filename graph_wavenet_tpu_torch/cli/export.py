@@ -3,8 +3,10 @@
 Counterpart of ``graph_wavenet_tpu/cli/export.py``. Loads a port checkpoint
 under the mode its flags pick (``--graph_npz`` for a city-scale checkpoint,
 ``--adjdata`` for dense supports, neither for an aptonly or temporal-only
-one; the rules of ``gwt-torch-serve``) and writes the predict forward as a
-``.pt2`` with the weights and supports baked in. The artifact names the
+one, ``--graph_bank`` for a diff-G one; the rules of ``gwt-torch-serve``)
+and writes the predict forward as a ``.pt2`` with the weights and supports
+baked in; a diff-G artifact bakes the bank and is called as ``(x,
+adj_idx)``. The artifact names the
 hand kernels' ops, so ``gwt-torch-serve --artifact`` (or
 ``train.serving.load_exported_forecaster``, or ``torch.export.load`` after
 importing ``graph_wavenet_tpu_torch.ops.cuda.block_diffusion``) serves it
@@ -18,8 +20,6 @@ without the model code. It runs on the device type it was exported on.
 from __future__ import annotations
 
 import argparse
-
-from graph_wavenet_tpu_torch.cli.serve import DIFF_G
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,13 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "trained with --aptonly (n_supports 0) is exported "
                         "with the learned adjacency alone either way")
     p.add_argument("--graph_bank", type=str, default=None,
-                   help="refused: " + DIFF_G)
+                   help="graph bank of a diff-G checkpoint: baked into the "
+                        "artifact, which then takes (x, adj_idx)")
     p.add_argument("--batch_size", type=int, default=64,
                    help="batch dimension baked into the artifact")
     p.add_argument("--seq_len", type=int, default=0,
                    help="input window baked into the artifact; 0 = the "
-                        "model's receptive field (shorter inputs are "
-                        "left-zero-padded by the loader)")
+                        "model's receptive field (diff-G: the trained K); "
+                        "shorter inputs are left-zero-padded by the loader")
     p.add_argument("--device", type=str, default="cuda",
                    help="device the artifact runs on (default cuda)")
     return p
@@ -60,8 +61,11 @@ def main(argv=None) -> dict:
     from graph_wavenet_tpu_torch.train import serving
 
     fc = load_forecaster(args)
-    path = serving.export_forecaster(fc, args.out, batch_size=args.batch_size,
-                                     seq_len=args.seq_len or None)
+    export = (serving.export_diffg_forecaster
+              if isinstance(fc, serving.DiffGForecaster)
+              else serving.export_forecaster)
+    path = export(fc, args.out, batch_size=args.batch_size,
+                  seq_len=args.seq_len or None)
     meta = serving.artifact_metadata(path)
     print(f"exported {path}: input {tuple(meta['in_shape'])}, device "
           f"{meta['device']}", flush=True)

@@ -1,7 +1,7 @@
-"""Training CLI: the METR-format dense path and city-scale graphs.
+"""Training CLI: the METR-format dense path, city-scale graphs, and the
+synthetic and CRASH two-modality tasks.
 
-Counterpart of ``graph_wavenet_tpu/cli/train.py``'s METR and
-``--graph_npz`` branches:
+Counterpart of ``graph_wavenet_tpu/cli/train.py``:
 
 - **METR** (``--data DIR --adjdata adj_mx.pkl``): the ``--adjtype``
   supports of a DCRNN-format adjacency pickle, dense, the adaptive
@@ -15,6 +15,16 @@ Counterpart of ``graph_wavenet_tpu/cli/train.py``'s METR and
   ``--aptonly``), and the node layout, with the supports' storage dtype,
   recorded in every checkpoint sidecar, so the serve and test CLIs rebuild
   the same supports.
+- **Synthetic** (``--data syn``): the SBM diffusion task
+  (``data.synthetic``), one graph per subject for the per-sample-graph
+  model (diff-G: dilations from 4, per-sample supports, ``--fresh_nodevec``
+  for the reference's random embeddings; ``--plot`` draws the test
+  reconstruction where matplotlib is installed), or one shared graph under
+  ``--same_g``.
+- **CRASH** (``--data crash``): the fMRI/EEG pipeline (``data.crash``) on
+  the synthetic stand-in records, or on records under ``--crash_dir``
+  (``--crash_format mat``: the reference's export tree, ``data.crash_raw``;
+  ``npz``: ``<subject>/<session>.npz``), with the diff-G model.
 
 Then the runner fits and tests.
 
@@ -24,14 +34,16 @@ Then the runner fits and tests.
     python -m graph_wavenet_tpu_torch.cli.train --graph_npz city.npz \\
         --data data/CITY --gcn_bool --addaptadj --dtype bfloat16 \\
         --batch_size 4 --seq_length 12 --epochs 1 --save ckpt/
+    python -m graph_wavenet_tpu_torch.cli.train --data syn --gcn_bool \\
+        --addaptadj --seq_length 48 --scan_steps 8 --save ckpt/
 
-Both branches keep the dataset on the device by default (``--resident
-device``; ``host`` copies every batch from the host), and take the
+Every branch keeps the dataset on the device by default (``--resident
+device``; ``host`` copies every batch from the host), and takes the
 runner's ``--scan_steps`` (optimizer steps per fused call: a CUDA graph
 replayed per step on the card), ``--grad_accum``, ``--early_stop``,
-``--epoch_timeout`` and ``--resume``. The synthetic and CRASH datasets
-(``--data syn|crash``) wait for the diff-G slice, and the options listed in
-:data:`LATER` for the slice each names (ROADMAP.md).
+``--epoch_timeout`` and ``--resume`` (the shared-graph synthetic task runs
+a step per batch). The options listed in :data:`LATER` wait for the slice
+each names (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,9 +62,11 @@ LATER = {"mesh_model": (int, 1, "7"), "mesh_time": (int, 1, "7"),
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "gwt-torch-train", description="Train Graph WaveNet on a METR-format "
-        "dataset or a city-scale graph (--graph_npz) with the port")
+        "dataset, a city-scale graph (--graph_npz), or the synthetic and "
+        "CRASH tasks (--data syn|crash) with the port")
     p.add_argument("--data", type=str, default="data/METR-LA",
-                   help="directory of train/val/test.npz window splits")
+                   help="directory of train/val/test.npz window splits, or "
+                        "syn / crash")
     p.add_argument("--adjdata", type=str,
                    default="data/sensor_graph/adj_mx.pkl",
                    help="METR: DCRNN-format adjacency pickle")
@@ -133,6 +147,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume training from (full train "
                         "state); the run continues at its epoch + 1")
+    syn = p.add_argument_group("synthetic and CRASH tasks (--data syn|crash)")
+    syn.add_argument("--same_g", action="store_true",
+                     help="syn: one shared graph instead of one per subject")
+    syn.add_argument("--n_train", type=int, default=80,
+                     help="syn: training subjects")
+    syn.add_argument("--n_valid", type=int, default=20)
+    syn.add_argument("--n_test", type=int, default=4)
+    syn.add_argument("--num_timestep", type=int, default=1000,
+                     help="syn: steps rolled out per subject")
+    syn.add_argument("--fresh_nodevec", action="store_true",
+                     help="diff-G: the reference's quirk of fresh random "
+                          "adaptive embeddings every forward")
+    syn.add_argument("--plot", type=str, default=None,
+                     help="diff-G syn: write the test reconstruction (real "
+                          "and predicted F/E of one node) to this image "
+                          "(needs matplotlib; skipped with a line without)")
+    syn.add_argument("--crash_dir", type=str, default=None,
+                     help="CRASH records: the reference's export tree "
+                          "(--crash_format mat) or <subject>/<session>.npz "
+                          "files (npz); omit for the synthetic stand-ins")
+    syn.add_argument("--crash_format", type=str, default="mat",
+                     choices=("mat", "npz"))
+    syn.add_argument("--crash_num_region", type=int, default=200,
+                     help="CRASH mat: Schaefer parcel count (200 or 400)")
+    syn.add_argument("--crash_K", type=int, default=None,
+                     help="CRASH window length (default: ceil(F_t)*5 for "
+                          "mat records, int(F_t*5) otherwise)")
+    syn.add_argument("--fmri_time_res", type=float, default=None,
+                     help="CRASH: seconds per fMRI frame (default 0.910 for "
+                          "mat records, else 2.0)")
+    syn.add_argument("--eeg_time_res", type=float, default=None,
+                     help="CRASH: seconds per EEG sample (default 1/640 for "
+                          "mat records, else 0.5)")
     later = p.add_argument_group("not ported yet (ROADMAP.md); refused "
                                  "unless left at their defaults")
     for name, (kind, default, _) in LATER.items():
@@ -151,12 +198,12 @@ def main(argv=None) -> dict:
         raise SystemExit(
             f"{', '.join(later)}: not ported yet (slice "
             f"{', '.join(sorted(set(later.values())))} of ROADMAP.md)")
-    if args.data in ("syn", "crash"):
-        raise SystemExit(
-            f"--data {args.data}: the synthetic and CRASH datasets come with "
-            "the diff-G slice (slice 6 of ROADMAP.md)")
     t0 = time.time()
-    if args.graph_npz:
+    if args.data == "syn":
+        result, runner, supports = _run_syn(args)
+    elif args.data == "crash":
+        result, runner, supports = _run_crash(args)
+    elif args.graph_npz:
         result, runner, supports = _run_city(args)
     else:
         result, runner, supports = _run_metr(args)
@@ -164,7 +211,9 @@ def main(argv=None) -> dict:
     return {"result": result, "runner": runner, "supports": supports}
 
 
-def model_config(args, num_nodes: int):
+def model_config(args, num_nodes: int, diff_g: bool = False):
+    """The model of the flags; ``diff_g``: the per-sample-graph variant
+    (dilations from 4, ``--fresh_nodevec``)."""
     from graph_wavenet_tpu_torch.config import ModelConfig
 
     return ModelConfig(
@@ -173,7 +222,9 @@ def model_config(args, num_nodes: int):
         skip_channels=args.nhid * 8, end_channels=args.nhid * 16,
         blocks=args.blocks, layers=args.layers, dropout=args.dropout,
         gcn_bool=args.gcn_bool, addaptadj=args.addaptadj,
-        n_supports=0 if args.aptonly else 2, dtype=args.dtype)
+        n_supports=0 if args.aptonly else 2,
+        start_dilation=4 if diff_g else 1,
+        fresh_nodevec=args.fresh_nodevec and diff_g, dtype=args.dtype)
 
 
 def train_config(args):
@@ -285,6 +336,153 @@ def _run_city(args):
         [mask] if args.addaptadj else [])
     return _fit(args, cfg, data, sup_list,
                 extra_meta={"graph_layout": layout})
+
+
+def _syn_runner(args, cfg, data, diff_g: bool):
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    from graph_wavenet_tpu_torch.train.runner import Runner
+
+    train_cfg = train_config(args)
+    engine = Engine(cfg, train_cfg, data["scaler"], device=args.device,
+                    seed=args.seed, diff_g=diff_g,
+                    steps_per_epoch=data["train_loader"].num_batch)
+    return Runner(engine, train_cfg)
+
+
+def _run_syn(args):
+    """The --data syn branch: per-subject graphs (diff-G) or one shared
+    graph (--same_g)."""
+    from graph_wavenet_tpu_torch.config import DataConfig
+    from graph_wavenet_tpu_torch.data.synthetic import (
+        load_dataset_syn,
+        stack_support_splits,
+    )
+
+    data_cfg = DataConfig(
+        adjtype=args.adjtype, num_nodes=args.num_nodes,
+        seq_length=args.seq_length, same_g=args.same_g,
+        n_train=args.n_train, n_valid=args.n_valid, n_test=args.n_test,
+        num_timestep=args.num_timestep)
+    data, adjs, F_t, G = load_dataset_syn(
+        data_cfg, args.batch_size, seed=args.seed, resident=args.resident,
+        device=args.device)
+    n_comm = data_cfg.n_communities
+    if args.same_g:
+        runner = _syn_runner(args, model_config(args, args.num_nodes),
+                             data, diff_g=False)
+        supports = [] if args.aptonly else adjs
+        result = runner.fit_syn_shared(data, supports, G, F_t, n_comm,
+                                       resume_from=args.resume)
+        runner.test_syn_shared(data, supports, G, F_t, n_comm, result)
+        return result, runner, supports
+    runner = _syn_runner(args, model_config(args, args.num_nodes, True),
+                         data, diff_g=True)
+    supports = stack_support_splits(adjs, data_cfg.n_train, data_cfg.n_test)
+    if args.aptonly:
+        supports = {k: [] for k in supports}
+    result = runner.fit_syn(data, supports, G, F_t, n_comm,
+                            resume_from=args.resume)
+    runner.test_syn(data, supports, G, F_t, n_comm, result)
+    if args.plot:
+        plot_diffg_reconstruction(result, args.plot)
+    return result, runner, supports
+
+
+def _run_crash(args):
+    """The --data crash branch: stand-in records, or records read from
+    --crash_dir, with the diff-G model."""
+    import dataclasses
+
+    import numpy as np
+
+    from graph_wavenet_tpu_torch.data.crash import (
+        load_dataset_crash,
+        load_records_from_dir,
+    )
+
+    records = assignment = None
+    raw_mat = args.crash_dir is not None and args.crash_format == "mat"
+    if args.crash_dir is not None:
+        if raw_mat:
+            from graph_wavenet_tpu_torch.data import crash_raw
+
+            records = crash_raw.collect_records(
+                args.crash_dir, num_region=args.crash_num_region)
+            # the export tree's own electrode-region geometry where its
+            # coordinate files are present; the ring layout is a stand-in
+            try:
+                e2r = crash_raw.get_region_assignment(
+                    args.crash_dir, args.crash_num_region)
+                assignment = crash_raw.invert_assignment(
+                    e2r, args.crash_num_region)
+                print("CRASH: using electrode-region assignment from "
+                      "coordinate files", flush=True)
+            except OSError:
+                print("CRASH: coordinate files missing under "
+                      f"{args.crash_dir} (sc/Parcellations/MNI, "
+                      "utils/eeg_coor_conv/ny_x_z); falling back to the "
+                      "synthetic ring-layout assignment", flush=True)
+        else:
+            records = load_records_from_dir(args.crash_dir)
+        if not records:
+            raise SystemExit(f"no complete CRASH records under "
+                             f"{args.crash_dir} (format={args.crash_format})")
+    # the real rates (0.910 s BOLD bins, 640 Hz EEG) for an export tree;
+    # the stand-ins keep small ones
+    fmri_res = (args.fmri_time_res if args.fmri_time_res is not None
+                else (0.910 if raw_mat else 2.0))
+    eeg_res = (args.eeg_time_res if args.eeg_time_res is not None
+               else (1.0 / 640.0 if raw_mat else 0.5))
+    K = args.crash_K
+    if K is None and raw_mat:
+        # a multiple of the integer F-pool factor, so pooling keeps it
+        K = int(np.ceil(fmri_res / eeg_res)) * 5
+    data, supports, F_t, G = load_dataset_crash(
+        batch_size=args.batch_size, records=records, adjtype=args.adjtype,
+        fmri_time_res=fmri_res, eeg_time_res=eeg_res, K=K, seed=args.seed,
+        assignment=assignment, resident=args.resident, device=args.device)
+    cfg = dataclasses.replace(
+        model_config(args, int(data["x_train"].shape[2]), True),
+        out_dim=data["K"])
+    if args.aptonly:
+        supports = {k: [] for k in supports}
+    runner = _syn_runner(args, cfg, data, diff_g=True)
+    result = runner.fit_syn(data, supports, G, F_t, data["n_communities"],
+                            resume_from=args.resume)
+    runner.test_syn(data, supports, G, F_t, data["n_communities"], result)
+    return result, runner, supports
+
+
+def plot_diffg_reconstruction(result, out_path: str, node: int = 0):
+    """Reverse the stride-1 test windows and plot the real and predicted
+    F/E sequences of one node (matplotlib where installed; else a printed
+    line). Returns the four reconstructed sequences."""
+    import numpy as np
+
+    from graph_wavenet_tpu_torch.data.windows import reverse_sliding_window
+
+    tm = result.test_metrics
+    reals = tm["reals"]                               # (n, K, N, 2)
+    rec = reverse_sliding_window(
+        [np.transpose(reals[..., 0], (0, 2, 1)),
+         np.transpose(reals[..., 1], (0, 2, 1)), tm["pred_F"], tm["pred_E"]])
+    try:
+        import matplotlib
+    except ImportError:
+        print("plot skipped: matplotlib is not installed", flush=True)
+        return rec
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(10, 4))
+    for series, label in zip(rec, ("real F", "real E", "pred F", "pred E")):
+        plt.plot(series[node], label=label)
+    plt.legend()
+    plt.title(f"diff-G test reconstruction, node {node}")
+    plt.savefig(out_path, bbox_inches="tight")
+    plt.close()
+    print(f"saved reconstruction figure to {out_path}", flush=True)
+    return rec
 
 
 def cli() -> None:

@@ -1,5 +1,6 @@
 """Configuration dataclasses, field for field the reference package's
-(``graph_wavenet_tpu/config.py``), so that its checkpoint sidecars load.
+(``graph_wavenet_tpu/config.py``), so that its checkpoint sidecars load:
+the model, the optimization, and the synthetic datasets' ``DataConfig``.
 
 ``TrainConfig.rng_impl`` names a TPU random-bit generator; it is accepted and
 ignored here.
@@ -133,6 +134,30 @@ class TrainConfig:
         if self.scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got "
                              f"{self.scan_steps}")
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The synthetic SBM task's constants (the reference's ``util.py``
+    values): ``n_train``/``n_valid``/``n_test`` subjects of
+    ``num_timestep`` steps each, one graph per subject unless ``same_g``."""
+
+    adjtype: str = "doubletransition"
+    seq_length: int = 12
+    num_nodes: int = 80
+    n_communities: int = 5
+    prob_intra: float = 0.8
+    prob_inter: float = 0.2
+    n_train: int = 80
+    n_valid: int = 20
+    n_test: int = 4
+    num_timestep: int = 1000
+    sigma_spatial: float = 0.1
+    sigma_temporal: float = 0.1
+    rho_spatial: float = 0.0
+    rho_temporal: float = 0.0
+    same_g: bool = False
+    pooltype: str = "avg"
 
 
 def to_dict(cfg: Any) -> dict:

@@ -11,6 +11,10 @@ keyed "0", "1", ...):
 - tap-major ``w (k, in, out)`` -> Conv2d ``weight (out, in, 1, k)``
 - BN ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``
+
+The per-sample-graph (diff-G) model has the same tree; under
+``fresh_nodevec`` it has no ``nodevec1``/``nodevec2``, and neither has
+the port's ``GWNetDiffG``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ def _tapped(p: dict, prefix: str, sd: dict) -> None:
 
 def params_from_jax(params: dict, model_state: dict,
                     cfg: ModelConfig) -> dict[str, Any]:
-    """JAX ``(params, model_state)`` -> the port's ``GWNet`` state dict."""
+    """JAX ``(params, model_state)`` -> the port's ``GWNet`` (or
+    ``GWNetDiffG``) state dict."""
     layers = _seq(params["layers"])
     bn_state = _seq(model_state["bn"])
     n_layers = cfg.blocks * cfg.layers

@@ -12,7 +12,12 @@ one (S, B) index matrix for S steps):
   ``data.loader.WindowDataLoader``);
 - :class:`DeviceArrayLoader`: prebuilt sample arrays resident, each batch
   an ``index_select`` by sample index (the counterpart of
-  ``data.loader.DataLoader``).
+  ``data.loader.DataLoader``); with ``adj_idx`` (per-sample graphs) its
+  batches are ``(x, y, adj_idx)`` triples, the graph indices on the host,
+  and ``resident_adj_idx()`` is their device copy for the fused diff-G
+  steps (``Engine.train_steps_syn_resident``).
+
+:func:`array_loader` picks the host or the device batcher for a residency.
 
 Both shuffle on the host, over the anchors or the sample indices, with the
 host batchers' seeded numpy Generator, so a seed gives the same batches in
@@ -30,6 +35,7 @@ import torch
 
 from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.data.loader import (
+    DataLoader,
     WindowDataLoader,
     pad_with_last,
 )
@@ -149,11 +155,13 @@ class DeviceWindowLoader:
 class DeviceArrayLoader:
     """Batcher over (xs, ys) sample arrays resident on ``device`` (numpy
     arrays, or tensors already there). The tail pads to a whole batch
-    with the last sample, by index."""
+    with the last sample, by index. ``adj_idx``: the graph index of every
+    sample (per-sample-graph datasets); batches then carry theirs."""
 
     def __init__(self, xs, ys, batch_size: int,
                  rng: np.random.Generator | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 adj_idx: np.ndarray | None = None):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.rng = rng if rng is not None else np.random.default_rng()
@@ -164,14 +172,25 @@ class DeviceArrayLoader:
         self.num_batch = self.size // batch_size
         self._dev_x = resident(xs, self.device)
         self._dev_y = resident(ys, self.device)
+        self.adj_idx = None
+        self._dev_adj = None
+        if adj_idx is not None:
+            self.adj_idx = np.asarray(adj_idx, dtype=np.int32)
+            if self.adj_idx.shape != (n,):
+                raise ValueError(f"adj_idx must be ({n},), one graph per "
+                                 f"sample; got {self.adj_idx.shape}")
+            self._dev_adj = torch.as_tensor(self.adj_idx, device=self.device)
 
     def shuffle(self):
         self._index = self._index[self.rng.permutation(self.size)]
 
     def _batch(self, sel: np.ndarray):
-        sel = torch.as_tensor(sel, device=self.device)
-        return (self._dev_x.index_select(0, sel),
-                self._dev_y.index_select(0, sel))
+        dev_sel = torch.as_tensor(sel, device=self.device)
+        x = self._dev_x.index_select(0, dev_sel)
+        y = self._dev_y.index_select(0, dev_sel)
+        if self.adj_idx is None:
+            return x, y
+        return x, y, self.adj_idx[sel]
 
     def get_iterator(self):
         b = self.batch_size
@@ -182,6 +201,12 @@ class DeviceArrayLoader:
         """The resident (xs, ys) sample arrays."""
         return self._dev_x, self._dev_y
 
+    def resident_adj_idx(self) -> torch.Tensor:
+        """The graph index of every sample, int32 on the device."""
+        if self._dev_adj is None:
+            raise ValueError("this loader was built without adj_idx")
+        return self._dev_adj
+
     def superbatches(self, scan_steps: int):
         """(scan_steps, batch_size) int32 sample-index matrices: the
         epoch's full chunks in the current shuffle order."""
@@ -191,7 +216,8 @@ class DeviceArrayLoader:
             yield self._index[lo:lo + scan_steps * b].reshape(scan_steps, b)
 
     def remainder_batches(self, scan_steps: int):
-        """(x, y) of the batches :meth:`superbatches` leaves over."""
+        """The batches :meth:`superbatches` leaves over, as
+        :meth:`get_iterator` yields them."""
         b = self.batch_size
         for i in range((self.num_batch // scan_steps) * scan_steps,
                        self.num_batch):
@@ -199,3 +225,19 @@ class DeviceArrayLoader:
 
     def __len__(self):
         return self.num_batch
+
+
+def array_loader(resident: str, xs, ys, batch_size: int,
+                 rng: np.random.Generator, *,
+                 adj_idx: np.ndarray | None = None,
+                 device: torch.device | str = "cuda"):
+    """The batcher of a residency: ``"host"`` (numpy batches,
+    :class:`data.loader.DataLoader`) or ``"device"``
+    (:class:`DeviceArrayLoader` on ``device``)."""
+    if resident == "host":
+        return DataLoader(xs, ys, batch_size, rng, adj_idx=adj_idx)
+    if resident == "device":
+        return DeviceArrayLoader(xs, ys, batch_size, rng=rng, device=device,
+                                 adj_idx=adj_idx)
+    raise ValueError(f"resident must be 'host' or 'device', got "
+                     f"{resident!r}")

@@ -1,12 +1,14 @@
 """Host-side batchers.
 
-Copies of ``graph_wavenet_tpu/data/loader.py``'s ``DataLoader`` (without
-the per-sample-graph variant) and ``data/native_loader.py``'s
-``WindowDataLoader`` with its numpy gather (the reference's threaded
-native library is not carried over). Both pad the tail with copies of the
-last sample so the count divides the batch size, shuffle from a seeded
-numpy Generator, and yield numpy batches; ``num_real`` keeps the unpadded
-count. ``data.device_loader`` holds their device-resident counterparts.
+Copies of ``graph_wavenet_tpu/data/loader.py``'s ``DataLoader`` and
+``data/native_loader.py``'s ``WindowDataLoader`` with its numpy gather (the
+reference's threaded native library is not carried over). Both pad the
+tail with copies of the last sample so the count divides the batch size,
+shuffle from a seeded numpy Generator, and yield numpy batches; ``num_real``
+keeps the unpadded count. Given ``adj_idx`` (a graph index per sample, the
+per-sample-graph datasets), ``DataLoader`` pads and shuffles it with the
+samples and yields ``(x, y, adj_idx)`` triples. ``data.device_loader``
+holds their device-resident counterparts.
 """
 
 from __future__ import annotations
@@ -25,29 +27,41 @@ def pad_with_last(arr: np.ndarray, batch_size: int) -> np.ndarray:
 
 
 class DataLoader:
-    """Batcher over (xs, ys) arrays."""
+    """Batcher over (xs, ys[, adj_idx]) arrays."""
 
     def __init__(self, xs: np.ndarray, ys: np.ndarray, batch_size: int,
-                 rng: np.random.Generator):
+                 rng: np.random.Generator,
+                 adj_idx: np.ndarray | None = None):
         self.batch_size = batch_size
         self.num_real = len(xs)
         self.rng = rng
         xs = pad_with_last(xs, batch_size)
         ys = pad_with_last(ys, batch_size)
+        if adj_idx is not None:
+            adj_idx = pad_with_last(np.asarray(adj_idx), batch_size)
         self.size = len(xs)
         self.num_batch = self.size // batch_size
         self.xs = xs
         self.ys = ys
+        self.adj_idx = adj_idx
 
     def shuffle(self):
         perm = self.rng.permutation(self.size)
         self.xs = self.xs[perm]
         self.ys = self.ys[perm]
+        if self.adj_idx is not None:
+            self.adj_idx = self.adj_idx[perm]
 
     def get_iterator(self):
         for i in range(self.num_batch):
             lo, hi = i * self.batch_size, (i + 1) * self.batch_size
-            yield self.xs[lo:hi], self.ys[lo:hi]
+            if self.adj_idx is None:
+                yield self.xs[lo:hi], self.ys[lo:hi]
+            else:
+                yield self.xs[lo:hi], self.ys[lo:hi], self.adj_idx[lo:hi]
+
+    def __len__(self):
+        return self.num_batch
 
 
 def gather_windows(series: np.ndarray, anchors: np.ndarray,

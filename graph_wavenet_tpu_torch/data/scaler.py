@@ -1,5 +1,6 @@
 """Standardization of input features (copy of the reference package's
-``data/scaler.py``): fit on the raw signal channel, transform feature 0."""
+``data/scaler.py``): fit on the raw signal channel, transform feature 0
+of every split in place."""
 
 from __future__ import annotations
 
@@ -23,3 +24,12 @@ class StandardScaler:
     def fit(cls, x: np.ndarray) -> "StandardScaler":
         """Fit on the raw signal channel, e.g. ``x_train[..., 0]``."""
         return cls(mean=float(x.mean()), std=float(x.std()))
+
+
+def apply_feature0_scaling(data: dict, scaler: StandardScaler) -> None:
+    """Standardize feature 0 of ``x_train``/``x_val``/``x_test`` in place;
+    the targets stay in raw units."""
+    for category in ("train", "val", "test"):
+        key = "x_" + category
+        if key in data:
+            data[key][..., 0] = scaler.transform(data[key][..., 0])

@@ -119,11 +119,17 @@ class GWNet(nn.Module):
         ``addaptadj``; ``[]`` for the adaptive-only model, None for the
         temporal-only one. ``generator``: the dropout stream in train
         mode."""
+        return self._stack(x, self._with_adaptive(supports), generator)
+
+    def _stack(self, x: torch.Tensor, supports: list | None,
+               generator: torch.Generator | None) -> torch.Tensor:
+        """The forward once the supports are complete (the adaptive one
+        appended): pad, start conv, the WaveNet layers and the head. Shared
+        with the per-sample-graph model (``models.gwnet_diff_g``)."""
         cfg = self.cfg
         x = left_pad_time(x, cfg.receptive_field)
         x = x.to(_DTYPES[cfg.dtype])
         x = self.start_conv(x)
-        supports = self._with_adaptive(supports)
         use_gcn = cfg.gcn_bool and supports is not None
         mode = cfg.resolved_gcn_mode
         stacks = None

@@ -1,4 +1,5 @@
-"""Training engine: one module, one optimizer, and the real-data steps.
+"""Training engine: one module, one optimizer, the real-data steps and the
+synthetic two-modality ones.
 
 Counterpart of ``graph_wavenet_tpu/train/engine.py`` (``make_optimizer``,
 ``horizon_target``, ``gather_window_rows``, ``Engine`` with
@@ -13,6 +14,18 @@ adds ``wd * p`` to the clipped gradient, then the Adam moments (``eps``
 1e-8). The one difference is ``clip_grad_norm_``'s ``+1e-6`` in the clip
 factor against optax's exact clip.
 
+The synthetic and CRASH tasks (``modality_target``, ``pool_F``, ``pool_E``,
+``cluster_mean_projector``; ``train_step_syn``, ``train_step_syn_accum``,
+``train_steps_syn_resident``, ``eval_step_syn``) supervise two pooled
+views of the predicted K-step sequence: F̂, its block mean over windows of
+``F_t`` steps repeated back, and Ê, its community mean through a
+cluster-mean projector (shared (N, N), or per-sample (B, N, N) for the
+per-sample-graph model, ``Engine(..., diff_g=True)``). As in the reference,
+MAPE and RMSE score Ê against both target channels. Under
+``fresh_nodevec`` a train step draws the embeddings from the engine's
+generator, and eval and predict draw them from a generator seeded 0 per
+call (so they are deterministic).
+
 PyTorch's idiom: a step updates the module and the optimizer in place and
 returns its metrics as device tensors, which the caller syncs. On a CUDA
 device Adam is ``capturable`` (its step count and bias correction live in
@@ -25,6 +38,7 @@ a fused call is the eager loop of the same step.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +50,8 @@ from graph_wavenet_tpu_torch.data.device_loader import (
 )
 from graph_wavenet_tpu_torch.data.scaler import StandardScaler
 from graph_wavenet_tpu_torch.models.gwnet import GWNet
+from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
+from graph_wavenet_tpu_torch.ops.diffusion import nconv, nconv_batched
 from graph_wavenet_tpu_torch.train import step_graph
 from graph_wavenet_tpu_torch.train.metrics import (
     masked_mae,
@@ -43,8 +59,9 @@ from graph_wavenet_tpu_torch.train.metrics import (
     masked_rmse,
 )
 
-__all__ = ["Engine", "gather_window_rows", "horizon_target",
-           "learning_rate"]
+__all__ = ["Engine", "cluster_mean_projector", "gather_window_rows",
+           "horizon_target", "learning_rate", "modality_target", "pool_E",
+           "pool_F"]
 
 METRICS = ("loss", "mape", "rmse")
 
@@ -65,9 +82,68 @@ def horizon_target(y: torch.Tensor) -> torch.Tensor:
     return y[..., 0].permute(0, 2, 1)[:, None]
 
 
+def modality_target(y: torch.Tensor) -> torch.Tensor:
+    """y (B, K, N, 2) -> (B, 2, N, K): channel 0 the F target, 1 the E
+    target."""
+    return y.permute(0, 3, 2, 1)
+
+
+def pool_F(predict: torch.Tensor, F_t: int) -> torch.Tensor:
+    """Temporal block mean over windows of ``F_t`` steps, repeated back to
+    full rate: (B, C, N, K) -> the same shape."""
+    b, c, n, k = predict.shape
+    if k % F_t:
+        raise ValueError(
+            f"F-modality pooling needs seq_length K={k} divisible by "
+            f"F_t={F_t} (the reference picks F_t = K//12, util.py:234)")
+    f = predict.reshape(b, c, n, k // F_t, F_t).mean(-1, keepdim=True)
+    # an expand, not repeat_interleave: its backward is a sum, where the
+    # index gather's would be an atomic scatter (not bit-reproducible)
+    return f.expand(b, c, n, k // F_t, F_t).reshape(b, c, n, k)
+
+
+def cluster_mean_projector(labels: np.ndarray,
+                           n_communities: int) -> np.ndarray:
+    """(N,) community labels -> the (N, N) float32 projector P with P[n, v]
+    = 1/|c(n)| where v is in n's community: ``P @ x`` is the community
+    mean, the reference's per-cluster scatter loop as one product. Built on
+    the host."""
+    labels = np.asarray(labels)
+    onehot = (labels[:, None] == np.arange(n_communities)[None, :]).astype(
+        np.float32)
+    counts = onehot.sum(0)
+    return (onehot / np.maximum(counts, 1.0)[None, :]) @ onehot.T
+
+
+def pool_E(predict: torch.Tensor, projector: torch.Tensor) -> torch.Tensor:
+    """Community-mean pooling of (B, 1, N, K) by a shared (N, N) or
+    per-sample (B, N, N) projector: ``out[w] = sum_v P[w, v] x[v]``, the
+    diffusion step over the transposed projector."""
+    x = predict.permute(0, 3, 2, 1)                 # (B, K, N, 1)
+    if projector.ndim == 3:
+        out = nconv_batched(x, projector.transpose(1, 2))
+    else:
+        out = nconv(x, projector.t())
+    return out.permute(0, 3, 2, 1)
+
+
 def _as_dict(m: torch.Tensor) -> dict:
     """(..., 3) stacked metrics -> {"loss", "mape", "rmse"}."""
     return {k: m[..., i] for i, k in enumerate(METRICS)}
+
+
+def _identity(k):
+    """A graph key's entry for an input: tensors and support objects by
+    identity, tuples entry by entry, numbers and None by value."""
+    if isinstance(k, tuple):
+        return tuple(map(_identity, k))
+    if k is None or isinstance(k, (int, float, str)):
+        return k
+    return id(k)
+
+
+def _supports_key(supports):
+    return None if supports is None else tuple(supports)
 
 
 class Engine:
@@ -75,13 +151,15 @@ class Engine:
     ``seed`` (default ``train_cfg.seed``) draws the weights and seeds the
     dropout stream; ``steps_per_epoch`` converts the step decay's epochs to
     optimizer steps; ``aptinit``: the adjacency whose SVD initializes the
-    adaptive embeddings (:class:`models.gwnet.GWNet`)."""
+    adaptive embeddings (:class:`models.gwnet.GWNet`); ``diff_g``: the
+    per-sample-graph model (:class:`models.gwnet_diff_g.GWNetDiffG`),
+    whose supports are (B, N, N) per batch."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  scaler: StandardScaler | None, *,
                  device: torch.device | str = "cuda",
                  seed: int | None = None, steps_per_epoch: int = 0,
-                 aptinit=None):
+                 aptinit=None, diff_g: bool = False):
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -93,8 +171,9 @@ class Engine:
         self.scaler = scaler or StandardScaler(0.0, 1.0)
         self.steps_per_epoch = steps_per_epoch
         seed = train_cfg.seed if seed is None else seed
-        self.model = GWNet(model_cfg, device=self.device, seed=seed,
-                           aptinit=aptinit)
+        self.diff_g = diff_g
+        self.model = (GWNetDiffG if diff_g else GWNet)(
+            model_cfg, device=self.device, seed=seed, aptinit=aptinit)
         cuda = self.device.type == "cuda"
         # on the card: one learning-rate tensor for the life of the engine
         # (a captured step reads it by address) and capturable Adam
@@ -118,10 +197,19 @@ class Engine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
+    def _generator(self) -> torch.Generator:
+        """What the model draws from: the engine's generator, but in eval
+        mode under ``fresh_nodevec`` (the one draw there) a new one seeded
+        0, so eval answers are deterministic and leave the stream as it
+        is."""
+        if self.model.training or not self.model_cfg.fresh_nodevec:
+            return self.generator
+        return torch.Generator(device=self.device).manual_seed(0)
+
     def _forward(self, x: torch.Tensor, supports) -> torch.Tensor:
         # the engine left-pads the input by one step, as the reference's
         x = F.pad(x, (0, 0, 0, 0, 1, 0))
-        out = self.model(x, supports, generator=self.generator)
+        out = self.model(x, supports, generator=self._generator())
         return out * self.scaler.std + self.scaler.mean
 
     @staticmethod
@@ -140,35 +228,72 @@ class Engine:
                 group["lr"] = lr
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor, supports):
+        """(loss, stacked metrics) of a batch in the model's mode."""
         predict = self._forward(x, supports)
         real = horizon_target(y)
-        return masked_mae(predict, real, 0.0), predict, real
+        loss = masked_mae(predict, real, 0.0)
+        with torch.no_grad():
+            return loss, self._metrics(loss.detach(), predict.detach(), real)
 
     def _update(self) -> None:
         torch.nn.utils.clip_grad_norm_(self.model.parameters(),
                                        self.train_cfg.grad_clip)
         self.optimizer.step()
 
-    def _train_core(self, x: torch.Tensor, y: torch.Tensor,
-                    supports) -> torch.Tensor:
-        """Forward, backward, clip and Adam on one batch; the learning rate
-        is set beforehand. Returns the stacked metrics (3,). No host sync,
-        so a CUDA graph can capture it."""
+    def _optimize(self, loss_fn, *args) -> torch.Tensor:
+        """Forward (``loss_fn(*args)`` -> (loss, stacked metrics)) in train
+        mode, backward, clip and Adam; the learning rate is set beforehand.
+        Returns the metrics (3,). No host sync, so a CUDA graph can capture
+        it."""
         self.model.train()
-        loss, predict, real = self._loss(x, y, supports)
+        loss, m = loss_fn(*args)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self._update()
+        return m
+
+    def _train_core(self, x: torch.Tensor, y: torch.Tensor,
+                    supports) -> torch.Tensor:
+        """:meth:`_optimize` on a real-data batch."""
+        return self._optimize(self._loss, x, y, supports)
+
+    def _accumulate(self, b: int, n_micro: int, micro_loss) -> dict:
+        """One optimizer step over ``n_micro`` equal micro-batches of a
+        batch of ``b`` rows, run one after another: ``micro_loss(lo, hi)``
+        gives (loss, stacked metrics) of rows lo:hi; the gradients are
+        summed and divided by ``n_micro``, then one clip and one Adam step;
+        the metrics are the micro-batches' means."""
+        if n_micro < 1 or b % n_micro:
+            raise ValueError(f"batch {b} must divide by n_micro={n_micro}")
+        mb = b // n_micro
+        self._set_lr()
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        buffers = list(self.model.buffers())
+        start = [t.clone() for t in buffers]
+        ms = []
+        for i in range(n_micro):
+            if i:
+                # every micro-batch updates the running statistics from
+                # the step's starting values: the last update is kept
+                for t, t0 in zip(buffers, start):
+                    t.copy_(t0)
+            loss, m = micro_loss(i * mb, (i + 1) * mb)
+            loss.backward()
+            ms.append(m)
         with torch.no_grad():
-            return self._metrics(loss.detach(), predict.detach(), real)
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(n_micro)
+        self._update()
+        self.step += 1
+        return _as_dict(torch.stack(ms).mean(0))
 
     @torch.no_grad()
     def _eval_core(self, x: torch.Tensor, y: torch.Tensor,
                    supports) -> torch.Tensor:
         self.model.eval()
-        predict = self._forward(x, supports)
-        real = horizon_target(y)
-        return self._metrics(masked_mae(predict, real, 0.0), predict, real)
+        return self._loss(x, y, supports)[1]
 
     def train_step(self, x, y, supports) -> dict:
         """One optimizer step on a batch: x (B, T, N, in_dim) standardized,
@@ -188,49 +313,19 @@ class Engine:
         and the running statistics take one update, from the last
         micro-batch. Peak activation memory drops about ``n_micro``-fold."""
         x, y = self._tensor(x), self._tensor(y)
-        if n_micro < 1 or x.shape[0] % n_micro:
-            raise ValueError(f"batch {x.shape[0]} must divide by "
-                             f"n_micro={n_micro}")
-        mb = x.shape[0] // n_micro
-        self._set_lr()
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        buffers = list(self.model.buffers())
-        start = [b.clone() for b in buffers]
-        ms = []
-        for i in range(n_micro):
-            if i:
-                # every micro-batch updates the running statistics from
-                # the step's starting values: the last update is kept
-                for b, b0 in zip(buffers, start):
-                    b.copy_(b0)
-            loss, predict, real = self._loss(x[i * mb:(i + 1) * mb],
-                                             y[i * mb:(i + 1) * mb], supports)
-            loss.backward()
-            with torch.no_grad():
-                ms.append(self._metrics(loss.detach(), predict.detach(),
-                                        real))
-        with torch.no_grad():
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(n_micro)
-        self._update()
-        self.step += 1
-        return _as_dict(torch.stack(ms).mean(0))
+        return self._accumulate(
+            x.shape[0], n_micro,
+            lambda lo, hi: self._loss(x[lo:hi], y[lo:hi], supports))
 
-    def _fused(self, kind: str, gather, key: tuple, idx, supports) -> dict:
-        """S steps of ``kind`` ("train" or "eval") over the rows of ``idx``
-        (S, B): on the card through a :class:`step_graph.StepGraph`, on the
-        CPU as the eager loop. ``gather(sel)`` -> the batch (x, y); ``key``:
-        the resident inputs it reads and its static arguments."""
+    def _fused(self, train: bool, name: str, body, key: tuple, idx) -> dict:
+        """S steps over the rows of ``idx`` (S, B): on the card through a
+        :class:`step_graph.StepGraph`, on the CPU as the eager loop.
+        ``body(sel)`` runs one step (``train``: an optimizer step) on the
+        samples ``sel`` and returns its stacked metrics; ``key``: the
+        resident inputs and supports it reads and its static arguments."""
         idx = torch.as_tensor(idx, device=self.device).to(torch.int32)
         if idx.ndim != 2:
             raise ValueError(f"idx must be (S, B), got {tuple(idx.shape)}")
-        train = kind == "train"
-        core = self._train_core if train else self._eval_core
-
-        def body(sel):
-            return core(*gather(sel), supports)
 
         def after():
             self.step += 1
@@ -246,12 +341,9 @@ class Engine:
             return _as_dict(torch.stack(rows))
         # a graph reads its inputs by address: key it by their identity
         # and keep them alive with it
-        keep = key + (None if supports is None else tuple(supports),)
-        gkey = (kind, idx.shape[1],
-                *(id(k) if torch.is_tensor(k) else k for k in key),
-                None if supports is None else tuple(map(id, supports)))
         out = step_graph.run_steps(
-            self._graphs, gkey, body, idx, self._stream, keep=keep,
+            self._graphs, (name, idx.shape[1], *map(_identity, key)), body,
+            idx, self._stream, keep=key,
             generator=self.generator if train else None,
             before=self._set_lr if train else None,
             after=after if train else None)
@@ -266,7 +358,10 @@ class Engine:
         batches, bit for bit: on the card one step runs eagerly the first
         time and a CUDA graph of it replays the rest (and every step of a
         later call over the same inputs)."""
-        return self._fused("train", *self._arrays(xs, ys), idx, supports)
+        return self._fused(
+            True, "train", lambda sel: self._train_core(
+                xs.index_select(0, sel), ys.index_select(0, sel), supports),
+            (xs, ys, _supports_key(supports)), idx)
 
     def train_steps_windows(self, series: torch.Tensor, anchors,
                             window: int, horizon: int, y_start: int,
@@ -279,13 +374,18 @@ class Engine:
         units; default ``series``)."""
         gather, key = self._windows(series, window, horizon, y_start,
                                     y_series)
-        return self._fused("train", gather, key, anchors, supports)
+        return self._fused(
+            True, "train", lambda a: self._train_core(*gather(a), supports),
+            key + (_supports_key(supports),), anchors)
 
     def eval_steps_resident(self, xs: torch.Tensor, ys: torch.Tensor, idx,
                             supports) -> dict:
         """Eval metrics of every row of ``idx`` (C, B) over resident
         arrays: (C,) device tensors, one sync for the caller per split."""
-        return self._fused("eval", *self._arrays(xs, ys), idx, supports)
+        return self._fused(
+            False, "eval", lambda sel: self._eval_core(
+                xs.index_select(0, sel), ys.index_select(0, sel), supports),
+            (xs, ys, _supports_key(supports)), idx)
 
     def eval_steps_windows(self, series: torch.Tensor, anchors, window: int,
                            horizon: int, y_start: int, supports,
@@ -294,13 +394,9 @@ class Engine:
         gathered as in :meth:`train_steps_windows`."""
         gather, key = self._windows(series, window, horizon, y_start,
                                     y_series)
-        return self._fused("eval", gather, key, anchors, supports)
-
-    @staticmethod
-    def _arrays(xs, ys):
-        """(gather, inputs) of the resident-array feed."""
-        return (lambda sel: (xs.index_select(0, sel), ys.index_select(0, sel)),
-                (xs, ys))
+        return self._fused(
+            False, "eval", lambda a: self._eval_core(*gather(a), supports),
+            key + (_supports_key(supports),), anchors)
 
     @staticmethod
     def _windows(series, window, horizon, y_start, y_series):
@@ -321,9 +417,120 @@ class Engine:
     def predict_step(self, x, supports) -> torch.Tensor:
         """The raw (standardized) forward for the per-horizon test loop.
         Like the reference's test loop it runs the model with no engine-level
-        pad: the model's own receptive-field pad covers the missing step."""
+        pad: the model's own receptive-field pad covers the missing step
+        (for either model)."""
         self.model.eval()
-        return self.model(self._tensor(x), supports)
+        return self.model(self._tensor(x), supports,
+                          generator=self._generator())
+
+    # ------------------------------------------------------------------
+    # the synthetic two-modality steps
+    # ------------------------------------------------------------------
+
+    def _check_syn_collapse(self, predict: torch.Tensor) -> None:
+        """The F/E supervision needs the dilated stack to collapse time to
+        one output step (a shape check on the host)."""
+        if predict.shape[1] != 1:
+            k = predict.shape[-1]
+            raise ValueError(
+                f"modality (F/E) supervision requires the dilated conv "
+                f"stack to collapse time to one step, but the model "
+                f"produced {predict.shape[1]} output steps for seq_length "
+                f"K={k} (receptive_field={self.model_cfg.receptive_field}, "
+                f"input K+1={k + 1}). Choose blocks/layers/start_dilation "
+                f"so receptive_field == K+1, or reduce seq_length.")
+
+    def _syn_outputs(self, x, y, supports, projector, F_t: int):
+        """(loss, F̂, Ê, target) of a batch in the model's current mode."""
+        predict = self._forward(x, supports)
+        self._check_syn_collapse(predict)
+        real = modality_target(y)
+        f_hat = pool_F(predict, F_t)
+        e_hat = pool_E(predict, projector)
+        loss = masked_mae(torch.cat([f_hat, e_hat], dim=1), real, 0.0)
+        return loss, f_hat, e_hat, real
+
+    def _syn_loss(self, x, y, supports, projector, F_t: int):
+        """(loss, stacked metrics) of a train-mode batch: MAPE and RMSE of
+        Ê against both target channels."""
+        loss, _, e_hat, real = self._syn_outputs(x, y, supports, projector,
+                                                 F_t)
+        with torch.no_grad():
+            m = self._metrics(loss.detach(), e_hat.detach(), real)
+        return loss, m
+
+    def _syn_tensors(self, x, y, projector):
+        return (self._tensor(x), self._tensor(y),
+                torch.as_tensor(projector, dtype=torch.float32,
+                                device=self.device))
+
+    def train_step_syn(self, x, y, supports, projector, F_t: int) -> dict:
+        """One optimizer step of the two-modality task: x (B, K, N, 2)
+        standardized, y (B, K, N, 2) raw, ``supports`` shared (N, N) or
+        per-sample (B, N, N) (the diff-G model), ``projector`` the
+        cluster-mean projector, shared or per sample."""
+        x, y, projector = self._syn_tensors(x, y, projector)
+        self._set_lr()
+        m = self._optimize(self._syn_loss, x, y, supports, projector, F_t)
+        self.step += 1
+        return _as_dict(m)
+
+    def train_step_syn_accum(self, x, y, supports, projector, F_t: int,
+                             n_micro: int) -> dict:
+        """:meth:`train_step_accum` of the two-modality step: per-sample
+        supports and projectors ((B, N, N), B the batch) are sliced with
+        the micro-batches, shared ones serve each."""
+        x, y, projector = self._syn_tensors(x, y, projector)
+        b = x.shape[0]
+
+        def part(a, lo, hi):
+            return a[lo:hi] if a.ndim == 3 and a.shape[0] == b else a
+
+        return self._accumulate(b, n_micro, lambda lo, hi: self._syn_loss(
+            x[lo:hi], y[lo:hi],
+            None if supports is None else [part(s, lo, hi)
+                                           for s in supports],
+            part(projector, lo, hi), F_t))
+
+    def train_steps_syn_resident(self, xs: torch.Tensor, ys: torch.Tensor,
+                                 idx, adj_of_sample: torch.Tensor,
+                                 sup_stack, proj_stack: torch.Tensor,
+                                 F_t: int) -> dict:
+        """S diff-G optimizer steps in one call (:meth:`train_steps_resident`
+        for the per-sample-graph task): step k gathers the samples
+        ``idx[k]`` from the resident xs, ys, their graph indices from
+        ``adj_of_sample`` (n,), and through those their supports from
+        ``sup_stack`` (a list of (n_graphs, N, N); None for the
+        temporal-only model) and projectors from ``proj_stack`` (n_graphs,
+        N, N). Bit for bit S :meth:`train_step_syn` calls on the gathered
+        batches; on the card a CUDA graph replays the step, and every
+        resident input keeps its address (the graph's key holds them)."""
+        sups = None if sup_stack is None else tuple(sup_stack)
+
+        def body(sel):
+            gids = adj_of_sample.index_select(0, sel)
+            sup = (None if sups is None
+                   else [s.index_select(0, gids) for s in sups])
+            return self._optimize(
+                self._syn_loss, xs.index_select(0, sel),
+                ys.index_select(0, sel), sup,
+                proj_stack.index_select(0, gids), F_t)
+
+        return self._fused(True, "train_syn", body,
+                           (xs, ys, adj_of_sample, sups, proj_stack, F_t),
+                           idx)
+
+    @torch.no_grad()
+    def eval_step_syn(self, x, y, supports, projector, F_t: int) -> dict:
+        """Loss, MAPE and RMSE of a batch in eval mode, and the pooled
+        predictions ``pred_F``/``pred_E`` (B, 1, N, K) in raw units."""
+        x, y, projector = self._syn_tensors(x, y, projector)
+        self.model.eval()
+        loss, f_hat, e_hat, real = self._syn_outputs(x, y, supports,
+                                                     projector, F_t)
+        out = _as_dict(self._metrics(loss, e_hat, real))
+        out.update(pred_F=f_hat, pred_E=e_hat)
+        return out
 
     def step_graphs(self) -> list:
         """The captured steps (:class:`step_graph.StepGraph`), for their

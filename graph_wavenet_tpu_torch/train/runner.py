@@ -1,9 +1,11 @@
 """Experiment runner: the epoch loop, a checkpoint per epoch, the best
 model, and the per-horizon test.
 
-Counterpart of ``graph_wavenet_tpu/train/runner.py``'s ``Runner.fit`` and
-``Runner.test`` for shared-graph datasets on one device: every epoch
-shuffles the training split and runs its steps through one of three feeds:
+Counterpart of ``graph_wavenet_tpu/train/runner.py`` on one device:
+``Runner.fit`` and ``Runner.test`` for shared-graph datasets, and
+``fit_syn_shared``/``test_syn_shared`` and ``fit_syn``/``test_syn`` for the
+synthetic and CRASH tasks (below). Every epoch of ``fit`` shuffles the
+training split and runs its steps through one of three feeds:
 
 - a device-resident window loader (``resident_series``) with
   ``scan_steps`` > 1: ``Engine.train_steps_windows`` per superbatch of
@@ -26,6 +28,16 @@ pruned once more and the best-validation weights reload; the test scores
 them per horizon on the real (unpadded) test samples. Step metrics stay on
 the device until the end of the epoch. Meshes wait for their slice
 (ROADMAP.md), and so does ``prefetch``, which the runner refuses.
+
+The two-modality tasks run the same epoch machinery (resume, early stop,
+watchdog, asynchronous best-k checkpoints) over ``Engine.train_step_syn``
+(or ``train_step_syn_accum``) and ``eval_step_syn``: the shared-graph one
+with one graph's supports and cluster-mean projector, the per-sample-graph
+(diff-G) one gathering each batch's supports and projectors from per-split
+stacks by the batch's ``adj_idx``, and fusing ``scan_steps`` steps per
+call on a device-resident loader (``train_steps_syn_resident``). Its test
+scores against the test split's own graphs. Checkpoint sidecars record
+``"diff_g"``.
 """
 
 from __future__ import annotations
@@ -43,7 +55,10 @@ import torch
 
 from graph_wavenet_tpu_torch.config import TrainConfig
 from graph_wavenet_tpu_torch.train import checkpoint as ckpt
-from graph_wavenet_tpu_torch.train.engine import Engine
+from graph_wavenet_tpu_torch.train.engine import (
+    Engine,
+    cluster_mean_projector,
+)
 from graph_wavenet_tpu_torch.train.metrics import metric
 
 
@@ -196,13 +211,23 @@ class Runner:
         configuration whose full train state (weights, BatchNorm buffers,
         Adam, step, dropout generator) is restored; the run continues at
         its epoch + 1."""
-        result = RunResult()
         if (self.cfg.grad_accum > 1 and self.cfg.scan_steps > 1
                 and hasattr(data["train_loader"], "superbatches")):
             raise ValueError(
                 "grad_accum > 1 does not combine with the fused multi-step "
                 "feed (scan_steps > 1 on a device-resident loader); set "
                 "scan_steps=1 to accumulate")
+        return self._epochs(
+            data, lambda loader: self._train_epoch(loader, supports),
+            lambda loader: self._eval_split(loader, supports), resume_from)
+
+    def _epochs(self, data: dict, train_epoch, eval_split,
+                resume_from: str | None) -> RunResult:
+        """The epoch loop of every task: ``train_epoch(loader)`` runs an
+        epoch's steps and ``eval_split(loader)`` the validation pass, each
+        returning step metrics on the device; then the history line, the
+        checkpoint, early stopping and the watchdog."""
+        result = RunResult()
         start_epoch = self._resume(resume_from)
         for epoch in range(start_epoch, self.cfg.epochs + 1):
             try:
@@ -210,11 +235,9 @@ class Runner:
                     t1 = time.time()
                     loader = data["train_loader"]
                     loader.shuffle()
-                    train_m = _epoch_mean(self._train_epoch(loader,
-                                                            supports))
+                    train_m = _epoch_mean(train_epoch(loader))
                     t2 = time.time()      # after the sync: the real time
-                    valid_m = _epoch_mean(self._eval_split(
-                        data["val_loader"], supports))
+                    valid_m = _epoch_mean(eval_split(data["val_loader"]))
                     log = EpochLog(epoch, train_m, valid_m, t2 - t1,
                                    time.time() - t2)
                     result.history.append(log)
@@ -269,6 +292,164 @@ class Runner:
                  f"{result.test_metrics['mape']:.4f}, Test RMSE: "
                  f"{result.test_metrics['rmse']:.4f}")
         return result
+
+    # ------------------------------------------------------------------
+    # the synthetic two-modality tasks
+    # ------------------------------------------------------------------
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=self.engine.device)
+
+    def _syn_step(self, x, y, sup, proj, F_t: int) -> dict:
+        accum = self.cfg.grad_accum
+        if accum > 1:
+            return self.engine.train_step_syn_accum(x, y, sup, proj, F_t,
+                                                    accum)
+        return self.engine.train_step_syn(x, y, sup, proj, F_t)
+
+    @staticmethod
+    def _scalars(ev: dict) -> dict:
+        # the pooled predictions would pin a split's outputs all epoch
+        return {k: ev[k] for k in ("loss", "mape", "rmse")}
+
+    def fit_syn_shared(self, data: dict, supports, G, F_t: int,
+                       n_communities: int,
+                       resume_from: str | None = None) -> RunResult:
+        """The epoch loop of the shared-graph synthetic task: one graph
+        ``G`` for every sample, its supports (or ``[]``/None) and its
+        cluster-mean projector; a step per batch (``grad_accum`` applies),
+        as in the reference package."""
+        sup = self._shared_supports(supports)
+        proj = self._dev(cluster_mean_projector(G.community_labels,
+                                                n_communities))
+        engine = self.engine
+
+        def train_epoch(loader):
+            return [self._syn_step(b[0], b[1], sup, proj, F_t)
+                    for b in loader.get_iterator()]
+
+        def eval_split(loader):
+            return [self._scalars(engine.eval_step_syn(b[0], b[1], sup, proj,
+                                                       F_t))
+                    for b in loader.get_iterator()]
+
+        return self._epochs(data, train_epoch, eval_split, resume_from)
+
+    def test_syn_shared(self, data: dict, supports, G, F_t: int,
+                        n_communities: int,
+                        result: RunResult | None = None) -> RunResult:
+        """The shared-graph synthetic test: the mean eval metrics over the
+        test split."""
+        result = result or RunResult()
+        sup = self._shared_supports(supports)
+        proj = self._dev(cluster_mean_projector(G.community_labels,
+                                                n_communities))
+        steps = [self._scalars(self.engine.eval_step_syn(b[0], b[1], sup,
+                                                         proj, F_t))
+                 for b in data["test_loader"].get_iterator()]
+        result.test_metrics = _epoch_mean(steps)
+        self._log_test(result.test_metrics)
+        return result
+
+    def _shared_supports(self, supports):
+        return (None if supports is None
+                else [self._dev(s) for s in supports])
+
+    def _split_stacks(self, supports_by_split: dict, graphs_by_split: dict,
+                      n_communities: int) -> tuple[dict, dict]:
+        """Per split: the supports' (n_graphs, N, N) stacks (None for the
+        temporal-only model) and the graphs' cluster-mean projectors, on
+        the device once for the run."""
+        sup = {k: None if v is None else [self._dev(s) for s in v]
+               for k, v in supports_by_split.items()}
+        proj = {k: self._dev(np.stack(
+            [cluster_mean_projector(g.community_labels, n_communities)
+             for g in v])) for k, v in graphs_by_split.items()}
+        return sup, proj
+
+    def _gathered(self, sup, proj, adj_idx):
+        """The supports and projector of a batch's graphs."""
+        idx = torch.as_tensor(np.asarray(adj_idx),
+                              device=self.engine.device).long()
+        return (None if sup is None else [s.index_select(0, idx)
+                                          for s in sup],
+                proj.index_select(0, idx))
+
+    def fit_syn(self, data: dict, supports_by_split: dict,
+                graphs_by_split: dict, F_t: int, n_communities: int,
+                resume_from: str | None = None) -> RunResult:
+        """The epoch loop of the per-sample-graph (diff-G) task: every
+        batch gathers its samples' supports and projectors from the split's
+        stacks. With ``scan_steps`` > 1 on a device-resident loader the
+        epoch runs ``Engine.train_steps_syn_resident`` per superbatch (the
+        gathers inside the fused call) and the leftover batches one step
+        each; ``grad_accum`` > 1 runs ``train_step_syn_accum`` (not with
+        the fused feed)."""
+        if self.cfg.grad_accum > 1 and self.cfg.scan_steps > 1:
+            raise ValueError(
+                "grad_accum > 1 does not combine with the fused multi-step "
+                "feed (scan_steps > 1); set scan_steps=1 to accumulate")
+        sup, proj = self._split_stacks(supports_by_split, graphs_by_split,
+                                       n_communities)
+        engine = self.engine
+        scan = self.cfg.scan_steps
+
+        def train_epoch(loader):
+            steps = []
+            batches = loader.get_iterator()
+            if scan > 1 and hasattr(loader, "resident_arrays"):
+                xs, ys = loader.resident_arrays()
+                adj = loader.resident_adj_idx()
+                for sel in loader.superbatches(scan):
+                    steps.append(engine.train_steps_syn_resident(
+                        xs, ys, sel, adj, sup["train"], proj["train"], F_t))
+                batches = loader.remainder_batches(scan)
+            for x, y, adj_idx in batches:
+                steps.append(self._syn_step(
+                    x, y, *self._gathered(sup["train"], proj["train"],
+                                          adj_idx), F_t))
+            return steps
+
+        def eval_split(loader):
+            return [self._scalars(engine.eval_step_syn(
+                x, y, *self._gathered(sup["val"], proj["val"], adj_idx),
+                F_t)) for x, y, adj_idx in loader.get_iterator()]
+
+        return self._epochs(data, train_epoch, eval_split, resume_from)
+
+    def test_syn(self, data: dict, supports_by_split: dict,
+                 graphs_by_split: dict, F_t: int, n_communities: int,
+                 result: RunResult | None = None) -> RunResult:
+        """The diff-G test against the test split's own graphs (the
+        reference evaluated against the validation graphs). Besides the
+        mean metrics, ``test_metrics`` keeps the pooled predictions
+        ``pred_F``/``pred_E`` (n, N, K) and the targets ``reals`` (n, K,
+        N, 2) as numpy arrays, for sequence reconstruction."""
+        result = result or RunResult()
+        sup, proj = self._split_stacks(
+            {"test": supports_by_split["test"]},
+            {"test": graphs_by_split["test"]}, n_communities)
+        steps, reals, pred_fs, pred_es = [], [], [], []
+        for x, y, adj_idx in data["test_loader"].get_iterator():
+            ev = self.engine.eval_step_syn(
+                x, y, *self._gathered(sup["test"], proj["test"], adj_idx),
+                F_t)
+            steps.append(self._scalars(ev))
+            reals.append(np.asarray(y.cpu() if torch.is_tensor(y) else y))
+            pred_fs.append(ev["pred_F"][:, 0].cpu().numpy())
+            pred_es.append(ev["pred_E"][:, 0].cpu().numpy())
+        result.test_metrics = _epoch_mean(steps)
+        result.test_metrics.update(pred_F=np.concatenate(pred_fs),
+                                   pred_E=np.concatenate(pred_es),
+                                   reals=np.concatenate(reals))
+        self._log_test(result.test_metrics)
+        return result
+
+    def _log_test(self, m: dict) -> None:
+        self.log("On average over seq_length horizons, Test MAE: "
+                 f"{m['loss']:.4f}, Test MAPE: {m['mape']:.4f}, Test RMSE: "
+                 f"{m['rmse']:.4f}")
 
     def _emergency_dump(self, result: RunResult, epoch: int,
                         reason: str) -> None:
@@ -332,7 +513,9 @@ class Runner:
         meta = dict(model_cfg=engine.model_cfg, train_cfg=self.cfg,
                     scaler=engine.scaler,
                     extra={"epoch": epoch, "val_loss": val_loss,
-                           **self.extra_meta},
+                           # the serve and export CLIs pick the diff-G
+                           # forecaster by this record
+                           "diff_g": engine.diff_g, **self.extra_meta},
                     train_state=engine.train_state())
         if self._ckpt_writer is not None:
             self._ckpt_writer.save(path, engine.model.state_dict(), **meta)

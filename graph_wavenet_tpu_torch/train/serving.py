@@ -18,8 +18,15 @@ Counterpart of ``graph_wavenet_tpu/train/serving.py``:
   ``torch.export`` artifact (``.pt2``) of the predict forward with the
   weights and supports baked in; it names the hand kernels' ops, so a
   loader needs ``ops.cuda.block_diffusion`` and no model code;
+- :class:`DiffGForecaster`: the per-sample-graph model, predicting from
+  per-sample supports or from a bound graph bank
+  (:func:`save_graph_bank`/:func:`load_graph_bank`, the reference
+  package's ``.npz`` format) by graph index, the fine signal or the pooled
+  F/E modalities; :func:`export_diffg_forecaster` writes its artifact,
+  called as ``(x, adj_idx)`` with the bank baked in;
 - :class:`MicroBatcher`: dynamic request batching, to power-of-two buckets
-  or to an artifact's fixed batch.
+  or to an artifact's fixed batch; a request may be a tuple of arrays
+  (diff-G's ``(x, adj_idx)``), batched component by component.
 """
 
 from __future__ import annotations
@@ -197,6 +204,216 @@ class Forecaster:
                 for g in slot.values()]
 
 
+# ---------------------------------------------------------------------------
+# the per-sample-graph (diff-G) model
+# ---------------------------------------------------------------------------
+
+@dataclass(eq=False)
+class DiffGForecaster:
+    """Inference bundle of the diff-G family: per-sample supports in, the
+    fine signal or the pooled F/E modalities out (the reference's diff-G
+    eval loop). :meth:`bind_bank` attaches a deployment's graph bank, so a
+    request names its graph by index (:meth:`predict_indexed`).
+
+    Under ``cfg.fresh_nodevec`` every forward draws its embeddings from a
+    generator seeded 0, so equal inputs give equal answers (the JAX
+    package draws from ``jax.random.key(0)``; the values differ)."""
+
+    cfg: ModelConfig
+    model: torch.nn.Module
+    scaler: StandardScaler = field(
+        default_factory=lambda: StandardScaler(0.0, 1.0))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device: torch.device | str = "cuda"
+                        ) -> "DiffGForecaster":
+        """Model, config and scaler of a diff-G port checkpoint."""
+        from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
+        from graph_wavenet_tpu_torch.train import checkpoint as ckpt
+
+        device = resolve_device(device)
+        meta = ckpt.load_metadata(path)
+        model = GWNetDiffG(meta["model_cfg"], device=device)
+        model.load_state_dict(ckpt.load_state_dict(path, device=device))
+        return cls(meta["model_cfg"], model,
+                   meta.get("scaler") or StandardScaler(0.0, 1.0))
+
+    def _fresh_nodevecs(self, batch: int):
+        """Under ``fresh_nodevec``: the embeddings a generator seeded 0
+        draws for ``batch`` samples, as the model would draw them (what the
+        engine's eval draws), made once per batch size."""
+        cache = self.__dict__.setdefault("_fresh", {})
+        if batch not in cache:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            n, r = self.cfg.num_nodes, self.cfg.adapt_rank
+            with torch.inference_mode(False):
+                cache[batch] = (
+                    torch.randn((batch, n, r), generator=gen,
+                                device=self.device),
+                    torch.randn((batch, r, n), generator=gen,
+                                device=self.device))
+        return cache[batch]
+
+    def _forward(self, x: torch.Tensor, supports) -> torch.Tensor:
+        """(B, 1, N, K) raw-unit output of the model on device tensors."""
+        nv = None
+        if self.cfg.fresh_nodevec and supports is not None:
+            nv = self._fresh_nodevecs(x.shape[0])
+        out = self.model(x, supports, aptinit_nodevecs=nv)
+        return out * self.scaler.std + self.scaler.mean
+
+    @staticmethod
+    def _squeeze(p: torch.Tensor) -> torch.Tensor:
+        return p[:, -1].permute(0, 2, 1)               # (B, K, N)
+
+    def _x(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _supports(self, supports):
+        return (None if supports is None else
+                [torch.as_tensor(s, dtype=torch.float32, device=self.device)
+                 for s in supports])
+
+    def predict(self, x, supports) -> torch.Tensor:
+        """The fine signal: x (B, K, N, F) standardized, ``supports`` the
+        per-sample (B, N, N) supports (``[]``/None as in training) ->
+        (B, K, N) raw units."""
+        with torch.inference_mode():
+            return self._squeeze(self._forward(self._x(x),
+                                               self._supports(supports)))
+
+    def _modalities(self, x, supports, projector, F_t: int):
+        from graph_wavenet_tpu_torch.train.engine import pool_E, pool_F
+
+        out = self._forward(x, supports)
+        return (self._squeeze(pool_F(out, F_t)),
+                self._squeeze(pool_E(out, projector)))
+
+    def predict_modalities(self, x, supports, projector, F_t: int):
+        """The pooled modality estimates the task is supervised on:
+        ``(pred_F, pred_E)``, each (B, K, N) raw units. ``projector``: the
+        cluster-mean projector, shared (N, N) or per sample (B, N, N)."""
+        proj = torch.as_tensor(projector, dtype=torch.float32,
+                               device=self.device)
+        with torch.inference_mode():
+            return self._modalities(self._x(x), self._supports(supports),
+                                    proj, F_t)
+
+    # -- graph-bank serving ----------------------------------------------
+
+    def bind_bank(self, bank: dict, adjtype: str = "doubletransition"
+                  ) -> "DiffGForecaster":
+        """Attach a graph bank (:func:`load_graph_bank`): every graph's
+        adjacency normalized into the model's supports (``mod_adj``) and
+        stacked on the device, and, where the bank has community labels,
+        their cluster-mean projectors for the pooled modalities."""
+        from graph_wavenet_tpu_torch.graphs.normalize import mod_adj
+        from graph_wavenet_tpu_torch.train.engine import (
+            cluster_mean_projector,
+        )
+
+        W = np.asarray(bank["W"], np.float32)
+        per_graph = [mod_adj(w, adjtype) for w in W]
+        n_sup = len(per_graph[0])
+        if n_sup != self.cfg.n_supports:
+            raise ValueError(
+                f"bank graphs normalize to {n_sup} supports under "
+                f"adjtype={adjtype!r} but the checkpoint was trained "
+                f"with n_supports={self.cfg.n_supports}")
+        self.sup_stack = [
+            torch.as_tensor(np.stack([g[j] for g in per_graph]),
+                            device=self.device) for j in range(n_sup)]
+        self.n_graphs = len(W)
+        self.proj_stack = None
+        self.F_t = int(bank["F_t"]) if bank.get("F_t") else None
+        if bank.get("labels") is not None:
+            labels = np.asarray(bank["labels"])
+            n_comm = int(labels.max()) + 1
+            self.proj_stack = torch.as_tensor(np.stack(
+                [cluster_mean_projector(lab, n_comm) for lab in labels]),
+                device=self.device)
+        return self
+
+    def _require_bank(self) -> None:
+        if getattr(self, "sup_stack", None) is None:
+            raise ValueError(
+                "no graph bank bound; call bind_bank(load_graph_bank(path)) "
+                "(gwt-torch-serve --graph_bank) before indexed prediction")
+
+    def _bank_index(self, adj_idx) -> torch.Tensor:
+        """``adj_idx`` (B,) as an index tensor on the device, range-checked
+        on the host (an index past the bank would fault on the card)."""
+        self._require_bank()
+        idx = torch.as_tensor(adj_idx)
+        if idx.numel() and (int(idx.min()) < 0
+                            or int(idx.max()) >= self.n_graphs):
+            raise ValueError(f"adj_idx out of range for a bank of "
+                             f"{self.n_graphs} graphs")
+        return idx.to(device=self.device, dtype=torch.long)
+
+    def _predict_indexed(self, x: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+        """The indexed forward on device tensors: what the artifact
+        holds."""
+        sup = [s.index_select(0, idx) for s in self.sup_stack]
+        return self._squeeze(self._forward(x, sup))
+
+    def predict_indexed(self, x, adj_idx) -> torch.Tensor:
+        """The fine signal against bank graph ``adj_idx[i]`` per sample:
+        (B, K, N) raw units."""
+        idx = self._bank_index(adj_idx)
+        with torch.inference_mode():
+            return self._predict_indexed(self._x(x), idx)
+
+    def predict_modalities_indexed(self, x, adj_idx):
+        """The pooled ``(pred_F, pred_E)`` against bank graphs; needs the
+        bank's labels and F_t."""
+        idx = self._bank_index(adj_idx)
+        if self.proj_stack is None or self.F_t is None:
+            raise ValueError(
+                "modality prediction needs community labels and F_t in "
+                "the graph bank (save_graph_bank(..., labels=, F_t=))")
+        sup = [s.index_select(0, idx) for s in self.sup_stack]
+        with torch.inference_mode():
+            return self._modalities(self._x(x), sup,
+                                    self.proj_stack.index_select(0, idx),
+                                    self.F_t)
+
+
+def save_graph_bank(path: str, W, labels=None, F_t: int | None = None
+                    ) -> None:
+    """Write a graph bank: ``W`` (G, N, N) raw adjacencies (normalized at
+    bind time, so one bank serves any adjtype), optional ``labels`` (G, N)
+    community labels and ``F_t``, for the pooled modalities. The reference
+    package's format: either package loads the other's banks."""
+    W = np.asarray(W, np.float32)
+    if W.ndim != 3 or W.shape[1] != W.shape[2]:
+        raise ValueError(f"W must be (G, N, N), got {W.shape}")
+    arrays = dict(W=W)
+    if labels is not None:
+        labels = np.asarray(labels, np.int32)
+        if labels.shape != W.shape[:2]:
+            raise ValueError(f"labels must be (G, N) = {W.shape[:2]}, got "
+                             f"{labels.shape}")
+        arrays["labels"] = labels
+    if F_t is not None:
+        arrays["F_t"] = np.int64(F_t)
+    np.savez(path, **arrays)
+
+
+def load_graph_bank(path: str) -> dict:
+    """``{"W", "labels" (or None), "F_t" (or None)}`` of a bank file."""
+    with np.load(path) as z:
+        return {"W": z["W"].astype(np.float32),
+                "labels": (z["labels"].astype(np.int32)
+                           if "labels" in z else None),
+                "F_t": int(z["F_t"]) if "F_t" in z else None}
+
+
 def _rows(n: int, device: torch.device) -> torch.Tensor:
     """(n, 1) int32 step indices 0..n-1 on the device."""
     return torch.arange(n, dtype=torch.int32, device=device)[:, None]
@@ -332,6 +549,30 @@ class _PredictModule(torch.nn.Module):
         return self.fc._forward(x)
 
 
+class _IndexedModule(torch.nn.Module):
+    """:meth:`DiffGForecaster.predict_indexed`'s forward for
+    ``torch.export``: the bank's supports become the artifact's
+    constants."""
+
+    def __init__(self, fc: DiffGForecaster):
+        super().__init__()
+        self.model = fc.model
+        self.fc = fc
+
+    def forward(self, x: torch.Tensor, adj_idx: torch.Tensor
+                ) -> torch.Tensor:
+        return self.fc._predict_indexed(x, adj_idx)
+
+
+def _save_artifact(module: torch.nn.Module, args: tuple, path: str,
+                   meta: dict) -> str:
+    with torch.no_grad():
+        ep = torch.export.export(module.eval(), args)
+    ep.example_inputs = None          # the sample batch is not stored
+    torch.export.save(ep, path, extra_files={_META: json.dumps(meta)})
+    return path
+
+
 def export_forecaster(forecaster: Forecaster, path: str, batch_size: int,
                       seq_len: int | None = None) -> str:
     """Write the predict forward as a ``torch.export`` artifact (``.pt2``)
@@ -352,12 +593,32 @@ def export_forecaster(forecaster: Forecaster, path: str, batch_size: int,
     seq_len = seq_len or fc.cfg.receptive_field
     shape = (batch_size, seq_len, fc.input_nodes, fc.cfg.in_dim)
     x = torch.zeros(shape, dtype=torch.float32, device=fc.device)
-    with torch.no_grad():
-        ep = torch.export.export(_PredictModule(fc).eval(), (x,))
-    ep.example_inputs = None          # the sample batch is not stored
-    meta = {"in_shape": list(shape), "device": str(fc.device)}
-    torch.export.save(ep, path, extra_files={_META: json.dumps(meta)})
-    return path
+    return _save_artifact(_PredictModule(fc), (x,), path,
+                          {"in_shape": list(shape), "device": str(fc.device)})
+
+
+def export_diffg_forecaster(forecaster: DiffGForecaster, path: str,
+                            batch_size: int, seq_len: int | None = None
+                            ) -> str:
+    """Write :meth:`DiffGForecaster.predict_indexed` as a ``torch.export``
+    artifact with the weights and the bound bank baked in, called as
+    ``(x, adj_idx)``: (batch_size, seq_len, N, in_dim) fp32 and
+    (batch_size,) int64 graph indices. ``seq_len`` defaults to the trained
+    K (``cfg.out_dim``: the model forecasts its own window); shorter inputs
+    are left-padded by the loader."""
+    fc = forecaster
+    fc._require_bank()
+    cfg = fc.cfg
+    if cfg.fresh_nodevec:
+        # made for real before the trace, or the trace would cache fakes
+        fc._fresh_nodevecs(batch_size)
+    seq_len = seq_len or cfg.out_dim
+    shape = (batch_size, seq_len, cfg.num_nodes, cfg.in_dim)
+    x = torch.zeros(shape, dtype=torch.float32, device=fc.device)
+    idx = torch.zeros(batch_size, dtype=torch.long, device=fc.device)
+    return _save_artifact(_IndexedModule(fc), (x, idx), path,
+                          {"in_shape": list(shape), "device": str(fc.device),
+                           "n_graphs": fc.n_graphs})
 
 
 def artifact_metadata(path: str) -> dict:
@@ -373,20 +634,36 @@ def artifact_metadata(path: str) -> dict:
 
 
 class ExportedForecaster:
-    """A loaded artifact (:func:`load_exported_forecaster`)."""
-
-    n_inputs = 1        # a shared-graph artifact takes x alone
+    """A loaded artifact (:func:`load_exported_forecaster`). ``n_graphs``:
+    the bank size of a diff-G artifact, which then takes ``(x, adj_idx)``
+    (``n_inputs`` 2); None for a shared-graph one."""
 
     def __init__(self, module: torch.nn.Module, in_shape: tuple,
-                 device: torch.device):
+                 device: torch.device, n_graphs: int | None = None):
         self._module = module
         self.in_shape = in_shape
         self.device = device
+        self.n_graphs = n_graphs
+        self.n_inputs = 1 if n_graphs is None else 2
 
-    def predict(self, x) -> torch.Tensor:
+    def predict(self, x, adj_idx=None) -> torch.Tensor:
         """x: (B, K, N, F) standardized features, B and N and F as baked,
         K at most the baked window (shorter windows are left-padded with
-        zeros) -> (B, H, N) raw-unit forecasts on the artifact's device."""
+        zeros) -> (B, H, N) raw-unit forecasts on the artifact's device. A
+        diff-G artifact also takes ``adj_idx`` (B,), each sample's bank
+        graph, and returns (B, K, N)."""
+        if (adj_idx is None) != (self.n_graphs is None):
+            raise ValueError("a diff-G artifact takes (x, adj_idx), a "
+                             "shared-graph one x alone")
+        args = ()
+        if adj_idx is not None:
+            idx = torch.as_tensor(adj_idx)
+            if (idx.shape != (self.in_shape[0],) or int(idx.min()) < 0
+                    or int(idx.max()) >= self.n_graphs):
+                raise ValueError(
+                    f"adj_idx must be ({self.in_shape[0]},) graph indices "
+                    f"into a bank of {self.n_graphs} graphs")
+            args = (idx.to(device=self.device, dtype=torch.long),)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         b, t, n, f = self.in_shape
         if (x.ndim != 4 or (x.shape[0], x.shape[2], x.shape[3]) != (b, n, f)
@@ -397,12 +674,13 @@ class ExportedForecaster:
         if x.shape[1] < t:
             x = F.pad(x, (0, 0, 0, 0, t - x.shape[1], 0))
         with torch.inference_mode():
-            return self._module(x)
+            return self._module(x, *args)
 
 
 def load_exported_forecaster(path: str, device: torch.device | str | None
                              = None) -> ExportedForecaster:
-    """Load an :func:`export_forecaster` artifact. It runs on the device
+    """Load an :func:`export_forecaster` or :func:`export_diffg_forecaster`
+    artifact. It runs on the device
     type it was exported on; ``device`` (default: that device) of another
     type, or another card, raises. Needs the hand kernels' ops
     (``ops.cuda.block_diffusion``, imported here), not the model code.
@@ -422,7 +700,8 @@ def load_exported_forecaster(path: str, device: torch.device | str | None
                              f"there; asked for {asked}")
     resolve_device(saved)
     ep = torch.export.load(path)
-    return ExportedForecaster(ep.module(), tuple(meta["in_shape"]), saved)
+    return ExportedForecaster(ep.module(), tuple(meta["in_shape"]), saved,
+                              meta.get("n_graphs"))
 
 
 class MicroBatcher:
@@ -432,7 +711,10 @@ class MicroBatcher:
     call: the worker thread drains requests arriving within ``window_ms``
     of the first (up to ``max_batch``), pads the stack up to the next
     power-of-two bucket (so the device sees a few batch shapes), runs
-    ``predict_fn`` once, and hands each caller its row. ``fixed_batch``
+    ``predict_fn`` once, and hands each caller its row. A tuple example
+    (diff-G's ``(x, adj_idx)``) is stacked per component and
+    ``predict_fn`` called with one argument each, so requests that name
+    different graphs share a call. ``fixed_batch``
     pads every call to exactly that batch instead (an artifact bakes one)
     and caps a call at it. Pad rows repeat the last real example and are
     dropped. Thread-safe; use as a context manager or call :meth:`stop`.
@@ -489,11 +771,22 @@ class MicroBatcher:
     def _flush(self, batch):
         n = len(batch)
         bucket = self._bucket(n)
-        xs = np.stack([x for x, _ in batch])
-        if n < bucket:
-            xs = np.concatenate([xs, np.repeat(xs[-1:], bucket - n, axis=0)])
+
+        def stack(parts):
+            xs = np.stack(parts)
+            if n < bucket:
+                xs = np.concatenate([xs, np.repeat(xs[-1:], bucket - n,
+                                                   axis=0)])
+            return xs
+
+        first = batch[0][0]
+        if isinstance(first, tuple):
+            args = tuple(stack([b[0][i] for b in batch])
+                         for i in range(len(first)))
+        else:
+            args = (stack([b[0] for b in batch]),)
         try:
-            out = self._predict(xs)
+            out = self._predict(*args)
             out = (out.cpu().numpy() if isinstance(out, torch.Tensor)
                    else np.asarray(out))
         except Exception as e:              # deliver, don't kill the worker
@@ -509,11 +802,14 @@ class MicroBatcher:
             fut.set_result(out[i])
 
     def submit(self, x) -> np.ndarray:
-        """Enqueue one example (no batch dim); blocks until its result."""
+        """Enqueue one example (no batch dim; a tuple of arrays for a
+        predictor of several inputs); blocks until its result."""
         if self._stopped:
             raise RuntimeError("MicroBatcher is stopped")
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._q.put((np.asarray(x), fut))
+        x = (tuple(map(np.asarray, x)) if isinstance(x, tuple)
+             else np.asarray(x))
+        self._q.put((x, fut))
         return fut.result()
 
     def stop(self):

@@ -498,12 +498,15 @@ def test_temporal_only_checkpoint_serves_and_exports(tmp_path):
 def test_clis_refuse_graph_banks_and_missing_adjacency(models):
     from graph_wavenet_tpu_torch.cli import export, serve
 
+    # a graph bank serves diff-G checkpoints only, and an artifact holds
+    # its own
     bank = ["--graph_bank", "bank.npz"]
-    for argv in (["--checkpoint", models["dense_ckpt"], *bank],
-                 ["--artifact", "x.pt2", *bank]):
-        with pytest.raises(SystemExit, match="slice 6"):
-            serve.main([*argv, "--device", CPU], serve_forever=False)
-    with pytest.raises(SystemExit, match="slice 6"):
+    with pytest.raises(SystemExit, match="shared-graph one"):
+        serve.main(["--checkpoint", models["dense_ckpt"], *bank, "--device",
+                    CPU], serve_forever=False)
+    with pytest.raises(SystemExit, match="holds its bank"):
+        serve.main(["--artifact", "x.pt2", *bank], serve_forever=False)
+    with pytest.raises(SystemExit, match="shared-graph one"):
         export.main(["--checkpoint", models["dense_ckpt"], "--out", "x.pt2",
                      "--device", CPU, *bank])
     with pytest.raises(SystemExit, match="--adjdata"):

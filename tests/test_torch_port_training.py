@@ -311,11 +311,17 @@ def test_trained_checkpoint_forecasts_like_jax(trained_city):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_train_cli_refuses_what_waits():
+def test_train_cli_refuses_what_waits(tmp_path):
     from graph_wavenet_tpu_torch.cli import train
 
     with pytest.raises(SystemExit, match="--mesh_model, --mesh_dp"):
         train.main(["--graph_npz", "g.npz", "--gcn_bool", "--mesh_model",
                     "2", "--mesh_dp"])
-    with pytest.raises(SystemExit, match="diff-G slice"):
-        train.main(["--data", "syn", "--device", CPU])
+    # the synthetic task is ported: a too-short receptive field for its
+    # two-modality supervision is the refusal left (K = 48 needs rf 49)
+    with pytest.raises(ValueError, match="collapse time to one step"):
+        train.main(["--data", "syn", "--device", CPU, "--num_nodes", "10",
+                    "--nhid", "4", "--blocks", "1", "--n_train", "1",
+                    "--n_valid", "1", "--n_test", "1", "--num_timestep",
+                    "100", "--batch_size", "8", "--gcn_bool", "--save",
+                    str(tmp_path)])
