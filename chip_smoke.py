@@ -124,6 +124,42 @@ exits non-zero:
    once with ``--artifact``. The path launches no hand kernel
    (``diffg_launches``).
 
+20. ``--mesh_dp`` through the METR training CLI under torchrun with one
+   rank and NCCL, bit for bit the same run without a process group
+   (``dist_nccl1``);
+21. data parallelism and node-TP at full width (``dist_city``): 2 ranks
+   of node-TP (all_gather form) and 4 ranks (2 x 2, the halo form) over
+   real process groups (NCCL where every rank has a card, else gloo with
+   the ranks sharing it), 2 fp32 steps with dropout 0 against the single
+   process on the card, both under deterministic algorithms
+   (``dist_compare``: losses rtol 1e-5; the first
+   step's gradients, each tensor within ``GRAD_RTOL`` of its largest
+   magnitude; after the first step every parameter element Adam resolves
+   and every buffer atol 1e-5 of the state's largest magnitude), the
+   gradient rule itself passing the single process against itself on the
+   batch in reverse row order (and the single process repeating bit for
+   bit, a reading without deterministic algorithms beside it) and
+   rejecting two planted faults in one
+   rank's mask cotangent (``grad_witness``), with the adaptive
+   embeddings' gradient in fp32 and fp64 beside it, the state bit for bit
+   equal across the ranks, 3 bf16 steps with dropout 0.3 timed with each
+   rank's peak memory and launches (kernel 1 forward and dx per hop,
+   kernel 2 for the mask, per shard); the training CLI under torchrun with
+   2 node-TP ranks, its checkpoint served in one process against the
+   single-process CLI run's, and under torchrun the city ``--aptonly``
+   model with node-TP and the METR model with ``--mesh_dp``, each test
+   MAE within ``CLI_MAE_RTOL`` of the one-process run's of its flags;
+22. ``dist_metr``: 2 DP ranks on the dense METR model (batch 64), held to
+   the single process as in 21;
+23. ``tp_tables``: the node-TP partition of the city supports and mask
+   for S = 2 and 4 (live blocks per shard, table lengths, dummy share,
+   the exchange form, the bytes per hop of each form);
+24. ``tp_local``: node-TP's kernels per shard in one process (S = 2 and
+   4, both exchange forms, fp32 and bf16, R = 1,536): kernel 1 forward
+   and dx and kernel 2 over each shard's tables and concatenated rows,
+   put back together, bit for bit the unsharded support's where the
+   tables sum the same entries in the same order.
+
 The launch counts of a graphed window add each replay's launches (a
 wrapper counts its Python calls, so a capture counts a step once).
 
@@ -139,6 +175,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1211,15 +1248,17 @@ def profile_step(fn) -> dict:
                              for e in host]}
 
 
-def write_city_data(root: str, n: int) -> None:
+def write_city_data(root: str, n: int, samples: dict = TRAIN_SAMPLES
+                    ) -> None:
     """Synthetic ``train/val/test.npz`` in the layout ``data/metr.py``
     reads: x, y of shape (S, 12, N, 2), speeds around 50 with some missing
-    (zero) readings and a time-of-day feature, from ``default_rng(0)``."""
+    (zero) readings and a time-of-day feature, from ``default_rng(0)``;
+    ``samples`` per split."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     os.makedirs(root, exist_ok=True)
-    for split, count in TRAIN_SAMPLES.items():
+    for split, count in samples.items():
         arrays = {}
         for key in ("x", "y"):
             a = np.empty((count, 12, n, 2), np.float32)
@@ -2150,6 +2189,8 @@ def phase_aptonly(tmp: str) -> dict:
             and engine.model_cfg.n_supports == 0,
             "aptonly trains the adaptive adjacency alone")
     require(np.isfinite(result.test_metrics["mae"]), "non-finite metrics")
+    ONE_PROCESS_TEST_MAE["city_aptonly_tp2"] = float(
+        result.test_metrics["mae"])
     rng = np.random.default_rng(13)
     x = torch.as_tensor(rng.normal(size=(TRAIN_BATCH, 12, N_SMALL, 2)
                                    ).astype(np.float32), device="cuda")
@@ -3738,6 +3779,1134 @@ def phase_diffg(tmp: str) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# slice 7a: data parallelism and node-TP over torch.distributed
+# ---------------------------------------------------------------------------
+
+TP_SHARDS = (2, 4)
+# the train step's first-layer R at batch 4: 4 rows x 12 steps x 32 channels
+TP_R = 1536
+DIST_TIMEOUT = 900
+# (name, ranks, model axis, exchange form): the 2-rank group takes the
+# all_gather, the 2 x 2 one what halo="auto" picks (the halo at S = 2)
+DIST_LAYOUTS = (("tp2", 2, 2, False), ("dp2_tp2", 4, 2, "auto"))
+# the CLI comparison's data: one train step, one validation and one test
+# batch at the city training cell's batch
+DIST_CLI_SAMPLES = {"train": TRAIN_BATCH, "val": TRAIN_BATCH,
+                    "test": TRAIN_BATCH}
+SHARED_CARD = "ranks sharing one card: not a scaling number"
+# the one-process runs' test MAE that ``dist_cli_more`` holds its torchrun
+# runs of the same flags to: ``phase_aptonly``'s and ``phase_dist_nccl1``'s
+ONE_PROCESS_TEST_MAE: dict = {}
+# their tolerance, relative: bf16 runs whose reductions (BatchNorm, the
+# loss, the weight gradients) sum in another order and whose MAE prints
+# with 4 decimals; they read 1.3e-5 and 9e-6 apart on an H100 80GB HBM3
+# at 700 W
+CLI_MAE_RTOL = 1e-3
+
+
+def city_build(graph, device="cuda"):
+    """The training CLI's city supports, mask and layout at N_CITY (the
+    "best" ordering, flat form, 128-node blocks), in fp32 on ``device``."""
+    from graph_wavenet_tpu_torch.graphs import city
+
+    pos, src, dst, w = graph
+    return city.build_city_supports(
+        src, dst, w, N_CITY, pos=pos, ordering="best", form="flat",
+        block_size=128, addaptadj=True, device=device)
+
+
+def phase_tp_tables(graph) -> None:
+    """The node-TP partition of the 40,960-node city supports and mask
+    for S = 2 and 4: live blocks per shard, table lengths and dummy share
+    of the dest and source partitions, the exchange form ``halo="auto"``
+    picks, and the bytes a rank receives per hop in each form at the
+    train step's first layer (bf16, R = 1,536)."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.parallel.sparse_tp import partition_tables
+
+    t0 = time.perf_counter()
+    sups, mask, layout = city_build(graph)
+    dev = mask.row_tbl.device
+    adp = mask.materialize(torch.ones((N_CITY, 1), device=dev),
+                           torch.ones((1, N_CITY), device=dev))
+    build_s = time.perf_counter() - t0
+    for s in TP_SHARDS:
+        for name, sp in (("support0", sups[0]), ("support1", sups[1]),
+                         ("mask", adp)):
+            t1 = time.perf_counter()
+            t = partition_tables(sp, s, "auto")
+            zero_f = t["blocks_f"].shape[1] - 1
+            zero_b = t["blocks_b"].shape[1] - 1
+            n_local = N_CITY // s
+            emit("tp_tables", shards=s, support=name, nodes=N_CITY,
+                 ordering=layout["ordering"], block_rows=sp.nb,
+                 nb_local=t["nb_local"], live_blocks=sp.n_live,
+                 live_per_shard_dest=t["n_live"].tolist(),
+                 live_per_shard_source=(t["glob_b"] < t["n_live_global"]
+                                        ).sum(1).tolist(),
+                 table_len_dest=int(t["row_f"].shape[1]),
+                 table_len_source=int(t["row_b"].shape[1]),
+                 dummy_share_dest=float((t["slot_f"] == zero_f).mean()),
+                 dummy_share_source=float((t["slot_b"] == zero_b).mean()),
+                 halo_auto=bool(t["halo"]),
+                 hop_bytes_per_rank_gather=(s - 1) * n_local * TP_R * 2,
+                 hop_bytes_per_rank_halo=2 * n_local * TP_R * 2,
+                 bytes_rule="all_gather (S-1)/S x N x R, halo 2 x N/S x R; "
+                            "bf16, R = 1,536",
+                 partition_seconds=round(time.perf_counter() - t1, 3),
+                 build_seconds=round(build_s, 3))
+    del sups, mask, adp
+    torch.cuda.empty_cache()
+
+
+def tp_same_order(t, s_count, sp) -> tuple[bool, bool]:
+    """Whether every destination row of the shards' dest tables sums the
+    unsharded forward table's live entries in its order, and every row of
+    the source tables the unsharded transpose table's (global slots in
+    table order, shard by shard)."""
+    import numpy as np
+
+    nbl = t["nb_local"]
+    n_live = sp.n_live
+
+    def sharded(row, slot, glob):
+        rows, slots = [], []
+        for s in range(s_count):
+            g = glob[s][slot[s]]
+            live = g < t["n_live_global"]
+            rows.append(row[s][live] + s * nbl)
+            slots.append(g[live])
+        return np.concatenate(rows), np.concatenate(slots)
+
+    def whole(row, slot):
+        row, slot = row.cpu().numpy(), slot.cpu().numpy()
+        live = slot < n_live
+        return row[live], slot[live]
+
+    fwd = [np.array_equal(a, b) for a, b in zip(
+        sharded(t["row_f"], t["slot_f"], t["glob_f"]),
+        whole(sp.row_tbl, sp.slot_tbl))]
+    bwd = [np.array_equal(a, b) for a, b in zip(
+        sharded(t["row_b"], t["slot_b"], t["glob_b"]),
+        whole(sp.row_t, sp.slot_t))]
+    return all(fwd), all(bwd)
+
+
+def phase_tp_local(graph) -> dict:
+    """Node-TP's kernels per shard in one process, with no collective: the
+    block-masked adaptive adjacency of the 40,960-node city (random
+    embeddings) at R = 1,536, fp32 and bf16, S = 2 and 4, both exchange
+    forms. Each shard's exchanged rows are built by concatenation (what
+    the all_gather or the two neighbour exchanges deliver); its forward
+    and dx (kernel 1 over the dest and the source tables) and its
+    dest-copy weight cotangent (kernel 2, storage order, padding slots
+    zeroed) are put back together and held to the unsharded support's
+    hop, transpose hop and kernel-2 cotangent: bit for bit where the
+    tables show every row summing the same live entries in the same order
+    (``tp_same_order``), else at ``close_err``'s tolerance. Launches: 2 S
+    kernel-1 and S kernel-2 per case."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.parallel.sparse_tp import partition_tables
+
+    sups, mask, _ = city_build(graph)
+    del sups
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nv1 = torch.randn((N_CITY, 10), generator=gen, device="cuda")
+    nv2 = torch.randn((10, N_CITY), generator=gen, device="cuda")
+    adp = mask.materialize(nv1, nv2)
+    bs, r = 128, TP_R
+    nb = N_CITY // bs
+    tables = {(s, halo): partition_tables(adp, s, halo)
+              for s in TP_SHARDS for halo in (False, True)}
+    counts = {"tp_local": {k: 0 for k in bd.LAUNCHES}}
+    for dtype in (torch.float32, torch.bfloat16):
+        sp = adp.astype(dtype)
+        x = torch.randn((nb, bs, r), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((nb, bs, r), generator=gen, device="cuda").to(dtype)
+        ref_out = bd.gathered_block_mix_flat(
+            sp.blocks_flat, sp.slot_tbl, x, sp.src_tbl, sp.row_tbl,
+            nb=sp.nb, transpose_lhs=True, row_ptr=sp.row_ptr)
+        ref_dx = bd.gathered_block_mix_flat(
+            sp.blocks_flat, sp.slot_t, g, sp.src_t, sp.row_t, nb=sp.nb_t,
+            transpose_lhs=False, row_ptr=sp.row_ptr_t)
+        ref_dw = bd.gathered_block_outer_flat(
+            x, g, sp.src_tbl, sp.row_tbl, slot=sp.slot_tbl,
+            n_slots=sp.n_live + 1, out_dtype=dtype)
+        torch.cuda.synchronize()
+        for (s_count, halo), t in tables.items():
+            if halo and not t["halo"]:
+                continue
+            nbl = t["nb_local"]
+            same_f, same_b = tp_same_order(t, s_count, adp)
+            outs, dxs = [], []
+            dw = torch.zeros_like(ref_dw)
+            bd.reset_launch_counts()
+            t0 = time.perf_counter()
+            for s in range(s_count):
+                own = slice(s * nbl, (s + 1) * nbl)
+
+                def exchanged(a):
+                    if not halo:
+                        return a
+                    prev = (s - 1) % s_count * nbl
+                    nxt = (s + 1) % s_count * nbl
+                    return torch.cat([a[prev:prev + nbl], a[own],
+                                      a[nxt:nxt + nbl]])
+
+                blocks_f = on_card(t["blocks_f"][s]).to(dtype)
+                blocks_b = on_card(t["blocks_b"][s]).to(dtype)
+                row_f, row_b = on_card(t["row_f"][s]), on_card(t["row_b"][s])
+                slot_f, slot_b = on_card(t["slot_f"][s]), on_card(t["slot_b"][s])
+                xg = exchanged(x)
+                outs.append(bd.gathered_block_mix_flat(
+                    blocks_f, slot_f, xg, on_card(t["src_f"][s]), row_f, nb=nbl,
+                    transpose_lhs=True, row_ptr=bd.row_pointer(row_f, nbl)))
+                dxs.append(bd.gathered_block_mix_flat(
+                    blocks_b, slot_b, exchanged(g), on_card(t["src_b"][s]),
+                    row_b, nb=nbl, transpose_lhs=False,
+                    row_ptr=bd.row_pointer(row_b, nbl)))
+                dwf = bd.gathered_block_outer_flat(
+                    xg, g[own].contiguous(), on_card(t["src_f"][s]), row_f,
+                    slot=slot_f, n_slots=blocks_f.shape[0], out_dtype=dtype)
+                n_live = int(t["n_live"][s])
+                dwf[n_live:] = 0
+                dw[on_card(t["glob_f"][s][:n_live]).long()] = dwf[:n_live]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(bd.LAUNCHES)
+            for k, v in launches.items():
+                counts["tp_local"][k] += v
+            got = {"out": torch.cat(outs), "dx": torch.cat(dxs), "dw": dw}
+            want = {"out": ref_out, "dx": ref_dx, "dw": ref_dw}
+            bitwise = {k: bool(torch.equal(got[k], want[k])) for k in got}
+            errs = {k: close_err(got[k], want[k]) for k in got}
+            same = {"out": same_f, "dx": same_b, "dw": True}
+            emit("tp_local", shards=s_count, form="halo" if halo
+                 else "all_gather", dtype=str(dtype).split(".")[-1], r=r,
+                 same_entries_same_order={"dest": same_f, "source": same_b},
+                 bitwise=bitwise,
+                 max_abs_err={k: e[0] for k, e in errs.items()},
+                 tolerance_where_not_same_order=errs["out"][2],
+                 launches=launches, host_ms=ms,
+                 exchanged_rows=int(exchanged_rows(halo, s_count, nbl, nb)))
+            for k in got:
+                if same[k]:
+                    require(bitwise[k], f"tp_local {k} S={s_count} halo="
+                            f"{halo} {dtype}: not bit for bit though the "
+                            "tables sum the same entries in the same order")
+                else:
+                    require(errs[k][1], f"tp_local {k}: {errs[k][0]}")
+            want_l = {"gathered_block_mix_flat": 2 * s_count,
+                      "gathered_block_outer_flat": s_count}
+            require(all(launches[k] == v for k, v in want_l.items())
+                    and sum(launches.values()) == 3 * s_count,
+                    f"tp_local launches {launches}, want {want_l}")
+    del adp, mask, tables
+    torch.cuda.empty_cache()
+    return counts
+
+
+def on_card(a):
+    """A host array as a fresh (aligned) tensor on the card."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+
+
+def exchanged_rows(halo: bool, s: int, nbl: int, nb: int) -> int:
+    """Block-rows a shard's kernel reads: 3 N/S in the halo form, N in the
+    all_gather's."""
+    return 3 * nbl if halo else nb
+
+
+def city_batch(seed: int = 6):
+    """A global batch of the city training cell: x standard normal, y
+    around 50 with 5% missing (zero) readings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(TRAIN_BATCH, 12, N_CITY, 2)).astype(np.float32)
+    y = rng.normal(50.0, 10.0, size=(TRAIN_BATCH, 12, N_CITY, 2)).astype(
+        np.float32)
+    y[..., 0][rng.random((TRAIN_BATCH, 12, N_CITY)) < 0.05] = 0.0
+    return x, y
+
+
+def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
+                graph=None, halo: bool | str = "auto"):
+    """(engine, supports, x, y) of a distributed check at full width: the
+    city training cell (``graph``: the (pos, src, dst, w) edge list; the
+    supports sharded where the mesh splits nodes, exchanging rows in the
+    ``halo`` form) or the dense METR model
+    at batch 64 (``dense_inputs``; the supports whole on every rank)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.parallel import sparse_tp
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    common = dict(in_dim=2, out_dim=12, residual_channels=32,
+                  dilation_channels=32, skip_channels=256, end_channels=512,
+                  blocks=4, layers=2, gcn_bool=True, addaptadj=True,
+                  n_supports=2, dropout=dropout, dtype=dtype)
+    if kind == "metr":
+        sups_np, x, y = dense_inputs()
+        cfg = ModelConfig(num_nodes=DENSE_NODES, **common)
+        eng = Engine(cfg, TrainConfig(), StandardScaler(54.0, 20.0),
+                     device=device, seed=0, aptinit=sups_np[0], mesh=mesh)
+        return eng, [torch.as_tensor(s, device=device) for s in sups_np], x, y
+    sups, mask, _ = city_build(graph, device)
+    if dtype == "bfloat16":
+        sups = [s.astype(torch.bfloat16) for s in sups]
+    if mesh is not None and mesh.model > 1:
+        sups = [sparse_tp.shard_flat_support(s, mesh, halo) for s in sups]
+        mask = sparse_tp.shard_adaptive_mask(mask, mesh, halo)
+    cfg = ModelConfig(num_nodes=N_CITY, **common)
+    eng = Engine(cfg, TrainConfig(), StandardScaler(50.0, 10.0),
+                 device=device, seed=0, mesh=mesh)
+    x, y = city_batch()
+    return eng, sups + [mask], x, y
+
+
+def state_vector(engine):
+    """Every parameter and buffer of the engine's model, by name (host)."""
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in engine.model.state_dict().items()}
+
+
+def dist_worker(spec_path: str, rank: int) -> None:
+    """One rank of a ``dist_*`` check (started by ``dist_group``): the fp32
+    steps with dropout 0 held against the single process (``keep_state``,
+    under deterministic algorithms as ``single_reference``), then the
+    timed bf16 steps with dropout 0.3; writes its losses, launches, state
+    hash, step times and peak memory (rank 0: its parameters too)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import MeshConfig
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.parallel import multihost
+    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(spec["backend"], rank, spec["world"], spec["init"],
+                         device="cuda", timeout_s=DIST_TIMEOUT)
+    dev = multihost.rank_device("cuda")
+    mesh = make_mesh(MeshConfig(model_axis=spec["model"]), dev,
+                     timeout_s=DIST_TIMEOUT)
+    graph = None
+    if spec["kind"] == "city":
+        g = np.load(spec["graph"])
+        graph = (g["pos"], g["src"], g["dst"], g["weight"])
+    out = {"rank": rank, "device": str(dev)}
+    for run in spec["runs"]:
+        eng, sups, x, y = dist_engine(spec["kind"], run["dtype"],
+                                      run["dropout"], dev, mesh, graph,
+                                      spec["halo"])
+        xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bd.reset_launch_counts()
+        losses, times = [], []
+        with deterministic(run.get("keep_state", False)):
+            for k in range(run["steps"]):
+                mesh.barrier()
+                t0 = time.perf_counter()
+                m = eng.train_step(xt, yt, sups)
+                losses.append(float(m["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+                if k == 0 and rank == 0 and run.get("keep_state"):
+                    np.savez(os.path.join(spec["out"],
+                                          f"{run['name']}_state_step1.npz"),
+                             **state_vector(eng))
+                    # the world-summed, clipped gradients the first update
+                    # took
+                    np.savez(os.path.join(spec["out"],
+                                          f"{run['name']}_grad_step1.npz"),
+                             **{n: p.grad.cpu().numpy()
+                                for n, p in eng.model.named_parameters()
+                                if p.grad is not None})
+        torch.cuda.synchronize()
+        state = state_vector(eng)
+        h = hashlib.sha256()
+        for k in sorted(state):
+            h.update(state[k].tobytes())
+        rec = {"losses": losses, "step_ms": times,
+               "launches": dict(bd.LAUNCHES), "state_sha256": h.hexdigest(),
+               "max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated(dev)}
+        if rank == 0 and run.get("keep_state"):
+            np.savez(os.path.join(spec["out"], f"{run['name']}_state.npz"),
+                     **state)
+        out[run["name"]] = rec
+        del eng, sups, xt, yt
+        torch.cuda.empty_cache()
+    if spec["kind"] == "city":
+        # the cost of drawing each layer's dropout mask at the global shape
+        # (what a rank keeps is 1 / (D x S) of it): the first layer's draw,
+        # global against the rank's own shape
+        from graph_wavenet_tpu_torch.ops.diffusion import dropout_scale
+
+        b, n = TRAIN_BATCH // mesh.data, N_CITY // mesh.model
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out["draw_ms"] = {
+            k: cuda_ms(lambda: dropout_scale(gen, 0.3, shape, torch.bfloat16,
+                                             dev), 20)
+            for k, shape in (("global", (b * mesh.data, 12, n * mesh.model,
+                                         32)), ("local", (b, 12, n, 32)))}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
+               runs: list, graph_path: str | None = None,
+               halo: bool | str = "auto") -> tuple:
+    """Start ``world`` rank processes (``dist_worker``) on this machine's
+    cards, NCCL where every rank has a card of its own, else gloo with the
+    ranks sharing them; every process and the group bounded by
+    DIST_TIMEOUT. Returns (backend, per-rank records, seconds)."""
+    import torch
+
+    out = os.path.join(tmp, f"dist_{name}")
+    os.makedirs(out, exist_ok=True)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    spec = dict(world=world, model=model, kind=kind, runs=runs,
+                backend=backend, out=out, graph=graph_path, halo=halo,
+                init=f"file://{out}/rendezvous")
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke;"
+            " chip_smoke.dist_worker(sys.argv[1], int(sys.argv[2]))")
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=REPO, LOCAL_RANK=str(rank),
+                   OMP_NUM_THREADS="2")
+        log = open(os.path.join(out, f"rank{rank}.log"), "w")
+        procs.append((rank, log, subprocess.Popen(
+            [sys.executable, "-c", code, spec_path, str(rank),
+             os.path.dirname(os.path.abspath(__file__))],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    try:
+        for rank, log, p in procs:
+            try:
+                rc = p.wait(timeout=DIST_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                with open(os.path.join(out, f"rank{rank}.log")) as f:
+                    failed.append(f"rank {rank}: {rc}: {f.read()[-4000:]}")
+    finally:
+        for _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    require(not failed, f"dist {name}: " + "\n".join(failed))
+    recs = []
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    return backend, recs, time.perf_counter() - t0
+
+
+# Adam moves each element by lr * (g + wd p) / (|g + wd p| + 1e-8): where
+# the L2-decayed gradient is a cancellation result (under 1e-4 of its
+# tensor's largest gradient, the size of the difference two orderings of
+# the same sums were measured to make) or near Adam's eps (under 1e-6),
+# the update is set by the gradient's last bits, so that element's value
+# is not compared
+ADAM_RESOLVED = (1e-4, 1e-6)
+# the first step's world-summed gradient against the single process's, per
+# tensor, over its largest magnitude: a rank's share lost or counted twice
+# is an error of order 1 (``grad_witness`` plants two such faults; they
+# read 1.0). Both sides run under deterministic algorithms: without them
+# the single process differs from itself by up to 9.7e-3 (nodevec2). The
+# limit sits above fp32's floor: the single process against itself on the
+# batch in reverse row order reads up to 2.9e-3 (nodevec2) and 4.5e-4
+# elsewhere, node-TP 3.3e-4 (nodevec2) and 1.3e-4 elsewhere (H100 80GB
+# HBM3, 700 W). The embeddings' gradient moves most, through the mask's
+# cotangent: the materialization itself holds it to 6.7e-6 of fp64's
+# (``embedding_witness``). The CPU tests hold every gradient at 1e-5 at
+# their small size.
+# Not compared: the bias of the graph convolution that feeds each
+# BatchNorm, whose exact gradient is zero (the statistics remove any
+# per-channel shift), so that what the two runs compute is rounding noise
+GRAD_RTOL = 1e-2
+BN_SHIFT_BIAS = re.compile(r"gconv\.\d+\.mlp\.mlp\.bias")
+
+
+def grad_errors(grads: dict, want: dict) -> tuple[dict, float]:
+    """Per tensor, max |grads - want| over max |want|, but the biases
+    whose exact gradient is zero (``BN_SHIFT_BIAS``); and those biases'
+    largest magnitude in either over the largest gradient."""
+    import numpy as np
+
+    gmax = max(float(np.abs(v).max()) for v in want.values())
+    err, null_rel = {}, 0.0
+    for k, v in want.items():
+        if BN_SHIFT_BIAS.fullmatch(k):
+            null_rel = max(null_rel, float(np.abs(v).max()) / gmax,
+                           float(np.abs(grads[k]).max()) / gmax)
+        else:
+            err[k] = (float(np.abs(grads[k] - v).max())
+                      / float(np.abs(v).max()))
+    return err, null_rel
+
+
+def top(err: dict, n: int = 5) -> list:
+    """The ``n`` largest entries of a {tensor: error} dict."""
+    return sorted(([k, v] for k, v in err.items()), key=lambda kv: -kv[1])[:n]
+
+
+def dist_compare(name: str, recs: list, ref: dict, out: str) -> dict:
+    """Hold a group's fp32 run (dropout 0) to the single process and its
+    ranks to each other; returns the readings and raises on a failed
+    check:
+
+    - the losses of both steps at rtol 1e-5;
+    - the first step's clipped gradients, each tensor within
+      ``GRAD_RTOL`` of its largest magnitude but the biases whose exact
+      gradient is zero (``BN_SHIFT_BIAS``), whose largest magnitude over
+      the largest gradient is a reading (Adam's first update is near the
+      gradient's sign, so the parameters alone would not show a gradient
+      off by a factor);
+    - after the first step, every parameter element that Adam resolves
+      (``ADAM_RESOLVED``, from the single process's gradient) and every
+      buffer at atol 1e-5 x the state's largest magnitude; the elements
+      Adam does not resolve finite and within 2 x lr, which a finite step
+      cannot exceed (what holds them is the gradient check above);
+    - the state after the last step bit for bit equal across the ranks.
+
+    Every tensor's error after the last step against its scale is a
+    reading beside them, not a check: there the first step's unresolved
+    elements have moved the next gradient, and Adam's normalized update
+    turns that into O(lr) on small-gradient elements too."""
+    import numpy as np
+
+    run = [r["fp32"] for r in recs]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run[0]["losses"],
+                                                       ref["losses"]))
+    worst, worst_key, n_unresolved, worst_unresolved = 0.0, "", 0, 0.0
+    got1 = dict(np.load(os.path.join(out, "fp32_state_step1.npz")))
+    # one scale for the state: a per-tensor one is itself a cancellation
+    # result for some (a channel's running mean near 0, zero-init biases
+    # that moved by lr)
+    scale = max(float(np.abs(v).max()) for v in ref["state1"].values())
+    for k, want in ref["state1"].items():
+        err = np.abs(got1[k] - want)
+        resolved = ref["resolved"].get(k)
+        if resolved is not None:
+            n_unresolved += int((~resolved).sum())
+            if (~resolved).any():
+                worst_unresolved = max(worst_unresolved,
+                                       float(err[~resolved].max()))
+            err = err[resolved]
+        e = float(err.max()) / scale if err.size else 0.0
+        if e > worst:
+            worst, worst_key = e, k
+    grads = dict(np.load(os.path.join(out, "fp32_grad_step1.npz")))
+    grad_err, null_rel = grad_errors(grads, ref["grad1"])
+    grad_worst = max(grad_err, key=grad_err.get)
+    got = dict(np.load(os.path.join(out, "fp32_state.npz")))
+    last = {k: float(np.abs(got[k] - v).max())
+            / max(float(np.abs(v).max()), 1e-30)
+            for k, v in ref["state"].items()}
+    last_worst = max(last, key=last.get)
+    beyond = sum(int((np.abs(got[k] - v) > 1e-5 * np.abs(v).max()).sum())
+                 for k, v in ref["state"].items())
+    same = len({r["state_sha256"] for r in run}) == 1
+    readings = {
+        "loss_max_rel_err": loss_rel, "losses": run[0]["losses"],
+        "losses_single": ref["losses"],
+        "grad1_max_err_rel_tensor": grad_err[grad_worst],
+        "grad1_worst": grad_worst,
+        "grad1_top": top(grad_err),
+        "grad1_bn_shift_bias_max_rel_largest": null_rel,
+        "step1_max_err_rel_scale": worst, "step1_worst": worst_key,
+        "step1_unresolved_elements": n_unresolved,
+        "step1_unresolved_max_abs_err": worst_unresolved,
+        "elements": ref["elements"],
+        "last_max_err_rel_scale": last[last_worst],
+        "last_worst": last_worst,
+        "last_elements_beyond_1e-5_scale": beyond,
+        "ranks_bitwise_equal": same,
+        "state_scale": scale,
+        "rule": "loss rtol 1e-5; step 1's gradients 1e-2 x max|tensor| "
+                "(not the biases before a BatchNorm); "
+                "after step 1 the Adam-resolved elements and the buffers "
+                "atol 1e-5 x max|state|, the rest <= 2 lr; ranks bitwise"}
+    require(loss_rel <= 1e-5, f"dist {name}: fp32 losses {run[0]['losses']} "
+            f"vs single process {ref['losses']}")
+    require(set(grads) == set(ref["grad1"])
+            and all(np.isfinite(v).all() for v in grads.values())
+            and grad_err[grad_worst] <= GRAD_RTOL,
+            f"dist {name}: the gradient of {grad_worst} differs by "
+            f"{grad_err[grad_worst]} of its scale from the single process")
+    require(worst <= 1e-5, f"dist {name}: {worst_key} differs by {worst} "
+            "of the scale from the single process after one step")
+    require(worst_unresolved <= 2 * ref["lr"],
+            f"dist {name}: an unresolved element moved {worst_unresolved}")
+    require(same, f"dist {name}: parameters differ across ranks")
+    return readings
+
+
+def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
+    """The single-process fp32 steps (dropout 0) a distributed run is held
+    to, on the card, under deterministic algorithms (without them two
+    identical runs differ: ``grad_witness``): the losses, the state after
+    the first and the last step, the first step's clipped gradients, and per parameter the
+    elements whose L2-decayed gradient Adam resolves at the first step
+    (``ADAM_RESOLVED``); for the city model also ``embedding_witness``'s
+    readings of the first step and the mask's shard owners at S = 2."""
+    import torch
+
+    eng, sups, x, y = dist_engine(kind, "float32", 0.0, "cuda", None, graph)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    wd = eng.train_cfg.weight_decay
+    rel, floor = ADAM_RESOLVED
+    resolved = {}
+
+    def record():
+        if not resolved:
+            for k, p in eng.model.named_parameters():
+                if p.grad is not None:
+                    least = max(floor, rel * float(p.grad.abs().max()))
+                    resolved[k] = ((p.grad + wd * p).abs() >= least
+                                   ).cpu().numpy()
+
+    grad1 = recorded_grads(eng, then=record)
+    losses, state1 = [], None
+    with deterministic(True), mask_cotangent() as seen:
+        for _ in range(steps):
+            losses.append(float(eng.train_step(xt, yt, sups)["loss"]))
+            state1 = state1 or state_vector(eng)
+    ref = {"losses": losses, "state1": state1, "state": state_vector(eng),
+           "resolved": resolved, "grad1": grad1,
+           "lr": eng.train_cfg.learning_rate,
+           "elements": sum(v.size for v in state1.values())}
+    if kind == "city":
+        with deterministic(True):
+            ref["witness"] = embedding_witness(sups[-1], seen["nodevecs"],
+                                               seen["g"])
+        ref["owner2"] = shard_owner(sups[-1], 2)
+    del eng, sups, xt, yt, seen
+    torch.cuda.empty_cache()
+    return ref
+
+
+def recorded_grads(eng, then=None) -> dict:
+    """A dict that the engine's first optimizer step fills with the
+    gradients it takes (clipped, world-summed; host copies); ``then()``
+    runs beside it."""
+    grads, step = {}, eng.optimizer.step
+
+    def record(*a, **kw):
+        if not grads:
+            grads.update({k: p.grad.cpu().numpy().copy()
+                          for k, p in eng.model.named_parameters()
+                          if p.grad is not None})
+        if then is not None:
+            then()
+        return step(*a, **kw)
+
+    eng.optimizer.step = record
+    return grads
+
+
+@contextlib.contextmanager
+def mask_cotangent(edit=None):
+    """Within the block, the first materialization of the block-masked
+    adaptive adjacency in this process records its embeddings
+    (``nodevecs``) and, in the backward, its blocks' cotangent (``g``) in
+    the yielded dict; ``edit(g)``, where given, is the cotangent passed on
+    in its place (a planted fault)."""
+    from graph_wavenet_tpu_torch.ops import adaptive_block as ab
+
+    inner, seen = ab.adaptive_blocks, {}
+
+    def recorded(mask, nodevec1, nodevec2):
+        blocks = inner(mask, nodevec1, nodevec2)
+        if "nodevecs" not in seen:
+            seen["nodevecs"] = (nodevec1.detach().clone(),
+                                nodevec2.detach().clone())
+
+            def hook(g):
+                seen["g"] = g.detach().clone()
+                return None if edit is None else edit(g)
+
+            blocks.register_hook(hook)
+        return blocks
+
+    ab.adaptive_blocks = recorded
+    try:
+        yield seen
+    finally:
+        ab.adaptive_blocks = inner
+
+
+def shard_owner(mask, s_count: int):
+    """(L,) the node-TP shard that holds each live block of the mask: the
+    one that owns its dest block-row (``sparse_tp._partition``)."""
+    return mask.live_dst // (mask.n_dst_blocks // s_count)
+
+
+def embedding_witness(mask, nodevecs, g) -> dict:
+    """How far fp32 determines the embeddings' gradient at full width.
+    The single process's first-step mask cotangent ``g`` goes back through
+    the materialization alone (the masked row softmax and the embeddings'
+    product): in fp32 as one process sums it, in fp32 as S node-TP ranks
+    sum it (each rank its dest blocks' part, then the ranks' sum), in fp64,
+    and in fp64 with ``g`` moved by relative noise of 1e-7 (about fp32's
+    rounding of ``g``). Each reading is max |error| against fp64 over
+    fp64's largest magnitude, per embedding; ``part_over_total``: the
+    largest part of one of 2 ranks over the largest total."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.adaptive_block import adaptive_blocks
+
+    def grads(dtype, cot, parts: int = 1):
+        e1, e2 = (v.detach().to(dtype).requires_grad_() for v in nodevecs)
+        blocks = adaptive_blocks(mask, e1, e2)
+        cot = cot.to(dtype)
+        owner = shard_owner(mask, parts)
+        out = [torch.autograd.grad(
+            blocks, (e1, e2), cot * (owner == s).to(dtype)[:, None, None],
+            retain_graph=True) for s in range(parts)]
+        total = [sum(p[i] for p in out) for i in range(2)]
+        return total, out
+
+    want, _ = grads(torch.float64, g)
+    names = ("nodevec1", "nodevec2")
+    readings = {k: {} for k in names}
+
+    def note(key, got):
+        for i, k in enumerate(names):
+            w = want[i]
+            readings[k][key] = float((got[i].double() - w).abs().max()
+                                     / w.abs().max())
+
+    one, _ = grads(torch.float32, g)
+    note("fp32_one_process", one)
+    for s_count in TP_SHARDS:
+        split, parts = grads(torch.float32, g, s_count)
+        note(f"fp32_ranks_{s_count}", split)
+        if s_count == 2:
+            for i, k in enumerate(names):
+                readings[k]["fp32_ranks_2_vs_one_process"] = float(
+                    (split[i] - one[i]).abs().max() / want[i].abs().max())
+                readings[k]["part_over_total"] = float(
+                    max(p[i].abs().max() for p in parts)
+                    / want[i].abs().max())
+    gen = torch.Generator(device=g.device).manual_seed(0)
+    noise = torch.randn(g.shape, generator=gen, device=g.device,
+                        dtype=torch.float64)
+    note("fp64_cotangent_noise_1e-7",
+         grads(torch.float64, g.double() * (1 + 1e-7 * noise))[0])
+    return readings
+
+
+def first_step_grads(graph, x, y, edit=None, det: bool = True) -> dict:
+    """The clipped gradients of a fresh single process's first fp32 step
+    (dropout 0) of the city model on (x, y), on the card, under
+    deterministic algorithms where ``det``; ``edit``: a planted fault in
+    the mask's cotangent (``mask_cotangent``)."""
+    import torch
+
+    eng, sups, _, _ = dist_engine("city", "float32", 0.0, "cuda", None,
+                                  graph)
+    grads = recorded_grads(eng)
+    with deterministic(det), mask_cotangent(edit):
+        eng.train_step(torch.as_tensor(x, device="cuda"),
+                       torch.as_tensor(y, device="cuda"), sups)
+    del eng, sups
+    torch.cuda.empty_cache()
+    return grads
+
+
+def grad_witness(graph, ref: dict) -> None:
+    """The gradient rule of ``dist_compare`` against what it must pass and
+    what it must reject, at full width, each a fresh single process's
+    first step against ``ref``'s: the same run again (bit for bit under
+    deterministic algorithms; without them, a reading: the spread that
+    makes the comparison run deterministic); the batch in reverse row
+    order (the same gradient in exact arithmetic, other sums over the
+    batch: fp32's floor for every tensor), which the rule must pass;
+    ``embedding_witness``'s readings; and two planted node-TP faults,
+    rank 1 of 2's part of the mask cotangent doubled and dropped, which
+    the rule must reject. A fault in the mask's cotangent barely moves the
+    parameters after one step (Adam's first update is about lr x the
+    gradient's sign), so only the gradient rule sees it."""
+    import numpy as np
+
+    x, y = city_batch()
+    again = first_step_grads(graph, x, y)
+    differ = [k for k, v in ref["grad1"].items()
+              if not np.array_equal(again[k], v)]
+    loose, _ = grad_errors(first_step_grads(graph, x, y, det=False),
+                           ref["grad1"])
+    rev, _ = grad_errors(first_step_grads(graph, x[::-1].copy(),
+                                          y[::-1].copy()), ref["grad1"])
+    rank1 = (ref["owner2"] == 1).float()[:, None, None]
+    faults = {}
+    for name, keep in (("doubled", 2.0), ("dropped", 0.0)):
+        factor = 1.0 + (keep - 1.0) * rank1
+        err, _ = grad_errors(first_step_grads(
+            graph, x, y, lambda g, f=factor: g * f), ref["grad1"])
+        faults[name] = top(err, 3)
+    emit("grad_witness", rule=f"each tensor <= {GRAD_RTOL} x max|tensor|",
+         repeat_differing_tensors=differ,
+         nondeterministic_top=top(loose), batch_reversed_top=top(rev),
+         batch_reversed_nodevec={k: rev[k] for k in ("nodevec1", "nodevec2")},
+         embedding_stage=ref["witness"], planted_faults=faults)
+    require(not differ, f"the deterministic single process does not repeat "
+            f"bit for bit: {differ[:5]}")
+    require(max(rev.values()) <= GRAD_RTOL,
+            f"the single process against itself breaks the gradient rule: "
+            f"{top(rev, 3)}")
+    for name, worst in faults.items():
+        require(worst[0][1] > GRAD_RTOL,
+                f"the gradient rule passes a planted fault ({name}): {worst}")
+
+
+def phase_dist_city(graph, tmp: str) -> dict:
+    """Real process groups at the full city model: 2 ranks of node-TP and
+    4 ranks (2 x 2 DP x node-TP), NCCL where every rank has a card, else
+    gloo with the ranks sharing it. Each group: 2 fp32 steps with dropout
+    0 against the single process on the card (``dist_compare``), the
+    parameters bit for bit equal across the ranks, then 3 bf16 steps with
+    dropout 0.3 (finite, ms a step, peak memory per rank). Then the
+    training CLI under torchrun with 2 node-TP ranks and in one process
+    (fp32, dropout 0, one epoch): both checkpoints served in this process
+    through ``Forecaster.from_city_checkpoint``, the forecasts within 1e-4
+    of their scale. Returns the launches of the bf16 steps (the main path:
+    kernel 1 forward and dx per hop, kernel 2 for the mask)."""
+    import numpy as np
+    import torch
+
+    pos, src, dst, w = graph
+    gpath = os.path.join(tmp, "dist_graph.npz")
+    np.savez(gpath, pos=pos, src=src, dst=dst, weight=w)
+    ref = single_reference("city", graph)
+    grad_witness(graph, ref)
+    counts = {}
+    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                 keep_state=True),
+            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=3)]
+    for name, world, model, halo in DIST_LAYOUTS:
+        backend, recs, secs = dist_group(name, tmp, world, model, "city",
+                                         runs, gpath, halo)
+        readings = dist_compare(name, recs, ref,
+                                os.path.join(tmp, f"dist_{name}"))
+        bf = [r["bf16"] for r in recs]
+        shared = backend == "gloo" and torch.cuda.device_count() < world
+        emit("dist_city", layout=name, ranks=world, data=world // model,
+             model=model, exchange="all_gather" if halo is False else
+             "halo (auto)", backend=backend, cards=torch.cuda.device_count(),
+             seconds=round(secs, 3), **readings,
+             bf16_losses=[r["losses"] for r in bf],
+             bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
+             bf16_step_ms_median=sorted(bf[0]["step_ms"])[1],
+             timing_note=SHARED_CARD if shared else "one card per rank",
+             peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
+                                         for r in bf],
+             launches_rank0=bf[0]["launches"],
+             dropout_draw_ms_layer0=recs[0]["draw_ms"])
+        require(all(np.isfinite(r["losses"]).all() for r in bf),
+                f"dist {name}: non-finite bf16 losses")
+        want = dist_step_launches(3)
+        require(all(r["launches"] == want for r in bf),
+                f"dist {name}: bf16 launches per rank "
+                f"{[r['launches'] for r in bf]}, want {want}")
+        counts["dist_" + name] = {k: sum(r["launches"][k] for r in bf)
+                                  for k in want}
+    counts.update(dist_city_cli(tmp, dist_cli_paths(tmp, graph)))
+    dist_cli_more(tmp)
+    return counts
+
+
+def dist_step_launches(steps: int) -> dict:
+    """A node-TP rank's launches in ``steps`` train steps of the city
+    model (4 x 2 layers, two fixed supports and the mask, order 2): kernel
+    1 per hop forward and per hop dx (the last layer's diffusion gets no
+    backward), kernel 2 per hop of the mask in the backward; a sharded
+    support has no fused pair, so no kernel 3."""
+    layers, sups, order = 8, 3, 2
+    want = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,
+            "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
+            "gathered_block_outer": 0}
+    want["gathered_block_mix_flat"] = steps * order * sups * (2 * layers - 1)
+    want["gathered_block_outer_flat"] = steps * order * (layers - 1)
+    return want
+
+
+def dist_cli_paths(tmp: str, graph) -> tuple:
+    """The city graph the training CLI reads (``phase_train``'s, written
+    here when missing) and the CLI comparison's dataset
+    (``DIST_CLI_SAMPLES``)."""
+    from graph_wavenet_tpu_torch.graphs import city
+
+    pos, src, dst, w = graph
+    gpath = os.path.join(tmp, "train_graph.npz")
+    data_dir = os.path.join(tmp, "dist_cli_data")
+    if not os.path.exists(gpath):
+        city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_CITY)
+    write_city_data(data_dir, N_CITY, DIST_CLI_SAMPLES)
+    return gpath, data_dir
+
+
+def dist_city_cli(tmp: str, paths: tuple) -> dict:
+    """``torchrun --nproc_per_node 2 -m ...cli.train --mesh_model 2`` (gloo
+    with one card, else NCCL) and the same run in one process, fp32,
+    dropout 0, one epoch of ``DIST_CLI_SAMPLES``; both checkpoints served
+    here."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.cli import train
+    from graph_wavenet_tpu_torch.train import serving
+
+    gpath, data_dir = paths
+    argv = ["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
+            "--addaptadj", "--sparse", "flat", "--batch_size",
+            str(TRAIN_BATCH), "--seq_length", "12", "--epochs", "1",
+            "--dropout", "0.0", "--print_every", "100", "--device", "cuda"]
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    save_tp = os.path.join(tmp, "dist_cli_tp")
+    stdout, tp_s = run_together(
+        {"tp": torchrun_argv(argv + ["--mesh_model", "2"], save_tp)},
+        tmp)["tp"]
+    t1 = time.perf_counter()
+    one = train.main(argv + ["--save", os.path.join(tmp, "dist_cli_one")])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    ck_one = one["result"].best_checkpoint
+    del one
+    torch.cuda.empty_cache()
+    x = np.random.default_rng(8).normal(
+        50.0, 10.0, size=(2, 12, N_CITY, 2)).astype(np.float32)
+    preds = {}
+    for k, path in (("tp", only_checkpoint(save_tp)), ("one", ck_one)):
+        fc = serving.Forecaster.from_city_checkpoint(path, gpath,
+                                                     device="cuda")
+        preds[k] = fc.predict(x).cpu().numpy()
+        del fc
+    torch.cuda.empty_cache()
+    scale = float(np.abs(preds["one"]).max())
+    err = float(np.abs(preds["tp"] - preds["one"]).max())
+    emit("dist_city_cli", ranks=2, model=2, backend=backend,
+         tp_seconds=round(tp_s, 3), one_process_seconds=round(one_s, 3),
+         forecast_shape=list(preds["tp"].shape), max_abs_diff=err,
+         forecast_max_abs=scale, tolerance="1e-4 x max|one-process forecast|",
+         rank0_lines=[ln for ln in stdout.splitlines()
+                      if ln.startswith(("mesh:", "node-TP", "Epoch"))])
+    require(np.isfinite(preds["tp"]).all() and err <= 1e-4 * scale,
+            f"the node-TP checkpoint's forecast differs by {err} "
+            f"(scale {scale})")
+    return {}
+
+
+def run_together(cmds: dict, out: str) -> dict:
+    """Start every named command (an argv, run from the repository root)
+    at once, each bounded by DIST_TIMEOUT, its output in ``out``; wait for
+    all, kill what is left on a timeout. Returns {name: (stdout,
+    seconds)}; raises with a failed command's output."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs, logs, secs = {}, {}, {}
+    try:
+        for name, argv in cmds.items():
+            logs[name] = [open(os.path.join(out, f"{name}.{k}"), "w+")
+                          for k in ("out", "err")]
+            procs[name] = subprocess.Popen(argv, cwd=REPO, env=env,
+                                           stdout=logs[name][0],
+                                           stderr=logs[name][1], text=True)
+        while len(secs) < len(procs):
+            for name, p in procs.items():
+                if name not in secs and p.poll() is not None:
+                    secs[name] = time.perf_counter() - t0
+            require(time.perf_counter() - t0 < DIST_TIMEOUT,
+                    f"{sorted(set(procs) - set(secs))} outlived "
+                    f"{DIST_TIMEOUT} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result = {}
+    for name, p in procs.items():
+        text = []
+        for f in logs[name]:
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+        require(p.returncode == 0, f"{name} ({' '.join(cmds[name][:6])} "
+                f"...) failed: " + text[0][-3000:] + text[1][-3000:])
+        result[name] = (text[0], secs[name])
+    return result
+
+
+def torchrun_argv(argv: list, save: str, ranks: int = 2) -> list:
+    """The training CLI under torchrun on this machine (NCCL where every
+    rank has a card, else gloo)."""
+    import torch
+
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(ranks), "-m",
+            "graph_wavenet_tpu_torch.cli.train", *argv, "--dist_backend",
+            backend, "--save", save]
+
+
+def test_mae(stdout: str) -> float:
+    """The average test MAE a training CLI printed."""
+    line = [ln for ln in stdout.splitlines()
+            if ln.startswith("On average over seq_length horizons")][-1]
+    return float(line.split("Test MAE: ")[1].split(",")[0])
+
+
+def dist_cli_more(tmp: str) -> None:
+    """Two more training CLIs under torchrun with 2 ranks, run together:
+    the city model with the adaptive adjacency alone under node-TP
+    (``--aptonly``, the 2,048-node graph of ``phase_aptonly``, bf16) and
+    the METR model under DP (``--mesh_dp``, ``phase_metr_cli``'s data,
+    bf16); each test MAE finite and within ``CLI_MAE_RTOL`` of the
+    one-process run's of the same flags (``phase_aptonly``'s and
+    ``phase_dist_nccl1``'s plain run, ``ONE_PROCESS_TEST_MAE``)."""
+    import numpy as np
+
+    from graph_wavenet_tpu_torch.graphs import city
+
+    gpath = os.path.join(tmp, "aptonly_graph.npz")
+    data_dir = os.path.join(tmp, "aptonly_data")
+    if not os.path.exists(gpath):
+        pos, src, dst, w = city_graph(N_SMALL)
+        city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_SMALL)
+        write_city_data(data_dir, N_SMALL)
+    common = ["--dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+              "--seq_length", "12", "--epochs", "1", "--print_every", "100",
+              "--device", "cuda"]
+    dense = list(common)
+    dense[3] = str(DENSE_BATCH)
+    runs = run_together({
+        "aptonly": torchrun_argv(
+            ["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
+             "--addaptadj", "--aptonly", "--sparse", "flat", "--mesh_model",
+             "2", *common], os.path.join(tmp, "dist_aptonly")),
+        "metr": torchrun_argv(
+            ["--data", os.path.join(tmp, "METR"), "--adjdata",
+             os.path.join(tmp, "adj_mx.pkl"), "--num_nodes",
+             str(DENSE_NODES), "--gcn_bool", "--addaptadj", "--mesh_dp",
+             *dense], os.path.join(tmp, "dist_metr_cli"))}, tmp)
+    (out_a, secs_a), (out_m, secs_m) = runs["aptonly"], runs["metr"]
+    maes = {"city_aptonly_tp2": test_mae(out_a), "metr_dp2": test_mae(out_m)}
+    rel = {k: abs(v - ONE_PROCESS_TEST_MAE[k]) / ONE_PROCESS_TEST_MAE[k]
+           for k, v in maes.items()}
+    emit("dist_cli", runs={"city_aptonly_tp2": N_SMALL,
+                           "metr_dp2": DENSE_NODES},
+         test_mae=maes, test_mae_one_process=ONE_PROCESS_TEST_MAE,
+         test_mae_rel_diff=rel, tolerance=f"rtol {CLI_MAE_RTOL}",
+         seconds={"city_aptonly_tp2": round(secs_a, 3),
+                  "metr_dp2": round(secs_m, 3)},
+         mesh_lines=[ln for ln in (out_a + out_m).splitlines()
+                     if ln.startswith(("mesh:", "node-TP"))])
+    require(all(np.isfinite(v) and rel[k] <= CLI_MAE_RTOL
+                for k, v in maes.items()),
+            f"test MAE under torchrun {maes} against one process "
+            f"{ONE_PROCESS_TEST_MAE}")
+
+
+def phase_dist_metr() -> dict:
+    """2 DP ranks on the dense METR model (207 nodes, batch 64, the
+    supports whole on every rank): 2 fp32 steps with dropout 0 against the
+    single process (``dist_compare``), the ranks bit for bit equal, then 3
+    bf16 steps with dropout 0.3."""
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="gwt_dist_metr_") as tmp:
+        ref = single_reference("metr")
+        runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                     keep_state=True),
+                dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=3)]
+        backend, recs, secs = dist_group("metr", tmp, 2, 1, "metr", runs)
+        readings = dist_compare("metr", recs, ref,
+                                os.path.join(tmp, "dist_metr"))
+    bf = [r["bf16"] for r in recs]
+    shared = backend == "gloo" and torch.cuda.device_count() < 2
+    emit("dist_metr", ranks=2, data=2, model=1, backend=backend,
+         nodes=DENSE_NODES, batch=DENSE_BATCH, seconds=round(secs, 3),
+         **readings, bf16_losses=[r["losses"] for r in bf],
+         bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
+         timing_note=SHARED_CARD if shared else "one card per rank",
+         peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
+                                     for r in bf])
+    require(all(np.isfinite(r["losses"]).all() for r in bf),
+            "dist metr: non-finite bf16 losses")
+    return {}
+
+
+def phase_dist_nccl1(tmp: str) -> None:
+    """``--mesh_dp`` through the METR training CLI under torchrun with one
+    rank and NCCL against the same CLI run without a process group, the
+    two at once (bf16, dropout 0.3, one epoch on ``phase_metr_cli``'s
+    data): every parameter and buffer of the two checkpoints equal bit for
+    bit, so every step was."""
+    import torch
+
+    from graph_wavenet_tpu_torch.train import checkpoint as ckpt
+
+    data_dir = os.path.join(tmp, "METR")
+    adj = os.path.join(tmp, "adj_mx.pkl")
+    argv = ["--data", data_dir, "--adjdata", adj, "--num_nodes",
+            str(DENSE_NODES), "--gcn_bool", "--addaptadj", "--dtype",
+            "bfloat16", "--seq_length", "12", "--batch_size",
+            str(DENSE_BATCH), "--epochs", "1", "--print_every", "100",
+            "--device", "cuda"]
+    saves = {k: os.path.join(tmp, f"nccl1_{k}") for k in ("nccl1", "plain")}
+    out = run_together({
+        "nccl1": [sys.executable, "-m", "torch.distributed.run",
+                  "--standalone", "--nproc_per_node", "1", "-m",
+                  "graph_wavenet_tpu_torch.cli.train", *argv, "--mesh_dp",
+                  "--dist_backend", "nccl", "--save", saves["nccl1"]],
+        "plain": [sys.executable, "-m", "graph_wavenet_tpu_torch.cli.train",
+                  *argv, "--save", saves["plain"]]}, tmp)
+    runs = {k: (only_checkpoint(saves[k]), secs,
+                [ln for ln in stdout.splitlines()
+                 if ln.startswith(("mesh:", "Epoch"))])
+            for k, (stdout, secs) in out.items()}
+    ONE_PROCESS_TEST_MAE["metr_dp2"] = test_mae(out["plain"][0])
+    a = ckpt.load_state_dict(runs["nccl1"][0], device="cpu")
+    b = ckpt.load_state_dict(runs["plain"][0], device="cpu")
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    emit("dist_nccl1", ranks=1, backend="nccl", tensors=len(b),
+         differing=differ, seconds={k: round(v[1], 3)
+                                    for k, v in runs.items()},
+         lines={k: v[2] for k, v in runs.items()})
+    require(set(a) == set(b) and not differ,
+            f"--mesh_dp under one NCCL rank differs from the plain run: "
+            f"{differ}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3782,9 +4951,14 @@ def main() -> int:
         counts.update(phase_serve_artifact(tmp))
         counts.update(phase_rolling(tmp))
         counts.update(phase_diffg(tmp))
+        phase_dist_nccl1(tmp)
+        counts.update(phase_dist_city(graph, tmp))
+    phase_dist_metr()
     counts.update(phase_dense())
     counts.update(phase_resident(graph))
     counts.update(phase_kernel5_path(padded))
+    phase_tp_tables(graph)
+    phase_tp_local(graph)
 
     # launches on the main paths: kernel 1 serving the 128x512 layout and,
     # as the chain the dispatch rule picks, serving and in a train step,
@@ -3795,14 +4969,16 @@ def main() -> int:
     # forecast where the dispatch rule picks it (the last layers in bf16),
     # kernel 4 serving and training the padded form, eager and graphed, and
     # in the padded artifact, kernel 5 on the gradient through padded
-    # blocks; a graphed window counts every replay
+    # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
+    # rank's launches); a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
-              "artifact_padded", "serve_artifact", "rolling")),
+              "artifact_padded", "serve_artifact", "rolling", "dist_tp2",
+              "dist_dp2_tp2")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
-             ("train", "train_graphed")),
+             ("train", "train_graphed", "dist_tp2", "dist_dp2_tp2")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
              ("serve", "train", "train_graphed", "rolling")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,

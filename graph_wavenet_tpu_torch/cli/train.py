@@ -44,19 +44,34 @@ replayed per step on the card), ``--grad_accum``, ``--early_stop``,
 ``--epoch_timeout`` and ``--resume`` (the shared-graph synthetic task runs
 a step per batch). The options listed in :data:`LATER` wait for the slice
 each names (ROADMAP.md).
+
+Parallel training (``parallel``), one process per rank under torchrun::
+
+    torchrun --nproc_per_node W -m graph_wavenet_tpu_torch.cli.train \
+        --graph_npz city.npz --data data/CITY --gcn_bool --addaptadj \
+        --sparse flat --mesh_model S [--mesh_dp]
+
+``--mesh_model S`` splits the nodes over S ranks (node-TP of the flat
+supports and the mask; the city path with ``--sparse flat``), the data axis
+takes the other W / S; ``--mesh_dp`` alone is data parallelism over all W
+ranks (the METR path too). ``--dist_backend``: nccl (a card per rank, the
+default on ``cuda``) or gloo (the default on ``cpu``; ranks may share a
+card, their collectives staged through host memory). Only rank 0 prints
+and writes checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 import warnings
 
 # flags of the reference CLI that wait for a later slice of ROADMAP.md:
 # (type, the default that keeps them off, the slice); a bool is a
 # store_true switch
-LATER = {"mesh_model": (int, 1, "7"), "mesh_time": (int, 1, "7"),
-         "mesh_dp": (bool, False, "7")}
+LATER = {"mesh_time": (int, 1, "7b")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -147,6 +162,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume training from (full train "
                         "state); the run continues at its epoch + 1")
+    par = p.add_argument_group("parallel training under torchrun")
+    par.add_argument("--mesh_dp", action="store_true",
+                     help="data parallelism over every rank (with "
+                          "--mesh_model: over the ranks it leaves)")
+    par.add_argument("--mesh_model", type=int, default=1,
+                     help="node-TP: ranks that split the nodes (the city "
+                          "path, --sparse flat)")
+    par.add_argument("--dist_backend", type=str, default=None,
+                     choices=("nccl", "gloo"),
+                     help="process-group backend (default nccl on cuda, "
+                          "gloo on cpu); gloo lets ranks share a card")
     syn = p.add_argument_group("synthetic and CRASH tasks (--data syn|crash)")
     syn.add_argument("--same_g", action="store_true",
                      help="syn: one shared graph instead of one per subject")
@@ -198,17 +224,61 @@ def main(argv=None) -> dict:
         raise SystemExit(
             f"{', '.join(later)}: not ported yet (slice "
             f"{', '.join(sorted(set(later.values())))} of ROADMAP.md)")
+    mesh, started = _mesh(args)
     t0 = time.time()
-    if args.data == "syn":
-        result, runner, supports = _run_syn(args)
-    elif args.data == "crash":
-        result, runner, supports = _run_crash(args)
-    elif args.graph_npz:
-        result, runner, supports = _run_city(args)
-    else:
-        result, runner, supports = _run_metr(args)
-    print(f"Total time spent: {time.time() - t0:.4f}", flush=True)
+    try:
+        with contextlib.ExitStack() as quiet:
+            if mesh is not None and mesh.rank:      # only rank 0 prints
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            if args.data == "syn":
+                result, runner, supports = _run_syn(args)
+            elif args.data == "crash":
+                result, runner, supports = _run_crash(args)
+            elif args.graph_npz:
+                result, runner, supports = _run_city(args, mesh)
+            else:
+                result, runner, supports = _run_metr(args, mesh)
+            print(f"Total time spent: {time.time() - t0:.4f}", flush=True)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return {"result": result, "runner": runner, "supports": supports}
+
+
+def _mesh(args):
+    """(the rank's mesh or None, whether this call started the process
+    group) for ``--mesh_dp`` / ``--mesh_model``, after the refusals of what
+    waits for slice 7b; ``args.device`` becomes the rank's device."""
+    if not (args.mesh_dp or args.mesh_model > 1):
+        return None, False
+    if args.data in ("syn", "crash"):
+        raise SystemExit(f"--data {args.data} under a mesh waits for slice "
+                         "7b of ROADMAP.md (the per-sample supports' "
+                         "layouts)")
+    if args.mesh_model > 1 and not args.graph_npz:
+        raise SystemExit("--mesh_model > 1 shards the flat block-sparse "
+                         "supports of --graph_npz; dense node-TP (the METR "
+                         "path) waits for slice 7b of ROADMAP.md")
+    import torch.distributed as dist
+
+    from graph_wavenet_tpu_torch.config import MeshConfig
+    from graph_wavenet_tpu_torch.parallel import multihost
+    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+
+    started = not dist.is_initialized()
+    multihost.initialize(backend=args.dist_backend, device=args.device)
+    started = started and dist.is_initialized()
+    args.device = str(multihost.rank_device(args.device))
+    mesh = make_mesh(MeshConfig(model_axis=args.mesh_model),
+                     device=args.device)
+    if mesh.rank == 0:
+        print(f"mesh: {mesh.shape} over {mesh.world_size} rank(s), "
+              f"backend {dist.get_backend() if started else 'none'}",
+              flush=True)
+    return mesh, started
 
 
 def model_config(args, num_nodes: int, diff_g: bool = False):
@@ -249,7 +319,8 @@ def _check_horizon(args, data: dict) -> None:
             f"seq_length_y={horizon}); pass --seq_length {horizon}")
 
 
-def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None):
+def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None,
+         mesh=None):
     from graph_wavenet_tpu_torch.train.engine import Engine
     from graph_wavenet_tpu_torch.train.runner import Runner
 
@@ -257,15 +328,16 @@ def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None):
     engine = Engine(cfg, train_cfg, data["scaler"], device=args.device,
                     seed=args.seed,
                     steps_per_epoch=data["train_loader"].num_batch,
-                    aptinit=aptinit)
-    runner = Runner(engine, train_cfg, extra_meta=extra_meta)
+                    aptinit=aptinit, mesh=mesh)
+    runner = Runner(engine, train_cfg, extra_meta=extra_meta, mesh=mesh)
     result = runner.fit(data, supports, resume_from=args.resume)
     runner.test(data, supports, result)
     return result, runner, supports
 
 
-def _run_metr(args):
-    """The METR branch: dense supports from the adjacency pickle."""
+def _run_metr(args, mesh=None):
+    """The METR branch: dense supports from the adjacency pickle (under
+    ``--mesh_dp`` whole on every rank)."""
     import numpy as np
     import torch
 
@@ -290,11 +362,14 @@ def _run_metr(args):
     # fixed supports, as the test CLI evaluates it
     supports = ([] if args.aptonly else
                 [torch.as_tensor(a, device=device) for a in adj])
-    return _fit(args, cfg, data, supports, aptinit=aptinit)
+    return _fit(args, cfg, data, supports, aptinit=aptinit, mesh=mesh)
 
 
-def _run_city(args):
-    """The --graph_npz branch: ordered block-sparse supports."""
+def _run_city(args, mesh=None):
+    """The --graph_npz branch: ordered block-sparse supports; under
+    ``--mesh_model`` > 1 the rank's shards of the flat supports and of the
+    mask (only the mask under ``--aptonly``) and its node range of the
+    data."""
     import torch
 
     from graph_wavenet_tpu_torch.data.metr import load_dataset
@@ -327,15 +402,45 @@ def _run_city(args):
           f"{layout['fused2']}" + (f", adaptive mask {mask.n_live} blocks"
                                    if mask is not None else ""), flush=True)
 
+    tp = mesh is not None and mesh.model > 1
+    fixed = [] if args.aptonly else list(supports)
+    if tp:
+        from graph_wavenet_tpu_torch.ops.block_sparse import (
+            FlatBlockSparseSupport,
+        )
+        from graph_wavenet_tpu_torch.parallel.sparse_tp import (
+            shard_adaptive_mask,
+            shard_flat_support,
+        )
+
+        if not all(isinstance(s, FlatBlockSparseSupport) for s in supports):
+            raise SystemExit(
+                "--mesh_model > 1 with --graph_npz needs --sparse flat "
+                "(node-TP shards the flat live-block form)")
+        nb = layout["n_pad"] // args.block_size
+        if nb % mesh.model:
+            raise SystemExit(
+                f"--mesh_model {mesh.model} does not divide the graph's "
+                f"{nb} block-rows ({layout['n_pad']} nodes in blocks of "
+                f"{args.block_size})")
+        fixed = [shard_flat_support(s, mesh) for s in fixed]
+        if mask is not None:
+            mask = shard_adaptive_mask(mask, mesh)
+        forms = sorted({"halo" if s.halo else "all_gather"
+                        for s in fixed + ([mask] if mask else [])})
+        print(f"node-TP over {mesh.model} ranks, exchange: "
+              f"{', '.join(forms)}", flush=True)
+
     data = load_dataset(args.data, args.batch_size, seed=args.seed,
                         node_layout=layout, resident=args.resident,
-                        device=args.device)
+                        device=args.device,
+                        nodes=mesh.node_range(layout["n_pad"]) if tp
+                        else None)
     _check_horizon(args, data)
     cfg = model_config(args, layout["n_pad"])
-    sup_list = ([] if args.aptonly else list(supports)) + (
-        [mask] if args.addaptadj else [])
+    sup_list = fixed + ([mask] if args.addaptadj else [])
     return _fit(args, cfg, data, sup_list,
-                extra_meta={"graph_layout": layout})
+                extra_meta={"graph_layout": layout}, mesh=mesh)
 
 
 def _syn_runner(args, cfg, data, diff_g: bool):

@@ -1,6 +1,7 @@
 """Configuration dataclasses, field for field the reference package's
 (``graph_wavenet_tpu/config.py``), so that its checkpoint sidecars load:
-the model, the optimization, and the synthetic datasets' ``DataConfig``.
+the model, the optimization, the synthetic datasets' ``DataConfig`` and
+the grid of ranks' ``MeshConfig``.
 
 ``TrainConfig.rng_impl`` names a TPU random-bit generator; it is accepted and
 ignored here.
@@ -158,6 +159,26 @@ class DataConfig:
     rho_temporal: float = 0.0
     same_g: bool = False
     pooltype: str = "avg"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The grid of ranks (``parallel.mesh.make_mesh``): ``model_axis``
+    ranks split the nodes (node-TP of the flat block-sparse supports), and
+    the data axis takes the rest of the world. Time-halo sequence
+    parallelism (``time_axis`` > 1) waits for slice 7b of ROADMAP.md."""
+
+    model_axis: int = 1
+    time_axis: int = 1
+
+    def __post_init__(self):
+        if self.time_axis != 1:
+            raise NotImplementedError(
+                "time_axis > 1 (time-halo sequence parallelism) is not "
+                "ported yet: slice 7b of ROADMAP.md")
+        if self.model_axis < 1:
+            raise ValueError(f"the model axis must be >= 1, got "
+                             f"{self.model_axis}")
 
 
 def to_dict(cfg: Any) -> dict:

@@ -26,6 +26,12 @@ copying data. ``superbatches(S)`` and ``remainder_batches(S)`` split an
 epoch for ``train.engine.Engine.train_steps_windows`` / ``..._resident``,
 which gather each step's batch inside the fused call from
 ``resident_series()`` / ``resident_arrays()``.
+
+Under a mesh (``parallel.mesh``) every rank builds its loaders from the
+same seed, over its node range only (``data.metr.load_dataset(...,
+nodes=)``), so the ranks shuffle alike and each holds N/S nodes of every
+sample; a batch is the global batch's rows, of which the engine takes the
+rank's share (``Mesh.batch_rows``).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ shuffle from a seeded numpy Generator, and yield numpy batches; ``num_real``
 keeps the unpadded count. Given ``adj_idx`` (a graph index per sample, the
 per-sample-graph datasets), ``DataLoader`` pads and shuffles it with the
 samples and yields ``(x, y, adj_idx)`` triples. ``data.device_loader``
-holds their device-resident counterparts.
+holds their device-resident counterparts; under a mesh both hold a rank's
+node range and yield global batches (``data.device_loader``).
 """
 
 from __future__ import annotations

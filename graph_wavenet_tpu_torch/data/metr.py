@@ -49,14 +49,18 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
                  resident: str = "host",
                  scaler: StandardScaler | None = None,
                  node_layout: dict | None = None,
-                 device: torch.device | str = "cuda") -> dict:
+                 device: torch.device | str = "cuda",
+                 nodes: tuple[int, int] | None = None) -> dict:
     """``scaler``: standardize with this one instead of fitting on this
     directory's ``x_train`` (evaluating a checkpoint takes its training
     statistics). ``node_layout`` (``graphs.city``): the node axis of every
     split is permuted into model order and zero-padded after the scaler
     fit, so pad zeros do not bias the statistics. ``device``: where
     ``resident="device"`` keeps the splits (the host arrays ``x_*``,
-    ``y_*`` stay in the dict either way)."""
+    ``y_*`` stay in the dict either way). ``nodes``: a node-TP rank's
+    ``[lo, hi)`` in model order (``parallel.mesh.Mesh.node_range``): every
+    split keeps only those nodes, after the scaler fit and the layout, so
+    the loaders and the test targets hold the rank's range."""
     _check_resident(resident)
     rng = np.random.default_rng(seed)
     data: dict = {}
@@ -73,6 +77,10 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
         from graph_wavenet_tpu_torch.graphs.city import apply_layout_to_data
 
         apply_layout_to_data(data, node_layout)
+    if nodes is not None:
+        lo, hi = nodes
+        for k in [k for k in data if k.startswith(("x_", "y_"))]:
+            data[k] = np.ascontiguousarray(data[k][:, :, lo:hi])
     for category in ("train", "val", "test"):
         xs, ys = data["x_" + category], data["y_" + category]
         data[category + "_loader"] = (

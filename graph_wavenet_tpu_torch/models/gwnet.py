@@ -22,10 +22,22 @@ nodes and more. Dense supports take ``cfg.resolved_gcn_mode``; in
 
 In train mode BatchNorm uses batch statistics and the graph convolutions
 take dropout, drawn from the generator passed to :meth:`GWNet.forward`
-before each layer runs. ``cfg.remat`` recomputes every layer but the first
-in the backward (``torch.utils.checkpoint``); the dropout masks drawn
-outside and the BatchNorm statistics folded in outside the recomputed
-function keep a remat step equal to a plain one.
+before each layer runs.
+
+Under a mesh (``GWNet.mesh``, ``parallel.mesh.Mesh``; DP and node-TP) the
+model runs on the rank's batch rows and node range, ``cfg.num_nodes``
+staying the global count: every BatchNorm takes the statistics of the
+whole batch over the world group, a layer draws its dropout mask at the
+global shape and keeps the rank's slice (so a step equals the
+single-process one, at the cost of one global draw per rank and layer),
+the fixed supports are the rank's shards (``parallel.sparse_tp``) and the
+mask its :class:`~parallel.sparse_tp.ShardedBlockAdaptiveMask`. The dense
+adaptive adjacency, and dense supports, under node-TP wait for slice 7b.
+
+``cfg.remat`` recomputes every layer but the first in the backward
+(``torch.utils.checkpoint``); the dropout masks drawn outside and the
+BatchNorm statistics folded in outside the recomputed function keep a
+remat step equal to a plain one.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from graph_wavenet_tpu_torch.ops.temporal import (
     gated_tcn_apply,
     left_pad_time,
 )
+from graph_wavenet_tpu_torch.parallel import sparse_tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,6 +124,7 @@ class GWNet(nn.Module):
         # seed gives the same weights on every device
         self.to(device)
         self.eval()
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, supports: list | None, *,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -144,11 +158,7 @@ class GWNet(nn.Module):
         for i, dilation in enumerate(cfg.dilations()):
             drop = None
             if draw:
-                b, t, n, _ = x.shape
-                shape = (b, t - dilation * (cfg.kernel_size - 1), n,
-                         cfg.residual_channels)
-                drop = dropout_scale(generator, cfg.dropout, shape, x.dtype,
-                                     x.device)
+                drop = self._dropout(generator, x, dilation)
             args = (i, dilation, t_final, x, skip, supports, stacks, drop)
             if cfg.remat and skip is not None and torch.is_grad_enabled():
                 # the layer draws no random numbers (its mask is an
@@ -165,6 +175,26 @@ class GWNet(nn.Module):
         out = torch.relu(self.end_conv_1(out))
         out = self.end_conv_2(out)
         return out.float()
+
+    def _dropout(self, generator, x: torch.Tensor,
+                 dilation: int) -> torch.Tensor:
+        """A layer's dropout mask for the rank's (B, T', N, C): drawn at
+        the global shape under a mesh (its data x model grid), the rank's
+        block kept."""
+        cfg = self.cfg
+        b, t, n, _ = x.shape
+        t = t - dilation * (cfg.kernel_size - 1)
+        mesh = self.mesh
+        if mesh is None:
+            return dropout_scale(generator, cfg.dropout,
+                                 (b, t, n, cfg.residual_channels), x.dtype,
+                                 x.device)
+        drop = dropout_scale(
+            generator, cfg.dropout,
+            (b * mesh.data, t, n * mesh.model, cfg.residual_channels),
+            x.dtype, x.device)
+        d, m = mesh.data_index, mesh.model_index
+        return drop[d * b:(d + 1) * b, :, m * n:(m + 1) * n]
 
     def _layer(self, i: int, dilation: int, t_final: int, x: torch.Tensor,
                skip: torch.Tensor | None, supports: list | None,
@@ -184,7 +214,8 @@ class GWNet(nn.Module):
         else:
             x = self.residual_convs[i](x)
         x = x + residual[:, -x.shape[1]:]
-        x, stats = self.bn[i].normalize(x)
+        x, stats = self.bn[i].normalize(
+            x, None if self.mesh is None else self.mesh.world)
         return x, skip, stats
 
     def _with_adaptive(self, supports: list | None) -> list | None:
@@ -201,6 +232,16 @@ class GWNet(nn.Module):
                 "supports contain a BlockAdaptiveMask but the adaptive "
                 "adjacency is off (gcn_bool and addaptadj must both be set "
                 "to materialize it)")
+        if self.mesh is not None and self.mesh.model > 1:
+            unsharded = [s for s in supports
+                         if not isinstance(s, sparse_tp.SHARDED)]
+            if unsharded or (use_adapt and not masks):
+                raise NotImplementedError(
+                    "node-TP (model axis > 1) takes the sharded flat "
+                    "supports and the sharded adaptive mask "
+                    "(parallel.sparse_tp); dense supports and the dense "
+                    "adaptive adjacency under node-TP wait for slice 7b of "
+                    "ROADMAP.md")
         if not use_adapt:
             return list(supports)
         if cfg.fresh_nodevec:

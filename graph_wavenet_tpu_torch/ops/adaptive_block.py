@@ -111,14 +111,16 @@ def adaptive_blocks(mask: BlockAdaptiveMask, nodevec1: torch.Tensor,
                     nodevec2: torch.Tensor) -> torch.Tensor:
     """Live blocks (L, BS_src, BS_dst) of the block-masked adaptive
     adjacency, in the nodevecs' dtype: the row softmax of each global
-    source row over its live destinations."""
+    source row over its live destinations, computed in fp32 (fp64 for
+    fp64 nodevecs)."""
     r = nodevec1.shape[1]
     dt = nodevec1.dtype
+    ct = torch.promote_types(dt, torch.float32)
     e1 = nodevec1.reshape(mask.n_src_blocks, mask.bs_src, r).index_select(
         0, mask.live_src)                                  # (L, BS_s, r)
     e2 = nodevec2.reshape(r, mask.n_dst_blocks, mask.bs_dst).permute(
         1, 0, 2).index_select(0, mask.live_dst)            # (L, r, BS_d)
-    logits = torch.relu(torch.bmm(e1.float(), e2.float()))  # (L, BS_s, BS_d)
+    logits = torch.relu(torch.bmm(e1.to(ct), e2.to(ct)))   # (L, BS_s, BS_d)
     seg = mask.live_src
     nbs = mask.n_src_blocks
     # per-source-row max over live destinations: a stability shift only

@@ -4,12 +4,15 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go to
 ``graph_wavenet_tpu_torch/_build/`` (git-ignored), named by a digest of
 the sources, so an edited source rebuilds and an unchanged one loads
-as is. All sources compile in parallel, one ``nvcc`` each, at first use.
+as is. All sources compile in parallel, one ``nvcc`` each, at first use;
+processes that share ``_build/`` (the ranks of a parallel run) take turns
+through a file lock, so one builds and the others load.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -58,9 +61,15 @@ def build_all() -> float:
     the seconds taken. Raises with nvcc's output if any build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(exist_ok=True)
-    todo = [s for s in SOURCES if not _lib_path(s).exists()]
-    if not todo:
-        return 0.0
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        todo = [s for s in SOURCES if not _lib_path(s).exists()]
+        if todo:
+            _compile(todo)
+    return time.perf_counter() - t0
+
+
+def _compile(todo: list[str]) -> None:
     nvcc = _nvcc()
     procs = []
     for src in todo:
@@ -82,7 +91,6 @@ def build_all() -> float:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def load(source: str) -> ctypes.CDLL:

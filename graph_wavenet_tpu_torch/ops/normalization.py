@@ -8,12 +8,23 @@ the batch statistics over (B, T, N) normalize (biased variance) and update
 the running statistics in place (unbiased variance, momentum 0.1), which
 keep their dtype; in eval mode the running statistics normalize. The
 reference's ``t_valid`` restriction waits for the pipeline slice.
+
+Under a process group (``parallel``: DP and node-TP) the batch statistics
+are those of the whole batch across the ranks, as GSPMD keeps them in the
+JAX package: the mean is the sum over every rank's (B, T, N) divided by
+the global count, then the biased variance the same way over the squared
+deviations, each sum a differentiable all-reduce (whose backward is a sum
+all-reduce of the cotangent); the running statistics unbias with the
+global count, so every rank tracks the same values. One process computes
+the same sums and divisions with no collective.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from graph_wavenet_tpu_torch.parallel.collectives import all_sum, group_size
 
 
 MOMENTUM = 0.1
@@ -34,25 +45,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), device=device, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y, stats = self.normalize(x)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        y, stats = self.normalize(x, group)
         if stats is not None:
             self.track(*stats)
         return y
 
-    def normalize(self, x: torch.Tensor):
+    def normalize(self, x: torch.Tensor, group=None):
         """``(y, stats)`` without touching the running statistics: in train
         mode ``stats`` = (batch mean, biased variance, count) for
         :meth:`track`, in eval mode None. The model's rematerialized layers
-        call this, so a recomputation does not count a batch twice."""
+        call this, so a recomputation does not count a batch twice.
+        ``group``: the process group whose ranks hold the rest of the
+        batch (equal shares), or None."""
         xf = x.float()
         stats = None
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dim=dims)
-            var = ((xf - mean) ** 2).mean(dim=dims)        # biased
-            stats = (mean.detach(), var.detach(),
-                     float(x.numel() // x.shape[-1]))
+            n = float(x.numel() // x.shape[-1] * group_size(group))
+            mean = all_sum(xf.sum(dim=dims), group) / n
+            var = all_sum(((xf - mean) ** 2).sum(dim=dims), group) / n
+            stats = (mean.detach(), var.detach(), n)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         inv = torch.rsqrt(var + self.eps)

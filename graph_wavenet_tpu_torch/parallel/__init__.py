@@ -1,0 +1,16 @@
+"""Parallel layouts over ``torch.distributed``: one process per rank, with
+explicit collectives (the JAX package's single controller lets GSPMD place
+them).
+
+- ``multihost``: bring up the process group, the rank's device, a state
+  broadcast from rank 0;
+- ``mesh``: the (data x model) grid of ranks, its process groups, a
+  rank's batch rows and node range;
+- ``collectives``: the sum all-reduce (differentiable), the row
+  all_gather, the two-neighbour exchange and the gradient all-reduce;
+- ``sparse_tp``: node-TP of the flat block-sparse supports and of the
+  block-masked adaptive adjacency (kernels 1 and 2 per shard).
+
+Time-halo sequence parallelism, the pipeline and dense node-TP wait for
+slice 7b of ROADMAP.md.
+"""

@@ -1,0 +1,142 @@
+"""The collectives of the parallel layer (JAX takes them from ``lax``:
+``psum``, ``all_gather``, ``ppermute``).
+
+Every function takes a process group, or None for a layout of one rank, in
+which case it is the identity. The caller chooses the backend when it
+creates the group: on a gloo group a CUDA tensor goes through a pinned host
+buffer (gloo runs only some collectives on CUDA tensors), on an NCCL group
+it stays on the card; nothing switches backend on a failure.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def group_size(group) -> int:
+    """Ranks in ``group`` (1 for None)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """True when ``t`` must go through the host: a CUDA tensor on gloo."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``t`` (the copy waits for the card)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place; returns ``t``."""
+    if group is None:
+        return t
+    if _staged(t, group):
+        h = _host(t)
+        dist.all_reduce(h, group=group)
+        t.copy_(h)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Overwrite ``t`` with global rank ``src``'s value, in place."""
+    if _staged(t, group):
+        h = _host(t)
+        dist.broadcast(h, src, group=group)
+        t.copy_(h)
+    else:
+        dist.broadcast(t, src, group=group)
+    return t
+
+
+class _AllSum(torch.autograd.Function):
+    """Sum all-reduce whose backward is a sum all-reduce of the cotangent:
+    every rank uses the sum, so the gradient of a rank's summand is the sum
+    of every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, differentiable."""
+    if group is None:
+        return t
+    return _AllSum.apply(t, group)
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, ...) on every rank -> (S * n, ...): the ranks' rows in group
+    order (JAX ``all_gather(..., tiled=True)``)."""
+    if group is None:
+        return x
+    s = dist.get_world_size(group)
+    x = x.contiguous()
+    shape = (s * x.shape[0],) + tuple(x.shape[1:])
+    if _staged(x, group):
+        h = _host(x)
+        out = torch.empty(shape, dtype=x.dtype, pin_memory=True)
+        dist.all_gather_into_tensor(out, h, group=group)
+        return out.to(x.device)
+    out = x.new_empty(shape)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def neighbour_exchange(x: torch.Tensor, group, ranks) -> tuple:
+    """``(prev, next)``: ``x`` of the previous and of the next rank of
+    ``group``, with wrap-around (JAX: two ``ppermute``s). ``ranks``: the
+    group's global ranks in group order. Sends carry tag 0 towards the
+    next rank and tag 1 towards the previous one, so with two ranks (both
+    neighbours the same peer) each receive takes the right message; NCCL
+    matches them in the order posted, which is the same."""
+    if group is None:
+        return x, x
+    s = len(ranks)
+    me = dist.get_rank(group)
+    nxt, prv = ranks[(me + 1) % s], ranks[(me - 1) % s]
+    staged = _staged(x, group)
+    src = _host(x) if staged else x.contiguous()
+
+    def empty():
+        return (torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                if staged else torch.empty_like(src))
+
+    got_prev, got_next = empty(), empty()
+    ops = [dist.P2POp(dist.isend, src, nxt, group, 0),
+           dist.P2POp(dist.isend, src, prv, group, 1),
+           dist.P2POp(dist.irecv, got_prev, prv, group, 0),
+           dist.P2POp(dist.irecv, got_next, nxt, group, 1)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        return got_prev.to(x.device), got_next.to(x.device)
+    return got_prev, got_next
+
+
+def all_reduce_grads(params, group) -> None:
+    """Sum every parameter's gradient over ``group`` through one flat
+    buffer per dtype (parameters without a gradient are skipped: every rank
+    runs the same graph, so they are the same ones)."""
+    if group is None:
+        return
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))

@@ -1,0 +1,147 @@
+"""The grid of ranks: data parallelism (DP) x node tensor parallelism.
+
+Counterpart of ``graph_wavenet_tpu/parallel/mesh.py``. JAX builds a device
+mesh and lets GSPMD partition a step by the arrays' ``NamedSharding``s; the
+port runs one process per rank, and a :class:`Mesh` tells each rank which
+part of the work is its own:
+
+- axis ``data`` (D ranks): rank (d, m) takes the rows ``[d*B/D,
+  (d+1)*B/D)`` of every global batch of B rows (with ``n_micro``
+  micro-batches, the d-th share of each, so that every micro-batch is the
+  single-process one);
+- axis ``model`` (S ranks): node-TP; rank (d, m) holds the nodes ``[m*N/S,
+  (m+1)*N/S)`` of every activation, and its shard of the flat block-sparse
+  supports (``parallel.sparse_tp``).
+
+The global rank is ``d * S + m``, the model index innermost, as in JAX's
+``(data, model, time)`` reshape. Parameters are replicated: every rank
+holds all of them and applies the same update.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from graph_wavenet_tpu_torch.config import MeshConfig
+
+DATA, MODEL, TIME = "data", "model", "time"
+
+
+@dataclass(eq=False)
+class Mesh:
+    """This rank's place in the grid and its process groups. A group of
+    one rank is None (its collectives are the identity); ``world`` is None
+    only without a process group (one process)."""
+
+    data: int                 # ranks on the data axis (D)
+    model: int                # ranks on the model axis (S)
+    rank: int
+    device: torch.device
+    world: object = None      # every rank: BatchNorm, loss, gradients
+    model_group: object = None  # the ranks of this rank's data index
+    model_ranks: tuple = (0,)  # global ranks of model_group, in order
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def world_size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def shape(self) -> dict:
+        return {DATA: self.data, MODEL: self.model, TIME: 1}
+
+    def batch_rows(self, b: int, n_micro: int = 1) -> np.ndarray:
+        """This rank's rows of a global batch of ``b`` rows: the d-th share
+        of each of its ``n_micro`` micro-batches. Refuses a batch that
+        ``D * n_micro`` does not divide."""
+        if b % (self.data * n_micro):
+            raise ValueError(
+                f"global batch {b} must divide by the data axis {self.data}"
+                + (f" x grad_accum {n_micro}" if n_micro > 1 else ""))
+        mb = b // n_micro
+        share = mb // self.data
+        lo = self.data_index * share
+        return np.concatenate([np.arange(i * mb + lo, i * mb + lo + share)
+                               for i in range(n_micro)])
+
+    def node_range(self, n: int) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``n`` nodes."""
+        if n % self.model:
+            raise ValueError(f"{n} nodes must divide by the model axis "
+                             f"{self.model}")
+        per = n // self.model
+        return self.model_index * per, (self.model_index + 1) * per
+
+    def shard_batch(self, a: torch.Tensor, n_micro: int = 1,
+                    n_nodes: int | None = None) -> torch.Tensor:
+        """This rank's rows (:meth:`batch_rows`) of a (B, T, N, F) batch,
+        and its node range where axis 2 holds all ``n_nodes`` nodes and the
+        model axis splits them (a loader's batch holds the range already)."""
+        rows = self.batch_rows(a.shape[0], n_micro)
+        if n_micro == 1:
+            a = a[int(rows[0]):int(rows[-1]) + 1]
+        else:
+            a = a.index_select(0, torch.as_tensor(rows, device=a.device))
+        if self.model > 1 and n_nodes is not None and a.shape[2] == n_nodes:
+            lo, hi = self.node_range(n_nodes)
+            a = a[:, :, lo:hi]
+        return a.contiguous()
+
+    def barrier(self) -> None:
+        if self.world is None:
+            return
+        if dist.get_backend(self.world) == "nccl":
+            dist.barrier(self.world, device_ids=[self.device.index])
+        else:
+            dist.barrier(self.world)
+
+
+def make_mesh(cfg: MeshConfig | None = None,
+              device: torch.device | str = "cpu",
+              timeout_s: float = 600.0) -> Mesh:
+    """This rank's :class:`Mesh` over the initialized process group
+    (``parallel.multihost.initialize``), or the one-rank mesh without one.
+    The data axis takes what the model axis leaves.
+    Every rank must call it, in the same order: it creates the groups."""
+    cfg = cfg or MeshConfig()
+    device = torch.device(device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    s = cfg.model_axis
+    if n % s:
+        raise ValueError(f"{n} ranks do not divide by the model axis {s}")
+    d = n // s
+    if not dist.is_initialized():
+        return Mesh(d, s, 0, device)
+    rank = dist.get_rank()
+    world = dist.group.WORLD
+    timeout = datetime.timedelta(seconds=timeout_s)
+
+    # every rank creates every model group (collectively, in one order)
+    # and keeps its own
+    model_group = None
+    for i in range(d):
+        ranks = [i * s + m for m in range(s)]
+        if s == n:
+            g = world
+        elif s == 1:
+            g = None
+        else:
+            g = dist.new_group(ranks, timeout=timeout)
+        if rank in ranks:
+            model_group = g
+    di = rank // s
+    return Mesh(d, s, rank, device, world=world, model_group=model_group,
+                model_ranks=tuple(di * s + m for m in range(s)))
+

@@ -34,6 +34,18 @@ before every step, for every step, eager or not: the fused steps run one
 captured step as a CUDA graph (``train.step_graph``), and the two Adam
 paths differ in the last bits. On the CPU Adam keeps its host scalars and
 a fused call is the eager loop of the same step.
+
+Under a mesh (``Engine(..., mesh=)``, ``parallel.mesh.Mesh``: DP and node-TP
+over ``torch.distributed``) a step is the single-process step on the global
+batch, as GSPMD keeps a JAX mesh step: every rank is given the global batch
+(its node range, or all nodes) and takes its rows (the d-th share of each
+micro-batch) and its node range; BatchNorm statistics, the mask's mean and
+the metrics are global (``train.metrics``), each rank back-propagates its
+part of the loss, and the gradients are summed over the world in one flat
+all-reduce before the clip and Adam, which then do the same on every rank:
+the parameters stay replicated bit for bit. ``predict_step`` returns the
+rank's rows and nodes. The fused steps (CUDA graphs over a process group)
+and the two-modality tasks under a mesh wait for slice 7b of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -52,11 +64,12 @@ from graph_wavenet_tpu_torch.data.scaler import StandardScaler
 from graph_wavenet_tpu_torch.models.gwnet import GWNet
 from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
 from graph_wavenet_tpu_torch.ops.diffusion import nconv, nconv_batched
+from graph_wavenet_tpu_torch.parallel.collectives import all_reduce_grads
 from graph_wavenet_tpu_torch.train import step_graph
 from graph_wavenet_tpu_torch.train.metrics import (
+    global_terms,
     masked_mae,
-    masked_mape,
-    masked_rmse,
+    masked_terms,
 )
 
 __all__ = ["Engine", "cluster_mean_projector", "gather_window_rows",
@@ -153,13 +166,18 @@ class Engine:
     optimizer steps; ``aptinit``: the adjacency whose SVD initializes the
     adaptive embeddings (:class:`models.gwnet.GWNet`); ``diff_g``: the
     per-sample-graph model (:class:`models.gwnet_diff_g.GWNetDiffG`),
-    whose supports are (B, N, N) per batch."""
+    whose supports are (B, N, N) per batch; ``mesh``: this rank's
+    :class:`parallel.mesh.Mesh` (its device is the engine's)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  scaler: StandardScaler | None, *,
                  device: torch.device | str = "cuda",
                  seed: int | None = None, steps_per_epoch: int = 0,
-                 aptinit=None, diff_g: bool = False):
+                 aptinit=None, diff_g: bool = False, mesh=None):
+        if mesh is not None and diff_g:
+            raise NotImplementedError(
+                "the per-sample-graph model under a mesh waits for slice 7b "
+                "of ROADMAP.md")
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -174,6 +192,10 @@ class Engine:
         self.diff_g = diff_g
         self.model = (GWNetDiffG if diff_g else GWNet)(
             model_cfg, device=self.device, seed=seed, aptinit=aptinit)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"engine's {self.device}")
+        self.mesh = self.model.mesh = mesh
         cuda = self.device.type == "cuda"
         # on the card: one learning-rate tensor for the life of the engine
         # (a captured step reads it by address) and capturable Adam
@@ -194,8 +216,22 @@ class Engine:
         self._graphs: dict = {}
         self._stream = torch.cuda.Stream(self.device) if cuda else None
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    def _tensor(self, a, n_micro: int = 1) -> torch.Tensor:
+        """A batch array on the device; under a mesh the rank's rows and
+        node range of it."""
+        a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        if self.mesh is None:
+            return a
+        return self.mesh.shard_batch(a, n_micro, self.model_cfg.num_nodes)
+
+    def batch_rows(self, b: int) -> np.ndarray:
+        """The rows of a global batch of ``b`` that this rank computes."""
+        return (np.arange(b) if self.mesh is None
+                else self.mesh.batch_rows(b))
+
+    @property
+    def _world(self):
+        return None if self.mesh is None else self.mesh.world
 
     def _generator(self) -> torch.Generator:
         """What the model draws from: the engine's generator, but in eval
@@ -214,8 +250,9 @@ class Engine:
 
     @staticmethod
     def _metrics(loss, predict, real) -> torch.Tensor:
-        return torch.stack([loss, masked_mape(predict, real, 0.0),
-                            masked_rmse(predict, real, 0.0)])
+        """(loss, MAPE, RMSE) of ``predict`` (one process)."""
+        return torch.cat([loss.reshape(1),
+                          global_terms(*masked_terms(predict, real))[1:]])
 
     def _set_lr(self) -> None:
         """The schedule's rate for the next step: filled into the device
@@ -228,14 +265,16 @@ class Engine:
                 group["lr"] = lr
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor, supports):
-        """(loss, stacked metrics) of a batch in the model's mode."""
+        """(loss, stacked global metrics) of a batch in the model's mode;
+        under a mesh the loss is this rank's part."""
         predict = self._forward(x, supports)
         real = horizon_target(y)
-        loss = masked_mae(predict, real, 0.0)
+        mae, mape, mse = masked_terms(predict, real, 0.0, self._world)
         with torch.no_grad():
-            return loss, self._metrics(loss.detach(), predict.detach(), real)
+            return mae, global_terms(mae, mape, mse, self._world)
 
     def _update(self) -> None:
+        all_reduce_grads(self.model.parameters(), self._world)
         torch.nn.utils.clip_grad_norm_(self.model.parameters(),
                                        self.train_cfg.grad_clip)
         self.optimizer.step()
@@ -312,7 +351,7 @@ class Engine:
         each micro-batch's BatchNorm normalizes with its own statistics,
         and the running statistics take one update, from the last
         micro-batch. Peak activation memory drops about ``n_micro``-fold."""
-        x, y = self._tensor(x), self._tensor(y)
+        x, y = self._tensor(x, n_micro), self._tensor(y, n_micro)
         return self._accumulate(
             x.shape[0], n_micro,
             lambda lo, hi: self._loss(x[lo:hi], y[lo:hi], supports))
@@ -323,6 +362,10 @@ class Engine:
         ``body(sel)`` runs one step (``train``: an optimizer step) on the
         samples ``sel`` and returns its stacked metrics; ``key``: the
         resident inputs and supports it reads and its static arguments."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            raise NotImplementedError(
+                "the fused steps (CUDA graphs) over a process group wait for "
+                "slice 7b of ROADMAP.md; run train_step / eval_step")
         idx = torch.as_tensor(idx, device=self.device).to(torch.int32)
         if idx.ndim != 2:
             raise ValueError(f"idx must be (S, B), got {tuple(idx.shape)}")
@@ -460,6 +503,10 @@ class Engine:
         return loss, m
 
     def _syn_tensors(self, x, y, projector):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the two-modality tasks under a mesh wait for slice 7b of "
+                "ROADMAP.md")
         return (self._tensor(x), self._tensor(y),
                 torch.as_tensor(projector, dtype=torch.float32,
                                 device=self.device))

@@ -26,8 +26,21 @@ resume_from=path)`` restores a checkpoint's train state and continues at
 its epoch + 1. After the last epoch the writes drain, the checkpoints are
 pruned once more and the best-validation weights reload; the test scores
 them per horizon on the real (unpadded) test samples. Step metrics stay on
-the device until the end of the epoch. Meshes wait for their slice
-(ROADMAP.md), and so does ``prefetch``, which the runner refuses.
+the device until the end of the epoch. ``prefetch`` waits for its slice
+(ROADMAP.md), and the runner refuses it.
+
+Under a mesh (``Runner(engine, cfg, mesh=...)``, the engine's: DP and
+node-TP, one process per rank) every rank runs the same loop on the same
+shuffle: the engine takes its rows and node range of each global batch,
+and the metrics it returns are global, so validation loss, best epoch,
+early stop and resume decide the same on every rank. Rank 0 alone logs
+and writes checkpoints, ``history.jsonl`` and ``emergency.json`` (the
+parameters are replicated, so its checkpoint is the model); the others
+wait at a barrier after each epoch's checkpoint, and after the last one
+take rank 0's best weights by broadcast. A resume reads the checkpoint on
+every rank (a path every rank can read). The test scores the rank's rows
+and nodes and sums over the ranks. The fused feeds (``scan_steps`` > 1)
+under a mesh wait for slice 7b.
 
 The two-modality tasks run the same epoch machinery (resume, early stop,
 watchdog, asynchronous best-k checkpoints) over ``Engine.train_step_syn``
@@ -54,6 +67,7 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch.config import TrainConfig
+from graph_wavenet_tpu_torch.parallel.multihost import replicate_pytree
 from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 from graph_wavenet_tpu_torch.train.engine import (
     Engine,
@@ -138,22 +152,39 @@ def _print_flush(*args, **kwargs):
 class Runner:
     """Drives an :class:`Engine` over a dataset dict of
     :func:`data.metr.load_dataset`. ``extra_meta``: JSON records merged
-    into every checkpoint sidecar's ``extra`` (the city node layout)."""
+    into every checkpoint sidecar's ``extra`` (the city node layout).
+    ``mesh``: the engine's mesh (module docstring)."""
 
     def __init__(self, engine: Engine, train_cfg: TrainConfig,
-                 log_fn=_print_flush, extra_meta: dict | None = None):
+                 log_fn=_print_flush, extra_meta: dict | None = None,
+                 mesh=None):
         if train_cfg.prefetch > 0:
             raise NotImplementedError(
                 "TrainConfig.prefetch > 0: the host prefetch pipeline is not "
                 "ported (ROADMAP.md); the device-resident loaders "
                 "(resident='device') need none")
+        mesh = engine.mesh if mesh is None else mesh
+        if mesh is not engine.mesh:
+            raise ValueError("Runner(mesh=) must be the engine's mesh")
+        if mesh is not None and train_cfg.scan_steps > 1:
+            raise NotImplementedError(
+                "scan_steps > 1 (the fused CUDA-graph steps) under a mesh "
+                "waits for slice 7b of ROADMAP.md; use scan_steps=1")
         self.engine = engine
         self.cfg = train_cfg
-        self.log = log_fn
+        self.mesh = mesh
+        # rank 0 logs and writes; the others compute the same decisions
+        self.lead = mesh is None or mesh.rank == 0
+        self.log = log_fn if self.lead else (lambda *a, **k: None)
         self.extra_meta = extra_meta or {}
         self._ckpt_scores: dict[str, float] = {}
         self._ckpt_writer = (ckpt.AsyncCheckpointer()
-                             if train_cfg.async_checkpoint else None)
+                             if train_cfg.async_checkpoint and self.lead
+                             else None)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _train_epoch(self, loader, supports) -> list[dict]:
         """One epoch's train steps through the loader's feed (see the
@@ -268,15 +299,32 @@ class Runner:
         predictions (n, N, H) as ``test_metrics["yhat"]``, a numpy array."""
         result = result or RunResult()
         engine = self.engine
-        outputs = [engine.predict_step(x, supports)[:, 0]     # (B, N, H)
-                   for x, _ in data["test_loader"].get_iterator()]
-        realy = torch.as_tensor(np.transpose(data["y_test"][..., 0],
-                                             (0, 2, 1)), device=engine.device)
-        yhat = torch.cat(outputs)[:realy.shape[0]]
+        loader = data["test_loader"]
+        outputs, ids = [], []
+        for i, (x, _) in enumerate(loader.get_iterator()):
+            outputs.append(engine.predict_step(x, supports)[:, 0])
+            ids.append(i * loader.batch_size
+                       + engine.batch_rows(loader.batch_size))
+        # the rank's real (unpadded) test samples, in model node order and
+        # its node range: (n, N, H)
+        y_test = data["y_test"]
+        ids = np.concatenate(ids)
+        keep = ids < y_test.shape[0]
+        y_real = y_test[ids[keep]][..., 0]
+        if (self.mesh is not None
+                and y_real.shape[2] == engine.model_cfg.num_nodes):
+            lo, hi = self.mesh.node_range(y_real.shape[2])
+            y_real = y_real[:, :, lo:hi]
+        realy = torch.as_tensor(np.transpose(y_real, (0, 2, 1)),
+                                device=engine.device)
+        yhat = torch.cat(outputs)[torch.as_tensor(keep,
+                                                  device=engine.device)]
+        world = None if self.mesh is None else self.mesh.world
         per_h = []
         for h in range(yhat.shape[-1]):
             pred = engine.scaler.inverse_transform(yhat[:, :, h])
-            scores = torch.stack(metric(pred, realy[:, :, h])).cpu().tolist()
+            scores = torch.stack(metric(pred, realy[:, :, h],
+                                        world)).cpu().tolist()
             per_h.append(tuple(scores))
             self.log(f"Evaluate best model on test data for horizon "
                      f"{h + 1:d}, Test MAE: {scores[0]:.4f}, Test MAPE: "
@@ -454,7 +502,10 @@ class Runner:
     def _emergency_dump(self, result: RunResult, epoch: int,
                         reason: str) -> None:
         """Diagnostics of a wedged run, written without touching the
-        device: the epoch history and the last complete checkpoint."""
+        device: the epoch history and the last complete checkpoint (rank 0
+        only)."""
+        if not self.lead:
+            return
         if self._ckpt_writer is not None:
             try:
                 # the queued states are on the host already; let their
@@ -493,6 +544,8 @@ class Runner:
         return start_epoch
 
     def _append_history(self, rec: dict) -> None:
+        if not self.lead:
+            return
         os.makedirs(self.cfg.save_dir, exist_ok=True)
         with open(os.path.join(self.cfg.save_dir, "history.jsonl"),
                   "a") as f:
@@ -510,24 +563,27 @@ class Runner:
         path = os.path.join(
             self.cfg.save_dir,
             f"exp{self.cfg.expid}_epoch_{epoch}_{round(val_loss, 2)}.pt")
-        meta = dict(model_cfg=engine.model_cfg, train_cfg=self.cfg,
-                    scaler=engine.scaler,
-                    extra={"epoch": epoch, "val_loss": val_loss,
-                           # the serve and export CLIs pick the diff-G
-                           # forecaster by this record
-                           "diff_g": engine.diff_g, **self.extra_meta},
-                    train_state=engine.train_state())
-        if self._ckpt_writer is not None:
-            self._ckpt_writer.save(path, engine.model.state_dict(), **meta)
-        else:
-            ckpt.save_checkpoint(path, engine.model.state_dict(), **meta)
         self._ckpt_scores[path] = val_loss
-        # 0 keeps every epoch's checkpoint, as the reference does; a
-        # just-queued path whose write has not landed stays tracked until
-        # a later prune (the last one runs in _finalize_best)
-        if self.cfg.keep_checkpoints > 0:
-            ckpt.prune_checkpoints(self.cfg.keep_checkpoints,
-                                   self._ckpt_scores)
+        if self.lead:
+            meta = dict(model_cfg=engine.model_cfg, train_cfg=self.cfg,
+                        scaler=engine.scaler,
+                        extra={"epoch": epoch, "val_loss": val_loss,
+                               # the serve and export CLIs pick the diff-G
+                               # forecaster by this record
+                               "diff_g": engine.diff_g, **self.extra_meta},
+                        train_state=engine.train_state())
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.save(path, engine.model.state_dict(),
+                                       **meta)
+            else:
+                ckpt.save_checkpoint(path, engine.model.state_dict(), **meta)
+            # 0 keeps every epoch's checkpoint, as the reference does; a
+            # just-queued path whose write has not landed stays tracked
+            # until a later prune (the last one runs in _finalize_best)
+            if self.cfg.keep_checkpoints > 0:
+                ckpt.prune_checkpoints(self.cfg.keep_checkpoints,
+                                       self._ckpt_scores)
+        self._barrier()
         if val_loss < result.best_val_loss:
             result.best_val_loss = val_loss
             result.best_epoch = epoch
@@ -541,8 +597,13 @@ class Runner:
             if self.cfg.keep_checkpoints > 0:
                 ckpt.prune_checkpoints(self.cfg.keep_checkpoints,
                                        self._ckpt_scores)
-        if result.best_checkpoint and os.path.exists(result.best_checkpoint):
-            self.engine.model.load_state_dict(ckpt.load_state_dict(
+        if not result.best_checkpoint:
+            return
+        model = self.engine.model
+        if self.lead and os.path.exists(result.best_checkpoint):
+            model.load_state_dict(ckpt.load_state_dict(
                 result.best_checkpoint, device=self.engine.device))
             self.log(f"The valid loss on best model is "
                      f"{result.best_val_loss:.4f}")
+        # every rank takes rank 0's best weights (no shared file needed)
+        replicate_pytree(model.state_dict(), self.mesh)

@@ -983,3 +983,180 @@ def test_autoregressive_forecast_graphed_equals_eager(card):
         torch.use_deterministic_algorithms(False)
     (g,) = fc.step_graphs()
     assert g.replays == 2 + 3
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer on the card (ranks as subprocesses sharing it)
+# ---------------------------------------------------------------------------
+
+DIST_CHILD = r'''
+import json, os, sys
+import numpy as np
+import torch
+from graph_wavenet_tpu_torch.config import MeshConfig
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.parallel import collectives, multihost, sparse_tp
+from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+
+mode, rank, world, init, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+torch.backends.cuda.matmul.allow_tf32 = False
+multihost.initialize("gloo" if mode == "gloo2" else "nccl", rank, world,
+                     init, device="cuda", timeout_s=300)
+dev = multihost.rank_device("cuda")
+res = {}
+if mode == "gloo2":
+    mesh = make_mesh(MeshConfig(model_axis=world), dev)
+    g = mesh.model_group
+    x = torch.arange(6.0, device=dev).reshape(3, 2) + 10 * rank
+    res["gather"] = collectives.all_gather_rows(x, g).cpu().tolist()
+    prev, nxt = collectives.neighbour_exchange(x, g, mesh.model_ranks)
+    res["exchange"] = [prev.cpu().tolist(), nxt.cpu().tolist()]
+    v = torch.full((3,), float(rank + 1), device=dev, requires_grad=True)
+    (collectives.all_sum(v, g) * (rank + 1)).sum().backward()
+    res["all_sum_grad"] = v.grad.cpu().tolist()
+    from graph_wavenet_tpu_torch.graphs import spatial
+    rng = np.random.default_rng(0)
+    n = 2048
+    src, dst, w = spatial.knn_graph_edges(rng.random((n, 2)), 4)
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+    perm = rcm_order_edges(src, dst, n)
+    flat = spatial.doubletransition_block_supports(
+        src, dst, w, n, perm=perm, form="flat", block_size=128,
+        device=dev)[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for halo in (False, "auto"):
+            sp = sparse_tp.shard_flat_support(flat.astype(dtype), mesh,
+                                              halo=halo, trainable=True)
+            gen = torch.Generator().manual_seed(1)
+            xa = torch.randn((n, 96), generator=gen).to(dtype)
+            wa = torch.randn((n, 96), generator=gen).to(dtype)
+            lo, hi = mesh.node_range(n)
+            xl = xa[lo:hi].to(dev).requires_grad_(True)
+            sp.blocks.requires_grad_(True)
+            bd.reset_launch_counts()
+            y = sp.mix_2d(xl)
+            (y.float() * wa[lo:hi].to(dev).float()).sum().backward()
+            torch.cuda.synchronize()
+            gb = collectives.all_reduce_(sp.blocks.grad.float().clone(), g)
+            key = f"{dtype}/{halo}"
+            np.save(os.path.join(out, f"{key.replace('/', '_')}_{rank}.npy"),
+                    np.concatenate([y.detach().float().cpu().numpy().ravel(),
+                                    xl.grad.float().cpu().numpy().ravel()]))
+            if rank == 0:
+                np.save(os.path.join(out, f"{key.replace('/', '_')}_db.npy"),
+                        gb.cpu().numpy())
+            res[key] = {"launches": dict(bd.LAUNCHES), "halo": sp.halo}
+else:
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    rng = np.random.default_rng(0)
+    a = rng.random((2, 32, 32)).astype(np.float32)
+    sups = [torch.as_tensor(s / s.sum(-1, keepdims=True), device=dev)
+            for s in a]
+    x = rng.normal(size=(8, 12, 32, 2)).astype(np.float32)
+    y = (rng.normal(size=(8, 12, 32, 2)) + 5).astype(np.float32)
+    cfg = ModelConfig(num_nodes=32, residual_channels=8, dilation_channels=8,
+                      skip_channels=16, end_channels=16, blocks=2, layers=2)
+    mesh = make_mesh(MeshConfig(), dev)
+    states = []
+    for m in (None, mesh):
+        eng = Engine(cfg, TrainConfig(), None, device=dev, seed=0, mesh=m)
+        for _ in range(2):
+            eng.train_step(x, y, sups)
+        torch.cuda.synchronize()
+        states.append({k: v.cpu() for k, v in eng.model.state_dict().items()})
+    res["differ"] = [k for k in states[0]
+                     if not torch.equal(states[0][k], states[1][k])]
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+'''
+
+
+def run_dist_child(tmp_path, mode: str, world: int) -> list:
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=repo, LOCAL_RANK=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DIST_CHILD, mode, str(rank), str(world),
+             f"file://{tmp_path}/rdzv", str(tmp_path)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def test_gloo_ranks_sharing_the_card_stage_collectives_and_shard_hops(
+        card, tmp_path):
+    """Two gloo ranks on one card: the collectives on CUDA tensors (staged
+    through the host) deliver the right rows and gradients, and a sharded
+    2,048-node trainable support's hop, dx and summed blocks' gradient (both
+    exchange forms, fp32 and bf16) equal the unsharded support's on the
+    card bit for bit, kernel 1 twice and kernel 2 once per rank."""
+    from graph_wavenet_tpu_torch.graphs import spatial
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+
+    res = run_dist_child(tmp_path, "gloo2", 2)
+    x0 = [[0.0, 1.0], [2.0, 3.0], [4.0, 5.0]]
+    x1 = [[10.0, 11.0], [12.0, 13.0], [14.0, 15.0]]
+    assert res[0]["gather"] == x0 + x1 == res[1]["gather"]
+    assert res[0]["exchange"] == [x1, x1] and res[1]["exchange"] == [x0, x0]
+    # d/dv_r of sum_q (q+1) * sum(all_sum(v)) = 1 + 2 on every rank
+    assert res[0]["all_sum_grad"] == [3.0] * 3 == res[1]["all_sum_grad"]
+    rng = np.random.default_rng(0)
+    n = 2048
+    src, dst, w = spatial.knn_graph_edges(rng.random((n, 2)), 4)
+    flat = spatial.doubletransition_block_supports(
+        src, dst, w, n, perm=rcm_order_edges(src, dst, n), form="flat",
+        block_size=128, device=card)[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for halo in (False, "auto"):
+            key = f"{dtype}/{halo}"
+            gen = torch.Generator().manual_seed(1)
+            xa = torch.randn((n, 96), generator=gen).to(dtype).to(card)
+            wa = torch.randn((n, 96), generator=gen).to(dtype).to(card)
+            blocks = flat.blocks_flat.to(dtype).clone().requires_grad_(True)
+            sp = dataclasses.replace(flat, blocks_flat=blocks)
+            xa.requires_grad_(True)
+            y = sp.mix_2d(xa)
+            (y.float() * wa.float()).sum().backward()
+            got = [np.load(tmp_path / f"{key.replace('/', '_')}_{r}.npy")
+                   for r in range(2)]
+            half = n // 2 * 96
+            y_got = np.concatenate([g[:half] for g in got])
+            dx_got = np.concatenate([g[half:] for g in got])
+            # every destination row sums the same live entries in the same
+            # order as the unsharded tables (chip_smoke.py's tp_local
+            # shows it at full width): bit for bit
+            np.testing.assert_array_equal(
+                y_got, y.detach().float().cpu().numpy().ravel())
+            np.testing.assert_array_equal(
+                dx_got, xa.grad.float().cpu().numpy().ravel())
+            np.testing.assert_array_equal(
+                np.load(tmp_path / f"{key.replace('/', '_')}_db.npy"),
+                blocks.grad.float().cpu().numpy())
+            for r in res:
+                launches = r[key]["launches"]
+                assert launches["gathered_block_mix_flat"] == 2
+                assert launches["gathered_block_outer_flat"] == 1
+                assert r[key]["halo"] == (halo == "auto")
+
+
+def test_nccl_one_rank_steps_equal_plain_steps(card, tmp_path):
+    """An Engine on a one-rank NCCL mesh takes the same two train steps as
+    one without a mesh, bit for bit (parameters and BatchNorm buffers)."""
+    res = run_dist_child(tmp_path, "nccl1", 1)
+    assert res[0]["differ"] == []

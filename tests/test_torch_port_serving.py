@@ -172,13 +172,13 @@ def test_package_imports_no_jax():
         "'graph_wavenet_tpu') or m.startswith(('jax.', 'flax.', "
         "'graph_wavenet_tpu.'))]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 46, mods\n"
+        "assert len(mods) >= 51, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 46
+    assert int(out.stdout.strip()) >= 51
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch,
