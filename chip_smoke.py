@@ -17,7 +17,7 @@ exits non-zero:
    library times (kernel 3's: two chained BSR products); each line of
    kernels 1, 3 and 4 names its tile width (``ct``) and product (fp32
    FMAs, or ``wgmma`` in bf16); bf16 kernel 1 forward timed at every tile
-   width at four R (the evidence for ``tile_cols``);
+   width at R = 3,072 (the evidence for ``tile_cols``);
 4. kernel checks at the training path's shapes (the 40,960-node adaptive
    mask, R = 1,536 and 128, fp32 and bf16): kernel 2 per entry against its
    plain version (and once on 128x512 blocks) and in storage order (as
@@ -35,8 +35,8 @@ exits non-zero:
    bit-identical, and (fp32 output) bitwise against kernel 2 on
    ``as_flat_pallas``'s tables; the host build of the padded supports
    timed beside the flat one;
-6. kernel 3's dispatch: the fused pass against the chain at every R of the
-   main paths (``DISPATCH_R``), forward and over the transpose tables with
+6. kernel 3's dispatch: the fused pass against the chain at the main
+   paths' R of ``DISPATCH_R``, forward and over the transpose tables with
    ``add``, fp32 and bf16, bit for bit, each line with both branches' host
    time per call and the branch ``"auto"`` picks (``fused2_dispatch``),
    which must not be the slower by more than 25% and 0.05 ms;
@@ -159,6 +159,31 @@ exits non-zero:
    and dx and kernel 2 over each shard's tables and concatenated rows,
    put back together, bit for bit the unsharded support's where the
    tables sum the same entries in the same order.
+25. ``dist_nccl1`` also runs the METR and the diff-G training CLIs with
+   ``--mesh_dp --scan_steps 4`` under one NCCL rank (each fused step a
+   CUDA graph with its collectives captured) against the plain
+   ``--scan_steps 1`` runs, the checkpoints bit for bit;
+26. ``dist_graphed``: on a one-rank NCCL group (``graphed_worker``), the
+   METR model (bf16, batch 64), the city training cell (flat, the mask,
+   bf16, batch 4; kernels 1, 2 and 3 in the replays, counted in the
+   ``kernels`` line's ``dist_graphed`` window) and README's diff-G run
+   (fp32, batch 32), dropout 0.3, graphed steps (S = 4) bit for bit the
+   eager ones without deterministic algorithms, with ms per step and idle
+   share of both;
+27. ``dist_diffg``: README's diff-G run on 2 gloo DP ranks sharing the
+   card, 2 fp32 steps with dropout 0 against the single process
+   (``dist_compare``), and ``--data crash --mesh_dp`` under torchrun, its
+   test MAE within ``CLI_MAE_RTOL`` of the one-process run's;
+28. ``determinism``: two fresh fp32 city training steps with the mask
+   (40,960 nodes, batch 4, flat, dropout 0) in two child processes
+   without deterministic algorithms, equal bit for bit (losses,
+   gradients, parameters).
+
+The script's cuts for time: the tile-width sweep at R = 3,072
+only, the dispatch table at the R of ``DISPATCH_R``, plain and library
+times only on the ``kernels`` line's shapes, fewer timed repeats in ``export`` and fewer rolling origins of the METR
+model; every check still runs. Before the ``kernels`` line it prints
+``{"phase_seconds": {...}}``.
 
 The launch counts of a graphed window add each replay's launches (a
 wrapper counts its Python calls, so a capture counts a step once).
@@ -493,23 +518,26 @@ def phase_kernels(graph) -> dict:
                     require(ok, f"kernel 1 disagrees with its plain "
                                 f"version: {rec}")
                     rec["kernel_ms"] = cuda_ms(k1, reps)
-                    rec["plain_ms"] = cuda_ms(plain, max(2, reps // 5))
-                    lib_fn, lib_name, lib_out = library_hop(
-                        bsd, x.reshape(-1, r), tl)
-                    lib_err, _, _ = close_err(
-                        lib_out.reshape(got.shape).to(dtype), got)
-                    del lib_out
-                    rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
-                    rec["library"] = lib_name
-                    rec["library_max_abs_diff"] = lib_err
                     flops, nbytes = hop_cost(sp, r, isz, fused=False)
                     rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
                                                              dname)
-                    del lib_fn
-                    emit("kernel_check", **rec)
+                    # the plain and library times of the kernels line's
+                    # shape only
                     if (label, tl, dname, r) == ("128x128", True,
                                                  "bfloat16", 3072):
+                        rec["plain_ms"] = cuda_ms(plain, max(2, reps // 5))
+                        lib_fn, lib_name, lib_out = library_hop(
+                            bsd, x.reshape(-1, r), tl)
+                        lib_err, _, _ = close_err(
+                            lib_out.reshape(got.shape).to(dtype), got)
+                        del lib_out
+                        rec["library_ms"] = cuda_ms(lib_fn,
+                                                    max(2, reps // 5))
+                        rec["library"] = lib_name
+                        rec["library_max_abs_diff"] = lib_err
+                        del lib_fn
                         summary["k1"] = rec
+                    emit("kernel_check", **rec)
                     del got
                     torch.cuda.empty_cache()
             # kernel 3 on the square support, with and without add
@@ -568,25 +596,32 @@ def phase_kernels(graph) -> dict:
                 rec["kernel_ms"] = cuda_ms(k3, reps)
                 rec["chain_ms"] = cuda_ms(chain, reps)
                 rec["auto"] = bd.fused2_dispatch(r, dtype, add=with_add)
-                rec["plain_ms"] = cuda_ms(k3_plain, max(2, reps // 5))
-                lib_fn, rec["library"] = library_hop_pair(
-                    sq.astype(dtype), x.reshape(-1, r), True,
-                    None if add is None else add.reshape(-1, r))
-                rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
-                del lib_fn
                 flops, nbytes = hop_cost(sq, r, isz, fused=True,
                                          with_add=with_add)
                 rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
                                                          dname)
-                emit("kernel_check", **rec)
                 # R = 32: the last layer of a batch-1 predict, where the
-                # dispatch rule picks kernel 3 in bf16
+                # dispatch rule picks kernel 3 in bf16; its plain and
+                # library times are the kernels line's
                 if (dname, r, with_add) == ("bfloat16", 32, False):
+                    rec["plain_ms"] = cuda_ms(k3_plain, max(2, reps // 5))
+                    lib_fn, rec["library"] = library_hop_pair(
+                        sq.astype(dtype), x.reshape(-1, r), True,
+                        None if add is None else add.reshape(-1, r))
+                    rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+                    del lib_fn
                     summary["k3"] = rec
+                emit("kernel_check", **rec)
                 del add
                 torch.cuda.empty_cache()
     tile_widths(sq, gen)
     return summary
+
+
+# the R of the batch-8 predict's first layer, the widest kernel-1 launch of
+# the main paths (the sweep at 384, 640 and 1,152 too agreed with
+# ``tile_cols``, which has not changed since)
+TILE_WIDTH_R = (3072,)
 
 
 def tile_widths(sq, gen) -> None:
@@ -600,7 +635,7 @@ def tile_widths(sq, gen) -> None:
 
     blocks = sq.astype(torch.bfloat16).blocks_flat
     lib = bd._lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
-    for r in (384, 640, 1152, 3072):
+    for r in TILE_WIDTH_R:
         x = torch.randn(sq.nb, 128, r, generator=gen,
                         device="cuda").to(torch.bfloat16)
         out = torch.empty_like(x)
@@ -623,17 +658,16 @@ def tile_widths(sq, gen) -> None:
         del x, out
 
 
-# R of every order-2 hop pair on the main paths (B x T x 32 channels, T =
-# 12, 10, 9, 7, 6, 4, 3, 1 over the eight layers): predict at batch 1 and 8
-# and the batch-4 train step forward; the step's backward over the
-# transpose tables with add (every layer but the last); and the 2,048-node
-# batch-2 runs
+# R of the order-2 hop pairs the dispatch table is checked at (B x T x 32
+# channels, T = 12, 10, 9, 7, 6, 4, 3, 1 over the eight layers): the
+# smallest and largest of the main paths (predict at batch 1 and 8, the
+# batch-4 train step forward, and its backward over the transpose tables
+# with add), and the R on both sides of each threshold of
+# ``block_diffusion.FUSED2_R`` (fp32 fused from 512, 448 with add; bf16 at
+# R <= 128). Every R of the main paths (38) gave the same picks
 DISPATCH_R = {
-    "forward": (32, 64, 96, 128, 192, 224, 256, 288, 320, 384, 448, 512, 576,
-                640, 768, 896, 1024, 1152, 1280, 1536, 1792, 2304, 2560,
-                3072),
-    "transpose+add": (128, 192, 256, 384, 448, 512, 576, 640, 768, 896,
-                      1152, 1280, 1536, 3072)}
+    "forward": (32, 128, 192, 384, 448, 512, 576, 1536, 3072),
+    "transpose+add": (128, 192, 384, 448, 512, 1536)}
 
 
 def phase_dispatch(graph) -> dict:
@@ -825,6 +859,8 @@ def phase_train_kernels(graph) -> dict:
         blocks = sp.blocks_flat
         for r in (1536, 128):
             reps = 5 if r > 256 else 100
+            # plain and library times at the kernels line's shape only
+            full = (dname, r) == ("bfloat16", 1536)
             x = torch.randn(nb, bs, r, generator=gen,
                             device="cuda").to(dtype)
             g = torch.randn(nb, bs, r, generator=gen,
@@ -852,14 +888,16 @@ def phase_train_kernels(graph) -> dict:
             require(ok, f"kernel 2 disagrees with its plain version: {rec}")
             require(deterministic, f"kernel 2 is not deterministic: {rec}")
             rec["kernel_ms"] = cuda_ms(k2, reps)
-            rec["plain_ms"] = cuda_ms(k2_plain, max(2, reps // 5))
-            xs = x.index_select(0, sp.src_tbl.long())
-            gs = g.index_select(0, sp.row_tbl.long()).transpose(1, 2)
-            lib_ms = cuda_ms(lambda: torch.bmm(xs, gs), max(2, reps // 5))
-            lib_name = ("torch.bmm on operands gathered beforehand (gather "
-                        "excluded; output in the input dtype)")
-            rec["library_ms"], rec["library"] = lib_ms, lib_name
-            del xs, gs
+            if full:
+                rec["plain_ms"] = cuda_ms(k2_plain, max(2, reps // 5))
+                xs = x.index_select(0, sp.src_tbl.long())
+                gs = g.index_select(0, sp.row_tbl.long()).transpose(1, 2)
+                lib_ms = cuda_ms(lambda: torch.bmm(xs, gs),
+                                 max(2, reps // 5))
+                lib_name = ("torch.bmm on operands gathered beforehand "
+                            "(gather excluded; output in the input dtype)")
+                rec["library_ms"], rec["library"] = lib_ms, lib_name
+                del xs, gs
             flops, nbytes = outer_cost(mask, r, isz)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
@@ -905,16 +943,16 @@ def phase_train_kernels(graph) -> dict:
                     f"gathered, bit for bit: {rec}")
             rec["kernel_ms"] = cuda_ms(k2s, reps)
             rec["per_entry_gathered_ms"] = cuda_ms(per_entry_gathered, reps)
-            rec["plain_ms"] = cuda_ms(
-                lambda: bd.outer_flat_plain(x, g, sp.src_tbl, sp.row_tbl,
-                                            sp.slot_tbl, n_slots, dtype),
-                max(2, reps // 5))
-            rec["library_ms"], rec["library"] = lib_ms, lib_name
+            if full:
+                rec["plain_ms"] = cuda_ms(
+                    lambda: bd.outer_flat_plain(x, g, sp.src_tbl, sp.row_tbl,
+                                                sp.slot_tbl, n_slots, dtype),
+                    max(2, reps // 5))
+                rec["library_ms"], rec["library"] = lib_ms, lib_name
+                summary["k2"] = rec
             flops, nbytes = outer_cost(mask, r, isz, storage_isz=isz)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
-            if (dname, r) == ("bfloat16", 1536):
-                summary["k2"] = rec
             torch.cuda.empty_cache()
 
             # kernel 3 over the transpose tables with add: the fused
@@ -962,11 +1000,12 @@ def phase_train_kernels(graph) -> dict:
             rec["kernel_ms"] = cuda_ms(k3t, reps)
             rec["chain_ms"] = cuda_ms(chain, reps)
             rec["auto"] = bd.fused2_dispatch(r, dtype, add=True)
-            rec["plain_ms"] = cuda_ms(k3t_plain, max(2, reps // 5))
-            lib_fn, rec["library"] = library_hop_pair(
-                sp, g.reshape(-1, r), False, x.reshape(-1, r))
-            rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
-            del lib_fn
+            if full:
+                rec["plain_ms"] = cuda_ms(k3t_plain, max(2, reps // 5))
+                lib_fn, rec["library"] = library_hop_pair(
+                    sp, g.reshape(-1, r), False, x.reshape(-1, r))
+                rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+                del lib_fn
             flops, nbytes = hop_cost(sp, r, isz, fused=True, with_add=True)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
@@ -987,15 +1026,17 @@ def phase_train_kernels(graph) -> dict:
             require(ok, f"kernel 1 (transpose, mask) disagrees with its "
                         f"plain version: {rec}")
             rec["kernel_ms"] = cuda_ms(k1t, reps)
-            rec["plain_ms"] = cuda_ms(
-                lambda: bd.mix_flat_plain(*args, nb=nb, transpose_lhs=False),
-                max(2, reps // 5))
-            lib_fn, lib_name, lib_out = library_hop(sp, g.reshape(-1, r),
-                                                    False)
-            del lib_out
-            rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
-            rec["library"] = lib_name
-            del lib_fn
+            if full:
+                rec["plain_ms"] = cuda_ms(
+                    lambda: bd.mix_flat_plain(*args, nb=nb,
+                                              transpose_lhs=False),
+                    max(2, reps // 5))
+                lib_fn, lib_name, lib_out = library_hop(
+                    sp, g.reshape(-1, r), False)
+                del lib_out
+                rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+                rec["library"] = lib_name
+                del lib_fn
             flops, nbytes = hop_cost(sp, r, isz, fused=False)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
@@ -1169,8 +1210,8 @@ def phase_small_train(seed: int = 0) -> None:
                + [dataclasses.replace(mask, fuse2=None)])
     state = engine.model.state_dict()
     grads = {}
-    # PyTorch's index_add_ (the adaptive softmax's segment sums and the
-    # nodevec gathers' backward) uses float atomics unless asked not to
+    # deterministic algorithms: a bracket kept from before the mask's sums
+    # ran in a fixed order (``ops.adaptive_block``); it changes no result
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for name, sups in (("fused", sup), ("unfused", unfused)):
@@ -1850,20 +1891,23 @@ def phase_padded_kernels(graph):
                 require(bitwise, f"kernel 4 is not bitwise equal to kernel "
                                  f"1 on the flat tables: {rec}")
                 rec["kernel_ms"] = cuda_ms(k4, reps)
-                rec["plain_ms"] = cuda_ms(plain, max(2, reps // 5))
-                lib_fn, lib_name, lib_out = library_hop(flat, x.reshape(-1, r),
-                                                        tl)
-                rec["library_max_abs_diff"], _, _ = close_err(
-                    lib_out.reshape(got.shape).to(dtype), got)
-                del lib_out
-                rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
-                rec["library"] = lib_name + " (as_flat_pallas tables)"
-                del lib_fn
                 flops, nbytes = padded_cost(spd, r, isz, 2 * slot.numel())
                 rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
-                emit("kernel_check", **rec)
+                # plain and library times at the kernels line's shape only
+                # (the fp32 BSR product tunes itself for ~20 s at each new
+                # shape)
                 if (tl, dname, r) == (True, "bfloat16", 3072):
+                    rec["plain_ms"] = cuda_ms(plain, max(2, reps // 5))
+                    lib_fn, lib_name, lib_out = library_hop(
+                        flat, x.reshape(-1, r), tl)
+                    rec["library_max_abs_diff"], _, _ = close_err(
+                        lib_out.reshape(got.shape).to(dtype), got)
+                    del lib_out
+                    rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
+                    rec["library"] = lib_name + " (as_flat_pallas tables)"
+                    del lib_fn
                     summary["k4"] = rec
+                emit("kernel_check", **rec)
                 del got, x
                 torch.cuda.empty_cache()
 
@@ -1914,20 +1958,21 @@ def phase_padded_kernels(graph):
             require(bitwise, f"kernel 5 is not bitwise equal to kernel 2 on "
                              f"the flat tables: {rec}")
             rec["kernel_ms"] = cuda_ms(k5, reps)
-            rec["plain_ms"] = cuda_ms(k5_plain, max(2, reps // 5))
-            xs = x.index_select(0, spd.block_idx[live].long())
-            gs = g.index_select(0, torch.nonzero(live)[:, 0]).transpose(1, 2)
-            rec["library_ms"] = cuda_ms(lambda: torch.bmm(xs, gs),
-                                        max(2, reps // 5))
-            rec["library"] = ("torch.bmm on the live slots' operands "
-                              "gathered beforehand (gather and sentinel "
-                              "zeros excluded)")
-            del xs, gs
+            if (dname, r) == ("bfloat16", 1536):
+                rec["plain_ms"] = cuda_ms(k5_plain, max(2, reps // 5))
+                xs = x.index_select(0, spd.block_idx[live].long())
+                gs = g.index_select(0, torch.nonzero(live)[:, 0]).transpose(
+                    1, 2)
+                rec["library_ms"] = cuda_ms(lambda: torch.bmm(xs, gs),
+                                            max(2, reps // 5))
+                rec["library"] = ("torch.bmm on the live slots' operands "
+                                  "gathered beforehand (gather and sentinel "
+                                  "zeros excluded)")
+                del xs, gs
+                summary["k5"] = rec
             flops, nbytes = padded_cost(spd, r, isz, nb * mb, out_isz=isz)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
-            if (dname, r) == ("bfloat16", 1536):
-                summary["k5"] = rec
             del x, g
             torch.cuda.empty_cache()
         del spd, flat, bflat
@@ -2716,12 +2761,10 @@ def resident_city(graph, form: str) -> dict:
     (bf16, batch 4, the training CLI's supports and widths) over ``form``
     supports on device-resident sample arrays: a fused call of S = 4 steps
     (warm-up, capture, three replays) bit for bit against four eager steps,
-    under deterministic algorithms (the adaptive softmax's ``index_add_``
-    and the nodevec gathers' backward use float atomics otherwise); the
-    graph's per-replay hand-kernel launches held to the layout; then, in
-    the default (nondeterministic) mode, eager and graphed step times and
-    profiled idle shares. Returns the launch counts of the graphed
-    window, replays counted (``train_graphed`` or
+    under deterministic algorithms; the graph's per-replay hand-kernel
+    launches held to the layout; then, in the default mode, eager and
+    graphed step times and profiled idle shares. Returns the launch
+    counts of the graphed window, replays counted (``train_graphed`` or
     ``train_graphed_padded``)."""
     import numpy as np
     import torch
@@ -2897,7 +2940,8 @@ def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
     held bit for bit to ``fc.predict`` on the unpadded windows and its
     hand-kernel launches to the Forecaster's; then the artifact's predict
     and the Forecaster's timed in turns in this process. ``det``:
-    deterministic algorithms in both (the adaptive softmax's atomics).
+    deterministic algorithms in both (a bracket the fixed-order mask no
+    longer needs).
     Returns the artifact predict's launch counts."""
     import numpy as np
     import torch
@@ -2933,7 +2977,8 @@ def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
         got = torch.as_tensor(np.load(yp), device="cuda")
         art = serving.load_exported_forecaster(out)
         times = ab_ms({"artifact": lambda: art.predict(x),
-                       "forecaster": lambda: fc.predict(x)})
+                       "forecaster": lambda: fc.predict(x)}, reps=3,
+                      rounds=2)
     diff = float((got - want).abs().max())
     emit("export", name=name, in_shape=[b, t, n, f],
          export_seconds=round(export_s, 3),
@@ -3234,10 +3279,14 @@ def ar_run(name: str, fc, batch: int, n_rounds: int, with_aux: bool):
             "eager ones")
 
 
+# the dense model's rolling origins: 8 hours of 5-minute readings
+METR_ROLLING_ORIGINS = 96
+
+
 def phase_rolling(tmp: str) -> dict:
     """Streaming forecasts at full width: a rolling forecast over 24
-    origins of ``phase_serve``'s 40,960-node bf16 flat model and over one
-    day (288 origins) of the dense 207-node METR model
+    origins of ``phase_serve``'s 40,960-node bf16 flat model and over
+    ``METR_ROLLING_ORIGINS`` of the dense 207-node METR model
     (:func:`rolling_run`), then ``autoregressive_forecast``: the city model
     at batch 1 for 3 rounds (the aux tail repeated) and the dense model
     with ``future_aux`` (:func:`ar_run`). Returns the city rolling
@@ -3254,7 +3303,7 @@ def phase_rolling(tmp: str) -> dict:
     del fc
     torch.cuda.empty_cache()
     fc = metr_forecaster(tmp)
-    dense = rolling_run("metr_dense", fc, 288)
+    dense = rolling_run("metr_dense", fc, METR_ROLLING_ORIGINS)
     require(not any(dense.values()),
             f"the dense rolling forecast launched a block kernel: {dense}")
     ar_run("metr_dense", fc, 4, 3, with_aux=True)
@@ -3727,8 +3776,13 @@ def phase_diffg(tmp: str) -> dict:
     windows["same_g"] = diffg_cli("same_g_ckpt", tmp, [
         "--data", "syn", "--same_g", *same, "--n_train", "2", "--n_valid",
         "1", "--n_test", "1", "--epochs", "1"])["launches"]
-    windows["crash"] = diffg_cli("crash_ckpt", tmp, [
-        "--data", "crash", *DIFFG_ARGV, "--epochs", "1"])["launches"]
+    crash = diffg_cli("crash_ckpt", tmp, [
+        "--data", "crash", *DIFFG_ARGV, "--epochs", "1"])
+    windows["crash"] = crash["launches"]
+    # what ``phase_dist_diffg``'s 2 DP ranks are held to, as a CLI prints it
+    ONE_PROCESS_TEST_MAE["crash_dp2"] = float(
+        f"{crash['result'].test_metrics['loss']:.4f}")
+    del crash
     windows["fresh_nodevec"] = diffg_cli("fresh_ckpt", tmp, [
         "--data", "syn", *DIFFG_ARGV, "--n_train", "1", "--n_valid", "1",
         "--n_test", "1", "--epochs", "1", "--fresh_nodevec", "--scan_steps",
@@ -4044,8 +4098,10 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
     """(engine, supports, x, y) of a distributed check at full width: the
     city training cell (``graph``: the (pos, src, dst, w) edge list; the
     supports sharded where the mesh splits nodes, exchanging rows in the
-    ``halo`` form) or the dense METR model
-    at batch 64 (``dense_inputs``; the supports whole on every rank)."""
+    ``halo`` form), the dense METR model at batch 64 (``dense_inputs``;
+    the supports whole on every rank) or the diff-G model of README's run
+    (``diffg_batch``; ``supports`` is then the per-sample supports, the
+    projectors and F_t, of which the engine takes the rank's rows)."""
     import torch
 
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
@@ -4057,6 +4113,15 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
                   dilation_channels=32, skip_channels=256, end_channels=512,
                   blocks=4, layers=2, gcn_bool=True, addaptadj=True,
                   n_supports=2, dropout=dropout, dtype=dtype)
+    if kind == "diffg":
+        cfg = ModelConfig(num_nodes=DIFFG_NODES, **dict(
+            common, out_dim=DIFFG_K, start_dilation=4))
+        eng = Engine(cfg, TrainConfig(), StandardScaler(0.5, 0.3),
+                     device=device, seed=0, diff_g=True, mesh=mesh)
+        x, y, sups_np, proj = diffg_batch()
+        sups = ([torch.as_tensor(a, device=device) for a in sups_np],
+                torch.as_tensor(proj, device=device), DIFFG_K // 12)
+        return eng, sups, x, y
     if kind == "metr":
         sups_np, x, y = dense_inputs()
         cfg = ModelConfig(num_nodes=DENSE_NODES, **common)
@@ -4074,6 +4139,32 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
                  device=device, seed=0, mesh=mesh)
     x, y = city_batch()
     return eng, sups + [mask], x, y
+
+
+def diffg_batch(seed: int = 6):
+    """A global batch of README's diff-G run: x standard normal, y around
+    0.5, two row-normalized per-sample supports and the cluster-mean
+    projectors of 4 random communities per sample."""
+    import numpy as np
+
+    from graph_wavenet_tpu_torch.train.engine import cluster_mean_projector
+
+    rng = np.random.default_rng(seed)
+    b, k, n = DIFFG_BATCH, DIFFG_K, DIFFG_NODES
+    x = rng.normal(size=(b, k, n, 2)).astype(np.float32)
+    y = rng.normal(0.5, 0.3, size=(b, k, n, 2)).astype(np.float32)
+    a = rng.random((2, b, n, n)).astype(np.float32)
+    sups = list(a / a.sum(-1, keepdims=True))
+    proj = np.stack([cluster_mean_projector(lab, 4)
+                     for lab in rng.integers(0, 4, size=(b, n))])
+    return x, y, sups, proj
+
+
+def train_once(eng, sups, x, y) -> dict:
+    """One train step of ``dist_engine``'s engine on a global batch."""
+    if eng.diff_g:
+        return eng.train_step_syn(x, y, *sups)
+    return eng.train_step(x, y, sups)
 
 
 def state_vector(engine):
@@ -4125,7 +4216,7 @@ def dist_worker(spec_path: str, rank: int) -> None:
             for k in range(run["steps"]):
                 mesh.barrier()
                 t0 = time.perf_counter()
-                m = eng.train_step(xt, yt, sups)
+                m = train_once(eng, sups, xt, yt)
                 losses.append(float(m["loss"]))
                 times.append((time.perf_counter() - t0) * 1e3)
                 if k == 0 and rank == 0 and run.get("keep_state"):
@@ -4176,11 +4267,13 @@ def dist_worker(spec_path: str, rank: int) -> None:
 
 def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
                runs: list, graph_path: str | None = None,
-               halo: bool | str = "auto") -> tuple:
-    """Start ``world`` rank processes (``dist_worker``) on this machine's
-    cards, NCCL where every rank has a card of its own, else gloo with the
-    ranks sharing them; every process and the group bounded by
-    DIST_TIMEOUT. Returns (backend, per-rank records, seconds)."""
+               halo: bool | str = "auto",
+               worker: str = "dist_worker") -> tuple:
+    """Start ``world`` rank processes (``worker``: ``dist_worker``, or
+    ``graphed_worker``) on this machine's cards, NCCL where every rank has
+    a card of its own, else gloo with the ranks sharing them; every process
+    and the group bounded by DIST_TIMEOUT. Returns (backend, per-rank
+    records, seconds)."""
     import torch
 
     out = os.path.join(tmp, f"dist_{name}")
@@ -4193,7 +4286,7 @@ def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke;"
-            " chip_smoke.dist_worker(sys.argv[1], int(sys.argv[2]))")
+            f" chip_smoke.{worker}(sys.argv[1], int(sys.argv[2]))")
     t0 = time.perf_counter()
     procs = []
     for rank in range(world):
@@ -4397,7 +4490,7 @@ def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
     losses, state1 = [], None
     with deterministic(True), mask_cotangent() as seen:
         for _ in range(steps):
-            losses.append(float(eng.train_step(xt, yt, sups)["loss"]))
+            losses.append(float(train_once(eng, sups, xt, yt)["loss"]))
             state1 = state1 or state_vector(eng)
     ref = {"losses": losses, "state1": state1, "state": state_vector(eng),
            "resolved": resolved, "grad1": grad1,
@@ -4545,9 +4638,9 @@ def first_step_grads(graph, x, y, edit=None, det: bool = True) -> dict:
 def grad_witness(graph, ref: dict) -> None:
     """The gradient rule of ``dist_compare`` against what it must pass and
     what it must reject, at full width, each a fresh single process's
-    first step against ``ref``'s: the same run again (bit for bit under
-    deterministic algorithms; without them, a reading: the spread that
-    makes the comparison run deterministic); the batch in reverse row
+    first step against ``ref``'s: the same run again, under deterministic
+    algorithms and without them, both bit for bit (the mask's sums run in
+    a fixed order, ``ops.adaptive_block``); the batch in reverse row
     order (the same gradient in exact arithmetic, other sums over the
     batch: fp32's floor for every tensor), which the rule must pass;
     ``embedding_witness``'s readings; and two planted node-TP faults,
@@ -4561,8 +4654,10 @@ def grad_witness(graph, ref: dict) -> None:
     again = first_step_grads(graph, x, y)
     differ = [k for k, v in ref["grad1"].items()
               if not np.array_equal(again[k], v)]
-    loose, _ = grad_errors(first_step_grads(graph, x, y, det=False),
-                           ref["grad1"])
+    loose_grads = first_step_grads(graph, x, y, det=False)
+    loose, _ = grad_errors(loose_grads, ref["grad1"])
+    loose_differ = [k for k, v in ref["grad1"].items()
+                    if not np.array_equal(loose_grads[k], v)]
     rev, _ = grad_errors(first_step_grads(graph, x[::-1].copy(),
                                           y[::-1].copy()), ref["grad1"])
     rank1 = (ref["owner2"] == 1).float()[:, None, None]
@@ -4574,11 +4669,14 @@ def grad_witness(graph, ref: dict) -> None:
         faults[name] = top(err, 3)
     emit("grad_witness", rule=f"each tensor <= {GRAD_RTOL} x max|tensor|",
          repeat_differing_tensors=differ,
+         nondeterministic_differing_tensors=loose_differ,
          nondeterministic_top=top(loose), batch_reversed_top=top(rev),
          batch_reversed_nodevec={k: rev[k] for k in ("nodevec1", "nodevec2")},
          embedding_stage=ref["witness"], planted_faults=faults)
     require(not differ, f"the deterministic single process does not repeat "
             f"bit for bit: {differ[:5]}")
+    require(not loose_differ, f"without deterministic algorithms the single "
+            f"process differs from itself: {top(loose, 3)}")
     require(max(rev.values()) <= GRAD_RTOL,
             f"the single process against itself breaks the gradient rule: "
             f"{top(rev, 3)}")
@@ -4866,45 +4964,410 @@ def phase_dist_metr() -> dict:
 
 
 def phase_dist_nccl1(tmp: str) -> None:
-    """``--mesh_dp`` through the METR training CLI under torchrun with one
-    rank and NCCL against the same CLI run without a process group, the
-    two at once (bf16, dropout 0.3, one epoch on ``phase_metr_cli``'s
-    data): every parameter and buffer of the two checkpoints equal bit for
-    bit, so every step was."""
+    """``--mesh_dp`` through the training CLI under torchrun with one rank
+    and NCCL against the same CLI run without a process group, all at once,
+    every parameter and buffer of the checkpoints equal bit for bit, so
+    every step was: the METR model (bf16, dropout 0.3, one epoch on
+    ``phase_metr_cli``'s data) with ``--scan_steps 1`` and, graphed, with
+    ``--scan_steps 4`` (each fused step a CUDA graph with its collectives
+    captured), against the plain ``--scan_steps 1`` run; and README's
+    diff-G run (``--data syn``, fp32, dropout 0.3, one epoch)
+    ``--mesh_dp --scan_steps 4`` against the plain ``--scan_steps 1`` run
+    (``GRAPHED_CLI``)."""
     import torch
 
     from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 
     data_dir = os.path.join(tmp, "METR")
     adj = os.path.join(tmp, "adj_mx.pkl")
-    argv = ["--data", data_dir, "--adjdata", adj, "--num_nodes",
+    metr = ["--data", data_dir, "--adjdata", adj, "--num_nodes",
             str(DENSE_NODES), "--gcn_bool", "--addaptadj", "--dtype",
             "bfloat16", "--seq_length", "12", "--batch_size",
             str(DENSE_BATCH), "--epochs", "1", "--print_every", "100",
             "--device", "cuda"]
-    saves = {k: os.path.join(tmp, f"nccl1_{k}") for k in ("nccl1", "plain")}
-    out = run_together({
-        "nccl1": [sys.executable, "-m", "torch.distributed.run",
-                  "--standalone", "--nproc_per_node", "1", "-m",
-                  "graph_wavenet_tpu_torch.cli.train", *argv, "--mesh_dp",
-                  "--dist_backend", "nccl", "--save", saves["nccl1"]],
-        "plain": [sys.executable, "-m", "graph_wavenet_tpu_torch.cli.train",
-                  *argv, "--save", saves["plain"]]}, tmp)
+    subjects = [a for k, v in DIFFG_SUBJECTS.items()
+                for a in (f"--{k}", str(v))]
+    syn = ["--data", "syn", *DIFFG_ARGV, *subjects, "--epochs", "1",
+           "--print_every", "100"]
+    one_nccl = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m",
+                "graph_wavenet_tpu_torch.cli.train"]
+    plain = [sys.executable, "-m", "graph_wavenet_tpu_torch.cli.train"]
+    cmds = {"nccl1": one_nccl + metr + ["--mesh_dp"],
+            "plain": plain + metr,
+            "nccl1_graphed": one_nccl + metr + [
+                "--mesh_dp", "--scan_steps", str(GRAPHED_S)],
+            "syn_nccl1_graphed": one_nccl + syn + [
+                "--mesh_dp", "--scan_steps", str(GRAPHED_S)],
+            "syn_plain": plain + syn}
+    saves = {k: os.path.join(tmp, f"nccl1_{k}") for k in cmds}
+    out = run_together(
+        {k: v + (["--dist_backend", "nccl"] if "nccl1" in k else [])
+         + ["--save", saves[k]] for k, v in cmds.items()}, tmp)
     runs = {k: (only_checkpoint(saves[k]), secs,
                 [ln for ln in stdout.splitlines()
                  if ln.startswith(("mesh:", "Epoch"))])
             for k, (stdout, secs) in out.items()}
     ONE_PROCESS_TEST_MAE["metr_dp2"] = test_mae(out["plain"][0])
-    a = ckpt.load_state_dict(runs["nccl1"][0], device="cpu")
-    b = ckpt.load_state_dict(runs["plain"][0], device="cpu")
-    differ = [k for k in b if not torch.equal(a[k], b[k])]
-    emit("dist_nccl1", ranks=1, backend="nccl", tensors=len(b),
+
+    def differing(k, ref):
+        a = ckpt.load_state_dict(runs[k][0], device="cpu")
+        b = ckpt.load_state_dict(runs[ref][0], device="cpu")
+        require(set(a) == set(b), f"{k}: other tensors than {ref}'s")
+        return [n for n in b if not torch.equal(a[n], b[n])], len(b)
+
+    differ, n = differing("nccl1", "plain")
+    emit("dist_nccl1", ranks=1, backend="nccl", tensors=n,
          differing=differ, seconds={k: round(v[1], 3)
                                     for k, v in runs.items()},
          lines={k: v[2] for k, v in runs.items()})
-    require(set(a) == set(b) and not differ,
-            f"--mesh_dp under one NCCL rank differs from the plain run: "
-            f"{differ}")
+    require(not differ, f"--mesh_dp under one NCCL rank differs from the "
+            f"plain run: {differ}")
+    for kind, k, ref in (("metr", "nccl1_graphed", "plain"),
+                         ("diffg", "syn_nccl1_graphed", "syn_plain")):
+        differ, n = differing(k, ref)
+        GRAPHED_CLI[kind] = {"argv": "--mesh_dp --scan_steps "
+                             f"{GRAPHED_S} against --scan_steps 1",
+                             "tensors": n, "differing": differ,
+                             "seconds": round(runs[k][1], 3),
+                             "plain_seconds": round(runs[ref][1], 3)}
+        require(not differ, f"{k}: the graphed CLI under one NCCL rank "
+                f"differs from the plain run: {differ}")
+
+# ---------------------------------------------------------------------------
+# slices 7b.1 and 7b.2: the fused steps under a process group, diff-G and
+# CRASH under DP, and the city step that repeats
+# ---------------------------------------------------------------------------
+
+# S of the graphed steps under the one-rank NCCL group, and of the CLIs'
+# --scan_steps there
+GRAPHED_S = 4
+# the CLIs ``phase_dist_nccl1`` runs graphed under one NCCL rank, by the
+# kind of the ``dist_graphed`` line that reports them
+GRAPHED_CLI: dict = {}
+
+
+def determinism_worker(graph_path: str, out: str) -> None:
+    """One fresh fp32 city train step with the mask (40,960 nodes, batch 4,
+    flat, dropout 0) in this process, without deterministic algorithms:
+    its loss, the clipped gradients it took and the state after it, to the
+    ``.npz`` at ``out``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(graph_path)
+    eng, sups, x, y = dist_engine(
+        "city", "float32", 0.0, "cuda", None,
+        (g["pos"], g["src"], g["dst"], g["weight"]))
+    grads = recorded_grads(eng)
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "the determinism check runs without deterministic algorithms")
+    loss = float(eng.train_step(torch.as_tensor(x, device="cuda"),
+                                torch.as_tensor(y, device="cuda"),
+                                sups)["loss"])
+    np.savez(out, loss=np.asarray(loss),
+             **{"grad:" + k: v for k, v in grads.items()},
+             **{"state:" + k: v for k, v in state_vector(eng).items()})
+
+
+def phase_determinism(graph, tmp: str) -> None:
+    """The city training step with the mask repeats bit for bit: two fresh
+    child processes each take one fp32 step (:func:`determinism_worker`)
+    without deterministic algorithms, and their losses, gradients and
+    states must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    pos, src, dst, w = graph
+    gpath = os.path.join(tmp, "determinism_graph.npz")
+    np.savez(gpath, pos=pos, src=src, dst=dst, weight=w)
+    torch.cuda.empty_cache()
+    code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke;"
+            " chip_smoke.determinism_worker(sys.argv[1], sys.argv[2])")
+    runs, secs = [], []
+    for i in range(2):
+        out = os.path.join(tmp, f"determinism_{i}.npz")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-c", code, gpath, out,
+             os.path.dirname(os.path.abspath(__file__))], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=DIST_TIMEOUT)
+        require(p.returncode == 0, f"determinism child {i} failed:\n"
+                f"{p.stdout[-2000:]}{p.stderr[-3000:]}")
+        secs.append(round(time.perf_counter() - t0, 3))
+        runs.append(dict(np.load(out)))
+    a, b = runs
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    worst = {k: float(np.abs(a[k] - b[k]).max()) for k in differ}
+    emit("determinism", nodes=N_CITY, batch=TRAIN_BATCH, dtype="float32",
+         dropout=0.0, form="flat", deterministic_algorithms=False,
+         processes=2, losses=[float(r["loss"]) for r in runs],
+         tensors=len(a), differing=differ, max_abs_diff=top(worst),
+         child_seconds=secs, tolerance="bit for bit")
+    require(not differ, f"two fresh city steps differ without deterministic "
+            f"algorithms: {top(worst, 3)}")
+
+
+def graphed_case(eager, graphed, fused_call, eager_step, s: int,
+                 node_steps: int, eager_reps: int = 6) -> dict:
+    """``fused_call()`` (S graphed steps) on ``graphed`` against S calls of
+    ``eager_step(k)`` on ``eager`` from the same start, bit for bit
+    (metrics, weights, buffers, Adam, the generator), with the hand-kernel
+    launches of both windows; then ms per step, node-timesteps/s and the
+    profiled device idle share of each."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    bd.reset_launch_counts()
+    got = metric_rows(fused_call())
+    torch.cuda.synchronize()
+    n_graphed = graphed_window_launches(graphed, bd.LAUNCHES)
+    bd.reset_launch_counts()
+    want = torch.cat([metric_rows(eager_step(k)) for k in range(s)], 1)
+    torch.cuda.synchronize()
+    rec = {"scan_steps": s,
+           "max_abs_metric_diff": float((got - want).abs().max()),
+           "first_state_difference": first_difference(step_state(graphed),
+                                                       step_state(eager)),
+           "graphed_window_launches": n_graphed,
+           "eager_window_launches": dict(bd.LAUNCHES),
+           "per_replay_launches": dict(graphed.step_graphs()[0].launches)}
+    it = {"k": 0}
+
+    def one_eager():
+        it["k"] += 1
+        return eager_step(it["k"] % s)
+
+    for mode, fn, reps, per in (("eager", one_eager, eager_reps, 1),
+                                ("graphed", fused_call, 2, s)):
+        t = timed_steps(fn, reps, per)
+        prof = profile_step(fn)
+        rec[mode] = {"median_ms": t["median_ms"], "min_ms": t["min_ms"],
+                     "node_timesteps_per_s": node_steps
+                     / (t["median_ms"] / 1e3),
+                     "device_busy_ms_per_step": prof["device_busy_ms"] / per,
+                     "device_idle_share": prof["device_idle_share"],
+                     "max_memory_reserved_bytes":
+                     t["max_memory_reserved_bytes"]}
+    return rec
+
+
+def graphed_worker(spec_path: str, rank: int) -> None:
+    """The one rank of an NCCL group (started by ``dist_group``): on a
+    one-rank mesh, the graphed train steps (``GRAPHED_S`` replayed per
+    fused call, the step's collectives captured) against eager ones, bit
+    for bit and timed, without deterministic algorithms, for the METR
+    model at ``bench.py``'s width (bf16, dropout 0.3), the city training
+    cell (flat, the mask, bf16, dropout 0.3: kernels 1, 2 and 3 in the
+    replays) and README's diff-G run (fp32, dropout 0.3)."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import MeshConfig, ModelConfig
+    from graph_wavenet_tpu_torch.config import TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.parallel import multihost
+    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from graph_wavenet_tpu_torch.train.engine import Engine
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layout = multihost.initialize(spec["backend"], rank, spec["world"],
+                                  spec["init"], device="cuda",
+                                  timeout_s=DIST_TIMEOUT)
+    import torch.distributed as dist
+
+    dev = multihost.rank_device("cuda")
+    mesh = make_mesh(MeshConfig(), dev, timeout_s=DIST_TIMEOUT)
+    out = {"backend": dist.get_backend(), "ranks": layout["process_count"],
+           "deterministic_algorithms":
+           torch.are_deterministic_algorithms_enabled()}
+    s = GRAPHED_S
+    rng = np.random.default_rng(12)
+
+    def pair(cfg, scaler, **kw):
+        return [Engine(cfg, TrainConfig(), scaler, device=dev, seed=0,
+                       mesh=mesh, **kw) for _ in range(2)]
+
+    # the METR model
+    sups_np, _, _ = dense_inputs()
+    n_samples = 4 * DENSE_BATCH
+    xs = torch.as_tensor(rng.normal(size=(
+        n_samples, 12, DENSE_NODES, 2)).astype(np.float32), device=dev)
+    ys = torch.as_tensor((rng.normal(size=(
+        n_samples, 12, DENSE_NODES, 2)) * 10 + 55).astype(np.float32),
+        device=dev)
+    sups = [torch.as_tensor(a, device=dev) for a in sups_np]
+    idx = rng.integers(0, n_samples, size=(s, DENSE_BATCH)).astype(np.int32)
+    rows = torch.as_tensor(idx, device=dev)
+    common = dict(in_dim=2, residual_channels=32, dilation_channels=32,
+                  skip_channels=256, end_channels=512, blocks=4, layers=2,
+                  gcn_bool=True, addaptadj=True, n_supports=2, dropout=0.3)
+    eager, graphed = pair(ModelConfig(num_nodes=DENSE_NODES, out_dim=12,
+                                      dtype="bfloat16", **common),
+                          StandardScaler(55.0, 10.0), aptinit=sups_np[0])
+    out["metr"] = graphed_case(
+        eager, graphed,
+        lambda: graphed.train_steps_resident(xs, ys, idx, sups),
+        lambda k: eager.train_step(xs.index_select(0, rows[k]),
+                                   ys.index_select(0, rows[k]), sups),
+        s, DENSE_BATCH * 12 * DENSE_NODES, eager_reps=12)
+    out["metr"].update(nodes=DENSE_NODES, batch=DENSE_BATCH,
+                       dtype="bfloat16")
+    del eager, graphed, xs, ys, sups
+    torch.cuda.empty_cache()
+
+    # the city training cell
+    g = np.load(spec["graph"])
+    sup, mask, lay = build_city_supports(
+        g["src"], g["dst"], g["weight"], N_CITY, pos=g["pos"], form="flat",
+        addaptadj=True, device=dev)
+    sups = [sp.astype(torch.bfloat16) for sp in sup] + [mask]
+    n = lay["n_pad"]
+    xs = torch.as_tensor(rng.normal(size=(8, 12, n, 2)).astype(np.float32),
+                         device=dev)
+    ys_np = rng.normal(50.0, 10.0, size=(8, 12, n, 2)).astype(np.float32)
+    ys_np[rng.random(ys_np.shape) < 0.05] = 0.0
+    ys = torch.as_tensor(ys_np, device=dev)
+    idx = rng.integers(0, 8, size=(s, TRAIN_BATCH)).astype(np.int32)
+    rows = torch.as_tensor(idx, device=dev)
+    cfg = ModelConfig(num_nodes=n, addaptadj=True, dtype="bfloat16")
+    eager, graphed = pair(cfg, StandardScaler(50.0, 10.0))
+    out["city"] = graphed_case(
+        eager, graphed,
+        lambda: graphed.train_steps_resident(xs, ys, idx, sups),
+        lambda k: eager.train_step(xs.index_select(0, rows[k]),
+                                   ys.index_select(0, rows[k]), sups),
+        s, TRAIN_BATCH * 12 * N_CITY)
+    out["city"].update(nodes=N_CITY, batch=TRAIN_BATCH, dtype="bfloat16",
+                       expected_per_step=expected_step_launches(
+                           sups, layer_widths(cfg, TRAIN_BATCH, 13),
+                           torch.bfloat16))
+    del eager, graphed, xs, ys, sups, sup, mask
+    torch.cuda.empty_cache()
+
+    # README's diff-G run
+    x, y, sups_np, proj = diffg_batch(7)
+    n_graphs = len(proj)
+    xs, ys = (torch.as_tensor(a, device=dev) for a in (x, y))
+    adj = torch.as_tensor(rng.integers(0, n_graphs, size=len(x)).astype(
+        np.int32), device=dev)
+    sups = [torch.as_tensor(a, device=dev) for a in sups_np]
+    proj = torch.as_tensor(proj, device=dev)
+    idx = rng.integers(0, len(x), size=(s, DIFFG_BATCH)).astype(np.int32)
+    rows = torch.as_tensor(idx, device=dev)
+    f_t = DIFFG_K // 12
+    cfg = ModelConfig(num_nodes=DIFFG_NODES, out_dim=DIFFG_K,
+                      start_dilation=4, **common)
+    eager, graphed = pair(cfg, StandardScaler(0.5, 0.3), diff_g=True)
+
+    def eager_step(k):
+        gids = adj.index_select(0, rows[k])
+        return eager.train_step_syn(
+            xs.index_select(0, rows[k]), ys.index_select(0, rows[k]),
+            [a.index_select(0, gids) for a in sups],
+            proj.index_select(0, gids), f_t)
+
+    out["diffg"] = graphed_case(
+        eager, graphed,
+        lambda: graphed.train_steps_syn_resident(xs, ys, idx, adj, sups,
+                                                 proj, f_t),
+        eager_step, s, DIFFG_BATCH * DIFFG_K * DIFFG_NODES, eager_reps=12)
+    out["diffg"].update(nodes=DIFFG_NODES, batch=DIFFG_BATCH,
+                        seq_length=DIFFG_K, dtype="float32")
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_dist_graphed(graph, tmp: str) -> dict:
+    """The fused steps as CUDA graphs over a process group: one NCCL rank
+    (a card of its own) runs :func:`graphed_worker`, the METR model, the
+    city training cell and the diff-G model graphed against eager steps,
+    bit for bit, with ms per step and idle share of both; each line also
+    carries its CLI's check from ``phase_dist_nccl1`` (METR, diff-G). The
+    city window's replays launch kernels 1, 2 and 3. Returns that
+    window's launches (``dist_graphed``)."""
+    import numpy as np
+
+    pos, src, dst, w = graph
+    gpath = os.path.join(tmp, "graphed_graph.npz")
+    np.savez(gpath, pos=pos, src=src, dst=dst, weight=w)
+    backend, recs, secs = dist_group("graphed", tmp, 1, 1, "graphed", [],
+                                     gpath, worker="graphed_worker")
+    rec = recs[0]
+    for kind in ("metr", "city", "diffg"):
+        r = rec[kind]
+        emit("dist_graphed", kind=kind, backend=rec["backend"],
+             ranks=rec["ranks"],
+             deterministic_algorithms=rec["deterministic_algorithms"],
+             seconds=round(secs, 3), cli=GRAPHED_CLI.get(kind), **r,
+             graphed_over_eager=r["graphed"]["median_ms"]
+             / r["eager"]["median_ms"])
+        require(rec["backend"] == "nccl" and rec["ranks"] == 1,
+                f"dist_graphed ran on {rec['backend']} x {rec['ranks']}")
+        require(r["first_state_difference"] is None
+                and r["max_abs_metric_diff"] == 0.0,
+                f"graphed {kind} steps under NCCL differ from eager ones: "
+                f"{r['first_state_difference']}, metrics by "
+                f"{r['max_abs_metric_diff']}")
+        require(r["graphed_window_launches"] == r["eager_window_launches"],
+                f"{kind}: graphed window launches "
+                f"{r['graphed_window_launches']} != eager "
+                f"{r['eager_window_launches']}")
+    city = rec["city"]
+    require(city["per_replay_launches"] == city["expected_per_step"],
+            f"a replayed city step under NCCL launches "
+            f"{city['per_replay_launches']}, expected "
+            f"{city['expected_per_step']}")
+    for k in ("gathered_block_mix_flat", "gathered_block_outer_flat",
+              "gathered_block_mix_flat2"):
+        require(city["per_replay_launches"][k] > 0,
+                f"{k} did not launch in the replays under NCCL")
+    return {"dist_graphed": city["graphed_window_launches"]}
+
+
+def phase_dist_diffg(tmp: str) -> None:
+    """diff-G and CRASH under data parallelism, two gloo ranks sharing the
+    card: README's diff-G run, 2 fp32 steps with dropout 0, against the
+    single process (``dist_compare``: losses, first-step gradients, the
+    state; the ranks bit for bit); and ``--data crash --mesh_dp`` under
+    torchrun, its test MAE within ``CLI_MAE_RTOL`` of ``phase_diffg``'s
+    one-process run of the same flags."""
+    import torch
+
+    ref = single_reference("diffg")
+    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                 keep_state=True)]
+    backend, recs, secs = dist_group("diffg", tmp, 2, 1, "diffg", runs)
+    readings = dist_compare("diffg", recs, ref,
+                            os.path.join(tmp, "dist_diffg"))
+    (stdout, crash_s), = run_together({"crash": torchrun_argv(
+        ["--data", "crash", *DIFFG_ARGV, "--epochs", "1", "--mesh_dp"],
+        os.path.join(tmp, "dist_crash"))}, tmp).values()
+    mae = test_mae(stdout)
+    want = ONE_PROCESS_TEST_MAE["crash_dp2"]
+    rel = abs(mae - want) / want
+    shared = backend == "gloo" and torch.cuda.device_count() < 2
+    emit("dist_diffg", ranks=2, data=2, model=1, backend=backend,
+         nodes=DIFFG_NODES, seq_length=DIFFG_K, batch=DIFFG_BATCH,
+         seconds=round(secs, 3), **readings,
+         timing_note=SHARED_CARD if shared else "one card per rank",
+         crash_test_mae=mae, crash_test_mae_one_process=want,
+         crash_test_mae_rel_diff=rel, crash_tolerance=f"rtol {CLI_MAE_RTOL}",
+         crash_seconds=round(crash_s, 3),
+         mesh_lines=[ln for ln in stdout.splitlines()
+                     if ln.startswith("mesh:")])
+    require(math.isfinite(mae) and rel <= CLI_MAE_RTOL,
+            f"--data crash under 2 DP ranks: test MAE {mae}, one process "
+            f"{want}")
 
 
 def main() -> int:
@@ -4930,37 +5393,52 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
 
-    smi = phase_card()
-    phase_build()
-    graph = city_graph(N_CITY)
-    summary = phase_kernels(graph)
-    summary.update(phase_train_kernels(graph))
-    padded, padded_summary = phase_padded_kernels(graph)
-    summary.update(padded_summary)
-    phase_dispatch(graph)
-    phase_small_e2e()
-    phase_small_train()
-    phase_small_padded()
-    with tempfile.TemporaryDirectory(prefix="gwt_chip_smoke_") as tmp:
-        counts = phase_serve(graph, tmp)
-        counts.update(phase_train(graph, tmp, "flat"))
-        counts.update(phase_train(graph, tmp, "pallas"))
-        counts.update(phase_aptonly(tmp))
-        counts.update(phase_metr_cli(tmp))
-        counts.update(phase_export(tmp))
-        counts.update(phase_serve_artifact(tmp))
-        counts.update(phase_rolling(tmp))
-        counts.update(phase_diffg(tmp))
-        phase_dist_nccl1(tmp)
-        counts.update(phase_dist_city(graph, tmp))
-    phase_dist_metr()
-    counts.update(phase_dense())
-    counts.update(phase_resident(graph))
-    counts.update(phase_kernel5_path(padded))
-    phase_tp_tables(graph)
-    phase_tp_local(graph)
+    seconds: dict = {}
 
-    # launches on the main paths: kernel 1 serving the 128x512 layout and,
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi = timed("card", phase_card)
+    timed("build", phase_build)
+    graph = timed("city_graph", city_graph, N_CITY)
+    summary = timed("kernel_check", phase_kernels, graph)
+    summary.update(timed("train_kernels", phase_train_kernels, graph))
+    padded, padded_summary = timed("padded_kernels", phase_padded_kernels,
+                                   graph)
+    summary.update(padded_summary)
+    timed("dispatch", phase_dispatch, graph)
+    timed("small_e2e", phase_small_e2e)
+    timed("small_train", phase_small_train)
+    timed("small_padded", phase_small_padded)
+    with tempfile.TemporaryDirectory(prefix="gwt_chip_smoke_") as tmp:
+        counts = timed("serve", phase_serve, graph, tmp)
+        counts.update(timed("train_flat", phase_train, graph, tmp, "flat"))
+        counts.update(timed("train_pallas", phase_train, graph, tmp,
+                            "pallas"))
+        counts.update(timed("aptonly", phase_aptonly, tmp))
+        counts.update(timed("metr_cli", phase_metr_cli, tmp))
+        counts.update(timed("export", phase_export, tmp))
+        counts.update(timed("serve_artifact", phase_serve_artifact, tmp))
+        counts.update(timed("rolling", phase_rolling, tmp))
+        counts.update(timed("diffg", phase_diffg, tmp))
+        timed("dist_nccl1", phase_dist_nccl1, tmp)
+        counts.update(timed("dist_graphed", phase_dist_graphed, graph, tmp))
+        timed("dist_diffg", phase_dist_diffg, tmp)
+        counts.update(timed("dist_city", phase_dist_city, graph, tmp))
+        timed("dist_metr", phase_dist_metr)
+        counts.update(timed("dense", phase_dense))
+        counts.update(timed("resident", phase_resident, graph))
+        timed("determinism", phase_determinism, graph, tmp)
+    counts.update(timed("kernel5_path", phase_kernel5_path, padded))
+    timed("tp_tables", phase_tp_tables, graph)
+    timed("tp_local", phase_tp_local, graph)
+
+    # launches on the main paths (each window driven with the counts set to
+    # 0 just before it and read just after): kernel 1 serving the 128x512
+    # layout and,
     # as the chain the dispatch rule picks, serving and in a train step,
     # eager and graphed, in the flat and the padded artifact's predicts
     # (the padded one's adaptive support), serving the artifact and
@@ -4970,17 +5448,19 @@ def main() -> int:
     # kernel 4 serving and training the padded form, eager and graphed, and
     # in the padded artifact, kernel 5 on the gradient through padded
     # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
-    # rank's launches); a graphed window counts every replay
+    # rank's launches); kernels 1, 2 and 3 in the city step graphed under
+    # one NCCL rank; a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
               "artifact_padded", "serve_artifact", "rolling", "dist_tp2",
-              "dist_dp2_tp2")),
+              "dist_dp2_tp2", "dist_graphed")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
-             ("train", "train_graphed", "dist_tp2", "dist_dp2_tp2")),
+             ("train", "train_graphed", "dist_tp2", "dist_dp2_tp2",
+              "dist_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
-             ("serve", "train", "train_graphed", "rolling")),
+             ("serve", "train", "train_graphed", "rolling", "dist_graphed")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
              ("serve_padded", "train_padded", "train_graphed_padded",
               "artifact_padded")),
@@ -4999,6 +5479,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
     emit("done", seconds=round(time.perf_counter() - t0, 3))
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,10 +54,13 @@ Parallel training (``parallel``), one process per rank under torchrun::
 ``--mesh_model S`` splits the nodes over S ranks (node-TP of the flat
 supports and the mask; the city path with ``--sparse flat``), the data axis
 takes the other W / S; ``--mesh_dp`` alone is data parallelism over all W
-ranks (the METR path too). ``--dist_backend``: nccl (a card per rank, the
-default on ``cuda``) or gloo (the default on ``cpu``; ranks may share a
-card, their collectives staged through host memory). Only rank 0 prints
-and writes checkpoints.
+ranks (the METR path, and ``--data syn|crash``, ``--same_g`` included).
+``--dist_backend``: nccl (a card per rank, the default on ``cuda``) or gloo
+(the default on ``cpu``; ranks may share a card, their collectives staged
+through host memory). ``--scan_steps S`` runs under a mesh too: on the card
+each fused step is a CUDA graph with its collectives captured, which needs
+NCCL, so gloo with a card and more than one rank refuses ``--scan_steps >
+1``. Only rank 0 prints and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ import warnings
 # flags of the reference CLI that wait for a later slice of ROADMAP.md:
 # (type, the default that keeps them off, the slice); a bool is a
 # store_true switch
-LATER = {"mesh_time": (int, 1, "7b")}
+LATER = {"mesh_time": (int, 1, "7b.3")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -232,9 +235,9 @@ def main(argv=None) -> dict:
                 quiet.enter_context(contextlib.redirect_stdout(
                     quiet.enter_context(open(os.devnull, "w"))))
             if args.data == "syn":
-                result, runner, supports = _run_syn(args)
+                result, runner, supports = _run_syn(args, mesh)
             elif args.data == "crash":
-                result, runner, supports = _run_crash(args)
+                result, runner, supports = _run_crash(args, mesh)
             elif args.graph_npz:
                 result, runner, supports = _run_city(args, mesh)
             else:
@@ -251,17 +254,17 @@ def main(argv=None) -> dict:
 def _mesh(args):
     """(the rank's mesh or None, whether this call started the process
     group) for ``--mesh_dp`` / ``--mesh_model``, after the refusals of what
-    waits for slice 7b; ``args.device`` becomes the rank's device."""
+    wait for later slices; ``args.device`` becomes the rank's device."""
     if not (args.mesh_dp or args.mesh_model > 1):
         return None, False
-    if args.data in ("syn", "crash"):
-        raise SystemExit(f"--data {args.data} under a mesh waits for slice "
-                         "7b of ROADMAP.md (the per-sample supports' "
-                         "layouts)")
+    if args.mesh_model > 1 and args.data in ("syn", "crash"):
+        raise SystemExit(f"--mesh_model > 1 with --data {args.data}: the "
+                         "per-sample supports are dense, and dense node-TP "
+                         "waits for slice 7b.4 of ROADMAP.md; use --mesh_dp")
     if args.mesh_model > 1 and not args.graph_npz:
         raise SystemExit("--mesh_model > 1 shards the flat block-sparse "
                          "supports of --graph_npz; dense node-TP (the METR "
-                         "path) waits for slice 7b of ROADMAP.md")
+                         "path) waits for slice 7b.4 of ROADMAP.md")
     import torch.distributed as dist
 
     from graph_wavenet_tpu_torch.config import MeshConfig
@@ -272,6 +275,15 @@ def _mesh(args):
     multihost.initialize(backend=args.dist_backend, device=args.device)
     started = started and dist.is_initialized()
     args.device = str(multihost.rank_device(args.device))
+    if (args.scan_steps > 1 and args.device.startswith("cuda")
+            and dist.get_backend() == "gloo" and dist.get_world_size() > 1):
+        if started:
+            dist.destroy_process_group()
+        raise SystemExit(
+            "--scan_steps > 1 on the card captures each step's collectives "
+            "in a CUDA graph, which a gloo group of more than one rank "
+            "cannot (it stages CUDA tensors through host memory): use "
+            "--dist_backend nccl (a card per rank) or --scan_steps 1")
     mesh = make_mesh(MeshConfig(model_axis=args.mesh_model),
                      device=args.device)
     if mesh.rank == 0:
@@ -443,20 +455,22 @@ def _run_city(args, mesh=None):
                 extra_meta={"graph_layout": layout}, mesh=mesh)
 
 
-def _syn_runner(args, cfg, data, diff_g: bool):
+def _syn_runner(args, cfg, data, diff_g: bool, mesh=None):
     from graph_wavenet_tpu_torch.train.engine import Engine
     from graph_wavenet_tpu_torch.train.runner import Runner
 
     train_cfg = train_config(args)
     engine = Engine(cfg, train_cfg, data["scaler"], device=args.device,
                     seed=args.seed, diff_g=diff_g,
-                    steps_per_epoch=data["train_loader"].num_batch)
-    return Runner(engine, train_cfg)
+                    steps_per_epoch=data["train_loader"].num_batch,
+                    mesh=mesh)
+    return Runner(engine, train_cfg, mesh=mesh)
 
 
-def _run_syn(args):
+def _run_syn(args, mesh=None):
     """The --data syn branch: per-subject graphs (diff-G) or one shared
-    graph (--same_g)."""
+    graph (--same_g); under ``--mesh_dp`` every rank loads the same data
+    and the engine takes its rows."""
     from graph_wavenet_tpu_torch.config import DataConfig
     from graph_wavenet_tpu_torch.data.synthetic import (
         load_dataset_syn,
@@ -474,14 +488,14 @@ def _run_syn(args):
     n_comm = data_cfg.n_communities
     if args.same_g:
         runner = _syn_runner(args, model_config(args, args.num_nodes),
-                             data, diff_g=False)
+                             data, diff_g=False, mesh=mesh)
         supports = [] if args.aptonly else adjs
         result = runner.fit_syn_shared(data, supports, G, F_t, n_comm,
                                        resume_from=args.resume)
         runner.test_syn_shared(data, supports, G, F_t, n_comm, result)
         return result, runner, supports
     runner = _syn_runner(args, model_config(args, args.num_nodes, True),
-                         data, diff_g=True)
+                         data, diff_g=True, mesh=mesh)
     supports = stack_support_splits(adjs, data_cfg.n_train, data_cfg.n_test)
     if args.aptonly:
         supports = {k: [] for k in supports}
@@ -493,9 +507,10 @@ def _run_syn(args):
     return result, runner, supports
 
 
-def _run_crash(args):
+def _run_crash(args, mesh=None):
     """The --data crash branch: stand-in records, or records read from
-    --crash_dir, with the diff-G model."""
+    --crash_dir, with the diff-G model (under ``--mesh_dp`` as in
+    :func:`_run_syn`)."""
     import dataclasses
 
     import numpy as np
@@ -551,7 +566,7 @@ def _run_crash(args):
         out_dim=data["K"])
     if args.aptonly:
         supports = {k: [] for k in supports}
-    runner = _syn_runner(args, cfg, data, diff_g=True)
+    runner = _syn_runner(args, cfg, data, diff_g=True, mesh=mesh)
     result = runner.fit_syn(data, supports, G, F_t, data["n_communities"],
                             resume_from=args.resume)
     runner.test_syn(data, supports, G, F_t, data["n_communities"], result)

@@ -89,8 +89,8 @@ class TrainConfig:
     ``train.runner``:
 
     - ``scan_steps``: optimizer steps per fused call on a device-resident
-      train loader (a CUDA graph replayed per step on the card); 1 runs a
-      call per step;
+      train loader (a CUDA graph replayed per step on the card, under a
+      process group too where it is NCCL); 1 runs a call per step;
     - ``grad_accum``: micro-batches per optimizer step, gradients averaged
       before one clip and one Adam step (not with ``scan_steps`` > 1);
     - ``early_stop_patience``: stop after this many epochs without a new
@@ -166,7 +166,7 @@ class MeshConfig:
     """The grid of ranks (``parallel.mesh.make_mesh``): ``model_axis``
     ranks split the nodes (node-TP of the flat block-sparse supports), and
     the data axis takes the rest of the world. Time-halo sequence
-    parallelism (``time_axis`` > 1) waits for slice 7b of ROADMAP.md."""
+    parallelism (``time_axis`` > 1) waits for slice 7b.3 of ROADMAP.md."""
 
     model_axis: int = 1
     time_axis: int = 1
@@ -175,7 +175,7 @@ class MeshConfig:
         if self.time_axis != 1:
             raise NotImplementedError(
                 "time_axis > 1 (time-halo sequence parallelism) is not "
-                "ported yet: slice 7b of ROADMAP.md")
+                "ported yet: slice 7b.3 of ROADMAP.md")
         if self.model_axis < 1:
             raise ValueError(f"the model axis must be >= 1, got "
                              f"{self.model_axis}")

@@ -258,7 +258,9 @@ def load_dataset_crash(batch_size: int, records: list[CrashRecord] | None
     Output contract matches the per-sample-graph synthetic task so the diff-G
     engine/runner run CRASH unchanged: loaders yield (x, y, adj_idx); the
     returned F_t is the integer pooling factor for the F-modality supervision
-    (ceil of the rate ratio, clipped to divide K).
+    (ceil of the rate ratio, clipped to divide K). Under data parallelism
+    every rank calls it with the same ``seed`` and records and draws the
+    same batches; the engine takes the rank's rows.
     """
     rng = np.random.default_rng(seed)
     if records is None:

@@ -30,8 +30,11 @@ which gather each step's batch inside the fused call from
 Under a mesh (``parallel.mesh``) every rank builds its loaders from the
 same seed, over its node range only (``data.metr.load_dataset(...,
 nodes=)``), so the ranks shuffle alike and each holds N/S nodes of every
-sample; a batch is the global batch's rows, of which the engine takes the
-rank's share (``Mesh.batch_rows``).
+sample: the global dataset (its node range) on every rank's card. A batch
+is the global batch's rows, of which the engine takes the rank's share
+(``Mesh.batch_rows``); a superbatch is the global (S, B) index matrix, of
+whose columns the engine keeps the rank's inside the fused call
+(``Mesh.index_share``).
 """
 
 from __future__ import annotations

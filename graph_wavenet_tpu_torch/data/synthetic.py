@@ -237,6 +237,10 @@ def load_dataset_syn(cfg: DataConfig, batch_size: int, seed: int = 0,
       ``G`` a single :class:`Graph`;
     - per-sample graphs: ``adjs`` = per-sample support lists, ``G`` a dict
       of per-split Graph lists, and loaders yield ``(x, y, adj_idx)``.
+
+    Under data parallelism every rank calls it with the same ``seed``, so
+    every rank holds the same splits and draws the same batches; the
+    engine takes the rank's rows of each (``train.engine``).
     """
     rng = np.random.default_rng(seed)
     graph_options = {"nCommunities": cfg.n_communities,

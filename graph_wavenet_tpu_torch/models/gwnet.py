@@ -32,7 +32,7 @@ global shape and keeps the rank's slice (so a step equals the
 single-process one, at the cost of one global draw per rank and layer),
 the fixed supports are the rank's shards (``parallel.sparse_tp``) and the
 mask its :class:`~parallel.sparse_tp.ShardedBlockAdaptiveMask`. The dense
-adaptive adjacency, and dense supports, under node-TP wait for slice 7b.
+adaptive adjacency, and dense supports, under node-TP wait for slice 7b.4.
 
 ``cfg.remat`` recomputes every layer but the first in the backward
 (``torch.utils.checkpoint``); the dropout masks drawn outside and the
@@ -240,7 +240,7 @@ class GWNet(nn.Module):
                     "node-TP (model axis > 1) takes the sharded flat "
                     "supports and the sharded adaptive mask "
                     "(parallel.sparse_tp); dense supports and the dense "
-                    "adaptive adjacency under node-TP wait for slice 7b of "
+                    "adaptive adjacency under node-TP wait for slice 7b.4 of "
                     "ROADMAP.md")
         if not use_adapt:
             return list(supports)

@@ -22,6 +22,12 @@ does:
 
 ``supports=None`` is the temporal-only model; ``[]`` with ``addaptadj`` the
 adaptive-only one. The shared-graph model keeps refusing ``fresh_nodevec``.
+
+Under data parallelism (``GWNet.mesh``) the per-sample supports arrive as
+the rank's rows, BatchNorm and dropout are global as in ``GWNet``, and the
+``fresh_nodevec`` embeddings are one draw at the global batch's shape from
+the generator that every rank holds alike, of which the rank keeps its
+rows: a rank's embeddings are the single process's for the same samples.
 """
 
 from __future__ import annotations
@@ -80,10 +86,14 @@ class GWNetDiffG(GWNet):
                     "fresh_nodevec draws the adaptive embeddings every "
                     "forward; pass the generator to draw them from")
             b, n, r = x.shape[0], cfg.num_nodes, cfg.adapt_rank
-            nv1 = torch.randn((b, n, r), generator=generator,
+            d = 1 if self.mesh is None else self.mesh.data
+            nv1 = torch.randn((b * d, n, r), generator=generator,
                               device=x.device, dtype=x.dtype)
-            nv2 = torch.randn((b, r, n), generator=generator,
+            nv2 = torch.randn((b * d, r, n), generator=generator,
                               device=x.device, dtype=x.dtype)
+            if d > 1:
+                lo = self.mesh.data_index * b
+                nv1, nv2 = nv1[lo:lo + b], nv2[lo:lo + b]
             adp = adaptive_adjacency_batched(nv1, nv2)
         else:
             adp = adaptive_adjacency(self.nodevec1, self.nodevec2)

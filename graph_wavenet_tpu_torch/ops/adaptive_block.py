@@ -11,8 +11,17 @@ patterns plus the diagonal):
   ``E2[:, dst-block] (r, BS)``;
 - per-block logits ``relu(E1_tile @ E2_tile)``, fp32-accumulated;
 - a row softmax over the live entries of each global source row, through
-  segment reductions keyed by source block-row (``scatter_reduce`` amax
-  for the max, ``index_add_`` for the sum).
+  segment reductions keyed by source block-row.
+
+Every segment reduction is a gather through a padded table of each
+segment's live blocks (built on the host with the mask, a zero or -inf
+sentinel for the short rows) and a sum or max over the table's columns,
+and the gathers of the embedding tiles by repeated block indices
+(:func:`gather_rows`) take that segment sum as their backward. So nothing
+accumulates with atomics, forward or backward, and a training step with
+the mask repeats bit for bit on the card, as the JAX step is a function of
+its inputs (``index_add_`` and ``index_select``'s backward add in whatever
+order the card's atomics land).
 
 Under a full mask this is the dense adaptive adjacency exactly; under a
 partial mask it is the softmax over the representable edge set. The
@@ -65,6 +74,10 @@ class BlockAdaptiveMask:
     # storage-order live-block coordinates (slot i -> dst/src block-row)
     live_dst: torch.Tensor      # (L,) int64
     live_src: torch.Tensor      # (L,) int64
+    # the live slots of each source (destination) block-row in storage
+    # order, padded with the sentinel L: (n_src_blocks, max) int64
+    seg_src: torch.Tensor
+    seg_dst: torch.Tensor
     bs_src: int
     bs_dst: int
     n_src_blocks: int
@@ -107,35 +120,108 @@ class BlockAdaptiveMask:
         return FlatBlockSparseSupport(*tables, **kw)
 
 
+def segment_table(seg: np.ndarray, n_segments: int) -> np.ndarray:
+    """(n_segments, max count) int64: the entries of each segment, in
+    increasing order, padded with ``len(seg)`` (the sentinel row that
+    :func:`_padded` appends). Host side."""
+    seg = np.asarray(seg, np.int64)
+    order = np.argsort(seg, kind="stable")
+    counts = np.bincount(seg, minlength=n_segments)
+    table = np.full((n_segments, max(int(counts.max(initial=0)), 1)),
+                    len(seg), np.int64)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    col = np.arange(len(seg)) - np.repeat(start, counts)
+    table[seg[order], col] = order
+    return table
+
+
+def _padded(vals: torch.Tensor, table: torch.Tensor,
+            fill: float) -> torch.Tensor:
+    """(n_segments, max, ...): the rows of ``vals`` that ``table`` names,
+    ``fill`` at the sentinel."""
+    pad = vals.new_full((1,) + tuple(vals.shape[1:]), fill)
+    return torch.cat([vals, pad]).index_select(0, table.reshape(-1)).reshape(
+        tuple(table.shape) + tuple(vals.shape[1:]))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Sum of ``vals`` rows by segment in a fixed order; the backward is
+    the gather of the cotangent by ``seg``."""
+
+    @staticmethod
+    def forward(ctx, vals, seg, table):
+        ctx.save_for_backward(seg)
+        return _padded(vals, table, 0.0).sum(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return g.index_select(0, seg), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src.index_select(0, idx)``; the backward is the segment sum of the
+    cotangent by ``idx`` in a fixed order (``table``: the segment table of
+    ``idx``), not an atomic scatter."""
+
+    @staticmethod
+    def forward(ctx, src, idx, table):
+        ctx.save_for_backward(table)
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (table,) = ctx.saved_tensors
+        return _padded(g, table, 0.0).sum(1), None, None
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
+                table: torch.Tensor) -> torch.Tensor:
+    """(n_segments, ...) sums of the rows of ``vals`` (L, ...) by segment
+    ``seg`` (L,), each in the order of ``table`` (:func:`segment_table`);
+    differentiable, with a gather as the backward."""
+    if torch.is_grad_enabled() and vals.requires_grad:
+        return _SegmentSum.apply(vals, seg, table)
+    return _padded(vals, table, 0.0).sum(1)
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                table: torch.Tensor) -> torch.Tensor:
+    """``src.index_select(0, idx)`` whose backward sums the cotangent of
+    each source row in the fixed order of ``table``, the segment table of
+    ``idx``."""
+    if torch.is_grad_enabled() and src.requires_grad:
+        return _GatherRows.apply(src, idx, table)
+    return src.index_select(0, idx)
+
+
 def adaptive_blocks(mask: BlockAdaptiveMask, nodevec1: torch.Tensor,
                     nodevec2: torch.Tensor) -> torch.Tensor:
     """Live blocks (L, BS_src, BS_dst) of the block-masked adaptive
     adjacency, in the nodevecs' dtype: the row softmax of each global
     source row over its live destinations, computed in fp32 (fp64 for
-    fp64 nodevecs)."""
+    fp64 nodevecs). Every sum runs in a fixed order (module docstring)."""
     r = nodevec1.shape[1]
     dt = nodevec1.dtype
     ct = torch.promote_types(dt, torch.float32)
-    e1 = nodevec1.reshape(mask.n_src_blocks, mask.bs_src, r).index_select(
-        0, mask.live_src)                                  # (L, BS_s, r)
-    e2 = nodevec2.reshape(r, mask.n_dst_blocks, mask.bs_dst).permute(
-        1, 0, 2).index_select(0, mask.live_dst)            # (L, r, BS_d)
-    logits = torch.relu(torch.bmm(e1.to(ct), e2.to(ct)))   # (L, BS_s, BS_d)
     seg = mask.live_src
-    nbs = mask.n_src_blocks
+    e1 = gather_rows(nodevec1.reshape(mask.n_src_blocks, mask.bs_src, r),
+                     seg, mask.seg_src)                    # (L, BS_s, r)
+    e2 = gather_rows(nodevec2.reshape(r, mask.n_dst_blocks,
+                                      mask.bs_dst).permute(1, 0, 2),
+                     mask.live_dst, mask.seg_dst)          # (L, r, BS_d)
+    logits = torch.relu(torch.bmm(e1.to(ct), e2.to(ct)))   # (L, BS_s, BS_d)
     # per-source-row max over live destinations: a stability shift only
     # (detached, as jax.nn.softmax's; the shift cancels analytically)
     with torch.no_grad():
-        lmax = logits.amax(dim=2)
-        row_max = lmax.new_full((nbs, mask.bs_src), -torch.inf)
-        row_max = row_max.scatter_reduce(
-            0, seg[:, None].expand_as(lmax), lmax, "amax")
+        row_max = _padded(logits.amax(dim=2), mask.seg_src,
+                          -torch.inf).amax(1)
         row_max = torch.where(torch.isfinite(row_max), row_max,
                               torch.zeros_like(row_max))
     ex = torch.exp(logits - row_max.index_select(0, seg)[:, :, None])
-    row_sum = ex.new_zeros((nbs, mask.bs_src))
-    row_sum.index_add_(0, seg, ex.sum(dim=2))
-    return (ex / row_sum.index_select(0, seg)[:, :, None]).to(dt)
+    row_sum = segment_sum(ex.sum(dim=2), seg, mask.seg_src)
+    # the gather by repeated indices needs the fixed-order backward too
+    return (ex / gather_rows(row_sum, seg, mask.seg_src)[:, :, None]).to(dt)
 
 
 def _live_pairs(sp):
@@ -237,13 +323,16 @@ def mask_from_pairs(dst_block: np.ndarray, src_block: np.ndarray,
     if fuse2 is not None:
         sched_t = fused2_schedule(row_t, src_t, n_blocks)
         fuse2 = fuse2 + (sched_t if sched_t is not None else (0, 0))
+    dev = tmpl.row_tbl.device
     return BlockAdaptiveMask(
         row_tbl=tmpl.row_tbl, src_tbl=tmpl.src_tbl, slot_tbl=tmpl.slot_tbl,
         row_t=tmpl.row_t, src_t=tmpl.src_t, slot_t=tmpl.slot_t,
         inv_slot=tmpl.inv_slot, row_ptr=tmpl.row_ptr,
         row_ptr_t=tmpl.row_ptr_t,
-        live_dst=torch.as_tensor(dst, device=tmpl.row_tbl.device),
-        live_src=torch.as_tensor(src, device=tmpl.row_tbl.device),
+        live_dst=torch.as_tensor(dst, device=dev),
+        live_src=torch.as_tensor(src, device=dev),
+        seg_src=torch.as_tensor(segment_table(src, n_blocks), device=dev),
+        seg_dst=torch.as_tensor(segment_table(dst, n_blocks), device=dev),
         bs_src=block_size, bs_dst=block_size, n_src_blocks=n_blocks,
         n_dst_blocks=n_blocks, fuse2=fuse2, lag=fused2_lag(row, srct),
         lag_t=fused2_lag(row_t, src_t))

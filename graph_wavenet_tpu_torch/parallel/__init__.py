@@ -11,6 +11,8 @@ them).
 - ``sparse_tp``: node-TP of the flat block-sparse supports and of the
   block-masked adaptive adjacency (kernels 1 and 2 per shard).
 
-Time-halo sequence parallelism, the pipeline and dense node-TP wait for
-slice 7b of ROADMAP.md.
+Every training path runs under data parallelism, the fused CUDA-graph
+steps included (their collectives captured on an NCCL group). Time-halo
+sequence parallelism, dense node-TP and the pipeline wait for slices 7b.3,
+7b.4 and 7b.5 of ROADMAP.md.
 """

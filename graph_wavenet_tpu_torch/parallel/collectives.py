@@ -6,6 +6,12 @@ which case it is the identity. The caller chooses the backend when it
 creates the group: on a gloo group a CUDA tensor goes through a pinned host
 buffer (gloo runs only some collectives on CUDA tensors), on an NCCL group
 it stays on the card; nothing switches backend on a failure.
+
+Inside a CUDA graph capture (the fused train and eval steps,
+``train.step_graph``) every collective of a step is captured with it: on an
+NCCL group they are. A gloo group cannot be captured, because it stages a
+CUDA tensor through host memory; such a call during a capture raises
+:class:`GlooCaptureError` instead of staging.
 """
 
 from __future__ import annotations
@@ -19,9 +25,23 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+class GlooCaptureError(RuntimeError):
+    """A collective of a gloo group over CUDA tensors inside a CUDA graph
+    capture: gloo stages the tensors through host memory, which a graph
+    cannot capture."""
+
+
 def _staged(t: torch.Tensor, group) -> bool:
-    """True when ``t`` must go through the host: a CUDA tensor on gloo."""
-    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    """True when ``t`` must go through the host: a CUDA tensor on gloo.
+    Raises :class:`GlooCaptureError` when that happens during a capture."""
+    staged = t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    if staged and torch.cuda.is_current_stream_capturing():
+        raise GlooCaptureError(
+            "a gloo collective over CUDA tensors stages them through host "
+            "memory, which a CUDA graph cannot capture: capture the fused "
+            "steps over an NCCL group (one rank per card), or run "
+            "train_step / eval_step on gloo")
+    return staged
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:

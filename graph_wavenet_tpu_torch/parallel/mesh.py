@@ -76,6 +76,15 @@ class Mesh:
         return np.concatenate([np.arange(i * mb + lo, i * mb + lo + share)
                                for i in range(n_micro)])
 
+    def index_share(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of an (S, B) index matrix of S global
+        batches (sample indices or window anchors): for every row the
+        :meth:`batch_rows` of B, so a fused step selects the rows the eager
+        step takes."""
+        cols = torch.as_tensor(self.batch_rows(idx.shape[1]),
+                               device=idx.device)
+        return idx.index_select(1, cols)
+
     def node_range(self, n: int) -> tuple[int, int]:
         """This rank's ``[lo, hi)`` of ``n`` nodes."""
         if n % self.model:

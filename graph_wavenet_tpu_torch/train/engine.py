@@ -44,14 +44,29 @@ the metrics are global (``train.metrics``), each rank back-propagates its
 part of the loss, and the gradients are summed over the world in one flat
 all-reduce before the clip and Adam, which then do the same on every rank:
 the parameters stay replicated bit for bit. ``predict_step`` returns the
-rank's rows and nodes. The fused steps (CUDA graphs over a process group)
-and the two-modality tasks under a mesh wait for slice 7b of ROADMAP.md.
+rank's rows and nodes.
+
+The fused steps run under a mesh too (JAX's ``_constrain`` of the in-scan
+gathers): every rank is given the global (S, B) index matrix and keeps its
+columns (``Mesh.index_share``, the rows ``batch_rows`` gives the eager
+step), so a fused step gathers the rank's rows inside the graph and stays
+bit for bit the eager one. On the card the step's collectives are captured
+with it, which needs an NCCL group (``parallel.collectives``): a CUDA
+engine on a gloo group of more than one rank refuses the fused steps
+(:class:`parallel.collectives.GlooCaptureError`) and nothing falls back
+to eager steps; on the CPU a fused call is the eager loop under any group.
+The two-modality tasks run under DP (the diff-G model included): each
+rank takes its rows of x, y and of the per-sample supports and projectors,
+and the two-modality loss and metrics follow the global rule. Their
+per-sample supports are dense, so node-TP (``model_axis`` > 1) of them is
+refused; it waits for dense node-TP, slice 7b.4 of ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from graph_wavenet_tpu_torch import resolve_device
@@ -64,11 +79,13 @@ from graph_wavenet_tpu_torch.data.scaler import StandardScaler
 from graph_wavenet_tpu_torch.models.gwnet import GWNet
 from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
 from graph_wavenet_tpu_torch.ops.diffusion import nconv, nconv_batched
-from graph_wavenet_tpu_torch.parallel.collectives import all_reduce_grads
+from graph_wavenet_tpu_torch.parallel.collectives import (
+    GlooCaptureError,
+    all_reduce_grads,
+)
 from graph_wavenet_tpu_torch.train import step_graph
 from graph_wavenet_tpu_torch.train.metrics import (
     global_terms,
-    masked_mae,
     masked_terms,
 )
 
@@ -174,10 +191,11 @@ class Engine:
                  device: torch.device | str = "cuda",
                  seed: int | None = None, steps_per_epoch: int = 0,
                  aptinit=None, diff_g: bool = False, mesh=None):
-        if mesh is not None and diff_g:
+        if mesh is not None and diff_g and mesh.model > 1:
             raise NotImplementedError(
-                "the per-sample-graph model under a mesh waits for slice 7b "
-                "of ROADMAP.md")
+                "the per-sample-graph model's supports are dense (B, N, N) "
+                "stacks: node-TP of them (model_axis > 1) waits for dense "
+                "node-TP, slice 7b.4 of ROADMAP.md; use data parallelism")
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -224,10 +242,36 @@ class Engine:
             return a
         return self.mesh.shard_batch(a, n_micro, self.model_cfg.num_nodes)
 
-    def batch_rows(self, b: int) -> np.ndarray:
-        """The rows of a global batch of ``b`` that this rank computes."""
+    def batch_rows(self, b: int, n_micro: int = 1) -> np.ndarray:
+        """The rows of a global batch of ``b`` that this rank computes (the
+        d-th share of each of ``n_micro`` micro-batches)."""
         return (np.arange(b) if self.mesh is None
-                else self.mesh.batch_rows(b))
+                else self.mesh.batch_rows(b, n_micro))
+
+    def _sample_rows(self, a, b: int, n_micro: int = 1):
+        """This rank's rows of a per-sample (b, N, N) stack of a global
+        batch of ``b`` rows; a shared (N, N) tensor or None as it is."""
+        if a is None or a.ndim != 3:
+            return a
+        if a.shape[0] != b:
+            raise ValueError(
+                f"a per-sample stack of {a.shape[0]} rows for a batch of "
+                f"{b}: pass the global batch's stacks (the engine takes "
+                f"this rank's rows)")
+        if self.mesh is None:
+            return a
+        return a.index_select(0, torch.as_tensor(
+            self.mesh.batch_rows(b, n_micro), device=a.device))
+
+    def _local_nodes(self, a: torch.Tensor) -> torch.Tensor:
+        """A (B, T, N, C) batch gathered inside a fused step: its rank's
+        node range where it holds every node and the model axis splits
+        them (a node-TP loader holds the range already)."""
+        n = self.model_cfg.num_nodes
+        if self.mesh is None or self.mesh.model == 1 or a.shape[2] != n:
+            return a
+        lo, hi = self.mesh.node_range(n)
+        return a[:, :, lo:hi].contiguous()
 
     @property
     def _world(self):
@@ -248,11 +292,11 @@ class Engine:
         out = self.model(x, supports, generator=self._generator())
         return out * self.scaler.std + self.scaler.mean
 
-    @staticmethod
-    def _metrics(loss, predict, real) -> torch.Tensor:
-        """(loss, MAPE, RMSE) of ``predict`` (one process)."""
-        return torch.cat([loss.reshape(1),
-                          global_terms(*masked_terms(predict, real))[1:]])
+    def _metrics(self, loss, predict, real) -> torch.Tensor:
+        """(loss, MAPE, RMSE) of ``predict``, global: ``loss`` is this
+        rank's part of the loss."""
+        parts = masked_terms(predict, real, 0.0, self._world)
+        return global_terms(loss.detach(), parts[1], parts[2], self._world)
 
     def _set_lr(self) -> None:
         """The schedule's rate for the next step: filled into the device
@@ -362,18 +406,26 @@ class Engine:
         ``body(sel)`` runs one step (``train``: an optimizer step) on the
         samples ``sel`` and returns its stacked metrics; ``key``: the
         resident inputs and supports it reads and its static arguments."""
-        if self.mesh is not None and self.mesh.world_size > 1:
-            raise NotImplementedError(
-                "the fused steps (CUDA graphs) over a process group wait for "
-                "slice 7b of ROADMAP.md; run train_step / eval_step")
+        world = self._world
+        cuda = self.device.type == "cuda"
+        if (cuda and world is not None and self.mesh.world_size > 1
+                and dist.get_backend(world) == "gloo"):
+            raise GlooCaptureError(
+                "the fused steps capture their collectives in a CUDA graph, "
+                "and a gloo group of more than one rank stages CUDA tensors "
+                "through host memory, which cannot be captured: run the "
+                "ranks on an NCCL group (one card each), or scan_steps=1 "
+                "(train_step / eval_step) on gloo")
         idx = torch.as_tensor(idx, device=self.device).to(torch.int32)
         if idx.ndim != 2:
             raise ValueError(f"idx must be (S, B), got {tuple(idx.shape)}")
+        if self.mesh is not None:
+            idx = self.mesh.index_share(idx)
 
         def after():
             self.step += 1
 
-        if self.device.type != "cuda":
+        if not cuda:
             rows = []
             for sel in idx:
                 if train:
@@ -389,7 +441,8 @@ class Engine:
             idx, self._stream, keep=key,
             generator=self.generator if train else None,
             before=self._set_lr if train else None,
-            after=after if train else None)
+            after=after if train else None,
+            error_mode="global" if world is None else "thread_local")
         return _as_dict(out)
 
     def train_steps_resident(self, xs: torch.Tensor, ys: torch.Tensor, idx,
@@ -403,7 +456,7 @@ class Engine:
         later call over the same inputs)."""
         return self._fused(
             True, "train", lambda sel: self._train_core(
-                xs.index_select(0, sel), ys.index_select(0, sel), supports),
+                *self._rows_of(xs, ys, sel), supports),
             (xs, ys, _supports_key(supports)), idx)
 
     def train_steps_windows(self, series: torch.Tensor, anchors,
@@ -427,7 +480,7 @@ class Engine:
         arrays: (C,) device tensors, one sync for the caller per split."""
         return self._fused(
             False, "eval", lambda sel: self._eval_core(
-                xs.index_select(0, sel), ys.index_select(0, sel), supports),
+                *self._rows_of(xs, ys, sel), supports),
             (xs, ys, _supports_key(supports)), idx)
 
     def eval_steps_windows(self, series: torch.Tensor, anchors, window: int,
@@ -441,14 +494,22 @@ class Engine:
             False, "eval", lambda a: self._eval_core(*gather(a), supports),
             key + (_supports_key(supports),), anchors)
 
-    @staticmethod
-    def _windows(series, window, horizon, y_start, y_series):
+    def _rows_of(self, xs, ys, sel):
+        """The batch ``sel`` of resident sample arrays, in the rank's node
+        range."""
+        return (self._local_nodes(xs.index_select(0, sel)),
+                self._local_nodes(ys.index_select(0, sel)))
+
+    def _windows(self, series, window, horizon, y_start, y_series):
         """(gather, inputs) of the windows-on-demand feed."""
         ys_src = series if y_series is None else y_series
         y_len = horizon - y_start + 1
-        return (lambda a: gather_xy_windows(series, ys_src, a, window,
-                                            y_start, y_len),
-                (series, ys_src, window, horizon, y_start))
+
+        def gather(a):
+            return tuple(map(self._local_nodes, gather_xy_windows(
+                series, ys_src, a, window, y_start, y_len)))
+
+        return gather, (series, ys_src, window, horizon, y_start)
 
     @torch.no_grad()
     def eval_step(self, x, y, supports) -> dict:
@@ -484,39 +545,46 @@ class Engine:
                 f"so receptive_field == K+1, or reduce seq_length.")
 
     def _syn_outputs(self, x, y, supports, projector, F_t: int):
-        """(loss, F̂, Ê, target) of a batch in the model's current mode."""
+        """(loss, F̂, Ê, target) of a batch in the model's current mode;
+        under a mesh the loss is this rank's part."""
         predict = self._forward(x, supports)
         self._check_syn_collapse(predict)
         real = modality_target(y)
         f_hat = pool_F(predict, F_t)
         e_hat = pool_E(predict, projector)
-        loss = masked_mae(torch.cat([f_hat, e_hat], dim=1), real, 0.0)
+        loss = masked_terms(torch.cat([f_hat, e_hat], dim=1), real, 0.0,
+                            self._world)[0]
         return loss, f_hat, e_hat, real
 
     def _syn_loss(self, x, y, supports, projector, F_t: int):
-        """(loss, stacked metrics) of a train-mode batch: MAPE and RMSE of
-        Ê against both target channels."""
+        """(loss, stacked global metrics) of a train-mode batch: MAPE and
+        RMSE of Ê against both target channels."""
         loss, _, e_hat, real = self._syn_outputs(x, y, supports, projector,
                                                  F_t)
         with torch.no_grad():
-            m = self._metrics(loss.detach(), e_hat.detach(), real)
+            m = self._metrics(loss, e_hat.detach(), real)
         return loss, m
 
-    def _syn_tensors(self, x, y, projector):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the two-modality tasks under a mesh wait for slice 7b of "
-                "ROADMAP.md")
-        return (self._tensor(x), self._tensor(y),
-                torch.as_tensor(projector, dtype=torch.float32,
-                                device=self.device))
+    def _syn_tensors(self, x, y, supports, projector, n_micro: int = 1):
+        """x, y, the supports and the projector of a global batch on the
+        device: under a mesh the rank's rows of each (of the per-sample
+        stacks, which hold the global batch's rows; shared ones as they
+        are)."""
+        b = x.shape[0]
+        projector = torch.as_tensor(projector, dtype=torch.float32,
+                                    device=self.device)
+        return (self._tensor(x, n_micro), self._tensor(y, n_micro),
+                None if supports is None else
+                [self._sample_rows(s, b, n_micro) for s in supports],
+                self._sample_rows(projector, b, n_micro))
 
     def train_step_syn(self, x, y, supports, projector, F_t: int) -> dict:
         """One optimizer step of the two-modality task: x (B, K, N, 2)
         standardized, y (B, K, N, 2) raw, ``supports`` shared (N, N) or
         per-sample (B, N, N) (the diff-G model), ``projector`` the
         cluster-mean projector, shared or per sample."""
-        x, y, projector = self._syn_tensors(x, y, projector)
+        x, y, supports, projector = self._syn_tensors(x, y, supports,
+                                                      projector)
         self._set_lr()
         m = self._optimize(self._syn_loss, x, y, supports, projector, F_t)
         self.step += 1
@@ -527,11 +595,12 @@ class Engine:
         """:meth:`train_step_accum` of the two-modality step: per-sample
         supports and projectors ((B, N, N), B the batch) are sliced with
         the micro-batches, shared ones serve each."""
-        x, y, projector = self._syn_tensors(x, y, projector)
+        x, y, supports, projector = self._syn_tensors(x, y, supports,
+                                                      projector, n_micro)
         b = x.shape[0]
 
         def part(a, lo, hi):
-            return a[lo:hi] if a.ndim == 3 and a.shape[0] == b else a
+            return a[lo:hi] if a.ndim == 3 else a
 
         return self._accumulate(b, n_micro, lambda lo, hi: self._syn_loss(
             x[lo:hi], y[lo:hi],
@@ -559,8 +628,7 @@ class Engine:
             sup = (None if sups is None
                    else [s.index_select(0, gids) for s in sups])
             return self._optimize(
-                self._syn_loss, xs.index_select(0, sel),
-                ys.index_select(0, sel), sup,
+                self._syn_loss, *self._rows_of(xs, ys, sel), sup,
                 proj_stack.index_select(0, gids), F_t)
 
         return self._fused(True, "train_syn", body,
@@ -571,7 +639,8 @@ class Engine:
     def eval_step_syn(self, x, y, supports, projector, F_t: int) -> dict:
         """Loss, MAPE and RMSE of a batch in eval mode, and the pooled
         predictions ``pred_F``/``pred_E`` (B, 1, N, K) in raw units."""
-        x, y, projector = self._syn_tensors(x, y, projector)
+        x, y, supports, projector = self._syn_tensors(x, y, supports,
+                                                      projector)
         self.model.eval()
         loss, f_hat, e_hat, real = self._syn_outputs(x, y, supports,
                                                      projector, F_t)

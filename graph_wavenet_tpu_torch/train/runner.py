@@ -40,7 +40,12 @@ wait at a barrier after each epoch's checkpoint, and after the last one
 take rank 0's best weights by broadcast. A resume reads the checkpoint on
 every rank (a path every rank can read). The test scores the rank's rows
 and nodes and sums over the ranks. The fused feeds (``scan_steps`` > 1)
-under a mesh wait for slice 7b.
+run under a mesh too: every rank passes the same global index matrices
+(the loaders shuffle alike from one seed) and the engine keeps its
+columns inside the fused call; the barrier, the checkpoint writes and the
+final broadcast stay between fused calls. A resident loader must hold its
+arrays on the mesh's device (JAX: "mesh-replicated"), else ``fit`` raises
+a ``ValueError`` naming both devices.
 
 The two-modality tasks run the same epoch machinery (resume, early stop,
 watchdog, asynchronous best-k checkpoints) over ``Engine.train_step_syn``
@@ -50,7 +55,11 @@ with one graph's supports and cluster-mean projector, the per-sample-graph
 stacks by the batch's ``adj_idx``, and fusing ``scan_steps`` steps per
 call on a device-resident loader (``train_steps_syn_resident``). Its test
 scores against the test split's own graphs. Checkpoint sidecars record
-``"diff_g"``.
+``"diff_g"``. Under a mesh (data parallelism) every rank runs the same
+loop on the same batches and their gathered supports and projectors
+(``_gathered``), the engine takes the rank's rows of each and returns
+global metrics; the
+test's pooled predictions are the ranks' rows gathered in order.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch.config import TrainConfig
+from graph_wavenet_tpu_torch.parallel.collectives import all_gather_rows
 from graph_wavenet_tpu_torch.parallel.multihost import replicate_pytree
 from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 from graph_wavenet_tpu_torch.train.engine import (
@@ -166,10 +176,6 @@ class Runner:
         mesh = engine.mesh if mesh is None else mesh
         if mesh is not engine.mesh:
             raise ValueError("Runner(mesh=) must be the engine's mesh")
-        if mesh is not None and train_cfg.scan_steps > 1:
-            raise NotImplementedError(
-                "scan_steps > 1 (the fused CUDA-graph steps) under a mesh "
-                "waits for slice 7b of ROADMAP.md; use scan_steps=1")
         self.engine = engine
         self.cfg = train_cfg
         self.mesh = mesh
@@ -185,6 +191,25 @@ class Runner:
     def _barrier(self) -> None:
         if self.mesh is not None:
             self.mesh.barrier()
+
+    def _check_resident(self, data: dict) -> None:
+        """Under a mesh the fused feeds gather inside the engine from the
+        loaders' resident arrays: they must sit on the mesh's device
+        (JAX's ``_fused_mesh_args``)."""
+        if self.mesh is None or self.cfg.scan_steps <= 1:
+            return
+        for name in ("train_loader", "val_loader"):
+            loader = data.get(name)
+            for attr in ("resident_arrays", "resident_series"):
+                if hasattr(loader, attr):
+                    dev = getattr(loader, attr)()[0].device
+                    if dev != self.mesh.device:
+                        raise ValueError(
+                            f"{name}'s resident arrays are on {dev}, but "
+                            f"the mesh's device is {self.mesh.device}: "
+                            "the fused steps under a mesh need the loaders "
+                            "built on the rank's device (load_dataset(..., "
+                            "device=mesh.device))")
 
     def _train_epoch(self, loader, supports) -> list[dict]:
         """One epoch's train steps through the loader's feed (see the
@@ -248,6 +273,7 @@ class Runner:
                 "grad_accum > 1 does not combine with the fused multi-step "
                 "feed (scan_steps > 1 on a device-resident loader); set "
                 "scan_steps=1 to accumulate")
+        self._check_resident(data)
         return self._epochs(
             data, lambda loader: self._train_epoch(loader, supports),
             lambda loader: self._eval_split(loader, supports), resume_from)
@@ -417,7 +443,8 @@ class Runner:
         return sup, proj
 
     def _gathered(self, sup, proj, adj_idx):
-        """The supports and projector of a batch's graphs."""
+        """The supports and projector of the graphs of a batch's rows (the
+        engine takes this rank's rows of them)."""
         idx = torch.as_tensor(np.asarray(adj_idx),
                               device=self.engine.device).long()
         return (None if sup is None else [s.index_select(0, idx)
@@ -438,6 +465,7 @@ class Runner:
             raise ValueError(
                 "grad_accum > 1 does not combine with the fused multi-step "
                 "feed (scan_steps > 1); set scan_steps=1 to accumulate")
+        self._check_resident(data)
         sup, proj = self._split_stacks(supports_by_split, graphs_by_split,
                                        n_communities)
         engine = self.engine
@@ -485,14 +513,22 @@ class Runner:
                 F_t)
             steps.append(self._scalars(ev))
             reals.append(np.asarray(y.cpu() if torch.is_tensor(y) else y))
-            pred_fs.append(ev["pred_F"][:, 0].cpu().numpy())
-            pred_es.append(ev["pred_E"][:, 0].cpu().numpy())
+            # the ranks' rows of the batch, in order: the whole batch
+            pred_fs.append(self._all_rows(ev["pred_F"][:, 0]).cpu().numpy())
+            pred_es.append(self._all_rows(ev["pred_E"][:, 0]).cpu().numpy())
         result.test_metrics = _epoch_mean(steps)
         result.test_metrics.update(pred_F=np.concatenate(pred_fs),
                                    pred_E=np.concatenate(pred_es),
                                    reals=np.concatenate(reals))
         self._log_test(result.test_metrics)
         return result
+
+    def _all_rows(self, a: torch.Tensor) -> torch.Tensor:
+        """A batch's rows from every rank, in rank order (DP: the ranks'
+        rows are consecutive shares)."""
+        if self.mesh is None:
+            return a
+        return all_gather_rows(a, self.mesh.world)
 
     def _log_test(self, m: dict) -> None:
         self.log("On average over seq_length horizons, Test MAE: "

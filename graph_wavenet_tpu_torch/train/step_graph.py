@@ -51,11 +51,15 @@ class StepGraph:
 
     def capture(self, body: Callable[[torch.Tensor], torch.Tensor],
                 stream: torch.cuda.Stream,
-                generator: torch.Generator | None) -> None:
+                generator: torch.Generator | None,
+                error_mode: str = "global") -> None:
         """Capture ``body(sel)`` on ``stream``. ``generator``: a dropout
         stream the step draws from; a replay then draws what the next
         eager step would and advances the generator as that step does.
-        ``body`` returns one tensor, the step's output."""
+        ``body`` returns one tensor, the step's output. ``error_mode``:
+        ``torch.cuda.graph``'s ``capture_error_mode``; a step with NCCL
+        collectives takes ``"thread_local"``, so that the process group's
+        watchdog thread may query its events during the capture."""
         if generator is not None:
             register = getattr(self.graph, "register_generator_state", None)
             if register is None:
@@ -66,7 +70,8 @@ class StepGraph:
                     "generator and need it")
             register(generator)
         before = dict(bd.LAUNCHES)
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode=error_mode):
             self.out = body(self.sel)
         self.launches = {k: bd.LAUNCHES[k] - before[k] for k in before}
 
@@ -83,11 +88,15 @@ def run_steps(graphs: dict, key: tuple, body, idx: torch.Tensor,
               stream: torch.cuda.Stream, *, keep: tuple,
               generator: torch.Generator | None = None,
               before: Callable[[], None] | None = None,
-              after: Callable[[], None] | None = None) -> torch.Tensor:
+              after: Callable[[], None] | None = None,
+              error_mode: str = "global") -> torch.Tensor:
     """S steps of ``body`` over the rows of ``idx`` (S, ...) int32 on the
     card: the outputs stacked, (S, *output shape). ``graphs`` caches a
     :class:`StepGraph` per ``key``; ``before``/``after`` run around every
-    step (the engine's learning rate and step count)."""
+    step (the engine's learning rate and step count). The warm-up step
+    runs every collective of the step eagerly on the capture stream before
+    the capture, so an NCCL communicator exists by then; ``error_mode``
+    goes to :meth:`StepGraph.capture`."""
     s = idx.shape[0]
     g = graphs.get(key)
     if g is None:
@@ -105,7 +114,10 @@ def run_steps(graphs: dict, key: tuple, body, idx: torch.Tensor,
                           device=first.device)
         out[0].copy_(first)
         del first
-        g.capture(body, stream, generator)
+        # nothing of the warm-up may still run when the capture starts
+        # (an NCCL work's event would be queried inside it)
+        stream.synchronize()
+        g.capture(body, stream, generator, error_mode)
         graphs[key] = g
         k0 = 1
     else:

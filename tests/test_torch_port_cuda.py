@@ -742,10 +742,11 @@ def test_graphed_eval_equals_eager(card):
 def test_graphed_city_steps_equal_eager(card):
     """S = 3 graphed steps of the 2,048-node fp32 city model (flat
     supports and the adaptive mask, dropout on) against three eager steps,
-    bit for bit, under deterministic algorithms (the adaptive softmax's
-    index_add_ and the nodevec gathers' backward use float atomics
-    otherwise). Kernels 1, 2 and 3 run inside the graph: its per-replay
-    launches equal an eager step's."""
+    bit for bit, without deterministic algorithms: the adaptive softmax's
+    segment sums and its gathers' backward run in a fixed order
+    (``ops.adaptive_block``), so nothing accumulates with atomics. Kernels
+    1, 2 and 3 run inside the graph: its per-replay launches equal an
+    eager step's."""
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.graphs.city import build_city_supports
@@ -766,21 +767,17 @@ def test_graphed_city_steps_equal_eager(card):
     ys = torch.as_tensor(rng.normal(50, 10, size=(6, 12, n, 2)).astype(
         np.float32), device=card)
     idx = np.array([[0, 1], [2, 3], [4, 5]], np.int32)
-    torch.use_deterministic_algorithms(True)
-    try:
-        eager, graphed = (Engine(cfg, TrainConfig(), StandardScaler(50, 10),
-                                 device=card, seed=0) for _ in range(2))
-        launches = []
-        want = []
-        for r in torch.as_tensor(idx, device=card):
-            bd.reset_launch_counts()
-            want.append(eager.train_step(xs.index_select(0, r),
-                                         ys.index_select(0, r), sups))
-            launches.append(dict(bd.LAUNCHES))
-        got = graphed.train_steps_resident(xs, ys, idx, sups)
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    eager, graphed = (Engine(cfg, TrainConfig(), StandardScaler(50, 10),
+                             device=card, seed=0) for _ in range(2))
+    launches = []
+    want = []
+    for r in torch.as_tensor(idx, device=card):
+        bd.reset_launch_counts()
+        want.append(eager.train_step(xs.index_select(0, r),
+                                     ys.index_select(0, r), sups))
+        launches.append(dict(bd.LAUNCHES))
+    got = graphed.train_steps_resident(xs, ys, idx, sups)
+    torch.cuda.synchronize()
     assert torch.equal(got["loss"], torch.stack([m["loss"] for m in want]))
     assert_same_state(step_state(graphed), step_state(eager))
     (g,) = graphed.step_graphs()
@@ -1047,6 +1044,11 @@ if mode == "gloo2":
                 np.save(os.path.join(out, f"{key.replace('/', '_')}_db.npy"),
                         gb.cpu().numpy())
             res[key] = {"launches": dict(bd.LAUNCHES), "halo": sp.halo}
+    res.update(gloo_refusals(dev))
+elif mode == "nccl1_graphed":
+    res.update(nccl_graphed(dev))
+elif mode == "nccl2_tp_graphed":
+    res.update(nccl_tp_graphed(dev))
 else:
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.train.engine import Engine
@@ -1071,6 +1073,140 @@ else:
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(res, f)
 '''
+
+# what the DIST_CHILD modes of the fused steps run (defined before it)
+DIST_FUSED = r'''
+def small_dense(dev, mesh, dropout):
+    """Two engines of a 32-node dense model on ``mesh``, from one seed, and
+    8 resident samples."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    rng = np.random.default_rng(0)
+    a = rng.random((2, 32, 32)).astype(np.float32)
+    sups = [torch.as_tensor(s / s.sum(-1, keepdims=True), device=dev)
+            for s in a]
+    xs = torch.as_tensor(rng.normal(size=(8, 12, 32, 2)).astype(np.float32),
+                         device=dev)
+    ys = torch.as_tensor((rng.normal(size=(8, 12, 32, 2)) * 5
+                          + 50).astype(np.float32), device=dev)
+    cfg = ModelConfig(num_nodes=32, residual_channels=8, dilation_channels=8,
+                      skip_channels=16, end_channels=16, blocks=2, layers=2,
+                      dropout=dropout)
+    engines = [Engine(cfg, TrainConfig(), StandardScaler(50.0, 5.0),
+                      device=dev, seed=0, mesh=mesh) for _ in range(2)]
+    return engines, sups, xs, ys
+
+
+def gloo_refusals(dev):
+    """A fused call of an engine on the 2-rank gloo group raises the named
+    error, and so does a staged collective inside a capture."""
+    from graph_wavenet_tpu_torch.parallel.collectives import GlooCaptureError
+    out = {}
+    (eng, _), sups, xs, ys = small_dense(dev, make_mesh(MeshConfig(), dev),
+                                         0.0)
+    try:
+        eng.train_steps_resident(xs, ys, np.zeros((2, 4), np.int32), sups)
+        out["fused"] = "not refused"
+    except GlooCaptureError as e:
+        out["fused"] = str(e)
+    graph, t = torch.cuda.CUDAGraph(), torch.ones(3, device=dev)
+    try:
+        with torch.cuda.graph(graph):
+            collectives.all_reduce_(t, None if world == 1 else
+                                    torch.distributed.group.WORLD)
+        out["capture"] = "not refused"
+    except Exception as e:
+        chain = [e, e.__context__]
+        out["capture"] = " | ".join(f"{type(c).__name__}: {c}"
+                                    for c in chain if c is not None)
+    return out
+
+
+def nccl_graphed(dev):
+    """Two fused calls of S = 3 steps on a one-rank NCCL mesh (dropout 0.3,
+    the collectives captured) against six eager steps on the same mesh:
+    losses, parameters, buffers and Adam's state bit for bit."""
+    mesh = make_mesh(MeshConfig(), dev)
+    (eager, graphed), sups, xs, ys = small_dense(dev, mesh, 0.3)
+    idx = np.random.default_rng(1).integers(0, 8, size=(2, 3, 4)).astype(
+        np.int32)
+    out = {"loss_differ": []}
+    for call in range(2):
+        got = graphed.train_steps_resident(xs, ys, idx[call], sups)
+        want = [eager.train_step(xs.index_select(0, r),
+                                 ys.index_select(0, r), sups)
+                for r in torch.as_tensor(idx[call], device=dev)]
+        if not torch.equal(got["loss"],
+                           torch.stack([m["loss"] for m in want])):
+            out["loss_differ"].append(call)
+    a, b = (dict(e.model.state_dict()) for e in (eager, graphed))
+    for e, d in ((eager, a), (graphed, b)):
+        for i, st in e.optimizer.state_dict()["state"].items():
+            d.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    out["state_differ"] = [k for k in a if not torch.equal(a[k], b[k])]
+    (g,) = graphed.step_graphs()
+    out["replays"] = g.replays
+    return out
+
+
+def nccl_tp_graphed(dev):
+    """Node-TP on a 2-rank NCCL group (one card each): a 2,048-node city
+    graph's two flat supports and their mask, sharded in both exchange
+    forms (all_gather, and the halo's neighbour exchange); per form two
+    fused calls of S = 2 steps (dropout 0.3, the hop exchanges captured
+    with the step's other collectives) against four eager steps on the
+    same mesh, bit for bit, and the hand kernels' per-replay launches."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs import spatial
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+    from graph_wavenet_tpu_torch.ops import adaptive_block
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    n = 2048
+    rng = np.random.default_rng(0)
+    src, dst, w = spatial.knn_graph_edges(rng.random((n, 2)), 4)
+    flat = list(spatial.doubletransition_block_supports(
+        src, dst, w, n, perm=rcm_order_edges(src, dst, n), form="flat",
+        block_size=128, device=dev))
+    mask = adaptive_block.mask_from_supports(flat)
+    xs = torch.as_tensor(rng.normal(size=(8, 12, n, 2)).astype(np.float32),
+                         device=dev)
+    ys = torch.as_tensor((rng.normal(size=(8, 12, n, 2)) * 9.5
+                          + 31.0).astype(np.float32), device=dev)
+    idx = rng.integers(0, 8, size=(2, 2, 4)).astype(np.int32)
+    mesh = make_mesh(MeshConfig(model_axis=2), dev)
+    cfg = ModelConfig(num_nodes=n, residual_channels=8, dilation_channels=8,
+                      skip_channels=16, end_channels=16, blocks=2, layers=2,
+                      dropout=0.3, gcn_bool=True, addaptadj=True,
+                      n_supports=2)
+    out = {}
+    for halo in (False, True):
+        sups = [sparse_tp.shard_flat_support(sp, mesh, halo) for sp in flat]
+        sups.append(sparse_tp.shard_adaptive_mask(mask, mesh, halo))
+        eager, graphed = (Engine(cfg, TrainConfig(),
+                                 StandardScaler(31.0, 9.5), device=dev,
+                                 seed=0, mesh=mesh) for _ in range(2))
+        rec = {"halo": [sp.halo for sp in sups[:2]], "loss_differ": []}
+        for call in range(2):
+            got = graphed.train_steps_resident(xs, ys, idx[call], sups)
+            want = [eager.train_step(xs.index_select(0, r),
+                                     ys.index_select(0, r), sups)
+                    for r in torch.as_tensor(idx[call], device=dev)]
+            if not torch.equal(got["loss"],
+                               torch.stack([m["loss"] for m in want])):
+                rec["loss_differ"].append(call)
+        a, b = (dict(e.model.state_dict()) for e in (eager, graphed))
+        for e, d in ((eager, a), (graphed, b)):
+            for i, st in e.optimizer.state_dict()["state"].items():
+                d.update({f"adam.{i}.{k}": v for k, v in st.items()})
+        rec["state_differ"] = [k for k in a if not torch.equal(a[k], b[k])]
+        (g,) = graphed.step_graphs()
+        rec["replays"], rec["per_replay"] = g.replays, g.launches
+        out["halo" if halo else "all_gather"] = rec
+    return out
+'''
+DIST_CHILD = DIST_CHILD.replace("res = {}\n", DIST_FUSED + "res = {}\n", 1)
 
 
 def run_dist_child(tmp_path, mode: str, world: int) -> list:
@@ -1153,6 +1289,48 @@ def test_gloo_ranks_sharing_the_card_stage_collectives_and_shard_hops(
                 assert launches["gathered_block_mix_flat"] == 2
                 assert launches["gathered_block_outer_flat"] == 1
                 assert r[key]["halo"] == (halo == "auto")
+
+
+def test_fused_call_on_gloo_ranks_with_cuda_tensors_raises(card, tmp_path):
+    """On the 2-rank gloo group sharing the card, a fused call refuses with
+    ``GlooCaptureError`` before any step (its collectives would stage
+    through the host, which a CUDA graph cannot capture), and a staged
+    collective inside a capture raises it too: nothing falls back."""
+    res = run_dist_child(tmp_path, "gloo2", 2)
+    for r in res:
+        assert "NCCL group" in r["fused"], r["fused"]
+        assert "GlooCaptureError" in r["capture"], r["capture"]
+
+
+def test_nccl_one_rank_graphed_steps_equal_eager(card, tmp_path):
+    """On a one-rank NCCL group the fused steps capture the step's
+    collectives (BatchNorm's, the loss mask's, the metrics', the gradient
+    all-reduce) in the graph: two fused calls of S = 3 steps with dropout
+    0.3 equal six eager ``train_step`` calls on the same mesh bit for
+    bit."""
+    res = run_dist_child(tmp_path, "nccl1_graphed", 1)[0]
+    assert res["loss_differ"] == [] and res["state_differ"] == [], res
+    assert res["replays"] == 5
+
+
+def test_nccl_two_ranks_node_tp_graphed_steps_equal_eager(card, tmp_path):
+    """Node-TP over a 2-rank NCCL group, one card per rank: the fused steps
+    capture the hop exchanges (the all_gather form's gathers and the halo
+    form's neighbour exchange) with the step's other collectives, and two
+    fused calls of S = 2 steps with dropout 0.3 equal four eager
+    ``train_step`` calls on the same mesh bit for bit on both ranks, with
+    kernels 1 and 2 launched in every replay."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    res = run_dist_child(tmp_path, "nccl2_tp_graphed", 2)
+    for r in res:
+        for form, halo in (("all_gather", False), ("halo", True)):
+            rec = r[form]
+            assert rec["halo"] == [halo, halo], rec
+            assert rec["loss_differ"] == [] and rec["state_differ"] == [], rec
+            assert rec["replays"] == 3, rec
+            assert rec["per_replay"]["gathered_block_mix_flat"] > 0, rec
+            assert rec["per_replay"]["gathered_block_outer_flat"] > 0, rec
 
 
 def test_nccl_one_rank_steps_equal_plain_steps(card, tmp_path):
