@@ -142,7 +142,7 @@ exits non-zero:
    rejecting two planted faults in one
    rank's mask cotangent (``grad_witness``), with the adaptive
    embeddings' gradient in fp32 and fp64 beside it, the state bit for bit
-   equal across the ranks, 3 bf16 steps with dropout 0.3 timed with each
+   equal across the ranks, one bf16 step with dropout 0.3 timed with each
    rank's peak memory and launches (kernel 1 forward and dx per hop,
    kernel 2 for the mask, per shard); the training CLI under torchrun with
    2 node-TP ranks, its checkpoint served in one process against the
@@ -177,12 +177,24 @@ exits non-zero:
 28. ``determinism``: two fresh fp32 city training steps with the mask
    (40,960 nodes, batch 4, flat, dropout 0) in two child processes
    without deterministic algorithms, equal bit for bit (losses,
-   gradients, parameters).
+   gradients, parameters);
+29. ``dist_time``: time-halo sequence parallelism, the CRASH-scale diff-G
+   step (K = 2,912, 200 nodes, nhid 32, 13 x 3 layers from dilation 32,
+   per-sample supports and the adaptive adjacency, batch 4, remat) on 4
+   gloo time ranks and on 2 data x 2 time sharing the card, 2 fp32 steps
+   with dropout 0 against the single process (``dist_compare``, the
+   losses within 1e-6 relative), each rank's peak memory beside the
+   single process's, one bf16 step a rank timed, the bytes a rank
+   exchanges a step and the share of garbage steps; and ``--data syn
+   --mesh_time 2`` under torchrun, its test MAE within ``CLI_MAE_RTOL``
+   of the one-process run's (``dist_time_cli``).
 
 The script's cuts for time: the tile-width sweep at R = 3,072
 only, the dispatch table at the R of ``DISPATCH_R``, plain and library
-times only on the ``kernels`` line's shapes, fewer timed repeats in ``export`` and fewer rolling origins of the METR
-model; every check still runs. Before the ``kernels`` line it prints
+times only on the ``kernels`` line's shapes, fewer timed repeats in
+``export``, fewer rolling origins of the METR model and one bf16 step in
+``dist_city``'s groups; every check still runs. Before the ``kernels``
+line it prints
 ``{"phase_seconds": {...}}``.
 
 The launch counts of a graphed window add each replay's launches (a
@@ -2977,7 +2989,7 @@ def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
         got = torch.as_tensor(np.load(yp), device="cuda")
         art = serving.load_exported_forecaster(out)
         times = ab_ms({"artifact": lambda: art.predict(x),
-                       "forecaster": lambda: fc.predict(x)}, reps=3,
+                       "forecaster": lambda: fc.predict(x)}, reps=2,
                       rounds=2)
     diff = float((got - want).abs().max())
     emit("export", name=name, in_shape=[b, t, n, f],
@@ -3325,6 +3337,9 @@ DIFFG_ARGV = ["--num_nodes", str(DIFFG_NODES), "--seq_length",
               str(DIFFG_K), "--blocks", "4", "--layers", "2", "--nhid", "32",
               "--batch_size", str(DIFFG_BATCH), "--gcn_bool", "--addaptadj",
               "--device", "cuda"]
+# the --fresh_nodevec run's cut: one subject a split, one epoch
+DIFFG_FRESH_ARGV = ["--n_train", "1", "--n_valid", "1", "--n_test", "1",
+                    "--epochs", "1", "--fresh_nodevec"]
 DIFFG_CHILD = r'''
 import json, sys, time
 import numpy as np
@@ -3783,10 +3798,14 @@ def phase_diffg(tmp: str) -> dict:
     ONE_PROCESS_TEST_MAE["crash_dp2"] = float(
         f"{crash['result'].test_metrics['loss']:.4f}")
     del crash
-    windows["fresh_nodevec"] = diffg_cli("fresh_ckpt", tmp, [
-        "--data", "syn", *DIFFG_ARGV, "--n_train", "1", "--n_valid", "1",
-        "--n_test", "1", "--epochs", "1", "--fresh_nodevec", "--scan_steps",
-        str(DIFFG_S)])["launches"]
+    fresh = diffg_cli("fresh_ckpt", tmp, [
+        "--data", "syn", *DIFFG_ARGV, *DIFFG_FRESH_ARGV, "--scan_steps",
+        str(DIFFG_S)])
+    windows["fresh_nodevec"] = fresh["launches"]
+    # what ``phase_dist_time``'s torchrun run under time SP is held to
+    ONE_PROCESS_TEST_MAE["syn_t2"] = float(
+        f"{fresh['result'].test_metrics['loss']:.4f}")
+    del fresh
     torch.cuda.empty_cache()
 
     # the graphs, resident stacks and test split of the checks below
@@ -4099,9 +4118,11 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
     city training cell (``graph``: the (pos, src, dst, w) edge list; the
     supports sharded where the mesh splits nodes, exchanging rows in the
     ``halo`` form), the dense METR model at batch 64 (``dense_inputs``;
-    the supports whole on every rank) or the diff-G model of README's run
+    the supports whole on every rank), the diff-G model of README's run
     (``diffg_batch``; ``supports`` is then the per-sample supports, the
-    projectors and F_t, of which the engine takes the rank's rows)."""
+    projectors and F_t, of which the engine takes the rank's rows) or the
+    CRASH-scale diff-G step (``kind`` "crash": K = 2,912, 13 x 3 layers
+    from dilation 32, remat)."""
     import torch
 
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
@@ -4113,14 +4134,21 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
                   dilation_channels=32, skip_channels=256, end_channels=512,
                   blocks=4, layers=2, gcn_bool=True, addaptadj=True,
                   n_supports=2, dropout=dropout, dtype=dtype)
-    if kind == "diffg":
-        cfg = ModelConfig(num_nodes=DIFFG_NODES, **dict(
-            common, out_dim=DIFFG_K, start_dilation=4))
+    if kind in ("diffg", "crash"):
+        if kind == "diffg":
+            cfg = ModelConfig(num_nodes=DIFFG_NODES, **dict(
+                common, out_dim=DIFFG_K, start_dilation=4))
+            x, y, sups_np, proj = diffg_batch()
+            f_t = DIFFG_K // 12
+        else:
+            cfg = crash_cfg(dtype=dtype, dropout=dropout)
+            x, y, sups_np, proj = diffg_batch(b=CRASH_BATCH, k=CRASH_K,
+                                              n=CRASH_NODES)
+            f_t = CRASH_F_T
         eng = Engine(cfg, TrainConfig(), StandardScaler(0.5, 0.3),
                      device=device, seed=0, diff_g=True, mesh=mesh)
-        x, y, sups_np, proj = diffg_batch()
         sups = ([torch.as_tensor(a, device=device) for a in sups_np],
-                torch.as_tensor(proj, device=device), DIFFG_K // 12)
+                torch.as_tensor(proj, device=device), f_t)
         return eng, sups, x, y
     if kind == "metr":
         sups_np, x, y = dense_inputs()
@@ -4141,16 +4169,17 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
     return eng, sups + [mask], x, y
 
 
-def diffg_batch(seed: int = 6):
-    """A global batch of README's diff-G run: x standard normal, y around
-    0.5, two row-normalized per-sample supports and the cluster-mean
-    projectors of 4 random communities per sample."""
+def diffg_batch(seed: int = 6, b: int = DIFFG_BATCH, k: int = DIFFG_K,
+                n: int = DIFFG_NODES):
+    """A global batch of README's diff-G run (or of ``b`` windows of ``k``
+    steps over ``n`` nodes): x standard normal, y around 0.5, two
+    row-normalized per-sample supports and the cluster-mean projectors of
+    4 random communities per sample."""
     import numpy as np
 
     from graph_wavenet_tpu_torch.train.engine import cluster_mean_projector
 
     rng = np.random.default_rng(seed)
-    b, k, n = DIFFG_BATCH, DIFFG_K, DIFFG_NODES
     x = rng.normal(size=(b, k, n, 2)).astype(np.float32)
     y = rng.normal(0.5, 0.3, size=(b, k, n, 2)).astype(np.float32)
     a = rng.random((2, b, n, n)).astype(np.float32)
@@ -4196,7 +4225,8 @@ def dist_worker(spec_path: str, rank: int) -> None:
     multihost.initialize(spec["backend"], rank, spec["world"], spec["init"],
                          device="cuda", timeout_s=DIST_TIMEOUT)
     dev = multihost.rank_device("cuda")
-    mesh = make_mesh(MeshConfig(model_axis=spec["model"]), dev,
+    mesh = make_mesh(MeshConfig(model_axis=spec["model"],
+                                time_axis=spec["time"]), dev,
                      timeout_s=DIST_TIMEOUT)
     graph = None
     if spec["kind"] == "city":
@@ -4268,20 +4298,21 @@ def dist_worker(spec_path: str, rank: int) -> None:
 def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
                runs: list, graph_path: str | None = None,
                halo: bool | str = "auto",
-               worker: str = "dist_worker") -> tuple:
+               worker: str = "dist_worker", time_axis: int = 1) -> tuple:
     """Start ``world`` rank processes (``worker``: ``dist_worker``, or
     ``graphed_worker``) on this machine's cards, NCCL where every rank has
     a card of its own, else gloo with the ranks sharing them; every process
-    and the group bounded by DIST_TIMEOUT. Returns (backend, per-rank
-    records, seconds)."""
+    and the group bounded by DIST_TIMEOUT. ``model``/``time_axis``: the
+    mesh's model and time axes. Returns (backend, per-rank records,
+    seconds)."""
     import torch
 
     out = os.path.join(tmp, f"dist_{name}")
     os.makedirs(out, exist_ok=True)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    spec = dict(world=world, model=model, kind=kind, runs=runs,
-                backend=backend, out=out, graph=graph_path, halo=halo,
-                init=f"file://{out}/rendezvous")
+    spec = dict(world=world, model=model, time=time_axis, kind=kind,
+                runs=runs, backend=backend, out=out, graph=graph_path,
+                halo=halo, init=f"file://{out}/rendezvous")
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -4474,6 +4505,8 @@ def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
 
     eng, sups, x, y = dist_engine(kind, "float32", 0.0, "cuda", None, graph)
     xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     wd = eng.train_cfg.weight_decay
     rel, floor = ADAM_RESOLVED
     resolved = {}
@@ -4495,7 +4528,8 @@ def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
     ref = {"losses": losses, "state1": state1, "state": state_vector(eng),
            "resolved": resolved, "grad1": grad1,
            "lr": eng.train_cfg.learning_rate,
-           "elements": sum(v.size for v in state1.values())}
+           "elements": sum(v.size for v in state1.values()),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     if kind == "city":
         with deterministic(True):
             ref["witness"] = embedding_witness(sups[-1], seen["nodevecs"],
@@ -4690,8 +4724,8 @@ def phase_dist_city(graph, tmp: str) -> dict:
     4 ranks (2 x 2 DP x node-TP), NCCL where every rank has a card, else
     gloo with the ranks sharing it. Each group: 2 fp32 steps with dropout
     0 against the single process on the card (``dist_compare``), the
-    parameters bit for bit equal across the ranks, then 3 bf16 steps with
-    dropout 0.3 (finite, ms a step, peak memory per rank). Then the
+    parameters bit for bit equal across the ranks, then one bf16 step with
+    dropout 0.3 (finite, ms, peak memory per rank). Then the
     training CLI under torchrun with 2 node-TP ranks and in one process
     (fp32, dropout 0, one epoch): both checkpoints served in this process
     through ``Forecaster.from_city_checkpoint``, the forecasts within 1e-4
@@ -4708,7 +4742,7 @@ def phase_dist_city(graph, tmp: str) -> dict:
     counts = {}
     runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
                  keep_state=True),
-            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=3)]
+            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
     for name, world, model, halo in DIST_LAYOUTS:
         backend, recs, secs = dist_group(name, tmp, world, model, "city",
                                          runs, gpath, halo)
@@ -4722,7 +4756,6 @@ def phase_dist_city(graph, tmp: str) -> dict:
              seconds=round(secs, 3), **readings,
              bf16_losses=[r["losses"] for r in bf],
              bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
-             bf16_step_ms_median=sorted(bf[0]["step_ms"])[1],
              timing_note=SHARED_CARD if shared else "one card per rank",
              peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
                                          for r in bf],
@@ -4730,7 +4763,7 @@ def phase_dist_city(graph, tmp: str) -> dict:
              dropout_draw_ms_layer0=recs[0]["draw_ms"])
         require(all(np.isfinite(r["losses"]).all() for r in bf),
                 f"dist {name}: non-finite bf16 losses")
-        want = dist_step_launches(3)
+        want = dist_step_launches(1)
         require(all(r["launches"] == want for r in bf),
                 f"dist {name}: bf16 launches per rank "
                 f"{[r['launches'] for r in bf]}, want {want}")
@@ -4771,11 +4804,17 @@ def dist_cli_paths(tmp: str, graph) -> tuple:
     return gpath, data_dir
 
 
-def dist_city_cli(tmp: str, paths: tuple) -> dict:
+def dist_city_cli(tmp: str, paths: tuple,
+                  learning_rate: float | None = None) -> dict:
     """``torchrun --nproc_per_node 2 -m ...cli.train --mesh_model 2`` (gloo
     with one card, else NCCL) and the same run in one process, fp32,
     dropout 0, one epoch of ``DIST_CLI_SAMPLES``; both checkpoints served
-    here."""
+    here. ``learning_rate``: the CLIs' ``--learning_rate`` (default the
+    CLI's); at 0 the checkpoints differ only in BatchNorm's running
+    statistics, which separates Adam's first update from node-TP's
+    forward in the gap (ROADMAP.md §3), e.g.
+    ``dist_city_cli(tmp, dist_cli_paths(tmp, city_graph(N_CITY)), 0.0)``
+    after ``phase_card()`` and ``phase_build()``."""
     import numpy as np
     import torch
 
@@ -4787,6 +4826,8 @@ def dist_city_cli(tmp: str, paths: tuple) -> dict:
             "--addaptadj", "--sparse", "flat", "--batch_size",
             str(TRAIN_BATCH), "--seq_length", "12", "--epochs", "1",
             "--dropout", "0.0", "--print_every", "100", "--device", "cuda"]
+    if learning_rate is not None:
+        argv += ["--learning_rate", str(learning_rate)]
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     save_tp = os.path.join(tmp, "dist_cli_tp")
     stdout, tp_s = run_together(
@@ -4811,6 +4852,7 @@ def dist_city_cli(tmp: str, paths: tuple) -> dict:
     scale = float(np.abs(preds["one"]).max())
     err = float(np.abs(preds["tp"] - preds["one"]).max())
     emit("dist_city_cli", ranks=2, model=2, backend=backend,
+         learning_rate=learning_rate,
          tp_seconds=round(tp_s, 3), one_process_seconds=round(one_s, 3),
          forecast_shape=list(preds["tp"].shape), max_abs_diff=err,
          forecast_max_abs=scale, tolerance="1e-4 x max|one-process forecast|",
@@ -5370,6 +5412,133 @@ def phase_dist_diffg(tmp: str) -> None:
             f"{want}")
 
 
+# ---------------------------------------------------------------------------
+# slice 7b.3: time-halo sequence parallelism
+# ---------------------------------------------------------------------------
+
+# the CRASH-scale diff-G step: JAX tests/test_parallel.py:288-335's stack
+# (K = 2,912, the reference's window; 13 blocks x 3 layers from dilation
+# 32, receptive field 2,913) at the CLI's widths (nhid 32: 32/32/256/512)
+# over 200 regions, per-sample supports and the adaptive adjacency, remat
+# on both sides; batch 4 (JAX's test batch, F_t 4 as there)
+CRASH_K, CRASH_NODES, CRASH_BATCH, CRASH_F_T = 2912, 200, 4, 4
+# (name, ranks, time axis): 4 time ranks, and 2 data x 2 time
+TIME_LAYOUTS = (("t4", 4, 4), ("d2_t2", 4, 2))
+
+
+def crash_cfg(**kw):
+    """The CRASH-scale diff-G configuration (``CRASH_*``)."""
+    from graph_wavenet_tpu_torch.config import ModelConfig
+
+    return ModelConfig(
+        num_nodes=CRASH_NODES, in_dim=2, out_dim=CRASH_K,
+        residual_channels=32, dilation_channels=32, skip_channels=256,
+        end_channels=512, blocks=13, layers=3, start_dilation=32,
+        gcn_bool=True, addaptadj=True, n_supports=2, remat=True, **kw)
+
+
+def time_exchange(cfg, batch: int, data: int, time_axis: int,
+                  params: int) -> dict:
+    """What a rank of a data x time layout moves a train step (fp32
+    activations), from the shapes: the halo steps it sends forward and
+    their cotangents backward (``dilation * (k-1)`` steps of (B/D, N, C)
+    a layer and direction; the first rank sends none back, the last none
+    forward), BatchNorm's two sums and their cotangents a layer, the
+    gradient all-reduce; and the share of the steps the stack computes
+    that are garbage (static blocks of the padded axis against the single
+    process's valid steps)."""
+    from graph_wavenet_tpu_torch.parallel import halo
+
+    halos = [d * (cfg.kernel_size - 1) for d in cfg.dilations()]
+    l0 = max(cfg.out_dim + 1, cfg.receptive_field)
+    width = halo.padded_width(l0, time_axis) // time_axis
+    row = batch // data * cfg.num_nodes * cfg.residual_channels * 4
+    valid, t = 0, l0
+    for h in halos:
+        t -= h
+        valid += t
+    return {"halo_bytes_sent_per_step": row * sum(halos),
+            "halo_bytes_sent_per_step_both_directions":
+            2 * row * sum(halos),
+            "batchnorm_allreduce_bytes": 4 * 4 * cfg.residual_channels
+            * len(halos),
+            "gradient_allreduce_bytes": 4 * params,
+            "block_steps": width, "padded_steps": width * time_axis,
+            "garbage_step_share": 1.0 - valid / (width * time_axis
+                                                 * len(halos)),
+            "single_process_steps_per_layer_mean": valid / len(halos)}
+
+
+def phase_dist_time(tmp: str) -> None:
+    """Time-halo sequence parallelism on one card (gloo, the ranks sharing
+    it): the CRASH-scale diff-G step (``CRASH_*``) on 4 time ranks and on
+    2 data x 2 time, 2 fp32 steps with dropout 0 against the single
+    process (``dist_compare``, and the losses within 1e-6 relative), each
+    rank's peak memory beside the single process's, one bf16 step
+    (dropout 0.3) a rank timed (not a scaling number), the bytes a rank
+    exchanges a step and the share of garbage steps; then ``--data syn
+    --mesh_time 2`` under torchrun (``phase_diffg``'s ``--fresh_nodevec``
+    run of README's widths), its test MAE within ``CLI_MAE_RTOL`` of the
+    one-process run's."""
+    import numpy as np
+    import torch
+
+    ref = single_reference("crash")
+    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                 keep_state=True),
+            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
+    from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
+
+    cfg = crash_cfg()
+    params = sum(p.numel() for p in GWNetDiffG(cfg, device="cpu")
+                 .parameters())
+    for name, world, time_axis in TIME_LAYOUTS:
+        backend, recs, secs = dist_group(name, tmp, world, 1, "crash", runs,
+                                         time_axis=time_axis)
+        readings = dist_compare(name, recs, ref,
+                                os.path.join(tmp, f"dist_{name}"))
+        bf = [r["bf16"] for r in recs]
+        shared = backend == "gloo" and torch.cuda.device_count() < world
+        emit("dist_time", layout=name, ranks=world,
+             data=world // time_axis, time=time_axis, backend=backend,
+             cards=torch.cuda.device_count(), seconds=round(secs, 3),
+             seq_length=CRASH_K, nodes=CRASH_NODES, batch=CRASH_BATCH,
+             receptive_field=cfg.receptive_field, remat=cfg.remat,
+             **readings,
+             exchange=time_exchange(cfg, CRASH_BATCH, world // time_axis,
+                                    time_axis, params),
+             fp32_peak_memory_bytes_per_rank=[
+                 r["fp32"]["max_memory_allocated_bytes"] for r in recs],
+             fp32_peak_memory_bytes_single_process=ref[
+                 "max_memory_allocated_bytes"],
+             bf16_losses=[r["losses"] for r in bf],
+             bf16_step_ms_per_rank=[r["step_ms"][0] for r in bf],
+             bf16_peak_memory_bytes_per_rank=[
+                 r["max_memory_allocated_bytes"] for r in bf],
+             timing_note=SHARED_CARD if shared else "one card per rank")
+        require(readings["loss_max_rel_err"] <= 1e-6,
+                f"dist {name}: fp32 losses {readings['losses']} against "
+                f"{readings['losses_single']}: over 1e-6 relative")
+        require(all(np.isfinite(r["losses"]).all() for r in bf),
+                f"dist {name}: non-finite bf16 losses")
+    (stdout, secs), = run_together({"syn_t2": torchrun_argv(
+        ["--data", "syn", *DIFFG_ARGV, *DIFFG_FRESH_ARGV, "--mesh_time",
+         "2"], os.path.join(tmp, "dist_syn_t2"))}, tmp).values()
+    mae = test_mae(stdout)
+    want = ONE_PROCESS_TEST_MAE["syn_t2"]
+    rel = abs(mae - want) / want
+    emit("dist_time_cli", ranks=2, time=2, test_mae=mae,
+         test_mae_one_process=want, test_mae_rel_diff=rel,
+         tolerance=f"rtol {CLI_MAE_RTOL}", seconds=round(secs, 3),
+         mesh_lines=[ln for ln in stdout.splitlines()
+                     if ln.startswith("mesh:")])
+    require("'time': 2" in stdout,
+            "the torchrun run did not print a time axis of 2")
+    require(math.isfinite(mae) and rel <= CLI_MAE_RTOL,
+            f"--data syn --mesh_time 2 under torchrun: test MAE {mae}, one "
+            f"process {want}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5427,6 +5596,7 @@ def main() -> int:
         timed("dist_nccl1", phase_dist_nccl1, tmp)
         counts.update(timed("dist_graphed", phase_dist_graphed, graph, tmp))
         timed("dist_diffg", phase_dist_diffg, tmp)
+        timed("dist_time", phase_dist_time, tmp)
         counts.update(timed("dist_city", phase_dist_city, graph, tmp))
         timed("dist_metr", phase_dist_metr)
         counts.update(timed("dense", phase_dense))

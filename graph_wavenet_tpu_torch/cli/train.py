@@ -42,8 +42,7 @@ device``; ``host`` copies every batch from the host), and takes the
 runner's ``--scan_steps`` (optimizer steps per fused call: a CUDA graph
 replayed per step on the card), ``--grad_accum``, ``--early_stop``,
 ``--epoch_timeout`` and ``--resume`` (the shared-graph synthetic task runs
-a step per batch). The options listed in :data:`LATER` wait for the slice
-each names (ROADMAP.md).
+a step per batch).
 
 Parallel training (``parallel``), one process per rank under torchrun::
 
@@ -55,6 +54,10 @@ Parallel training (``parallel``), one process per rank under torchrun::
 supports and the mask; the city path with ``--sparse flat``), the data axis
 takes the other W / S; ``--mesh_dp`` alone is data parallelism over all W
 ranks (the METR path, and ``--data syn|crash``, ``--same_g`` included).
+``--mesh_time S_t`` splits the time axis over S_t ranks (time-halo sequence
+parallelism, ``parallel.halo``), the data axis taking the other W / S_t, on
+every path ``--mesh_dp`` runs; with ``--mesh_model`` > 1 (model x time) it
+waits for slice 7b.4 of ROADMAP.md.
 ``--dist_backend``: nccl (a card per rank, the default on ``cuda``) or gloo
 (the default on ``cpu``; ranks may share a card, their collectives staged
 through host memory). ``--scan_steps S`` runs under a mesh too: on the card
@@ -70,12 +73,6 @@ import contextlib
 import os
 import time
 import warnings
-
-# flags of the reference CLI that wait for a later slice of ROADMAP.md:
-# (type, the default that keeps them off, the slice); a bool is a
-# store_true switch
-LATER = {"mesh_time": (int, 1, "7b.3")}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -172,6 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
     par.add_argument("--mesh_model", type=int, default=1,
                      help="node-TP: ranks that split the nodes (the city "
                           "path, --sparse flat)")
+    par.add_argument("--mesh_time", type=int, default=1,
+                     help="time-halo sequence parallelism: ranks that split "
+                          "the time axis (not with --mesh_model > 1)")
     par.add_argument("--dist_backend", type=str, default=None,
                      choices=("nccl", "gloo"),
                      help="process-group backend (default nccl on cuda, "
@@ -209,24 +209,11 @@ def build_parser() -> argparse.ArgumentParser:
     syn.add_argument("--eeg_time_res", type=float, default=None,
                      help="CRASH: seconds per EEG sample (default 1/640 for "
                           "mat records, else 0.5)")
-    later = p.add_argument_group("not ported yet (ROADMAP.md); refused "
-                                 "unless left at their defaults")
-    for name, (kind, default, _) in LATER.items():
-        if kind is bool:
-            later.add_argument(f"--{name}", action="store_true")
-        else:
-            later.add_argument(f"--{name}", type=kind, default=default)
     return p
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    later = {f"--{k}": where for k, (_, v, where) in LATER.items()
-             if getattr(args, k) != v}
-    if later:
-        raise SystemExit(
-            f"{', '.join(later)}: not ported yet (slice "
-            f"{', '.join(sorted(set(later.values())))} of ROADMAP.md)")
     mesh, started = _mesh(args)
     t0 = time.time()
     try:
@@ -253,10 +240,14 @@ def main(argv=None) -> dict:
 
 def _mesh(args):
     """(the rank's mesh or None, whether this call started the process
-    group) for ``--mesh_dp`` / ``--mesh_model``, after the refusals of what
-    wait for later slices; ``args.device`` becomes the rank's device."""
-    if not (args.mesh_dp or args.mesh_model > 1):
+    group) for ``--mesh_dp`` / ``--mesh_model`` / ``--mesh_time``, after the
+    refusals of what wait for later slices; ``args.device`` becomes the
+    rank's device."""
+    if not (args.mesh_dp or args.mesh_model > 1 or args.mesh_time > 1):
         return None, False
+    if args.mesh_time > 1 and args.mesh_model > 1:
+        raise SystemExit("--mesh_time with --mesh_model > 1 (model x time) "
+                         "waits for slice 7b.4 of ROADMAP.md")
     if args.mesh_model > 1 and args.data in ("syn", "crash"):
         raise SystemExit(f"--mesh_model > 1 with --data {args.data}: the "
                          "per-sample supports are dense, and dense node-TP "
@@ -284,7 +275,8 @@ def _mesh(args):
             "in a CUDA graph, which a gloo group of more than one rank "
             "cannot (it stages CUDA tensors through host memory): use "
             "--dist_backend nccl (a card per rank) or --scan_steps 1")
-    mesh = make_mesh(MeshConfig(model_axis=args.mesh_model),
+    mesh = make_mesh(MeshConfig(model_axis=args.mesh_model,
+                                time_axis=args.mesh_time),
                      device=args.device)
     if mesh.rank == 0:
         print(f"mesh: {mesh.shape} over {mesh.world_size} rank(s), "

@@ -164,21 +164,22 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The grid of ranks (``parallel.mesh.make_mesh``): ``model_axis``
-    ranks split the nodes (node-TP of the flat block-sparse supports), and
-    the data axis takes the rest of the world. Time-halo sequence
-    parallelism (``time_axis`` > 1) waits for slice 7b.3 of ROADMAP.md."""
+    ranks split the nodes (node-TP of the flat block-sparse supports),
+    ``time_axis`` ranks split the time axis (time-halo sequence
+    parallelism), and the data axis takes the rest of the world. Model x
+    time (both > 1) waits for slice 7b.4 of ROADMAP.md."""
 
     model_axis: int = 1
     time_axis: int = 1
 
     def __post_init__(self):
-        if self.time_axis != 1:
+        if self.model_axis < 1 or self.time_axis < 1:
+            raise ValueError(f"the model and time axes must be >= 1, got "
+                             f"{self.model_axis} and {self.time_axis}")
+        if self.model_axis > 1 and self.time_axis > 1:
             raise NotImplementedError(
-                "time_axis > 1 (time-halo sequence parallelism) is not "
-                "ported yet: slice 7b.3 of ROADMAP.md")
-        if self.model_axis < 1:
-            raise ValueError(f"the model axis must be >= 1, got "
-                             f"{self.model_axis}")
+                "model x time (model_axis and time_axis both > 1) is not "
+                "ported yet: slice 7b.4 of ROADMAP.md")
 
 
 def to_dict(cfg: Any) -> dict:

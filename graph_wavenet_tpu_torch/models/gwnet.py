@@ -34,6 +34,22 @@ the fixed supports are the rank's shards (``parallel.sparse_tp``) and the
 mask its :class:`~parallel.sparse_tp.ShardedBlockAdaptiveMask`. The dense
 adaptive adjacency, and dense supports, under node-TP wait for slice 7b.4.
 
+Under time-halo sequence parallelism (``mesh.time`` > 1) the input, padded
+to the receptive field as in one process, is left-padded further to a
+multiple of the time axis, and each rank of a time group runs the whole
+stack on its block of it (``parallel.halo``): a layer's conv takes the
+previous rank's last ``dilation*(k-1)`` steps by one exchange before the
+layer (zeros on the first rank), the block keeps its width, and the
+residual is the rank's own block. The single process's steps of a layer
+are the last ones of the global axis; a rank's other steps are garbage,
+which BatchNorm leaves out of its statistics (``t_valid``, the global
+count), and the dropout mask is the single process's, drawn at its shape
+and laid on the global axis. The skip projections read the last
+``T_final`` steps, which lie on the last time rank
+(``Mesh.holds_output``); every rank still runs the skips and the head,
+so that all ranks run one program, and the loss keeps the holder's
+output only (``train.engine``).
+
 ``cfg.remat`` recomputes every layer but the first in the backward
 (``torch.utils.checkpoint``); the dropout masks drawn outside and the
 BatchNorm statistics folded in outside the recomputed function keep a
@@ -66,6 +82,7 @@ from graph_wavenet_tpu_torch.ops.temporal import (
     gated_tcn_apply,
     left_pad_time,
 )
+from graph_wavenet_tpu_torch.parallel import halo as time_halo
 from graph_wavenet_tpu_torch.parallel import sparse_tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -142,6 +159,12 @@ class GWNet(nn.Module):
         with the per-sample-graph model (``models.gwnet_diff_g``)."""
         cfg = self.cfg
         x = left_pad_time(x, cfg.receptive_field)
+        # the single process's width, before and after each layer
+        t_len = x.shape[1]
+        t_final = t_len - (cfg.kernel_size - 1) * sum(cfg.dilations())
+        timed = self.mesh is not None and self.mesh.time > 1
+        if timed:
+            x = self._time_block(x, t_final)
         x = x.to(_DTYPES[cfg.dtype])
         x = self.start_conv(x)
         use_gcn = cfg.gcn_bool and supports is not None
@@ -152,14 +175,20 @@ class GWNet(nn.Module):
                         for a in supports)):
             stacks = [support_powers(a, cfg.diffusion_order)
                       for a in supports]
-        t_final = x.shape[1] - (cfg.kernel_size - 1) * sum(cfg.dilations())
         draw = self.training and use_gcn and cfg.dropout > 0.0
         skip = None
         for i, dilation in enumerate(cfg.dilations()):
-            drop = None
+            t_len -= dilation * (cfg.kernel_size - 1)
+            drop = halo = None
             if draw:
-                drop = self._dropout(generator, x, dilation)
-            args = (i, dilation, t_final, x, skip, supports, stacks, drop)
+                drop = self._dropout(generator, x, t_len)
+            if timed:
+                # exchanged outside the layer, so a remat recompute does
+                # not exchange again
+                halo = time_halo.halo_from_left(
+                    x, dilation * (cfg.kernel_size - 1), self.mesh)
+            args = (i, dilation, t_final, t_len, x, skip, supports, stacks,
+                    drop, halo)
             if cfg.remat and skip is not None and torch.is_grad_enabled():
                 # the layer draws no random numbers (its mask is an
                 # argument), so the global RNG is neither saved nor
@@ -176,14 +205,32 @@ class GWNet(nn.Module):
         out = self.end_conv_2(out)
         return out.float()
 
-    def _dropout(self, generator, x: torch.Tensor,
-                 dilation: int) -> torch.Tensor:
-        """A layer's dropout mask for the rank's (B, T', N, C): drawn at
-        the global shape under a mesh (its data x model grid), the rank's
-        block kept."""
+    def _time_block(self, x: torch.Tensor, t_final: int) -> torch.Tensor:
+        """This rank's block of the input (padded to the receptive field),
+        left-padded to a multiple of the time axis; refuses a halo or an
+        output wider than a block."""
+        cfg, mesh = self.cfg, self.mesh
+        total = time_halo.padded_width(x.shape[1], mesh.time)
+        width = total // mesh.time
+        time_halo.check_halo(max(cfg.dilations()) * (cfg.kernel_size - 1),
+                             width, mesh.time, total)
+        if t_final > width:
+            raise ValueError(
+                f"time-halo SP keeps the {t_final} output steps on the last "
+                f"time rank, but a block is {total}/{mesh.time} = {width} "
+                "steps: use fewer time shards")
+        x = left_pad_time(x, total)
+        lo = mesh.time_index * width
+        return x[:, lo:lo + width]
+
+    def _dropout(self, generator, x: torch.Tensor, t: int) -> torch.Tensor:
+        """A layer's dropout mask for the rank's (B, T', N, C) output of
+        the single process's width ``t``: drawn at the global shape under a
+        mesh (its data x model grid, and ``t`` steps), the rank's block
+        kept; under time SP laid on the right of the global time axis (the
+        steps before it are garbage and take 0)."""
         cfg = self.cfg
-        b, t, n, _ = x.shape
-        t = t - dilation * (cfg.kernel_size - 1)
+        b, width, n, _ = x.shape
         mesh = self.mesh
         if mesh is None:
             return dropout_scale(generator, cfg.dropout,
@@ -194,18 +241,28 @@ class GWNet(nn.Module):
             (b * mesh.data, t, n * mesh.model, cfg.residual_channels),
             x.dtype, x.device)
         d, m = mesh.data_index, mesh.model_index
-        return drop[d * b:(d + 1) * b, :, m * n:(m + 1) * n]
+        drop = drop[d * b:(d + 1) * b, :, m * n:(m + 1) * n]
+        if mesh.time > 1:
+            drop = left_pad_time(drop, width * mesh.time)
+            lo = mesh.time_index * width
+            drop = drop[:, lo:lo + width]
+        return drop
 
-    def _layer(self, i: int, dilation: int, t_final: int, x: torch.Tensor,
-               skip: torch.Tensor | None, supports: list | None,
-               stacks: list | None, drop: torch.Tensor | None):
+    def _layer(self, i: int, dilation: int, t_final: int, t_len: int,
+               x: torch.Tensor, skip: torch.Tensor | None,
+               supports: list | None, stacks: list | None,
+               drop: torch.Tensor | None, halo: torch.Tensor | None):
         """One WaveNet layer: gated TCN, skip projection, graph conv (or the
         residual 1x1 of the temporal-only model), residual, BatchNorm.
-        Returns ``(x, skip, bn_stats)``; the caller folds ``bn_stats``
-        into the running statistics."""
+        ``t_len``: the single process's width after the layer; ``halo``:
+        under time SP the steps before the rank's block. Returns ``(x,
+        skip, bn_stats)``; the caller folds ``bn_stats`` into the running
+        statistics."""
         residual = x
-        x = gated_tcn_apply(self.filter_convs[i], self.gate_convs[i],
-                            residual, dilation)
+        if halo is not None:
+            x = torch.cat([halo, x], dim=1)
+        x = gated_tcn_apply(self.filter_convs[i], self.gate_convs[i], x,
+                            dilation)
         s = self.skip_convs[i](x[:, -t_final:])
         skip = s if skip is None else s + skip
         if supports is not None and self.cfg.gcn_bool:
@@ -214,8 +271,13 @@ class GWNet(nn.Module):
         else:
             x = self.residual_convs[i](x)
         x = x + residual[:, -x.shape[1]:]
+        mesh, t_valid, count = self.mesh, None, None
+        if mesh is not None and mesh.time > 1:
+            b, width, n, _ = x.shape
+            t_valid = time_halo.valid_steps(t_len, width, mesh)
+            count = b * mesh.data * n * mesh.model * t_len
         x, stats = self.bn[i].normalize(
-            x, None if self.mesh is None else self.mesh.world)
+            x, None if mesh is None else mesh.world, t_valid, count)
         return x, skip, stats
 
     def _with_adaptive(self, supports: list | None) -> list | None:

@@ -6,8 +6,12 @@ reference ``nn.BatchNorm2d`` state-dict names (``weight``, ``bias``,
 and normalization run in fp32 and return the input dtype. In train mode
 the batch statistics over (B, T, N) normalize (biased variance) and update
 the running statistics in place (unbiased variance, momentum 0.1), which
-keep their dtype; in eval mode the running statistics normalize. The
-reference's ``t_valid`` restriction waits for the pipeline slice.
+keep their dtype; in eval mode the running statistics normalize.
+``t_valid`` restricts the batch statistics to the last ``t_valid`` time
+steps (JAX ``batch_norm_apply(t_valid=)``), for stacks whose leading steps
+are garbage: the other steps are replaced by the mean with a select, so
+no garbage reaches a sum (forward or backward) and the output there is
+the bias; without it the plain branch runs.
 
 Under a process group (``parallel``: DP and node-TP) the batch statistics
 are those of the whole batch across the ranks, as GSPMD keeps them in the
@@ -16,7 +20,10 @@ the global count, then the biased variance the same way over the squared
 deviations, each sum a differentiable all-reduce (whose backward is a sum
 all-reduce of the cotangent); the running statistics unbias with the
 global count, so every rank tracks the same values. One process computes
-the same sums and divisions with no collective.
+the same sums and divisions with no collective. Under time-halo sequence
+parallelism a rank's block holds part of the valid steps, or none:
+``t_valid`` is its share, and ``count`` the global number of (B, T, N)
+positions the statistics cover.
 """
 
 from __future__ import annotations
@@ -51,20 +58,39 @@ class BatchNorm(nn.Module):
             self.track(*stats)
         return y
 
-    def normalize(self, x: torch.Tensor, group=None):
+    def normalize(self, x: torch.Tensor, group=None,
+                  t_valid: int | None = None, count: float | None = None):
         """``(y, stats)`` without touching the running statistics: in train
         mode ``stats`` = (batch mean, biased variance, count) for
         :meth:`track`, in eval mode None. The model's rematerialized layers
         call this, so a recomputation does not count a batch twice.
         ``group``: the process group whose ranks hold the rest of the
-        batch (equal shares), or None."""
+        batch, or None; ``t_valid``: take the statistics over the last
+        ``t_valid`` steps of axis 1 only; ``count``: the statistics'
+        number of positions over the group (default: every rank's share
+        equal to this one's)."""
         xf = x.float()
         stats = None
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            n = float(x.numel() // x.shape[-1] * group_size(group))
-            mean = all_sum(xf.sum(dim=dims), group) / n
-            var = all_sum(((xf - mean) ** 2).sum(dim=dims), group) / n
+            per_step = x.numel() // (x.shape[-1] * x.shape[1])
+            if count is None:
+                steps = x.shape[1] if t_valid is None else t_valid
+                count = per_step * steps * group_size(group)
+            n = float(count)
+            if t_valid is None:
+                mean = all_sum(xf.sum(dim=dims), group) / n
+                var = all_sum(((xf - mean) ** 2).sum(dim=dims), group) / n
+            else:
+                # the left-out steps become the mean: they add nothing to
+                # the sums, forward or backward, whatever they held
+                t = x.shape[1]
+                keep = (torch.arange(t, device=x.device) >= t - t_valid
+                        ).view(1, t, *([1] * (x.ndim - 2)))
+                mean = all_sum(torch.where(keep, xf, 0.0).sum(dim=dims),
+                               group) / n
+                xf = torch.where(keep, xf, mean)
+                var = all_sum(((xf - mean) ** 2).sum(dim=dims), group) / n
             stats = (mean.detach(), var.detach(), n)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()

@@ -1,5 +1,8 @@
 """The collectives of the parallel layer (JAX takes them from ``lax``:
-``psum``, ``all_gather``, ``ppermute``).
+``psum``, ``all_gather``, ``ppermute``): the sum all-reduce
+(differentiable), the row all_gather, the two-neighbour exchange, the
+one-direction shift along a chain of ranks (differentiable; time-halo
+sequence parallelism, ``parallel.halo``) and the gradient all-reduce.
 
 Every function takes a process group, or None for a layout of one rank, in
 which case it is the identity. The caller chooses the backend when it
@@ -144,6 +147,60 @@ def neighbour_exchange(x: torch.Tensor, group, ranks) -> tuple:
     if staged:
         return got_prev.to(x.device), got_next.to(x.device)
     return got_prev, got_next
+
+
+def _shift(x: torch.Tensor, group, ranks, step: int,
+           wrap: bool) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` places further along ``ranks`` and
+    return what the rank ``step`` places back sent (same shape and dtype);
+    without ``wrap`` the ranks past an end send nothing and those before
+    the start receive zeros."""
+    s = len(ranks)
+    me = dist.get_rank(group)
+    to, frm = me + step, me - step
+    if wrap:
+        to, frm = to % s, frm % s
+    staged = _staged(x, group)
+    src = _host(x) if staged else x.contiguous()
+    got = (torch.zeros(src.shape, dtype=src.dtype, pin_memory=True)
+           if staged else torch.zeros_like(src))
+    ops = []
+    if 0 <= to < s:
+        ops.append(dist.P2POp(dist.isend, src, ranks[to], group, 2))
+    if 0 <= frm < s:
+        ops.append(dist.P2POp(dist.irecv, got, ranks[frm], group, 2))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got.to(x.device) if staged else got
+
+
+class _Shift(torch.autograd.Function):
+    """:func:`shift`; its backward shifts the cotangent the other way, so
+    a rank's tensor takes the cotangent of the copy it sent."""
+
+    @staticmethod
+    def forward(ctx, x, group, ranks, step, wrap):
+        ctx.args = (group, ranks, step, wrap)
+        return _shift(x, group, ranks, step, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, ranks, step, wrap = ctx.args
+        return _shift(g, group, ranks, -step, wrap), None, None, None, None
+
+
+def shift(x: torch.Tensor, group, ranks, step: int = 1,
+          wrap: bool = False) -> torch.Tensor:
+    """``x`` of the rank ``step`` places back along ``group`` (``ranks``:
+    its global ranks in order), differentiable: one send and one receive a
+    rank. Without ``wrap`` the first ``step`` ranks (for ``step`` > 0; the
+    last for ``step`` < 0) get zeros; with it the chain is a ring (JAX's
+    ``ppermute``). A group of one rank (None) gets ``x`` under ``wrap``,
+    else zeros."""
+    if group is None:
+        return x if wrap else torch.zeros_like(x)
+    return _Shift.apply(x, group, tuple(ranks), step, wrap)
 
 
 def all_reduce_grads(params, group) -> None:

@@ -1,21 +1,26 @@
-"""The grid of ranks: data parallelism (DP) x node tensor parallelism.
+"""The grid of ranks: data parallelism (DP) x node tensor parallelism x
+time-halo sequence parallelism.
 
 Counterpart of ``graph_wavenet_tpu/parallel/mesh.py``. JAX builds a device
 mesh and lets GSPMD partition a step by the arrays' ``NamedSharding``s; the
 port runs one process per rank, and a :class:`Mesh` tells each rank which
 part of the work is its own:
 
-- axis ``data`` (D ranks): rank (d, m) takes the rows ``[d*B/D,
+- axis ``data`` (D ranks): rank (d, m, t) takes the rows ``[d*B/D,
   (d+1)*B/D)`` of every global batch of B rows (with ``n_micro``
   micro-batches, the d-th share of each, so that every micro-batch is the
   single-process one);
-- axis ``model`` (S ranks): node-TP; rank (d, m) holds the nodes ``[m*N/S,
-  (m+1)*N/S)`` of every activation, and its shard of the flat block-sparse
-  supports (``parallel.sparse_tp``).
+- axis ``model`` (S ranks): node-TP; rank (d, m, t) holds the nodes
+  ``[m*N/S, (m+1)*N/S)`` of every activation, and its shard of the flat
+  block-sparse supports (``parallel.sparse_tp``);
+- axis ``time`` (S_t ranks): time-halo sequence parallelism; rank (d, m,
+  t) computes the t-th of S_t equal blocks of the model's padded time axis
+  (``parallel.halo``), every rank of a time group given the same rows.
 
-The global rank is ``d * S + m``, the model index innermost, as in JAX's
-``(data, model, time)`` reshape. Parameters are replicated: every rank
-holds all of them and applies the same update.
+The global rank is ``(d * S + m) * S_t + t``, the time index innermost, as
+in JAX's ``(data, model, time)`` reshape. Parameters are replicated: every
+rank holds all of them and applies the same update. Model x time (S and
+S_t both > 1) waits for slice 7b.4 of ROADMAP.md (``MeshConfig``).
 """
 
 from __future__ import annotations
@@ -43,24 +48,37 @@ class Mesh:
     rank: int
     device: torch.device
     world: object = None      # every rank: BatchNorm, loss, gradients
-    model_group: object = None  # the ranks of this rank's data index
+    model_group: object = None  # the ranks of this rank's (data, time)
     model_ranks: tuple = (0,)  # global ranks of model_group, in order
+    time: int = 1             # ranks on the time axis (S_t)
+    time_group: object = None  # the ranks of this rank's (data, model)
+    time_ranks: tuple = (0,)  # global ranks of time_group, in order
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.model * self.time)
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.model
+        return self.rank // self.time % self.model
+
+    @property
+    def time_index(self) -> int:
+        return self.rank % self.time
+
+    @property
+    def holds_output(self) -> bool:
+        """True on the last rank of the time group: the one whose block
+        ends the time axis, where the model's output steps are."""
+        return self.time_index == self.time - 1
 
     @property
     def world_size(self) -> int:
-        return self.data * self.model
+        return self.data * self.model * self.time
 
     @property
     def shape(self) -> dict:
-        return {DATA: self.data, MODEL: self.model, TIME: 1}
+        return {DATA: self.data, MODEL: self.model, TIME: self.time}
 
     def batch_rows(self, b: int, n_micro: int = 1) -> np.ndarray:
         """This rank's rows of a global batch of ``b`` rows: the d-th share
@@ -122,35 +140,43 @@ def make_mesh(cfg: MeshConfig | None = None,
               timeout_s: float = 600.0) -> Mesh:
     """This rank's :class:`Mesh` over the initialized process group
     (``parallel.multihost.initialize``), or the one-rank mesh without one.
-    The data axis takes what the model axis leaves.
+    The data axis takes what the model and time axes leave.
     Every rank must call it, in the same order: it creates the groups."""
     cfg = cfg or MeshConfig()
     device = torch.device(device)
     n = dist.get_world_size() if dist.is_initialized() else 1
-    s = cfg.model_axis
-    if n % s:
-        raise ValueError(f"{n} ranks do not divide by the model axis {s}")
-    d = n // s
+    s, st = cfg.model_axis, cfg.time_axis
+    if n % (s * st):
+        axis = f"time axis {st}" if st > 1 else f"model axis {s}"
+        raise ValueError(f"{n} ranks do not divide by the {axis}")
+    d = n // (s * st)
     if not dist.is_initialized():
-        return Mesh(d, s, 0, device)
+        return Mesh(d, s, 0, device, time=st)
     rank = dist.get_rank()
     world = dist.group.WORLD
     timeout = datetime.timedelta(seconds=timeout_s)
 
-    # every rank creates every model group (collectively, in one order)
-    # and keeps its own
-    model_group = None
-    for i in range(d):
-        ranks = [i * s + m for m in range(s)]
-        if s == n:
-            g = world
-        elif s == 1:
-            g = None
-        else:
-            g = dist.new_group(ranks, timeout=timeout)
-        if rank in ranks:
-            model_group = g
-    di = rank // s
-    return Mesh(d, s, rank, device, world=world, model_group=model_group,
-                model_ranks=tuple(di * s + m for m in range(s)))
+    def groups(size: int, members) -> tuple:
+        """Every rank creates every group of ``size`` ranks (collectively,
+        in one order) and keeps its own: (group, its global ranks)."""
+        mine, own = None, ()
+        for ranks in members:
+            if size == n:
+                g = world
+            elif size == 1:
+                g = None
+            else:
+                g = dist.new_group(list(ranks), timeout=timeout)
+            if rank in ranks:
+                mine, own = g, tuple(ranks)
+        return mine, own
 
+    model_group, model_ranks = groups(s, [
+        [(i * s + m) * st + t for m in range(s)]
+        for i in range(d) for t in range(st)])
+    time_group, time_ranks = groups(st, [
+        [(i * s + m) * st + t for t in range(st)]
+        for i in range(d) for m in range(s)])
+    return Mesh(d, s, rank, device, world=world, model_group=model_group,
+                model_ranks=model_ranks, time=st, time_group=time_group,
+                time_ranks=time_ranks)

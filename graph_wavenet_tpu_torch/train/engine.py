@@ -60,6 +60,16 @@ rank takes its rows of x, y and of the per-sample supports and projectors,
 and the two-modality loss and metrics follow the global rule. Their
 per-sample supports are dense, so node-TP (``model_axis`` > 1) of them is
 refused; it waits for dense node-TP, slice 7b.4 of ROADMAP.md.
+
+Under time-halo sequence parallelism (``mesh.time`` > 1: data x time, every
+step kind above) every rank of a time group is given the same rows and
+runs the whole step on its block of the time axis (``models.gwnet``); the
+output steps lie on the group's last rank (``Mesh.holds_output``), whose
+loss part and metrics are the rows' own, while the others' are exact zeros
+with a zero gradient (``train.metrics``, ``holds``). The world's gradient
+sum is then the single process's gradient. ``predict_step`` and
+``eval_step_syn``'s pooled predictions hold garbage off the last time
+rank.
 """
 
 from __future__ import annotations
@@ -277,6 +287,12 @@ class Engine:
     def _world(self):
         return None if self.mesh is None else self.mesh.world
 
+    @property
+    def holds_output(self) -> bool:
+        """Whether this rank's predictions are the model's output: False
+        off the last rank of a time group (time SP)."""
+        return self.mesh is None or self.mesh.holds_output
+
     def _generator(self) -> torch.Generator:
         """What the model draws from: the engine's generator, but in eval
         mode under ``fresh_nodevec`` (the one draw there) a new one seeded
@@ -295,7 +311,8 @@ class Engine:
     def _metrics(self, loss, predict, real) -> torch.Tensor:
         """(loss, MAPE, RMSE) of ``predict``, global: ``loss`` is this
         rank's part of the loss."""
-        parts = masked_terms(predict, real, 0.0, self._world)
+        parts = masked_terms(predict, real, 0.0, self._world,
+                             self.holds_output)
         return global_terms(loss.detach(), parts[1], parts[2], self._world)
 
     def _set_lr(self) -> None:
@@ -313,7 +330,8 @@ class Engine:
         under a mesh the loss is this rank's part."""
         predict = self._forward(x, supports)
         real = horizon_target(y)
-        mae, mape, mse = masked_terms(predict, real, 0.0, self._world)
+        mae, mape, mse = masked_terms(predict, real, 0.0, self._world,
+                                      self.holds_output)
         with torch.no_grad():
             return mae, global_terms(mae, mape, mse, self._world)
 
@@ -553,7 +571,7 @@ class Engine:
         f_hat = pool_F(predict, F_t)
         e_hat = pool_E(predict, projector)
         loss = masked_terms(torch.cat([f_hat, e_hat], dim=1), real, 0.0,
-                            self._world)[0]
+                            self._world, self.holds_output)[0]
         return loss, f_hat, e_hat, real
 
     def _syn_loss(self, x, y, supports, projector, F_t: int):

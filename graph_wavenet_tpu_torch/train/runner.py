@@ -29,23 +29,24 @@ them per horizon on the real (unpadded) test samples. Step metrics stay on
 the device until the end of the epoch. ``prefetch`` waits for its slice
 (ROADMAP.md), and the runner refuses it.
 
-Under a mesh (``Runner(engine, cfg, mesh=...)``, the engine's: DP and
-node-TP, one process per rank) every rank runs the same loop on the same
-shuffle: the engine takes its rows and node range of each global batch,
-and the metrics it returns are global, so validation loss, best epoch,
-early stop and resume decide the same on every rank. Rank 0 alone logs
-and writes checkpoints, ``history.jsonl`` and ``emergency.json`` (the
-parameters are replicated, so its checkpoint is the model); the others
-wait at a barrier after each epoch's checkpoint, and after the last one
-take rank 0's best weights by broadcast. A resume reads the checkpoint on
-every rank (a path every rank can read). The test scores the rank's rows
-and nodes and sums over the ranks. The fused feeds (``scan_steps`` > 1)
-run under a mesh too: every rank passes the same global index matrices
-(the loaders shuffle alike from one seed) and the engine keeps its
-columns inside the fused call; the barrier, the checkpoint writes and the
-final broadcast stay between fused calls. A resident loader must hold its
-arrays on the mesh's device (JAX: "mesh-replicated"), else ``fit`` raises
-a ``ValueError`` naming both devices.
+Under a mesh (``Runner(engine, cfg, mesh=...)``, the engine's: DP, node-TP
+and time SP, one process per rank) every rank runs the same loop on the same
+shuffle: the engine takes its rows and node range of each global batch, and
+the metrics it returns are global, so validation loss, best epoch, early
+stop and resume decide the same on every rank. Rank 0 alone logs and writes
+checkpoints, ``history.jsonl`` and ``emergency.json`` (the parameters are
+replicated, so its checkpoint is the model); the others wait at a barrier
+after each epoch's checkpoint, and after the last one take rank 0's best
+weights by broadcast. A resume reads the checkpoint on every rank (a path
+every rank can read). The test scores the rank's rows and nodes and sums
+over the ranks (under time SP over the last rank of each time group, which
+holds the predictions). The fused feeds (``scan_steps`` > 1) run under a
+mesh too: every rank passes the same global index matrices (the loaders
+shuffle alike from one seed) and the engine keeps its columns inside the
+fused call; the barrier, the checkpoint writes and the final broadcast stay
+between fused calls. A resident loader must hold its arrays on the mesh's
+device (JAX: "mesh-replicated"), else ``fit`` raises a ``ValueError`` naming
+both devices.
 
 The two-modality tasks run the same epoch machinery (resume, early stop,
 watchdog, asynchronous best-k checkpoints) over ``Engine.train_step_syn``
@@ -59,7 +60,8 @@ scores against the test split's own graphs. Checkpoint sidecars record
 loop on the same batches and their gathered supports and projectors
 (``_gathered``), the engine takes the rank's rows of each and returns
 global metrics; the
-test's pooled predictions are the ranks' rows gathered in order.
+test's pooled predictions are the ranks' rows gathered in order (under
+time SP the last time rank's of each time group).
 """
 
 from __future__ import annotations
@@ -349,8 +351,8 @@ class Runner:
         per_h = []
         for h in range(yhat.shape[-1]):
             pred = engine.scaler.inverse_transform(yhat[:, :, h])
-            scores = torch.stack(metric(pred, realy[:, :, h],
-                                        world)).cpu().tolist()
+            scores = torch.stack(metric(pred, realy[:, :, h], world,
+                                        engine.holds_output)).cpu().tolist()
             per_h.append(tuple(scores))
             self.log(f"Evaluate best model on test data for horizon "
                      f"{h + 1:d}, Test MAE: {scores[0]:.4f}, Test MAPE: "
@@ -525,10 +527,16 @@ class Runner:
 
     def _all_rows(self, a: torch.Tensor) -> torch.Tensor:
         """A batch's rows from every rank, in rank order (DP: the ranks'
-        rows are consecutive shares)."""
-        if self.mesh is None:
+        rows are consecutive shares); under time SP the last time rank's
+        of each time group, which hold the predictions."""
+        mesh = self.mesh
+        if mesh is None:
             return a
-        return all_gather_rows(a, self.mesh.world)
+        rows = all_gather_rows(a, mesh.world)
+        if mesh.time == 1:
+            return rows
+        return rows.unflatten(0, (-1, mesh.time, a.shape[0]))[:, -1].flatten(
+            0, 1)
 
     def _log_test(self, m: dict) -> None:
         self.log("On average over seq_length horizons, Test MAE: "

@@ -1049,6 +1049,8 @@ elif mode == "nccl1_graphed":
     res.update(nccl_graphed(dev))
 elif mode == "nccl2_tp_graphed":
     res.update(nccl_tp_graphed(dev))
+elif mode == "nccl2_time_graphed":
+    res.update(nccl_time_graphed(dev))
 else:
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.train.engine import Engine
@@ -1205,6 +1207,64 @@ def nccl_tp_graphed(dev):
         rec["replays"], rec["per_replay"] = g.replays, g.launches
         out["halo" if halo else "all_gather"] = rec
     return out
+
+
+def nccl_time_graphed(dev):
+    """Time-halo SP over a 2-rank NCCL group (one card each): the K = 48
+    diff-G model (16 nodes, 4 x 2 layers from dilation 4, per-sample
+    supports, dropout 0.3) on 2 time ranks; two fused calls of S = 2
+    ``train_steps_syn_resident`` steps (the halo exchanges captured with
+    the step's other collectives) against four eager ``train_step_syn``
+    calls on the same mesh, bit for bit."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import (
+        Engine,
+        cluster_mean_projector,
+    )
+    rng = np.random.default_rng(0)
+    n, k = 16, 48
+    xs = torch.as_tensor(rng.normal(size=(8, k, n, 2)).astype(np.float32),
+                         device=dev)
+    ys = torch.as_tensor((rng.normal(size=(8, k, n, 2)) + 3.0).astype(
+        np.float32), device=dev)
+    a = rng.random((3, n, n)).astype(np.float32)
+    sup = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    proj = torch.as_tensor(np.stack([cluster_mean_projector(lab, 4)
+                                     for lab in rng.integers(0, 4, (3, n))]),
+                           device=dev)
+    adj = torch.as_tensor(rng.integers(0, 3, size=8).astype(np.int32),
+                          device=dev)
+    idx = rng.integers(0, 8, size=(2, 2, 4)).astype(np.int32)
+    mesh = make_mesh(MeshConfig(time_axis=2), dev)
+    cfg = ModelConfig(num_nodes=n, out_dim=k, residual_channels=8,
+                      dilation_channels=8, skip_channels=16, end_channels=16,
+                      blocks=4, layers=2, start_dilation=4, dropout=0.3,
+                      gcn_bool=True, addaptadj=True, n_supports=1)
+    eager, graphed = (Engine(cfg, TrainConfig(), StandardScaler(3.0, 1.0),
+                             device=dev, seed=0, diff_g=True, mesh=mesh)
+                      for _ in range(2))
+    out = {"loss_differ": [], "time_index": mesh.time_index}
+    for call in range(2):
+        got = graphed.train_steps_syn_resident(xs, ys, idx[call], adj,
+                                               [sup], proj, 4)
+        want = []
+        for r in torch.as_tensor(idx[call], device=dev):
+            gids = adj.index_select(0, r)
+            want.append(eager.train_step_syn(
+                xs.index_select(0, r), ys.index_select(0, r),
+                [sup.index_select(0, gids)], proj.index_select(0, gids), 4))
+        if not torch.equal(got["loss"],
+                           torch.stack([m["loss"] for m in want])):
+            out["loss_differ"].append(call)
+    a, b = (dict(e.model.state_dict()) for e in (eager, graphed))
+    for e, d in ((eager, a), (graphed, b)):
+        for i, st in e.optimizer.state_dict()["state"].items():
+            d.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    out["state_differ"] = [k for k in a if not torch.equal(a[k], b[k])]
+    (g,) = graphed.step_graphs()
+    out["replays"] = g.replays
+    return out
 '''
 DIST_CHILD = DIST_CHILD.replace("res = {}\n", DIST_FUSED + "res = {}\n", 1)
 
@@ -1331,6 +1391,22 @@ def test_nccl_two_ranks_node_tp_graphed_steps_equal_eager(card, tmp_path):
             assert rec["replays"] == 3, rec
             assert rec["per_replay"]["gathered_block_mix_flat"] > 0, rec
             assert rec["per_replay"]["gathered_block_outer_flat"] > 0, rec
+
+
+def test_nccl_two_ranks_time_sp_graphed_steps_equal_eager(card, tmp_path):
+    """Time-halo SP over a 2-rank NCCL group, one card per rank: the fused
+    diff-G steps capture each layer's halo exchange (forward and, in the
+    backward, the cotangent's way back) with the step's other collectives,
+    and two fused calls of S = 2 steps with dropout 0.3 equal four eager
+    ``train_step_syn`` calls on the same mesh bit for bit on both
+    ranks."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    res = run_dist_child(tmp_path, "nccl2_time_graphed", 2)
+    assert [r["time_index"] for r in res] == [0, 1]
+    for r in res:
+        assert r["loss_differ"] == [] and r["state_differ"] == [], r
+        assert r["replays"] == 3, r
 
 
 def test_nccl_one_rank_steps_equal_plain_steps(card, tmp_path):

@@ -726,8 +726,8 @@ def test_refusals(tmp_path):
     feed with a named ``ValueError``; so does a diff-G step given
     per-sample stacks whose length is not the batch's (the engine takes a
     rank's rows of them itself); ``--mesh_model 2`` with the
-    per-sample-graph tasks names slice 7b.4 and ``--mesh_time`` slice
-    7b.3."""
+    per-sample-graph tasks names slice 7b.4, and so does ``--mesh_time``
+    with it (model x time)."""
     from graph_wavenet_tpu_torch.cli import train
     from graph_wavenet_tpu_torch.config import (
         MeshConfig,
@@ -767,8 +767,9 @@ def test_refusals(tmp_path):
         with pytest.raises(SystemExit, match="7b\\.4"):
             train.main(["--data", data_flag, "--mesh_model", "2",
                         "--device", CPU])
-    with pytest.raises(SystemExit, match="--mesh_time.*7b\\.3"):
-        train.main(["--data", "syn", "--mesh_time", "2", "--device", CPU])
+    with pytest.raises(SystemExit, match="--mesh_time.*7b\\.4"):
+        train.main(["--data", "syn", "--mesh_time", "2", "--mesh_model",
+                    "2", "--device", CPU])
 
 
 

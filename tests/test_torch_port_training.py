@@ -314,10 +314,11 @@ def test_trained_checkpoint_forecasts_like_jax(trained_city):
 def test_train_cli_refuses_what_waits(tmp_path):
     from graph_wavenet_tpu_torch.cli import train
 
-    # the mesh flags of slice 7a are ported; time-halo SP waits for 7b
-    with pytest.raises(SystemExit, match="--mesh_time: .*slice 7b"):
+    # the mesh flags of slices 7a-7b.3 are ported; model x time waits for
+    # 7b.4
+    with pytest.raises(SystemExit, match="--mesh_time.*slice 7b\\.4"):
         train.main(["--graph_npz", "g.npz", "--gcn_bool", "--mesh_time",
-                    "2", "--mesh_dp"])
+                    "2", "--mesh_model", "2"])
     # the synthetic task is ported: a too-short receptive field for its
     # two-modality supervision is the refusal left (K = 48 needs rf 49)
     with pytest.raises(ValueError, match="collapse time to one step"):
