@@ -127,10 +127,10 @@ exits non-zero:
 20. ``--mesh_dp`` through the METR training CLI under torchrun with one
    rank and NCCL, bit for bit the same run without a process group
    (``dist_nccl1``);
-21. data parallelism and node-TP at full width (``dist_city``): 2 ranks
-   of node-TP (all_gather form) and 4 ranks (2 x 2, the halo form) over
-   real process groups (NCCL where every rank has a card, else gloo with
-   the ranks sharing it), 2 fp32 steps with dropout 0 against the single
+21. data parallelism and node-TP at full width (``dist_city``): 4 ranks
+   (2 x 2, the halo form) over a real process group (NCCL where every
+   rank has a card, else gloo with the ranks sharing it), 2 fp32 steps
+   with dropout 0 against the single
    process on the card, both under deterministic algorithms
    (``dist_compare``: losses rtol 1e-5; the first
    step's gradients, each tensor within ``GRAD_RTOL`` of its largest
@@ -144,13 +144,25 @@ exits non-zero:
    embeddings' gradient in fp32 and fp64 beside it, the state bit for bit
    equal across the ranks, one bf16 step with dropout 0.3 timed with each
    rank's peak memory and launches (kernel 1 forward and dx per hop,
-   kernel 2 for the mask, per shard); the training CLI under torchrun with
-   2 node-TP ranks, its checkpoint served in one process against the
-   single-process CLI run's, and under torchrun the city ``--aptonly``
-   model with node-TP and the METR model with ``--mesh_dp``, each test
-   MAE within ``CLI_MAE_RTOL`` of the one-process run's of its flags;
-22. ``dist_metr``: 2 DP ranks on the dense METR model (batch 64), held to
-   the single process as in 21;
+   kernel 2 for the mask, per shard); the 2 x 2 group's processes then
+   run the same steps on 2 model x 2 time (``tp2_t2``, the all_gather
+   form: kernels 1 and 2 per shard on each time block, the bf16 step's
+   counted in the ``dist_tp2_t2`` window) with the same checks; then the
+   training CLI under torchrun with 2 node-TP ranks, its
+   checkpoint served in one
+   process against the single-process CLI run's; beside all of it, under
+   torchrun, the city ``--aptonly`` model with node-TP and the METR model with
+   ``--mesh_dp`` and with ``--mesh_model 2`` (dense node-TP, 104 + 103
+   nodes), each test MAE within ``CLI_MAE_RTOL`` of the one-process run's
+   of its flags;
+22. ``dist_metr``: dense node-TP of the METR model at ``bench.py``'s
+   width (207 nodes, batch 64): one set of 4 gloo processes sharing the
+   card runs 2 data x 2 model (104 + 103 nodes) and 4 model (52 x 3 + 51)
+   in turn, each 2 fp32 steps held to the single process as in 21 (the
+   first step's gradients within ``METR_GRAD_RTOL``), one bf16 step with
+   dropout 0.3 a rank timed, peak memory and the bytes a rank sends a
+   step (``dense_exchange``); it runs while 21's torchrun node-TP ranks
+   do, and its seconds are inside ``dist_city``'s;
 23. ``tp_tables``: the node-TP partition of the city supports and mask
    for S = 2 and 4 (live blocks per shard, table lengths, dummy share,
    the exchange form, the bytes per hop of each form);
@@ -175,25 +187,32 @@ exits non-zero:
    (``dist_compare``), and ``--data crash --mesh_dp`` under torchrun, its
    test MAE within ``CLI_MAE_RTOL`` of the one-process run's;
 28. ``determinism``: two fresh fp32 city training steps with the mask
-   (40,960 nodes, batch 4, flat, dropout 0) in two child processes
-   without deterministic algorithms, equal bit for bit (losses,
-   gradients, parameters);
+   (40,960 nodes, batch 4, flat, dropout 0) in two child processes,
+   started together, without deterministic algorithms, equal bit for bit
+   (losses, gradients, parameters);
 29. ``dist_time``: time-halo sequence parallelism, the CRASH-scale diff-G
    step (K = 2,912, 200 nodes, nhid 32, 13 x 3 layers from dilation 32,
    per-sample supports and the adaptive adjacency, batch 4, remat) on 4
-   gloo time ranks and on 2 data x 2 time sharing the card, 2 fp32 steps
-   with dropout 0 against the single process (``dist_compare``, the
-   losses within 1e-6 relative), each rank's peak memory beside the
-   single process's, one bf16 step a rank timed, the bytes a rank
-   exchanges a step and the share of garbage steps; and ``--data syn
-   --mesh_time 2`` under torchrun, its test MAE within ``CLI_MAE_RTOL``
-   of the one-process run's (``dist_time_cli``).
+   gloo time ranks sharing the card, and its first 4 blocks (K = 896) on
+   2 data x 2 model x 2 time (8 ranks: dense node-TP on each time
+   block), 2 fp32 steps with dropout 0 against the single process of the
+   same depth (``dist_compare``, the losses within 1e-6 relative), each
+   rank's peak memory beside the single process's, one bf16 step a rank
+   timed, the bytes a rank exchanges a step (halo and node exchange) and
+   the share of garbage steps; and ``--data syn --mesh_time 2`` under
+   torchrun, its test MAE within ``CLI_MAE_RTOL`` of the one-process
+   run's (``dist_time_cli``).
 
 The script's cuts for time: the tile-width sweep at R = 3,072
 only, the dispatch table at the R of ``DISPATCH_R``, plain and library
 times only on the ``kernels`` line's shapes, fewer timed repeats in
-``export``, fewer rolling origins of the METR model and one bf16 step in
-``dist_city``'s groups; every check still runs. Before the ``kernels``
+``export``, fewer rolling origins of the METR model, one bf16 step in
+``dist_city``, whose 2-rank node-TP group is gone (its all_gather form
+and its checks run under model x time in the 2 x 2 group's processes),
+``dist_metr``'s layouts in one set of processes, run beside
+``dist_city``'s torchrun pair, the torchrun CLIs of ``dist_city``
+started beside its rank group, and ``determinism``'s two children
+started together; every check still runs. Before the ``kernels``
 line it prints
 ``{"phase_seconds": {...}}``.
 
@@ -3860,9 +3879,10 @@ TP_SHARDS = (2, 4)
 # the train step's first-layer R at batch 4: 4 rows x 12 steps x 32 channels
 TP_R = 1536
 DIST_TIMEOUT = 900
-# (name, ranks, model axis, exchange form): the 2-rank group takes the
-# all_gather, the 2 x 2 one what halo="auto" picks (the halo at S = 2)
-DIST_LAYOUTS = (("tp2", 2, 2, False), ("dp2_tp2", 4, 2, "auto"))
+# (name, ranks, model axis, exchange form): the 2 x 2 group takes what
+# halo="auto" picks (the halo at S = 2); its processes then run the
+# all_gather form under model x time (``CITY_MXT``)
+DIST_LAYOUTS = (("dp2_tp2", 4, 2, "auto"),)
 # the CLI comparison's data: one train step, one validation and one test
 # batch at the city training cell's batch
 DIST_CLI_SAMPLES = {"train": TRAIN_BATCH, "val": TRAIN_BATCH,
@@ -4122,7 +4142,9 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
     (``diffg_batch``; ``supports`` is then the per-sample supports, the
     projectors and F_t, of which the engine takes the rank's rows) or the
     CRASH-scale diff-G step (``kind`` "crash": K = 2,912, 13 x 3 layers
-    from dilation 32, remat)."""
+    from dilation 32, remat; "crash4": its first ``CRASH_BLOCKS_MXT``
+    blocks). The dense supports go whole to every rank: the model takes
+    its rows where the mesh splits nodes."""
     import torch
 
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
@@ -4134,15 +4156,16 @@ def dist_engine(kind: str, dtype: str, dropout: float, device, mesh,
                   dilation_channels=32, skip_channels=256, end_channels=512,
                   blocks=4, layers=2, gcn_bool=True, addaptadj=True,
                   n_supports=2, dropout=dropout, dtype=dtype)
-    if kind in ("diffg", "crash"):
+    if kind in ("diffg", "crash", "crash4"):
         if kind == "diffg":
             cfg = ModelConfig(num_nodes=DIFFG_NODES, **dict(
                 common, out_dim=DIFFG_K, start_dilation=4))
             x, y, sups_np, proj = diffg_batch()
             f_t = DIFFG_K // 12
         else:
-            cfg = crash_cfg(dtype=dtype, dropout=dropout)
-            x, y, sups_np, proj = diffg_batch(b=CRASH_BATCH, k=CRASH_K,
+            blocks = CRASH_BLOCKS_MXT if kind == "crash4" else 13
+            cfg = crash_cfg(blocks, dtype=dtype, dropout=dropout)
+            x, y, sups_np, proj = diffg_batch(b=CRASH_BATCH, k=cfg.out_dim,
                                               n=CRASH_NODES)
             f_t = CRASH_F_T
         eng = Engine(cfg, TrainConfig(), StandardScaler(0.5, 0.3),
@@ -4202,41 +4225,28 @@ def state_vector(engine):
             for k, v in engine.model.state_dict().items()}
 
 
-def dist_worker(spec_path: str, rank: int) -> None:
-    """One rank of a ``dist_*`` check (started by ``dist_group``): the fp32
-    steps with dropout 0 held against the single process (``keep_state``,
-    under deterministic algorithms as ``single_reference``), then the
-    timed bf16 steps with dropout 0.3; writes its losses, launches, state
-    hash, step times and peak memory (rank 0: its parameters too)."""
+def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
+                     graph) -> dict:
+    """A ``dist_worker``'s runs on one layout of its ranks: per run (under
+    the layout's name where the group runs more than one) its losses, step
+    times, launches, state hash and peak memory; rank 0 writes the state
+    and the first step's gradients of a ``keep_state`` run into the
+    layout's directory."""
     import hashlib
 
     import numpy as np
     import torch
 
-    from graph_wavenet_tpu_torch.config import MeshConfig
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-    from graph_wavenet_tpu_torch.parallel import multihost
-    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    multihost.initialize(spec["backend"], rank, spec["world"], spec["init"],
-                         device="cuda", timeout_s=DIST_TIMEOUT)
-    dev = multihost.rank_device("cuda")
-    mesh = make_mesh(MeshConfig(model_axis=spec["model"],
-                                time_axis=spec["time"]), dev,
-                     timeout_s=DIST_TIMEOUT)
-    graph = None
-    if spec["kind"] == "city":
-        g = np.load(spec["graph"])
-        graph = (g["pos"], g["src"], g["dst"], g["weight"])
-    out = {"rank": rank, "device": str(dev)}
-    for run in spec["runs"]:
-        eng, sups, x, y = dist_engine(spec["kind"], run["dtype"],
-                                      run["dropout"], dev, mesh, graph,
-                                      spec["halo"])
+    out_dir = os.path.join(spec["out"], lay["name"])
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for run in lay.get("runs", spec["runs"]):
+        eng, sups, x, y = dist_engine(lay.get("kind", spec["kind"]),
+                                      run["dtype"], run["dropout"], dev,
+                                      mesh, graph, lay.get("halo",
+                                                           spec["halo"]))
         xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4250,12 +4260,12 @@ def dist_worker(spec_path: str, rank: int) -> None:
                 losses.append(float(m["loss"]))
                 times.append((time.perf_counter() - t0) * 1e3)
                 if k == 0 and rank == 0 and run.get("keep_state"):
-                    np.savez(os.path.join(spec["out"],
+                    np.savez(os.path.join(out_dir,
                                           f"{run['name']}_state_step1.npz"),
                              **state_vector(eng))
                     # the world-summed, clipped gradients the first update
                     # took
-                    np.savez(os.path.join(spec["out"],
+                    np.savez(os.path.join(out_dir,
                                           f"{run['name']}_grad_step1.npz"),
                              **{n: p.grad.cpu().numpy()
                                 for n, p in eng.model.named_parameters()
@@ -4270,11 +4280,54 @@ def dist_worker(spec_path: str, rank: int) -> None:
                "max_memory_allocated_bytes":
                torch.cuda.max_memory_allocated(dev)}
         if rank == 0 and run.get("keep_state"):
-            np.savez(os.path.join(spec["out"], f"{run['name']}_state.npz"),
+            np.savez(os.path.join(out_dir, f"{run['name']}_state.npz"),
                      **state)
-        out[run["name"]] = rec
+        out[layout_key(lay["name"], run["name"])] = rec
         del eng, sups, xt, yt
         torch.cuda.empty_cache()
+    return out
+
+
+def layout_key(layout: str, run: str) -> str:
+    """A run's record key in a rank's record: the run's name, under its
+    layout's where the group runs several."""
+    return f"{layout}/{run}" if layout else run
+
+
+def dist_worker(spec_path: str, rank: int) -> None:
+    """One rank of a ``dist_*`` check (started by ``dist_group``): on each
+    of the group's layouts in turn (``dist_layout_runs``), the fp32 steps
+    with dropout 0 held against the single process (``keep_state``, under
+    deterministic algorithms as ``single_reference``), then the timed bf16
+    steps with dropout 0.3; writes its losses, launches, state hash, step
+    times and peak memory (rank 0: its parameters too)."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import MeshConfig
+    from graph_wavenet_tpu_torch.parallel import multihost
+    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(spec["backend"], rank, spec["world"], spec["init"],
+                         device="cuda", timeout_s=DIST_TIMEOUT)
+    dev = multihost.rank_device("cuda")
+    graph = None
+    if spec["kind"] == "city":
+        g = np.load(spec["graph"])
+        graph = (g["pos"], g["src"], g["dst"], g["weight"])
+    out = {"rank": rank, "device": str(dev)}
+    meshes = []
+    for lay in spec["layouts"]:
+        meshes.append(make_mesh(MeshConfig(model_axis=lay["model"],
+                                           time_axis=lay["time"]), dev,
+                                timeout_s=DIST_TIMEOUT))
+        out.update(dist_layout_runs(spec, lay, rank, dev, meshes[-1],
+                                    graph))
+    mesh = meshes[0]
     if spec["kind"] == "city":
         # the cost of drawing each layer's dropout mask at the global shape
         # (what a rank keeps is 1 / (D x S) of it): the first layer's draw,
@@ -4298,21 +4351,26 @@ def dist_worker(spec_path: str, rank: int) -> None:
 def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
                runs: list, graph_path: str | None = None,
                halo: bool | str = "auto",
-               worker: str = "dist_worker", time_axis: int = 1) -> tuple:
+               worker: str = "dist_worker", time_axis: int = 1,
+               more: tuple = ()) -> tuple:
     """Start ``world`` rank processes (``worker``: ``dist_worker``, or
     ``graphed_worker``) on this machine's cards, NCCL where every rank has
     a card of its own, else gloo with the ranks sharing them; every process
     and the group bounded by DIST_TIMEOUT. ``model``/``time_axis``: the
-    mesh's model and time axes. Returns (backend, per-rank records,
-    seconds)."""
+    mesh's model and time axes; ``more``: further layouts the same
+    processes run after it, each a dict with ``name``, ``model``, ``time``
+    and optionally ``kind``, ``runs`` and ``halo`` (its records under
+    ``layout_key``, its files in ``dist_<name>/<layout>``). Returns
+    (backend, per-rank records, seconds)."""
     import torch
 
     out = os.path.join(tmp, f"dist_{name}")
     os.makedirs(out, exist_ok=True)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    layouts = [dict(name="", model=model, time=time_axis), *more]
     spec = dict(world=world, model=model, time=time_axis, kind=kind,
                 runs=runs, backend=backend, out=out, graph=graph_path,
-                halo=halo, init=f"file://{out}/rendezvous")
+                halo=halo, layouts=layouts, init=f"file://{out}/rendezvous")
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -4401,14 +4459,15 @@ def top(err: dict, n: int = 5) -> list:
     return sorted(([k, v] for k, v in err.items()), key=lambda kv: -kv[1])[:n]
 
 
-def dist_compare(name: str, recs: list, ref: dict, out: str) -> dict:
+def dist_compare(name: str, recs: list, ref: dict, out: str,
+                 key: str = "fp32", grad_rtol: float = GRAD_RTOL) -> dict:
     """Hold a group's fp32 run (dropout 0) to the single process and its
     ranks to each other; returns the readings and raises on a failed
     check:
 
     - the losses of both steps at rtol 1e-5;
     - the first step's clipped gradients, each tensor within
-      ``GRAD_RTOL`` of its largest magnitude but the biases whose exact
+      ``grad_rtol`` of its largest magnitude but the biases whose exact
       gradient is zero (``BN_SHIFT_BIAS``), whose largest magnitude over
       the largest gradient is a reading (Adam's first update is near the
       gradient's sign, so the parameters alone would not show a gradient
@@ -4423,10 +4482,12 @@ def dist_compare(name: str, recs: list, ref: dict, out: str) -> dict:
     Every tensor's error after the last step against its scale is a
     reading beside them, not a check: there the first step's unresolved
     elements have moved the next gradient, and Adam's normalized update
-    turns that into O(lr) on small-gradient elements too."""
+    turns that into O(lr) on small-gradient elements too (read where the
+    run took as many steps as the reference). ``key``: the run's record
+    (``layout_key``), whose files are in ``out``."""
     import numpy as np
 
-    run = [r["fp32"] for r in recs]
+    run = [r[key] for r in recs]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run[0]["losses"],
                                                        ref["losses"]))
     worst, worst_key, n_unresolved, worst_unresolved = 0.0, "", 0, 0.0
@@ -4450,13 +4511,15 @@ def dist_compare(name: str, recs: list, ref: dict, out: str) -> dict:
     grads = dict(np.load(os.path.join(out, "fp32_grad_step1.npz")))
     grad_err, null_rel = grad_errors(grads, ref["grad1"])
     grad_worst = max(grad_err, key=grad_err.get)
-    got = dict(np.load(os.path.join(out, "fp32_state.npz")))
-    last = {k: float(np.abs(got[k] - v).max())
-            / max(float(np.abs(v).max()), 1e-30)
-            for k, v in ref["state"].items()}
-    last_worst = max(last, key=last.get)
-    beyond = sum(int((np.abs(got[k] - v) > 1e-5 * np.abs(v).max()).sum())
-                 for k, v in ref["state"].items())
+    last, last_worst, beyond = {"-": None}, "-", None
+    if len(run[0]["losses"]) == len(ref["losses"]):
+        got = dict(np.load(os.path.join(out, "fp32_state.npz")))
+        last = {k: float(np.abs(got[k] - v).max())
+                / max(float(np.abs(v).max()), 1e-30)
+                for k, v in ref["state"].items()}
+        last_worst = max(last, key=last.get)
+        beyond = sum(int((np.abs(got[k] - v) > 1e-5 * np.abs(v).max()).sum())
+                     for k, v in ref["state"].items())
     same = len({r["state_sha256"] for r in run}) == 1
     readings = {
         "loss_max_rel_err": loss_rel, "losses": run[0]["losses"],
@@ -4474,15 +4537,15 @@ def dist_compare(name: str, recs: list, ref: dict, out: str) -> dict:
         "last_elements_beyond_1e-5_scale": beyond,
         "ranks_bitwise_equal": same,
         "state_scale": scale,
-        "rule": "loss rtol 1e-5; step 1's gradients 1e-2 x max|tensor| "
-                "(not the biases before a BatchNorm); "
+        "rule": f"loss rtol 1e-5; step 1's gradients {grad_rtol:g} x "
+                "max|tensor| (not the biases before a BatchNorm); "
                 "after step 1 the Adam-resolved elements and the buffers "
                 "atol 1e-5 x max|state|, the rest <= 2 lr; ranks bitwise"}
     require(loss_rel <= 1e-5, f"dist {name}: fp32 losses {run[0]['losses']} "
             f"vs single process {ref['losses']}")
     require(set(grads) == set(ref["grad1"])
             and all(np.isfinite(v).all() for v in grads.values())
-            and grad_err[grad_worst] <= GRAD_RTOL,
+            and grad_err[grad_worst] <= grad_rtol,
             f"dist {name}: the gradient of {grad_worst} differs by "
             f"{grad_err[grad_worst]} of its scale from the single process")
     require(worst <= 1e-5, f"dist {name}: {worst_key} differs by {worst} "
@@ -4719,59 +4782,108 @@ def grad_witness(graph, ref: dict) -> None:
                 f"the gradient rule passes a planted fault ({name}): {worst}")
 
 
-def phase_dist_city(graph, tmp: str) -> dict:
-    """Real process groups at the full city model: 2 ranks of node-TP and
-    4 ranks (2 x 2 DP x node-TP), NCCL where every rank has a card, else
-    gloo with the ranks sharing it. Each group: 2 fp32 steps with dropout
-    0 against the single process on the card (``dist_compare``), the
-    parameters bit for bit equal across the ranks, then one bf16 step with
-    dropout 0.3 (finite, ms, peak memory per rank). Then the
-    training CLI under torchrun with 2 node-TP ranks and in one process
-    (fp32, dropout 0, one epoch): both checkpoints served in this process
-    through ``Forecaster.from_city_checkpoint``, the forecasts within 1e-4
-    of their scale. Returns the launches of the bf16 steps (the main path:
-    kernel 1 forward and dx per hop, kernel 2 for the mask)."""
+def phase_dist_city(graph, tmp: str, beside=None) -> dict:
+    """A real process group at the full city model: 4 ranks (2 x 2 DP x
+    node-TP, the halo form), NCCL where every rank has a card, else gloo
+    with the ranks sharing it: 2 fp32 steps with dropout 0 against the
+    single process on the card (``dist_compare``), the parameters bit for
+    bit equal across the ranks, then one bf16 step with dropout 0.3
+    (finite, ms, peak memory per rank); the same ranks then run the same
+    steps on 2 model x 2 time in the all_gather form (``CITY_MXT``).
+    Then the training CLI under torchrun with 2 node-TP ranks and in one
+    process (fp32, dropout 0, one epoch): both checkpoints served in this
+    process through ``Forecaster.from_city_checkpoint``, the forecasts
+    within 1e-4 of their scale; ``beside()``, where given, runs in this
+    process while the torchrun ranks do. ``dist_cli_more``'s runs go on
+    beside all of it. Returns the launches of the bf16 steps of each layout
+    (the main path: kernel 1 forward and dx per hop, kernel 2 for the
+    mask)."""
+    import numpy as np
+
+    more = dist_cli_more(tmp)
+    try:
+        pos, src, dst, w = graph
+        gpath = os.path.join(tmp, "dist_graph.npz")
+        np.savez(gpath, pos=pos, src=src, dst=dst, weight=w)
+        ref = single_reference("city", graph)
+        grad_witness(graph, ref)
+        counts = dist_city_groups(tmp, gpath, ref)
+        counts.update(dist_city_cli(tmp, dist_cli_paths(tmp, graph),
+                                    beside=beside))
+        dist_cli_more_check(more)
+    finally:
+        more.close()
+    return counts
+
+
+def dist_city_groups(tmp: str, gpath: str, ref: dict) -> dict:
+    """``phase_dist_city``'s rank groups (``DIST_LAYOUTS``, each followed
+    by the model x time layout ``CITY_MXT``) against the single process
+    ``ref``; returns the bf16 steps' launches of each layout."""
     import numpy as np
     import torch
 
-    pos, src, dst, w = graph
-    gpath = os.path.join(tmp, "dist_graph.npz")
-    np.savez(gpath, pos=pos, src=src, dst=dst, weight=w)
-    ref = single_reference("city", graph)
-    grad_witness(graph, ref)
-    counts = {}
     runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
                  keep_state=True),
             dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
+    mxt = (dict(name=CITY_MXT, model=2, time=2, halo=False),)
+    counts = {}
     for name, world, model, halo in DIST_LAYOUTS:
         backend, recs, secs = dist_group(name, tmp, world, model, "city",
-                                         runs, gpath, halo)
-        readings = dist_compare(name, recs, ref,
-                                os.path.join(tmp, f"dist_{name}"))
-        bf = [r["bf16"] for r in recs]
-        shared = backend == "gloo" and torch.cuda.device_count() < world
-        emit("dist_city", layout=name, ranks=world, data=world // model,
-             model=model, exchange="all_gather" if halo is False else
-             "halo (auto)", backend=backend, cards=torch.cuda.device_count(),
-             seconds=round(secs, 3), **readings,
-             bf16_losses=[r["losses"] for r in bf],
-             bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
-             timing_note=SHARED_CARD if shared else "one card per rank",
-             peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
-                                         for r in bf],
-             launches_rank0=bf[0]["launches"],
-             dropout_draw_ms_layer0=recs[0]["draw_ms"])
-        require(all(np.isfinite(r["losses"]).all() for r in bf),
-                f"dist {name}: non-finite bf16 losses")
-        want = dist_step_launches(1)
-        require(all(r["launches"] == want for r in bf),
-                f"dist {name}: bf16 launches per rank "
-                f"{[r['launches'] for r in bf]}, want {want}")
-        counts["dist_" + name] = {k: sum(r["launches"][k] for r in bf)
-                                  for k in want}
-    counts.update(dist_city_cli(tmp, dist_cli_paths(tmp, graph)))
-    dist_cli_more(tmp)
+                                         runs, gpath, halo, more=mxt)
+        out = os.path.join(tmp, f"dist_{name}")
+        counts.update(dist_city_layout(
+            name, "", recs, ref, out, backend, ranks=world,
+            data=world // model, model=model,
+            exchange="all_gather" if halo is False else "halo (auto)",
+            seconds=round(secs, 3), dropout_draw_ms_layer0=recs[0]["draw_ms"]))
+        counts.update(dist_city_layout(
+            CITY_MXT, CITY_MXT, recs, ref, os.path.join(out, CITY_MXT),
+            backend, ranks=world, data=1, model=2, time=2,
+            exchange="all_gather"))
     return counts
+
+
+# the layout the 2 x 2 city group runs after its own: 2 model x 2 time in
+# the all_gather form (the halo form is the 2 x 2 layout's), kernels 1 and
+# 2 per shard on each time block
+CITY_MXT = "tp2_t2"
+
+
+def dist_city_layout(name: str, layout: str, recs: list, ref: dict,
+                     out: str, backend: str, **where) -> dict:
+    """One layout of a city rank group: its fp32 steps against the single
+    process ``ref`` (``dist_compare``, files in ``out``), its bf16 step
+    (dropout 0.3) finite, timed, its peak memory, and both runs' launches
+    per rank (``dist_step_launches``); ``layout``: its record key
+    (``layout_key``), ``where``: the mesh it ran, for the record. Returns
+    the bf16 step's launches as the ``dist_<name>`` window."""
+    import numpy as np
+    import torch
+
+    readings = dist_compare(name, recs, ref, out,
+                            key=layout_key(layout, "fp32"))
+    fp = [r[layout_key(layout, "fp32")] for r in recs]
+    bf = [r[layout_key(layout, "bf16")] for r in recs]
+    emit("dist_city", layout=name, backend=backend,
+         cards=torch.cuda.device_count(), **where, **readings,
+         bf16_losses=[r["losses"] for r in bf],
+         fp32_step_ms_per_rank=[r["step_ms"] for r in fp],
+         bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
+         timing_note=SHARED_CARD if backend == "gloo"
+         and torch.cuda.device_count() < len(recs) else "one card per rank",
+         peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
+                                     for r in bf],
+         launches_rank0=bf[0]["launches"])
+    require(all(np.isfinite(r["losses"]).all() for r in bf),
+            f"dist {name}: non-finite bf16 losses")
+    for runs, steps in ((fp, len(ref["losses"])), (bf, 1)):
+        want = dist_step_launches(steps)
+        require(all(r["launches"] == want for r in runs),
+                f"dist {name}: launches per rank "
+                f"{[r['launches'] for r in runs]}, want {want}")
+    return {"dist_" + name: {k: sum(r["launches"][k] for r in bf)
+                             for k in want}}
 
 
 def dist_step_launches(steps: int) -> dict:
@@ -4805,7 +4917,7 @@ def dist_cli_paths(tmp: str, graph) -> tuple:
 
 
 def dist_city_cli(tmp: str, paths: tuple,
-                  learning_rate: float | None = None) -> dict:
+                  learning_rate: float | None = None, beside=None) -> dict:
     """``torchrun --nproc_per_node 2 -m ...cli.train --mesh_model 2`` (gloo
     with one card, else NCCL) and the same run in one process, fp32,
     dropout 0, one epoch of ``DIST_CLI_SAMPLES``; both checkpoints served
@@ -4814,7 +4926,9 @@ def dist_city_cli(tmp: str, paths: tuple,
     statistics, which separates Adam's first update from node-TP's
     forward in the gap (ROADMAP.md §3), e.g.
     ``dist_city_cli(tmp, dist_cli_paths(tmp, city_graph(N_CITY)), 0.0)``
-    after ``phase_card()`` and ``phase_build()``."""
+    after ``phase_card()`` and ``phase_build()``. ``beside()``, where
+    given, runs in this process after the one-process run, while the
+    torchrun ranks go on."""
     import numpy as np
     import torch
 
@@ -4830,16 +4944,22 @@ def dist_city_cli(tmp: str, paths: tuple,
         argv += ["--learning_rate", str(learning_rate)]
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     save_tp = os.path.join(tmp, "dist_cli_tp")
-    stdout, tp_s = run_together(
-        {"tp": torchrun_argv(argv + ["--mesh_model", "2"], save_tp)},
-        tmp)["tp"]
-    t1 = time.perf_counter()
-    one = train.main(argv + ["--save", os.path.join(tmp, "dist_cli_one")])
-    torch.cuda.synchronize()
-    one_s = time.perf_counter() - t1
-    ck_one = one["result"].best_checkpoint
-    del one
-    torch.cuda.empty_cache()
+    tp = Together({"tp": torchrun_argv(argv + ["--mesh_model", "2"],
+                                       save_tp)}, tmp)
+    try:
+        t1 = time.perf_counter()
+        one = train.main(argv + ["--save", os.path.join(tmp,
+                                                        "dist_cli_one")])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        ck_one = one["result"].best_checkpoint
+        del one
+        torch.cuda.empty_cache()
+        if beside is not None:
+            beside()
+        (stdout, tp_s), = tp.wait().values()
+    finally:
+        tp.close()
     x = np.random.default_rng(8).normal(
         50.0, 10.0, size=(2, 12, N_CITY, 2)).astype(np.float32)
     preds = {}
@@ -4864,45 +4984,63 @@ def dist_city_cli(tmp: str, paths: tuple,
     return {}
 
 
-def run_together(cmds: dict, out: str) -> dict:
-    """Start every named command (an argv, run from the repository root)
-    at once, each bounded by DIST_TIMEOUT, its output in ``out``; wait for
-    all, kill what is left on a timeout. Returns {name: (stdout,
-    seconds)}; raises with a failed command's output."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    t0 = time.perf_counter()
-    procs, logs, secs = {}, {}, {}
-    try:
-        for name, argv in cmds.items():
-            logs[name] = [open(os.path.join(out, f"{name}.{k}"), "w+")
-                          for k in ("out", "err")]
-            procs[name] = subprocess.Popen(argv, cwd=REPO, env=env,
-                                           stdout=logs[name][0],
-                                           stderr=logs[name][1], text=True)
-        while len(secs) < len(procs):
-            for name, p in procs.items():
-                if name not in secs and p.poll() is not None:
-                    secs[name] = time.perf_counter() - t0
-            require(time.perf_counter() - t0 < DIST_TIMEOUT,
-                    f"{sorted(set(procs) - set(secs))} outlived "
-                    f"{DIST_TIMEOUT} s")
-            time.sleep(0.2)
-    finally:
-        for p in procs.values():
+class Together:
+    """Every named command (an argv, run from the repository root) started
+    at once, each bounded by DIST_TIMEOUT from the start, its output in
+    ``out``. ``wait()`` waits for all and returns {name: (stdout,
+    seconds)}, raising with a failed command's output; ``close()`` kills
+    what is left (``wait`` does on a timeout or a failure)."""
+
+    def __init__(self, cmds: dict, out: str):
+        env = dict(os.environ, PYTHONPATH=REPO)
+        self.cmds, self.t0 = cmds, time.perf_counter()
+        self.procs, self.logs = {}, {}
+        try:
+            for name, argv in cmds.items():
+                self.logs[name] = [open(os.path.join(out, f"{name}.{k}"),
+                                        "w+") for k in ("out", "err")]
+                self.procs[name] = subprocess.Popen(
+                    argv, cwd=REPO, env=env, stdout=self.logs[name][0],
+                    stderr=self.logs[name][1], text=True)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        for p in self.procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    result = {}
-    for name, p in procs.items():
-        text = []
-        for f in logs[name]:
-            f.seek(0)
-            text.append(f.read())
-            f.close()
-        require(p.returncode == 0, f"{name} ({' '.join(cmds[name][:6])} "
-                f"...) failed: " + text[0][-3000:] + text[1][-3000:])
-        result[name] = (text[0], secs[name])
-    return result
+
+    def wait(self) -> dict:
+        secs = {}
+        try:
+            while len(secs) < len(self.procs):
+                for name, p in self.procs.items():
+                    if name not in secs and p.poll() is not None:
+                        secs[name] = time.perf_counter() - self.t0
+                require(time.perf_counter() - self.t0 < DIST_TIMEOUT,
+                        f"{sorted(set(self.procs) - set(secs))} outlived "
+                        f"{DIST_TIMEOUT} s")
+                time.sleep(0.2)
+        finally:
+            self.close()
+        result = {}
+        for name, p in self.procs.items():
+            text = []
+            for f in self.logs[name]:
+                f.seek(0)
+                text.append(f.read())
+                f.close()
+            require(p.returncode == 0, f"{name} ({' '.join(self.cmds[name][:6])}"
+                    f" ...) failed: " + text[0][-3000:] + text[1][-3000:])
+            result[name] = (text[0], secs[name])
+        return result
+
+
+def run_together(cmds: dict, out: str) -> dict:
+    """:class:`Together`'s commands, waited for."""
+    return Together(cmds, out).wait()
 
 
 def torchrun_argv(argv: list, save: str, ranks: int = 2) -> list:
@@ -4924,16 +5062,16 @@ def test_mae(stdout: str) -> float:
     return float(line.split("Test MAE: ")[1].split(",")[0])
 
 
-def dist_cli_more(tmp: str) -> None:
-    """Two more training CLIs under torchrun with 2 ranks, run together:
+def dist_cli_more(tmp: str) -> Together:
+    """Three more training CLIs under torchrun with 2 ranks, started
+    together (the caller waits with ``dist_cli_more_check``):
     the city model with the adaptive adjacency alone under node-TP
     (``--aptonly``, the 2,048-node graph of ``phase_aptonly``, bf16) and
-    the METR model under DP (``--mesh_dp``, ``phase_metr_cli``'s data,
-    bf16); each test MAE finite and within ``CLI_MAE_RTOL`` of the
+    the METR model under DP (``--mesh_dp``) and under dense node-TP
+    (``--mesh_model 2``: 104 + 103 nodes) on ``phase_metr_cli``'s data,
+    bf16; each test MAE finite and within ``CLI_MAE_RTOL`` of the
     one-process run's of the same flags (``phase_aptonly``'s and
     ``phase_dist_nccl1``'s plain run, ``ONE_PROCESS_TEST_MAE``)."""
-    import numpy as np
-
     from graph_wavenet_tpu_torch.graphs import city
 
     gpath = os.path.join(tmp, "aptonly_graph.npz")
@@ -4947,61 +5085,158 @@ def dist_cli_more(tmp: str) -> None:
               "--device", "cuda"]
     dense = list(common)
     dense[3] = str(DENSE_BATCH)
-    runs = run_together({
+    metr = ["--data", os.path.join(tmp, "METR"), "--adjdata",
+            os.path.join(tmp, "adj_mx.pkl"), "--num_nodes",
+            str(DENSE_NODES), "--gcn_bool", "--addaptadj", *dense]
+    return Together({
         "aptonly": torchrun_argv(
             ["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
              "--addaptadj", "--aptonly", "--sparse", "flat", "--mesh_model",
              "2", *common], os.path.join(tmp, "dist_aptonly")),
-        "metr": torchrun_argv(
-            ["--data", os.path.join(tmp, "METR"), "--adjdata",
-             os.path.join(tmp, "adj_mx.pkl"), "--num_nodes",
-             str(DENSE_NODES), "--gcn_bool", "--addaptadj", "--mesh_dp",
-             *dense], os.path.join(tmp, "dist_metr_cli"))}, tmp)
-    (out_a, secs_a), (out_m, secs_m) = runs["aptonly"], runs["metr"]
-    maes = {"city_aptonly_tp2": test_mae(out_a), "metr_dp2": test_mae(out_m)}
-    rel = {k: abs(v - ONE_PROCESS_TEST_MAE[k]) / ONE_PROCESS_TEST_MAE[k]
-           for k, v in maes.items()}
+        "metr_dp2": torchrun_argv(
+            metr + ["--mesh_dp"], os.path.join(tmp, "dist_metr_cli")),
+        "metr_tp2": torchrun_argv(
+            metr + ["--mesh_model", "2"],
+            os.path.join(tmp, "dist_metr_tp_cli"))}, tmp)
+
+
+def dist_cli_more_check(started: Together) -> None:
+    """Wait for ``dist_cli_more``'s runs and hold each test MAE to the
+    one-process run's of its flags (the dense node-TP run to the plain
+    METR run's)."""
+    import numpy as np
+
+    runs = started.wait()
+    one = dict(ONE_PROCESS_TEST_MAE, metr_tp2=ONE_PROCESS_TEST_MAE["metr_dp2"])
+    names = {"aptonly": "city_aptonly_tp2", "metr_dp2": "metr_dp2",
+             "metr_tp2": "metr_tp2"}
+    maes = {names[k]: test_mae(out) for k, (out, _) in runs.items()}
+    rel = {k: abs(v - one[k]) / one[k] for k, v in maes.items()}
     emit("dist_cli", runs={"city_aptonly_tp2": N_SMALL,
-                           "metr_dp2": DENSE_NODES},
+                           "metr_dp2": DENSE_NODES, "metr_tp2": DENSE_NODES},
          test_mae=maes, test_mae_one_process=ONE_PROCESS_TEST_MAE,
          test_mae_rel_diff=rel, tolerance=f"rtol {CLI_MAE_RTOL}",
-         seconds={"city_aptonly_tp2": round(secs_a, 3),
-                  "metr_dp2": round(secs_m, 3)},
-         mesh_lines=[ln for ln in (out_a + out_m).splitlines()
+         seconds={names[k]: round(secs, 3)
+                  for k, (_, secs) in runs.items()},
+         mesh_lines=[ln for out, _ in runs.values()
+                     for ln in out.splitlines()
                      if ln.startswith(("mesh:", "node-TP"))])
+    require("exchange: reduce-scatter (dense rows, 207 nodes as [104, 103])"
+            in runs["metr_tp2"][0],
+            "the METR --mesh_model 2 run did not print its node ranges")
     require(all(np.isfinite(v) and rel[k] <= CLI_MAE_RTOL
                 for k, v in maes.items()),
             f"test MAE under torchrun {maes} against one process "
             f"{ONE_PROCESS_TEST_MAE}")
 
 
+# dense node-TP's layouts of ``dist_metr``'s 4 processes, run in turn:
+# (name, model axis); the data axis takes the rest
+METR_LAYOUTS = (("d2_m2", 2), ("m4", 4))
+# the first step's gradients against the single process, per tensor over
+# its largest magnitude (the dense model has no mask cotangent:
+# ``GRAD_RTOL`` is the city's)
+METR_GRAD_RTOL = 1e-4
+
+
+def dense_exchange(cfg, batch: int, data: int, model: int,
+                   time_axis: int = 1, t_in: int = 13) -> dict:
+    """What a rank of a dense node-TP layout sends a train step through the
+    node exchange (fp32 partials), from the shapes: per hop, forward, the
+    reduce-scatter's (S-1)/S of the (S * ceil(N/S), B/D, T, C) partial;
+    backward the all_gather of the cotangent's block to the other S-1
+    ranks, for every layer but the last (whose diffusion reaches no loss);
+    under remat every layer but the first exchanges again in its
+    recompute. T is the layer's width (under time SP the rank's block).
+    ``t_in``: the input steps after the engine's pad."""
+    from graph_wavenet_tpu_torch.parallel import halo
+
+    p = -(-cfg.num_nodes // model)
+    hops = cfg.supports_len * cfg.diffusion_order
+    dils = cfg.dilations()
+    t = max(t_in, cfg.receptive_field)
+    if time_axis > 1:
+        widths = [halo.padded_width(t, time_axis) // time_axis] * len(dils)
+    else:
+        widths = []
+        for d in dils:
+            t -= d * (cfg.kernel_size - 1)
+            widths.append(t)
+    row = (model - 1) * p * (batch // data) * cfg.dilation_channels * 4
+    fwd = row * hops * sum(widths)
+    bwd = row * hops * sum(widths[:-1])
+    again = row * hops * sum(widths[1:]) if cfg.remat else 0
+    return {"node_exchange_bytes_sent_per_step": fwd + bwd + again,
+            "forward_bytes": fwd, "backward_bytes": bwd,
+            "remat_recompute_bytes": again,
+            "exchanges_per_step": hops * (2 * len(dils) - 1
+                                          + (len(dils) - 1) * cfg.remat)}
+
+
+def node_counts(n: int, model: int) -> list:
+    """The real nodes of each of ``model`` ranks (``Mesh.node_counts``)."""
+    import torch
+
+    from graph_wavenet_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(1, model, 0, torch.device("cpu")).node_counts(n)
+
+
 def phase_dist_metr() -> dict:
-    """2 DP ranks on the dense METR model (207 nodes, batch 64, the
-    supports whole on every rank): 2 fp32 steps with dropout 0 against the
-    single process (``dist_compare``), the ranks bit for bit equal, then 3
-    bf16 steps with dropout 0.3."""
+    """Dense node-TP of the METR model at ``bench.py``'s width (207 nodes,
+    batch 64, the supports and the adaptive adjacency; fp32 ``fused``):
+    one set of 4 processes (gloo, the ranks sharing the card) runs the
+    layouts of ``METR_LAYOUTS`` in turn, 2 data x 2 model (104 + 103 nodes)
+    and 4 model (52 + 52 + 52 + 51), each 2 fp32 steps with dropout 0
+    against the single process (``dist_compare``: losses rtol 1e-5, the
+    first step's gradients within ``METR_GRAD_RTOL`` of each tensor's
+    largest, the ranks bit for bit), then one bf16 step with dropout 0.3
+    timed per rank (not a scaling number), peak memory per rank and the
+    bytes a rank sends a step (``dense_exchange``)."""
     import numpy as np
     import torch
 
+    from graph_wavenet_tpu_torch.config import ModelConfig
+
+    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                 keep_state=True),
+            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
+    cfg = ModelConfig(num_nodes=DENSE_NODES, residual_channels=32,
+                      dilation_channels=32, skip_channels=256,
+                      end_channels=512, blocks=4, layers=2)
     with tempfile.TemporaryDirectory(prefix="gwt_dist_metr_") as tmp:
         ref = single_reference("metr")
-        runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
-                     keep_state=True),
-                dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=3)]
-        backend, recs, secs = dist_group("metr", tmp, 2, 1, "metr", runs)
-        readings = dist_compare("metr", recs, ref,
-                                os.path.join(tmp, "dist_metr"))
-    bf = [r["bf16"] for r in recs]
-    shared = backend == "gloo" and torch.cuda.device_count() < 2
-    emit("dist_metr", ranks=2, data=2, model=1, backend=backend,
-         nodes=DENSE_NODES, batch=DENSE_BATCH, seconds=round(secs, 3),
-         **readings, bf16_losses=[r["losses"] for r in bf],
-         bf16_step_ms_per_rank=[r["step_ms"] for r in bf],
-         timing_note=SHARED_CARD if shared else "one card per rank",
-         peak_memory_bytes_per_rank=[r["max_memory_allocated_bytes"]
-                                     for r in bf])
-    require(all(np.isfinite(r["losses"]).all() for r in bf),
-            "dist metr: non-finite bf16 losses")
+        (first, s0), *rest = METR_LAYOUTS
+        backend, recs, secs = dist_group(
+            "metr", tmp, 4, s0, "metr", runs, more=tuple(
+                dict(name=n, model=m, time=1) for n, m in rest))
+        for i, (name, model) in enumerate(METR_LAYOUTS):
+            lay = "" if i == 0 else name
+            readings = dist_compare(
+                f"metr {name}", recs, ref,
+                os.path.join(tmp, "dist_metr", lay),
+                key=layout_key(lay, "fp32"), grad_rtol=METR_GRAD_RTOL)
+            bf = [r[layout_key(lay, "bf16")] for r in recs]
+            shared = backend == "gloo" and torch.cuda.device_count() < 4
+            emit("dist_metr", layout=name, ranks=4, data=4 // model,
+                 model=model, backend=backend, nodes=DENSE_NODES,
+                 node_counts=node_counts(DENSE_NODES, model),
+                 batch=DENSE_BATCH, seconds_group=round(secs, 3),
+                 **readings,
+                 exchange=dense_exchange(cfg, DENSE_BATCH, 4 // model,
+                                         model),
+                 fp32_peak_memory_bytes_per_rank=[
+                     r[layout_key(lay, "fp32")]["max_memory_allocated_bytes"]
+                     for r in recs],
+                 fp32_peak_memory_bytes_single_process=ref[
+                     "max_memory_allocated_bytes"],
+                 bf16_losses=[r["losses"] for r in bf],
+                 bf16_step_ms_per_rank=[r["step_ms"][0] for r in bf],
+                 timing_note=SHARED_CARD if shared else "one card per rank",
+                 bf16_peak_memory_bytes_per_rank=[
+                     r["max_memory_allocated_bytes"] for r in bf])
+            require(all(np.isfinite(r["losses"]).all() for r in bf),
+                    f"dist metr {name}: non-finite bf16 losses")
     return {}
 
 
@@ -5116,9 +5351,9 @@ def determinism_worker(graph_path: str, out: str) -> None:
 
 def phase_determinism(graph, tmp: str) -> None:
     """The city training step with the mask repeats bit for bit: two fresh
-    child processes each take one fp32 step (:func:`determinism_worker`)
-    without deterministic algorithms, and their losses, gradients and
-    states must be equal bit for bit."""
+    child processes, started together, each take one fp32 step
+    (:func:`determinism_worker`) without deterministic algorithms, and
+    their losses, gradients and states must be equal bit for bit."""
     import numpy as np
     import torch
 
@@ -5128,19 +5363,13 @@ def phase_determinism(graph, tmp: str) -> None:
     torch.cuda.empty_cache()
     code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke;"
             " chip_smoke.determinism_worker(sys.argv[1], sys.argv[2])")
-    runs, secs = [], []
-    for i in range(2):
-        out = os.path.join(tmp, f"determinism_{i}.npz")
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-c", code, gpath, out,
-             os.path.dirname(os.path.abspath(__file__))], cwd=REPO,
-            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-            text=True, timeout=DIST_TIMEOUT)
-        require(p.returncode == 0, f"determinism child {i} failed:\n"
-                f"{p.stdout[-2000:]}{p.stderr[-3000:]}")
-        secs.append(round(time.perf_counter() - t0, 3))
-        runs.append(dict(np.load(out)))
+    outs = [os.path.join(tmp, f"determinism_{i}.npz") for i in range(2)]
+    done = run_together({
+        f"determinism_{i}": [sys.executable, "-c", code, gpath, out,
+                             os.path.dirname(os.path.abspath(__file__))]
+        for i, out in enumerate(outs)}, tmp)
+    secs = [round(s, 3) for _, s in done.values()]
+    runs = [dict(np.load(out)) for out in outs]
     a, b = runs
     differ = [k for k in a if not np.array_equal(a[k], b[k])]
     worst = {k: float(np.abs(a[k] - b[k]).max()) for k in differ}
@@ -5382,18 +5611,23 @@ def phase_dist_diffg(tmp: str) -> None:
     single process (``dist_compare``: losses, first-step gradients, the
     state; the ranks bit for bit); and ``--data crash --mesh_dp`` under
     torchrun, its test MAE within ``CLI_MAE_RTOL`` of ``phase_diffg``'s
-    one-process run of the same flags."""
+    one-process run of the same flags, run beside the group."""
     import torch
 
-    ref = single_reference("diffg")
-    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
-                 keep_state=True)]
-    backend, recs, secs = dist_group("diffg", tmp, 2, 1, "diffg", runs)
-    readings = dist_compare("diffg", recs, ref,
-                            os.path.join(tmp, "dist_diffg"))
-    (stdout, crash_s), = run_together({"crash": torchrun_argv(
+    # the CLI runs beside the rank group
+    cli = Together({"crash": torchrun_argv(
         ["--data", "crash", *DIFFG_ARGV, "--epochs", "1", "--mesh_dp"],
-        os.path.join(tmp, "dist_crash"))}, tmp).values()
+        os.path.join(tmp, "dist_crash"))}, tmp)
+    try:
+        ref = single_reference("diffg")
+        runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                     keep_state=True)]
+        backend, recs, secs = dist_group("diffg", tmp, 2, 1, "diffg", runs)
+        readings = dist_compare("diffg", recs, ref,
+                                os.path.join(tmp, "dist_diffg"))
+        (stdout, crash_s), = cli.wait().values()
+    finally:
+        cli.close()
     mae = test_mae(stdout)
     want = ONE_PROCESS_TEST_MAE["crash_dp2"]
     rel = abs(mae - want) / want
@@ -5422,37 +5656,48 @@ def phase_dist_diffg(tmp: str) -> None:
 # over 200 regions, per-sample supports and the adaptive adjacency, remat
 # on both sides; batch 4 (JAX's test batch, F_t 4 as there)
 CRASH_K, CRASH_NODES, CRASH_BATCH, CRASH_F_T = 2912, 200, 4, 4
-# (name, ranks, time axis): 4 time ranks, and 2 data x 2 time
-TIME_LAYOUTS = (("t4", 4, 4), ("d2_t2", 4, 2))
+# the data x model x time layout's depth: 4 of the 13 blocks (K = 896,
+# receptive field 897). Under remat its node exchanges run three times a
+# step (forward, recompute, backward), all through host memory on gloo:
+# at 13 blocks ~26 GB a rank a step, at 4 about a tenth
+CRASH_BLOCKS_MXT = 4
+# (name, ranks, model axis, time axis, kind): 4 time ranks at the full
+# depth, and 2 data x 2 model x 2 time at ``CRASH_BLOCKS_MXT`` blocks
+TIME_LAYOUTS = (("t4", 4, 1, 4, "crash"), ("d2_m2_t2", 8, 2, 2, "crash4"))
 
 
-def crash_cfg(**kw):
-    """The CRASH-scale diff-G configuration (``CRASH_*``)."""
+def crash_cfg(blocks: int = 13, **kw):
+    """The CRASH-scale diff-G configuration (``CRASH_*``), or its first
+    ``blocks`` blocks with the window their receptive field collapses
+    (K = 224 x blocks)."""
     from graph_wavenet_tpu_torch.config import ModelConfig
 
+    k = 224 * blocks
     return ModelConfig(
-        num_nodes=CRASH_NODES, in_dim=2, out_dim=CRASH_K,
+        num_nodes=CRASH_NODES, in_dim=2, out_dim=k,
         residual_channels=32, dilation_channels=32, skip_channels=256,
-        end_channels=512, blocks=13, layers=3, start_dilation=32,
+        end_channels=512, blocks=blocks, layers=3, start_dilation=32,
         gcn_bool=True, addaptadj=True, n_supports=2, remat=True, **kw)
 
 
 def time_exchange(cfg, batch: int, data: int, time_axis: int,
-                  params: int) -> dict:
-    """What a rank of a data x time layout moves a train step (fp32
-    activations), from the shapes: the halo steps it sends forward and
-    their cotangents backward (``dilation * (k-1)`` steps of (B/D, N, C)
-    a layer and direction; the first rank sends none back, the last none
-    forward), BatchNorm's two sums and their cotangents a layer, the
-    gradient all-reduce; and the share of the steps the stack computes
-    that are garbage (static blocks of the padded axis against the single
-    process's valid steps)."""
+                  params: int, nodes: int | None = None) -> dict:
+    """What a rank of a data (x model) x time layout moves a train step
+    (fp32 activations), from the shapes: the halo steps it sends forward
+    and their cotangents backward (``dilation * (k-1)`` steps of (B/D,
+    ``nodes``, C) a layer and direction, ``nodes`` the rank's, default
+    all; the first rank sends none back, the last none forward),
+    BatchNorm's two sums and their cotangents a layer, the gradient
+    all-reduce; and the share of the steps the stack computes that are
+    garbage (static blocks of the padded axis against the single process's
+    valid steps)."""
     from graph_wavenet_tpu_torch.parallel import halo
 
     halos = [d * (cfg.kernel_size - 1) for d in cfg.dilations()]
     l0 = max(cfg.out_dim + 1, cfg.receptive_field)
     width = halo.padded_width(l0, time_axis) // time_axis
-    row = batch // data * cfg.num_nodes * cfg.residual_channels * 4
+    nodes = cfg.num_nodes if nodes is None else nodes
+    row = batch // data * nodes * cfg.residual_channels * 4
     valid, t = 0, l0
     for h in halos:
         t -= h
@@ -5469,44 +5714,41 @@ def time_exchange(cfg, batch: int, data: int, time_axis: int,
             "single_process_steps_per_layer_mean": valid / len(halos)}
 
 
-def phase_dist_time(tmp: str) -> None:
-    """Time-halo sequence parallelism on one card (gloo, the ranks sharing
-    it): the CRASH-scale diff-G step (``CRASH_*``) on 4 time ranks and on
-    2 data x 2 time, 2 fp32 steps with dropout 0 against the single
-    process (``dist_compare``, and the losses within 1e-6 relative), each
-    rank's peak memory beside the single process's, one bf16 step
-    (dropout 0.3) a rank timed (not a scaling number), the bytes a rank
-    exchanges a step and the share of garbage steps; then ``--data syn
-    --mesh_time 2`` under torchrun (``phase_diffg``'s ``--fresh_nodevec``
-    run of README's widths), its test MAE within ``CLI_MAE_RTOL`` of the
-    one-process run's."""
+def dist_time_groups(tmp: str) -> None:
+    """``phase_dist_time``'s rank groups (``TIME_LAYOUTS``), each against
+    the single process of its depth."""
     import numpy as np
     import torch
 
-    ref = single_reference("crash")
+    from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
+
     runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
                  keep_state=True),
             dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
-    from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
-
-    cfg = crash_cfg()
-    params = sum(p.numel() for p in GWNetDiffG(cfg, device="cpu")
-                 .parameters())
-    for name, world, time_axis in TIME_LAYOUTS:
-        backend, recs, secs = dist_group(name, tmp, world, 1, "crash", runs,
+    for name, world, model, time_axis, kind in TIME_LAYOUTS:
+        ref = single_reference(kind)
+        cfg = crash_cfg(13 if kind == "crash" else CRASH_BLOCKS_MXT)
+        params = sum(p.numel() for p in GWNetDiffG(cfg, device="cpu")
+                     .parameters())
+        data = world // (model * time_axis)
+        backend, recs, secs = dist_group(name, tmp, world, model, kind, runs,
                                          time_axis=time_axis)
         readings = dist_compare(name, recs, ref,
                                 os.path.join(tmp, f"dist_{name}"))
         bf = [r["bf16"] for r in recs]
         shared = backend == "gloo" and torch.cuda.device_count() < world
-        emit("dist_time", layout=name, ranks=world,
-             data=world // time_axis, time=time_axis, backend=backend,
+        exchange = time_exchange(cfg, CRASH_BATCH, data, time_axis, params,
+                                 max(node_counts(CRASH_NODES, model)))
+        if model > 1:
+            exchange.update(dense_exchange(cfg, CRASH_BATCH, data, model,
+                                           time_axis, cfg.out_dim + 1))
+        emit("dist_time", layout=name, ranks=world, data=data, model=model,
+             time=time_axis, backend=backend,
              cards=torch.cuda.device_count(), seconds=round(secs, 3),
-             seq_length=CRASH_K, nodes=CRASH_NODES, batch=CRASH_BATCH,
+             seq_length=cfg.out_dim, blocks=cfg.blocks, nodes=CRASH_NODES,
+             node_counts=node_counts(CRASH_NODES, model), batch=CRASH_BATCH,
              receptive_field=cfg.receptive_field, remat=cfg.remat,
-             **readings,
-             exchange=time_exchange(cfg, CRASH_BATCH, world // time_axis,
-                                    time_axis, params),
+             **readings, exchange=exchange,
              fp32_peak_memory_bytes_per_rank=[
                  r["fp32"]["max_memory_allocated_bytes"] for r in recs],
              fp32_peak_memory_bytes_single_process=ref[
@@ -5521,9 +5763,31 @@ def phase_dist_time(tmp: str) -> None:
                 f"{readings['losses_single']}: over 1e-6 relative")
         require(all(np.isfinite(r["losses"]).all() for r in bf),
                 f"dist {name}: non-finite bf16 losses")
-    (stdout, secs), = run_together({"syn_t2": torchrun_argv(
+
+
+def phase_dist_time(tmp: str) -> None:
+    """Time-halo sequence parallelism on one card (gloo, the ranks sharing
+    it): the CRASH-scale diff-G step (``CRASH_*``) on 4 time ranks, and its
+    first ``CRASH_BLOCKS_MXT`` blocks on 2 data x 2 model x 2 time (8 ranks;
+    dense node-TP of the per-sample supports and the adaptive adjacency on
+    each time block), 2 fp32 steps with dropout 0 against the single
+    process of the same depth (``dist_compare``, and the losses within 1e-6
+    relative), each rank's peak memory beside the single process's, one
+    bf16 step (dropout 0.3) a rank timed (not a scaling number), the bytes
+    a rank exchanges a step (halo and node exchange) and the share of
+    garbage steps; then ``--data syn --mesh_time 2`` under torchrun
+    (``phase_diffg``'s ``--fresh_nodevec`` run of README's widths), its
+    test MAE within ``CLI_MAE_RTOL`` of the one-process run's, run beside
+    the groups (``dist_time_groups``)."""
+    # the CLI runs beside the rank groups
+    cli = Together({"syn_t2": torchrun_argv(
         ["--data", "syn", *DIFFG_ARGV, *DIFFG_FRESH_ARGV, "--mesh_time",
-         "2"], os.path.join(tmp, "dist_syn_t2"))}, tmp).values()
+         "2"], os.path.join(tmp, "dist_syn_t2"))}, tmp)
+    try:
+        dist_time_groups(tmp)
+        (stdout, secs), = cli.wait().values()
+    finally:
+        cli.close()
     mae = test_mae(stdout)
     want = ONE_PROCESS_TEST_MAE["syn_t2"]
     rel = abs(mae - want) / want
@@ -5597,8 +5861,9 @@ def main() -> int:
         counts.update(timed("dist_graphed", phase_dist_graphed, graph, tmp))
         timed("dist_diffg", phase_dist_diffg, tmp)
         timed("dist_time", phase_dist_time, tmp)
-        counts.update(timed("dist_city", phase_dist_city, graph, tmp))
-        timed("dist_metr", phase_dist_metr)
+        # dist_metr runs beside dist_city's torchrun pair, inside its time
+        counts.update(timed("dist_city", phase_dist_city, graph, tmp,
+                            lambda: timed("dist_metr", phase_dist_metr)))
         counts.update(timed("dense", phase_dense))
         counts.update(timed("resident", phase_resident, graph))
         timed("determinism", phase_determinism, graph, tmp)
@@ -5618,16 +5883,17 @@ def main() -> int:
     # kernel 4 serving and training the padded form, eager and graphed, and
     # in the padded artifact, kernel 5 on the gradient through padded
     # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
-    # rank's launches); kernels 1, 2 and 3 in the city step graphed under
-    # one NCCL rank; a graphed window counts every replay
+    # rank's launches), also under model x time; kernels 1, 2 and 3 in the
+    # city step graphed under one NCCL rank; a graphed window counts every
+    # replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
-              "artifact_padded", "serve_artifact", "rolling", "dist_tp2",
-              "dist_dp2_tp2", "dist_graphed")),
+              "artifact_padded", "serve_artifact", "rolling",
+              "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
-             ("train", "train_graphed", "dist_tp2", "dist_dp2_tp2",
+             ("train", "train_graphed", "dist_dp2_tp2", "dist_tp2_t2",
               "dist_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
              ("serve", "train", "train_graphed", "rolling", "dist_graphed")),

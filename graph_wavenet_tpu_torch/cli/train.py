@@ -50,14 +50,15 @@ Parallel training (``parallel``), one process per rank under torchrun::
         --graph_npz city.npz --data data/CITY --gcn_bool --addaptadj \
         --sparse flat --mesh_model S [--mesh_dp]
 
-``--mesh_model S`` splits the nodes over S ranks (node-TP of the flat
-supports and the mask; the city path with ``--sparse flat``), the data axis
-takes the other W / S; ``--mesh_dp`` alone is data parallelism over all W
-ranks (the METR path, and ``--data syn|crash``, ``--same_g`` included).
-``--mesh_time S_t`` splits the time axis over S_t ranks (time-halo sequence
-parallelism, ``parallel.halo``), the data axis taking the other W / S_t, on
-every path ``--mesh_dp`` runs; with ``--mesh_model`` > 1 (model x time) it
-waits for slice 7b.4 of ROADMAP.md.
+``--mesh_model S`` splits the nodes over S ranks (node-TP: the rank's rows
+of the dense supports and of the adaptive adjacency on the METR path and
+with ``--data syn|crash``, ``parallel.dense_tp``, any node count; the
+shards of the flat supports and the mask on the city path with ``--sparse
+flat``, whose block-rows S must divide); ``--mesh_time S_t`` splits the
+time axis over S_t ranks (time-halo sequence parallelism,
+``parallel.halo``); the data axis takes the other W / (S x S_t) ranks, and
+``--mesh_dp`` alone is data parallelism over all W. The axes compose on
+every path (data x model x time).
 ``--dist_backend``: nccl (a card per rank, the default on ``cuda``) or gloo
 (the default on ``cpu``; ranks may share a card, their collectives staged
 through host memory). ``--scan_steps S`` runs under a mesh too: on the card
@@ -167,11 +168,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="data parallelism over every rank (with "
                           "--mesh_model: over the ranks it leaves)")
     par.add_argument("--mesh_model", type=int, default=1,
-                     help="node-TP: ranks that split the nodes (the city "
-                          "path, --sparse flat)")
+                     help="node-TP: ranks that split the nodes (dense "
+                          "supports, or the city path's --sparse flat)")
     par.add_argument("--mesh_time", type=int, default=1,
                      help="time-halo sequence parallelism: ranks that split "
-                          "the time axis (not with --mesh_model > 1)")
+                          "the time axis")
     par.add_argument("--dist_backend", type=str, default=None,
                      choices=("nccl", "gloo"),
                      help="process-group backend (default nccl on cuda, "
@@ -240,22 +241,10 @@ def main(argv=None) -> dict:
 
 def _mesh(args):
     """(the rank's mesh or None, whether this call started the process
-    group) for ``--mesh_dp`` / ``--mesh_model`` / ``--mesh_time``, after the
-    refusals of what wait for later slices; ``args.device`` becomes the
-    rank's device."""
+    group) for ``--mesh_dp`` / ``--mesh_model`` / ``--mesh_time``;
+    ``args.device`` becomes the rank's device."""
     if not (args.mesh_dp or args.mesh_model > 1 or args.mesh_time > 1):
         return None, False
-    if args.mesh_time > 1 and args.mesh_model > 1:
-        raise SystemExit("--mesh_time with --mesh_model > 1 (model x time) "
-                         "waits for slice 7b.4 of ROADMAP.md")
-    if args.mesh_model > 1 and args.data in ("syn", "crash"):
-        raise SystemExit(f"--mesh_model > 1 with --data {args.data}: the "
-                         "per-sample supports are dense, and dense node-TP "
-                         "waits for slice 7b.4 of ROADMAP.md; use --mesh_dp")
-    if args.mesh_model > 1 and not args.graph_npz:
-        raise SystemExit("--mesh_model > 1 shards the flat block-sparse "
-                         "supports of --graph_npz; dense node-TP (the METR "
-                         "path) waits for slice 7b.4 of ROADMAP.md")
     import torch.distributed as dist
 
     from graph_wavenet_tpu_torch.config import MeshConfig
@@ -340,8 +329,10 @@ def _fit(args, cfg, data, supports, aptinit=None, extra_meta=None,
 
 
 def _run_metr(args, mesh=None):
-    """The METR branch: dense supports from the adjacency pickle (under
-    ``--mesh_dp`` whole on every rank)."""
+    """The METR branch: dense supports from the adjacency pickle, whole on
+    every rank (under ``--mesh_model`` > 1 the model takes its rows,
+    ``parallel.dense_tp``, and the rank loads its node range of the
+    data)."""
     import numpy as np
     import torch
 
@@ -351,22 +342,33 @@ def _run_metr(args, mesh=None):
 
     device = resolve_device(args.device)
     _, _, adj = load_adj(args.adjdata, args.adjtype)
-    data = load_dataset(args.data, args.batch_size, seed=args.seed,
-                        resident=args.resident, device=device)
-    _check_horizon(args, data)
     cfg = model_config(args, args.num_nodes)
-    n_data = int(data["x_train"].shape[2])
-    if n_data != cfg.num_nodes or adj[0].shape[0] != cfg.num_nodes:
+    tp = mesh is not None and mesh.model > 1
+    data = load_dataset(args.data, args.batch_size, seed=args.seed,
+                        resident=args.resident, device=device,
+                        nodes=mesh.node_range(cfg.num_nodes) if tp else None)
+    _check_horizon(args, data)
+    if data["num_nodes"] != cfg.num_nodes or adj[0].shape[0] != cfg.num_nodes:
         raise SystemExit(
-            f"--num_nodes {args.num_nodes}, but the data has {n_data} nodes "
-            f"and {args.adjdata} {adj[0].shape[0]}")
+            f"--num_nodes {args.num_nodes}, but the data has "
+            f"{data['num_nodes']} nodes and {args.adjdata} "
+            f"{adj[0].shape[0]}")
     aptinit = (np.asarray(adj[0]) if cfg.gcn_bool and cfg.addaptadj
                and not args.randomadj else None)
     # [] (not None) under aptonly: the adaptive adjacency stays on with no
     # fixed supports, as the test CLI evaluates it
     supports = ([] if args.aptonly else
                 [torch.as_tensor(a, device=device) for a in adj])
+    _print_dense_tp(mesh, cfg.num_nodes)
     return _fit(args, cfg, data, supports, aptinit=aptinit, mesh=mesh)
+
+
+def _print_dense_tp(mesh, n: int) -> None:
+    """The dense paths' node-TP line (none without a model axis)."""
+    if mesh is not None and mesh.model > 1:
+        print(f"node-TP over {mesh.model} ranks, exchange: reduce-scatter "
+              f"(dense rows, {n} nodes as {mesh.node_counts(n)})",
+              flush=True)
 
 
 def _run_city(args, mesh=None):
@@ -461,8 +463,8 @@ def _syn_runner(args, cfg, data, diff_g: bool, mesh=None):
 
 def _run_syn(args, mesh=None):
     """The --data syn branch: per-subject graphs (diff-G) or one shared
-    graph (--same_g); under ``--mesh_dp`` every rank loads the same data
-    and the engine takes its rows."""
+    graph (--same_g); under a mesh every rank loads the same data and the
+    engine takes its rows and node range."""
     from graph_wavenet_tpu_torch.config import DataConfig
     from graph_wavenet_tpu_torch.data.synthetic import (
         load_dataset_syn,
@@ -478,6 +480,7 @@ def _run_syn(args, mesh=None):
         data_cfg, args.batch_size, seed=args.seed, resident=args.resident,
         device=args.device)
     n_comm = data_cfg.n_communities
+    _print_dense_tp(mesh, args.num_nodes)
     if args.same_g:
         runner = _syn_runner(args, model_config(args, args.num_nodes),
                              data, diff_g=False, mesh=mesh)
@@ -558,6 +561,7 @@ def _run_crash(args, mesh=None):
         out_dim=data["K"])
     if args.aptonly:
         supports = {k: [] for k in supports}
+    _print_dense_tp(mesh, cfg.num_nodes)
     runner = _syn_runner(args, cfg, data, diff_g=True, mesh=mesh)
     result = runner.fit_syn(data, supports, G, F_t, data["n_communities"],
                             resume_from=args.resume)

@@ -164,10 +164,10 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The grid of ranks (``parallel.mesh.make_mesh``): ``model_axis``
-    ranks split the nodes (node-TP of the flat block-sparse supports),
-    ``time_axis`` ranks split the time axis (time-halo sequence
-    parallelism), and the data axis takes the rest of the world. Model x
-    time (both > 1) waits for slice 7b.4 of ROADMAP.md."""
+    ranks split the nodes (node-TP of the dense supports and of the flat
+    block-sparse ones), ``time_axis`` ranks split the time axis (time-halo
+    sequence parallelism), and the data axis takes the rest of the
+    world."""
 
     model_axis: int = 1
     time_axis: int = 1
@@ -176,10 +176,6 @@ class MeshConfig:
         if self.model_axis < 1 or self.time_axis < 1:
             raise ValueError(f"the model and time axes must be >= 1, got "
                              f"{self.model_axis} and {self.time_axis}")
-        if self.model_axis > 1 and self.time_axis > 1:
-            raise NotImplementedError(
-                "model x time (model_axis and time_axis both > 1) is not "
-                "ported yet: slice 7b.4 of ROADMAP.md")
 
 
 def to_dict(cfg: Any) -> dict:

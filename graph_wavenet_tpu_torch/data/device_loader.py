@@ -29,7 +29,7 @@ which gather each step's batch inside the fused call from
 
 Under a mesh (``parallel.mesh``) every rank builds its loaders from the
 same seed, over its node range only (``data.metr.load_dataset(...,
-nodes=)``), so the ranks shuffle alike and each holds N/S nodes of every
+nodes=)``), so the ranks shuffle alike and each holds its node range of every
 sample: the global dataset (its node range) on every rank's card. A batch
 is the global batch's rows, of which the engine takes the rank's share
 (``Mesh.batch_rows``); a superbatch is the global (S, B) index matrix, of

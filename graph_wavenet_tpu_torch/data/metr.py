@@ -60,7 +60,9 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
     ``y_*`` stay in the dict either way). ``nodes``: a node-TP rank's
     ``[lo, hi)`` in model order (``parallel.mesh.Mesh.node_range``): every
     split keeps only those nodes, after the scaler fit and the layout, so
-    the loaders and the test targets hold the rank's range."""
+    the loaders and the test targets hold the rank's range (uneven where
+    the model axis does not divide the nodes). ``num_nodes``: the nodes of
+    the data (in model order) before that cut."""
     _check_resident(resident)
     rng = np.random.default_rng(seed)
     data: dict = {}
@@ -77,6 +79,7 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
         from graph_wavenet_tpu_torch.graphs.city import apply_layout_to_data
 
         apply_layout_to_data(data, node_layout)
+    data["num_nodes"] = int(data["x_train"].shape[2])
     if nodes is not None:
         lo, hi = nodes
         for k in [k for k in data if k.startswith(("x_", "y_"))]:

@@ -27,12 +27,15 @@ before each layer runs.
 Under a mesh (``GWNet.mesh``, ``parallel.mesh.Mesh``; DP and node-TP) the
 model runs on the rank's batch rows and node range, ``cfg.num_nodes``
 staying the global count: every BatchNorm takes the statistics of the
-whole batch over the world group, a layer draws its dropout mask at the
-global shape and keeps the rank's slice (so a step equals the
-single-process one, at the cost of one global draw per rank and layer),
-the fixed supports are the rank's shards (``parallel.sparse_tp``) and the
-mask its :class:`~parallel.sparse_tp.ShardedBlockAdaptiveMask`. The dense
-adaptive adjacency, and dense supports, under node-TP wait for slice 7b.4.
+whole batch over the world group (divided by the global count, so that
+uneven node ranges count each real node once), a layer draws its dropout
+mask at the global shape and keeps the rank's slice (so a step equals the
+single-process one, at the cost of one global draw per rank and layer).
+Under node-TP the dense supports, given whole, become the rank's rows
+(``parallel.dense_tp``), the dense adaptive adjacency is built as the
+rank's rows, and the flat block-sparse supports and the mask are the
+rank's shards (``parallel.sparse_tp``,
+:class:`~parallel.sparse_tp.ShardedBlockAdaptiveMask`).
 
 Under time-halo sequence parallelism (``mesh.time`` > 1) the input, padded
 to the receptive field as in one process, is left-padded further to a
@@ -67,12 +70,14 @@ from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.config import ModelConfig
 from graph_wavenet_tpu_torch.ops.adaptive import (
     adaptive_adjacency,
+    adaptive_adjacency_batched,
     random_nodevecs,
     svd_nodevecs,
 )
 from graph_wavenet_tpu_torch.ops.diffusion import (
     GCN,
     dropout_scale,
+    is_dense,
     support_powers,
 )
 from graph_wavenet_tpu_torch.ops.linear import Linear
@@ -82,8 +87,8 @@ from graph_wavenet_tpu_torch.ops.temporal import (
     gated_tcn_apply,
     left_pad_time,
 )
+from graph_wavenet_tpu_torch.parallel import dense_tp, sparse_tp
 from graph_wavenet_tpu_torch.parallel import halo as time_halo
-from graph_wavenet_tpu_torch.parallel import sparse_tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -171,8 +176,7 @@ class GWNet(nn.Module):
         mode = cfg.resolved_gcn_mode
         stacks = None
         if (use_gcn and mode == "stacked" and supports
-                and all(getattr(a, "ndim", None) in (2, 3)
-                        for a in supports)):
+                and all(map(is_dense, supports))):
             stacks = [support_powers(a, cfg.diffusion_order)
                       for a in supports]
         draw = self.training and use_gcn and cfg.dropout > 0.0
@@ -226,9 +230,10 @@ class GWNet(nn.Module):
     def _dropout(self, generator, x: torch.Tensor, t: int) -> torch.Tensor:
         """A layer's dropout mask for the rank's (B, T', N, C) output of
         the single process's width ``t``: drawn at the global shape under a
-        mesh (its data x model grid, and ``t`` steps), the rank's block
-        kept; under time SP laid on the right of the global time axis (the
-        steps before it are garbage and take 0)."""
+        mesh (its data rows, all ``cfg.num_nodes`` nodes and ``t`` steps),
+        the rank's rows and node range kept; under time SP laid on the
+        right of the global time axis (the steps before it are garbage and
+        take 0)."""
         cfg = self.cfg
         b, width, n, _ = x.shape
         mesh = self.mesh
@@ -238,10 +243,11 @@ class GWNet(nn.Module):
                                  x.device)
         drop = dropout_scale(
             generator, cfg.dropout,
-            (b * mesh.data, t, n * mesh.model, cfg.residual_channels),
+            (b * mesh.data, t, cfg.num_nodes, cfg.residual_channels),
             x.dtype, x.device)
-        d, m = mesh.data_index, mesh.model_index
-        drop = drop[d * b:(d + 1) * b, :, m * n:(m + 1) * n]
+        d = mesh.data_index
+        lo, hi = mesh.node_range(cfg.num_nodes)
+        drop = drop[d * b:(d + 1) * b, :, lo:hi]
         if mesh.time > 1:
             drop = left_pad_time(drop, width * mesh.time)
             lo = mesh.time_index * width
@@ -272,10 +278,15 @@ class GWNet(nn.Module):
             x = self.residual_convs[i](x)
         x = x + residual[:, -x.shape[1]:]
         mesh, t_valid, count = self.mesh, None, None
-        if mesh is not None and mesh.time > 1:
-            b, width, n, _ = x.shape
-            t_valid = time_halo.valid_steps(t_len, width, mesh)
-            count = b * mesh.data * n * mesh.model * t_len
+        if mesh is not None:
+            # the global count: every real node once, whatever the ranks'
+            # shares of the nodes and steps
+            b, width = x.shape[:2]
+            steps = width
+            if mesh.time > 1:
+                t_valid = time_halo.valid_steps(t_len, width, mesh)
+                steps = t_len
+            count = b * mesh.data * self.cfg.num_nodes * steps
         x, stats = self.bn[i].normalize(
             x, None if mesh is None else mesh.world, t_valid, count)
         return x, skip, stats
@@ -294,16 +305,7 @@ class GWNet(nn.Module):
                 "supports contain a BlockAdaptiveMask but the adaptive "
                 "adjacency is off (gcn_bool and addaptadj must both be set "
                 "to materialize it)")
-        if self.mesh is not None and self.mesh.model > 1:
-            unsharded = [s for s in supports
-                         if not isinstance(s, sparse_tp.SHARDED)]
-            if unsharded or (use_adapt and not masks):
-                raise NotImplementedError(
-                    "node-TP (model axis > 1) takes the sharded flat "
-                    "supports and the sharded adaptive mask "
-                    "(parallel.sparse_tp); dense supports and the dense "
-                    "adaptive adjacency under node-TP wait for slice 7b.4 of "
-                    "ROADMAP.md")
+        supports = self._node_rows(supports)
         if not use_adapt:
             return list(supports)
         if cfg.fresh_nodevec:
@@ -329,5 +331,38 @@ class GWNet(nn.Module):
                 "(ops.adaptive_block.mask_from_supports(fixed), or "
                 "mask_from_pairs with a chosen pattern for aptonly)")
         else:
-            adp = adaptive_adjacency(self.nodevec1, self.nodevec2)
+            adp = self._adjacency(self.nodevec1, self.nodevec2)
         return fixed + [adp]
+
+    @property
+    def _node_tp(self) -> bool:
+        return self.mesh is not None and self.mesh.model > 1
+
+    def _node_rows(self, supports: list) -> list:
+        """The supports as the layers take them: under node-TP a dense one,
+        given whole, becomes the rank's rows; a block-sparse one must be
+        the rank's shard already (``parallel.sparse_tp``)."""
+        if not self._node_tp:
+            return list(supports)
+        out = [dense_tp.shard_dense_support(s, self.mesh)
+               if torch.is_tensor(s) else s for s in supports]
+        if any(not isinstance(s, sparse_tp.SHARDED
+                              + (dense_tp.ShardedDenseSupport,))
+               for s in out):
+            raise ValueError(
+                "node-TP (model axis > 1) takes dense supports whole and "
+                "the flat block-sparse supports and mask sharded by "
+                "parallel.sparse_tp (shard_flat_support, "
+                "shard_adaptive_mask); the padded form has no node-TP")
+        return out
+
+    def _adjacency(self, nodevec1: torch.Tensor,
+                   nodevec2: torch.Tensor):
+        """The dense adaptive adjacency of shared (N, r) x (r, N) or
+        per-sample (B, N, r) x (B, r, N) embeddings; under node-TP the
+        rank's rows of it."""
+        if self._node_tp:
+            return dense_tp.adaptive_rows(nodevec1, nodevec2, self.mesh)
+        if nodevec1.ndim == 3:
+            return adaptive_adjacency_batched(nodevec1, nodevec2)
+        return adaptive_adjacency(nodevec1, nodevec2)

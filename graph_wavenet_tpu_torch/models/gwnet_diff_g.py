@@ -23,11 +23,14 @@ does:
 ``supports=None`` is the temporal-only model; ``[]`` with ``addaptadj`` the
 adaptive-only one. The shared-graph model keeps refusing ``fresh_nodevec``.
 
-Under data parallelism (``GWNet.mesh``) the per-sample supports arrive as
-the rank's rows, BatchNorm and dropout are global as in ``GWNet``, and the
-``fresh_nodevec`` embeddings are one draw at the global batch's shape from
-the generator that every rank holds alike, of which the rank keeps its
-rows: a rank's embeddings are the single process's for the same samples.
+Under a mesh (``GWNet.mesh``) the per-sample supports and
+``aptinit_nodevecs`` arrive as the rank's batch rows, BatchNorm and dropout
+are global as in ``GWNet``, and the ``fresh_nodevec`` embeddings are one
+draw at the global batch's shape from the generator that every rank holds
+alike, of which the rank keeps its rows: a rank's embeddings are the
+single process's for the same samples. Under node-TP the supports become
+the rank's node rows, and the adaptive adjacency is built as its rows from
+the rank's rows of E1 and all of E2 (``parallel.dense_tp``).
 """
 
 from __future__ import annotations
@@ -36,11 +39,7 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch.models.gwnet import GWNet
-from graph_wavenet_tpu_torch.ops.adaptive import (
-    adaptive_adjacency,
-    adaptive_adjacency_batched,
-    svd_nodevecs,
-)
+from graph_wavenet_tpu_torch.ops.adaptive import svd_nodevecs
 
 
 def svd_nodevecs_batched(aptinit: np.ndarray, rank: int = 10
@@ -73,13 +72,14 @@ class GWNetDiffG(GWNet):
         cfg = self.cfg
         if supports is None:
             return None
+        supports = self._node_rows(supports)
         if not (cfg.gcn_bool and cfg.addaptadj):
-            return list(supports)
+            return supports
         if aptinit_nodevecs is not None:
             nv1, nv2 = (torch.as_tensor(e, dtype=torch.float32,
                                         device=x.device)
                         for e in aptinit_nodevecs)
-            adp = adaptive_adjacency_batched(nv1, nv2)
+            adp = self._adjacency(nv1, nv2)
         elif cfg.fresh_nodevec:
             if generator is None:
                 raise ValueError(
@@ -94,7 +94,7 @@ class GWNetDiffG(GWNet):
             if d > 1:
                 lo = self.mesh.data_index * b
                 nv1, nv2 = nv1[lo:lo + b], nv2[lo:lo + b]
-            adp = adaptive_adjacency_batched(nv1, nv2)
+            adp = self._adjacency(nv1, nv2)
         else:
-            adp = adaptive_adjacency(self.nodevec1, self.nodevec2)
-        return list(supports) + [adp]
+            adp = self._adjacency(self.nodevec1, self.nodevec2)
+        return supports + [adp]

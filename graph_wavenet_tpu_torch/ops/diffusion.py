@@ -22,6 +22,11 @@ accumulates in fp32 by an upcast of both operands (``ops.linear``'s
 convention), then casts once. These products are plain ``torch.matmul`` and
 ``einsum``: the reference computes them outside any Pallas kernel.
 
+Under dense node-TP a support is a rank's rows (any support with ``nconv``,
+``parallel.dense_tp.ShardedDenseSupport``): its own ``nconv``, ``powers``
+and ``hops`` give the rows' contractions summed over the model group, in
+every mode.
+
 All-sparse lists (every support has ``mix_2d``) take the reference's
 ``_gcn_apply_sparse``: the node axis moves to the front once for the whole
 hop block, ``(B, T, N, C) -> (N, R)`` with ``R = B*T*C``; every hop is a
@@ -30,6 +35,8 @@ support's ``mix2_2d``), projected in place and accumulated in fp32.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -104,27 +111,43 @@ def _is_sparse(a) -> bool:
     return hasattr(a, "mix_2d")
 
 
+def _is_sharded(a) -> bool:
+    return hasattr(a, "nconv")
+
+
+def is_dense(a) -> bool:
+    """A dense support: a tensor, or a node-TP rank's rows of one."""
+    return torch.is_tensor(a) or _is_sharded(a)
+
+
 def diffusion_hops(x: torch.Tensor, supports: list,
                    order: int) -> list[torch.Tensor]:
     """``[x, A1 x, A1^2 x, ..., AS x, ..., AS^order x]`` in the reference
-    concat order. A support is (N, N), batched (B, N, N), or sparse (any
-    support with ``mix_2d``, stepped by :func:`ops.sparse.nconv_sparse`)."""
+    concat order. A support is (N, N), batched (B, N, N), a node-TP rank's
+    rows of either, or sparse (any support with ``mix_2d``, stepped by
+    :func:`ops.sparse.nconv_sparse`)."""
     hops = [x]
     for a in supports:
-        if _is_sparse(a):
-            step = nconv_sparse
+        if _is_sharded(a):
+            step = a.nconv
+        elif _is_sparse(a):
+            step = functools.partial(nconv_sparse, sp=a)
         else:
-            step = nconv_batched if a.ndim == 3 else nconv
+            step = functools.partial(nconv_batched if a.ndim == 3 else nconv,
+                                     a=a)
         xk = x
         for _ in range(order):
-            xk = step(xk, a)
+            xk = step(xk)
             hops.append(xk)
     return hops
 
 
 def support_powers(a: torch.Tensor, order: int) -> torch.Tensor:
     """``[A, A^2, ..., A^order]`` stacked on a hop axis: (N, N) ->
-    (order, N, N), (B, N, N) -> (B, order, N, N), in the support's dtype."""
+    (order, N, N), (B, N, N) -> (B, order, N, N), in the support's dtype; a
+    node-TP rank's rows give its rows of each power."""
+    if _is_sharded(a):
+        return a.powers(order)
     powers = [a]
     for _ in range(order - 1):
         powers.append(powers[-1] @ a)
@@ -137,9 +160,12 @@ def _stacked_hops_project(x: torch.Tensor, pw: torch.Tensor,
     contraction, projected with one (hop, channel) contraction by ``wk``
     (order*C, F), this support's rows in concat order. Returns fp32."""
     c_in, f = x.shape[-1], wk.shape[-1]
-    pw = pw.to(x.dtype).float()
-    eq = "btvc,bkvw->btkwc" if pw.ndim == 4 else "btvc,kvw->btkwc"
-    hops = torch.einsum(eq, x.float(), pw).to(x.dtype)
+    if _is_sharded(pw):
+        hops = pw.hops(x)
+    else:
+        pw = pw.to(x.dtype).float()
+        eq = "btvc,bkvw->btkwc" if pw.ndim == 4 else "btvc,kvw->btkwc"
+        hops = torch.einsum(eq, x.float(), pw).to(x.dtype)
     wk = wk.reshape(order, c_in, f).to(x.dtype).float()
     return torch.einsum("btkwc,kcf->btwf", hops.float(), wk)
 

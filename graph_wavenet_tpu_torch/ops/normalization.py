@@ -23,7 +23,8 @@ global count, so every rank tracks the same values. One process computes
 the same sums and divisions with no collective. Under time-halo sequence
 parallelism a rank's block holds part of the valid steps, or none:
 ``t_valid`` is its share, and ``count`` the global number of (B, T, N)
-positions the statistics cover.
+positions the statistics cover. Under node-TP over uneven node ranges the
+ranks' shares differ too, so the model always passes ``count``.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ class BatchNorm(nn.Module):
         batch, or None; ``t_valid``: take the statistics over the last
         ``t_valid`` steps of axis 1 only; ``count``: the statistics'
         number of positions over the group (default: every rank's share
-        equal to this one's)."""
+        equal to this one's, which uneven node ranges break)."""
         xf = x.float()
         stats = None
         if self.training:

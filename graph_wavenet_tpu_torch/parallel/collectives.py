@@ -1,8 +1,10 @@
 """The collectives of the parallel layer (JAX takes them from ``lax``:
-``psum``, ``all_gather``, ``ppermute``): the sum all-reduce
-(differentiable), the row all_gather, the two-neighbour exchange, the
-one-direction shift along a chain of ranks (differentiable; time-halo
-sequence parallelism, ``parallel.halo``) and the gradient all-reduce.
+``psum``, ``all_gather``, ``psum_scatter``, ``ppermute``): the sum
+all-reduce, the row all_gather and the row reduce-scatter (each
+differentiable, the last two each other's transpose), the two-neighbour
+exchange, the one-direction shift along a chain of ranks (differentiable;
+time-halo sequence parallelism, ``parallel.halo``) and the gradient
+all-reduce.
 
 Every function takes a process group, or None for a layout of one rank, in
 which case it is the identity. The caller chooses the backend when it
@@ -100,11 +102,7 @@ def all_sum(t: torch.Tensor, group) -> torch.Tensor:
     return _AllSum.apply(t, group)
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """(n, ...) on every rank -> (S * n, ...): the ranks' rows in group
-    order (JAX ``all_gather(..., tiled=True)``)."""
-    if group is None:
-        return x
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     s = dist.get_world_size(group)
     x = x.contiguous()
     shape = (s * x.shape[0],) + tuple(x.shape[1:])
@@ -116,6 +114,67 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty(shape)
     dist.all_gather_into_tensor(out, x, group=group)
     return out
+
+
+def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """(S * n, ...) -> (n, ...): this rank's block of the rows summed over
+    the group. NCCL reduce-scatters; gloo all-reduces the whole and keeps
+    the block (its groups are ranks that share a card, a check of the path
+    rather than a measurement of it; ``all_reduce`` is in every version)."""
+    s, me = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    n = x.shape[0] // s
+    if dist.get_backend(group) == "gloo":
+        return all_reduce_(x.clone(), group)[me * n:(me + 1) * n].clone()
+    out = x.new_empty((n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather_rows`; its backward reduce-scatters the
+    cotangent: every rank used all the rows, so a rank's rows take the sum
+    of every rank's cotangent of them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter_rows`; its backward all-gathers the
+    cotangent: every rank's summand reaches every rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.group), None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, ...) on every rank -> (S * n, ...): the ranks' rows in group
+    order (JAX ``all_gather(..., tiled=True)``), differentiable."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, group)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(S * n, ...) on every rank -> (n, ...): the group's sum of the
+    rank's block of rows, block m on the group's m-th rank (JAX
+    ``psum_scatter(..., tiled=True)``), differentiable."""
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, group)
 
 
 def neighbour_exchange(x: torch.Tensor, group, ranks) -> tuple:

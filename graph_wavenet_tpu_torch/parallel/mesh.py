@@ -11,16 +11,20 @@ part of the work is its own:
   micro-batches, the d-th share of each, so that every micro-batch is the
   single-process one);
 - axis ``model`` (S ranks): node-TP; rank (d, m, t) holds the nodes
-  ``[m*N/S, (m+1)*N/S)`` of every activation, and its shard of the flat
-  block-sparse supports (``parallel.sparse_tp``);
+  ``[m*P, min((m+1)*P, N))`` of every activation, P = ceil(N/S) (JAX's
+  layout: the last ranks hold fewer where S does not divide N, and only
+  their real nodes), its rows of the dense supports
+  (``parallel.dense_tp``) and its shard of the flat block-sparse supports
+  (``parallel.sparse_tp``);
 - axis ``time`` (S_t ranks): time-halo sequence parallelism; rank (d, m,
   t) computes the t-th of S_t equal blocks of the model's padded time axis
   (``parallel.halo``), every rank of a time group given the same rows.
 
 The global rank is ``(d * S + m) * S_t + t``, the time index innermost, as
 in JAX's ``(data, model, time)`` reshape. Parameters are replicated: every
-rank holds all of them and applies the same update. Model x time (S and
-S_t both > 1) waits for slice 7b.4 of ROADMAP.md (``MeshConfig``).
+rank holds all of them and applies the same update. The axes compose: the
+ranks of a time group share a node range, those of a model group a time
+block.
 """
 
 from __future__ import annotations
@@ -103,13 +107,26 @@ class Mesh:
                                device=idx.device)
         return idx.index_select(1, cols)
 
+    def node_block(self, n: int) -> int:
+        """ceil(n / S): the nodes of every model rank but the last ones
+        (the row count a node exchange pads each rank's block to)."""
+        return -(-n // self.model)
+
+    def node_counts(self, n: int) -> list[int]:
+        """The real nodes of each model rank, in model order (207 over 2:
+        104 and 103; over 4: 52, 52, 52 and 51). Refuses a layout that
+        leaves a rank none."""
+        p = self.node_block(n)
+        counts = [min(p, n - m * p) for m in range(self.model)]
+        if counts[-1] <= 0:
+            raise ValueError(f"{n} nodes over a model axis of {self.model} "
+                             f"leave a rank no node (blocks of {p})")
+        return counts
+
     def node_range(self, n: int) -> tuple[int, int]:
-        """This rank's ``[lo, hi)`` of ``n`` nodes."""
-        if n % self.model:
-            raise ValueError(f"{n} nodes must divide by the model axis "
-                             f"{self.model}")
-        per = n // self.model
-        return self.model_index * per, (self.model_index + 1) * per
+        """This rank's ``[lo, hi)`` of ``n`` nodes (:meth:`node_counts`)."""
+        lo = self.model_index * self.node_block(n)
+        return lo, lo + self.node_counts(n)[self.model_index]
 
     def shard_batch(self, a: torch.Tensor, n_micro: int = 1,
                     n_nodes: int | None = None) -> torch.Tensor:
@@ -147,7 +164,8 @@ def make_mesh(cfg: MeshConfig | None = None,
     n = dist.get_world_size() if dist.is_initialized() else 1
     s, st = cfg.model_axis, cfg.time_axis
     if n % (s * st):
-        axis = f"time axis {st}" if st > 1 else f"model axis {s}"
+        axis = (f"model x time axes {s} x {st}" if s > 1 and st > 1 else
+                f"time axis {st}" if st > 1 else f"model axis {s}")
         raise ValueError(f"{n} ranks do not divide by the {axis}")
     d = n // (s * st)
     if not dist.is_initialized():

@@ -55,11 +55,12 @@ with it, which needs an NCCL group (``parallel.collectives``): a CUDA
 engine on a gloo group of more than one rank refuses the fused steps
 (:class:`parallel.collectives.GlooCaptureError`) and nothing falls back
 to eager steps; on the CPU a fused call is the eager loop under any group.
-The two-modality tasks run under DP (the diff-G model included): each
-rank takes its rows of x, y and of the per-sample supports and projectors,
-and the two-modality loss and metrics follow the global rule. Their
-per-sample supports are dense, so node-TP (``model_axis`` > 1) of them is
-refused; it waits for dense node-TP, slice 7b.4 of ROADMAP.md.
+The two-modality tasks run under a mesh too (the diff-G model included):
+each rank takes its rows of x, y and of the per-sample supports and
+projectors, and the two-modality loss and metrics follow the global rule.
+Under node-TP (``model_axis`` > 1) the model takes the supports' node rows
+(``parallel.dense_tp``), and ``pool_E`` contracts the rank's nodes with
+its rows of the projector's transpose, summed over the model group.
 
 Under time-halo sequence parallelism (``mesh.time`` > 1: data x time, every
 step kind above) every rank of a time group is given the same rows and
@@ -93,6 +94,7 @@ from graph_wavenet_tpu_torch.parallel.collectives import (
     GlooCaptureError,
     all_reduce_grads,
 )
+from graph_wavenet_tpu_torch.parallel.dense_tp import shard_dense_support
 from graph_wavenet_tpu_torch.train import step_graph
 from graph_wavenet_tpu_torch.train.metrics import (
     global_terms,
@@ -155,12 +157,18 @@ def cluster_mean_projector(labels: np.ndarray,
     return (onehot / np.maximum(counts, 1.0)[None, :]) @ onehot.T
 
 
-def pool_E(predict: torch.Tensor, projector: torch.Tensor) -> torch.Tensor:
+def pool_E(predict: torch.Tensor, projector: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """Community-mean pooling of (B, 1, N, K) by a shared (N, N) or
     per-sample (B, N, N) projector: ``out[w] = sum_v P[w, v] x[v]``, the
-    diffusion step over the transposed projector."""
+    diffusion step over the transposed projector. Under a ``mesh`` that
+    splits the nodes, ``predict`` holds the rank's nodes and the step is
+    the sharded one over its rows of the transpose (the projector
+    given whole)."""
     x = predict.permute(0, 3, 2, 1)                 # (B, K, N, 1)
-    if projector.ndim == 3:
+    if mesh is not None and mesh.model > 1:
+        out = shard_dense_support(projector.transpose(-1, -2), mesh).nconv(x)
+    elif projector.ndim == 3:
         out = nconv_batched(x, projector.transpose(1, 2))
     else:
         out = nconv(x, projector.t())
@@ -201,11 +209,6 @@ class Engine:
                  device: torch.device | str = "cuda",
                  seed: int | None = None, steps_per_epoch: int = 0,
                  aptinit=None, diff_g: bool = False, mesh=None):
-        if mesh is not None and diff_g and mesh.model > 1:
-            raise NotImplementedError(
-                "the per-sample-graph model's supports are dense (B, N, N) "
-                "stacks: node-TP of them (model_axis > 1) waits for dense "
-                "node-TP, slice 7b.4 of ROADMAP.md; use data parallelism")
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -569,7 +572,7 @@ class Engine:
         self._check_syn_collapse(predict)
         real = modality_target(y)
         f_hat = pool_F(predict, F_t)
-        e_hat = pool_E(predict, projector)
+        e_hat = pool_E(predict, projector, self.mesh)
         loss = masked_terms(torch.cat([f_hat, e_hat], dim=1), real, 0.0,
                             self._world, self.holds_output)[0]
         return loss, f_hat, e_hat, real

@@ -56,12 +56,12 @@ with one graph's supports and cluster-mean projector, the per-sample-graph
 stacks by the batch's ``adj_idx``, and fusing ``scan_steps`` steps per
 call on a device-resident loader (``train_steps_syn_resident``). Its test
 scores against the test split's own graphs. Checkpoint sidecars record
-``"diff_g"``. Under a mesh (data parallelism) every rank runs the same
-loop on the same batches and their gathered supports and projectors
-(``_gathered``), the engine takes the rank's rows of each and returns
-global metrics; the
-test's pooled predictions are the ranks' rows gathered in order (under
-time SP the last time rank's of each time group).
+``"diff_g"``. Under a mesh every rank runs the same loop on the same
+batches and their gathered supports and projectors (``_gathered``), the
+engine takes the rank's rows (and the model its nodes) of each and returns
+global metrics; the test's pooled predictions are the ranks' rows and node
+ranges gathered in order (under time SP the last time rank's of each time
+group).
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ import torch
 
 from graph_wavenet_tpu_torch.config import TrainConfig
 from graph_wavenet_tpu_torch.parallel.collectives import all_gather_rows
+from graph_wavenet_tpu_torch.parallel.dense_tp import gather_nodes
 from graph_wavenet_tpu_torch.parallel.multihost import replicate_pytree
 from graph_wavenet_tpu_torch.train import checkpoint as ckpt
 from graph_wavenet_tpu_torch.train.engine import (
@@ -526,17 +527,18 @@ class Runner:
         return result
 
     def _all_rows(self, a: torch.Tensor) -> torch.Tensor:
-        """A batch's rows from every rank, in rank order (DP: the ranks'
-        rows are consecutive shares); under time SP the last time rank's
-        of each time group, which hold the predictions."""
+        """A batch's (B, N, ...) predictions from every rank: the model
+        ranks' node ranges in order (``dense_tp.gather_nodes``), then the
+        data ranks' rows in order (consecutive shares), under time SP those
+        of the last time rank of each time group, which hold the
+        predictions."""
         mesh = self.mesh
         if mesh is None:
             return a
-        rows = all_gather_rows(a, mesh.world)
-        if mesh.time == 1:
-            return rows
-        return rows.unflatten(0, (-1, mesh.time, a.shape[0]))[:, -1].flatten(
-            0, 1)
+        a = gather_nodes(a, mesh, 1, self.engine.model_cfg.num_nodes)
+        rows = all_gather_rows(a, mesh.world).unflatten(
+            0, (mesh.data, mesh.model, mesh.time, a.shape[0]))
+        return rows[:, 0, -1].flatten(0, 1)
 
     def _log_test(self, m: dict) -> None:
         self.log("On average over seq_length horizons, Test MAE: "

@@ -1012,6 +1012,12 @@ if mode == "gloo2":
     v = torch.full((3,), float(rank + 1), device=dev, requires_grad=True)
     (collectives.all_sum(v, g) * (rank + 1)).sum().backward()
     res["all_sum_grad"] = v.grad.cpu().tolist()
+    z = (torch.arange(8.0, device=dev).reshape(4, 2) + 10 * rank
+         ).requires_grad_(True)
+    rs = collectives.reduce_scatter_rows(z, g)
+    (rs * (rank + 1)).sum().backward()
+    res["reduce_scatter"] = rs.detach().cpu().tolist()
+    res["reduce_scatter_grad"] = z.grad.cpu().tolist()
     from graph_wavenet_tpu_torch.graphs import spatial
     rng = np.random.default_rng(0)
     n = 2048
@@ -1051,6 +1057,8 @@ elif mode == "nccl2_tp_graphed":
     res.update(nccl_tp_graphed(dev))
 elif mode == "nccl2_time_graphed":
     res.update(nccl_time_graphed(dev))
+elif mode == "nccl2_dense_tp_graphed":
+    res.update(nccl_dense_tp_graphed(dev))
 else:
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.train.engine import Engine
@@ -1265,6 +1273,58 @@ def nccl_time_graphed(dev):
     (g,) = graphed.step_graphs()
     out["replays"] = g.replays
     return out
+
+
+def nccl_dense_tp_graphed(dev):
+    """Dense node-TP of the METR model over a 2-rank NCCL group (one card
+    each): 33 nodes (17 and 16), two supports and the adaptive adjacency,
+    dropout 0.3, in the fused and the stacked mode; per mode two fused
+    calls of S = 2 steps (every hop's reduce-scatter and its backward's
+    all_gather, and the stacked mode's gather of the supports, captured
+    with the step's other collectives) against four eager steps on the
+    same mesh, bit for bit."""
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    n = 33
+    rng = np.random.default_rng(0)
+    a = rng.random((2, n, n)).astype(np.float32)
+    sups = [torch.as_tensor(s / s.sum(-1, keepdims=True), device=dev)
+            for s in a]
+    xs = torch.as_tensor(rng.normal(size=(8, 12, n, 2)).astype(np.float32),
+                         device=dev)
+    ys = torch.as_tensor((rng.normal(size=(8, 12, n, 2)) * 5
+                          + 50).astype(np.float32), device=dev)
+    idx = rng.integers(0, 8, size=(2, 2, 4)).astype(np.int32)
+    mesh = make_mesh(MeshConfig(model_axis=2), dev)
+    out = {"node_range": list(mesh.node_range(n))}
+    for mode in ("fused", "stacked"):
+        cfg = ModelConfig(num_nodes=n, residual_channels=8,
+                          dilation_channels=8, skip_channels=16,
+                          end_channels=16, blocks=2, layers=2, dropout=0.3,
+                          gcn_mode=mode)
+        eager, graphed = (Engine(cfg, TrainConfig(),
+                                 StandardScaler(50.0, 5.0), device=dev,
+                                 seed=0, mesh=mesh) for _ in range(2))
+        rec = {"loss_differ": []}
+        for call in range(2):
+            got = graphed.train_steps_resident(xs, ys, idx[call], sups)
+            want = [eager.train_step(xs.index_select(0, r),
+                                     ys.index_select(0, r), sups)
+                    for r in torch.as_tensor(idx[call], device=dev)]
+            if not torch.equal(got["loss"],
+                               torch.stack([m["loss"] for m in want])):
+                rec["loss_differ"].append(call)
+        a_, b_ = (dict(e.model.state_dict()) for e in (eager, graphed))
+        for e, d in ((eager, a_), (graphed, b_)):
+            for i, st in e.optimizer.state_dict()["state"].items():
+                d.update({f"adam.{i}.{k}": v for k, v in st.items()})
+        rec["state_differ"] = [k for k in a_
+                               if not torch.equal(a_[k], b_[k])]
+        (g,) = graphed.step_graphs()
+        rec["replays"] = g.replays
+        out[mode] = rec
+    return out
 '''
 DIST_CHILD = DIST_CHILD.replace("res = {}\n", DIST_FUSED + "res = {}\n", 1)
 
@@ -1312,6 +1372,14 @@ def test_gloo_ranks_sharing_the_card_stage_collectives_and_shard_hops(
     assert res[0]["exchange"] == [x1, x1] and res[1]["exchange"] == [x0, x0]
     # d/dv_r of sum_q (q+1) * sum(all_sum(v)) = 1 + 2 on every rank
     assert res[0]["all_sum_grad"] == [3.0] * 3 == res[1]["all_sum_grad"]
+    # rows 0-1 summed to rank 0, rows 2-3 to rank 1; every summand's
+    # gradient is the all_gather of the cotangents (1 on rank 0's rows, 2
+    # on rank 1's)
+    summed = [[10.0 + 2 * i, 12.0 + 2 * i] for i in range(4)]
+    assert res[0]["reduce_scatter"] == summed[:2]
+    assert res[1]["reduce_scatter"] == summed[2:]
+    for r in res:
+        assert r["reduce_scatter_grad"] == [[1.0, 1.0]] * 2 + [[2.0, 2.0]] * 2
     rng = np.random.default_rng(0)
     n = 2048
     src, dst, w = spatial.knn_graph_edges(rng.random((n, 2)), 4)
@@ -1407,6 +1475,25 @@ def test_nccl_two_ranks_time_sp_graphed_steps_equal_eager(card, tmp_path):
     for r in res:
         assert r["loss_differ"] == [] and r["state_differ"] == [], r
         assert r["replays"] == 3, r
+
+
+def test_nccl_two_ranks_dense_tp_graphed_steps_equal_eager(card, tmp_path):
+    """Dense node-TP of the METR model over a 2-rank NCCL group, one card
+    per rank, 33 nodes (17 and 16): the fused steps capture every hop's
+    reduce-scatter (and its backward's all_gather, and the stacked mode's
+    gather of the supports) with the step's other collectives, and two
+    fused calls of S = 2 steps with dropout 0.3 equal four eager
+    ``train_step`` calls on the same mesh bit for bit on both ranks, in
+    the fused and the stacked mode."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    res = run_dist_child(tmp_path, "nccl2_dense_tp_graphed", 2)
+    assert [r["node_range"] for r in res] == [[0, 17], [17, 33]]
+    for r in res:
+        for mode in ("fused", "stacked"):
+            rec = r[mode]
+            assert rec["loss_differ"] == [] and rec["state_differ"] == [], rec
+            assert rec["replays"] == 3, rec
 
 
 def test_nccl_one_rank_steps_equal_plain_steps(card, tmp_path):

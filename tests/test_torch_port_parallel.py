@@ -729,27 +729,36 @@ def test_refusals_across_ranks(ranks):
 
 
 def test_refusals_in_one_process(tmp_path):
-    """What still waits: model x time (``--mesh_time`` with
-    ``--mesh_model``, both axes of ``MeshConfig``), node-TP of the
-    per-sample-graph tasks' dense supports, and dense node-TP on the METR
-    path name slice 7b.4; NCCL with more ranks than cards and a model axis
-    that does not divide the world are refused."""
+    """What is still refused, in one process: a world that the model axis,
+    or model x time, does not divide (``--mesh_time`` with
+    ``--mesh_model``, and ``--mesh_model`` on the METR path and with the
+    per-sample-graph tasks, all ported now); city block-rows that the
+    model axis does not divide; NCCL with more ranks than cards.
+    ``MeshConfig`` takes both axes."""
     from graph_wavenet_tpu_torch.cli import train
     from graph_wavenet_tpu_torch.config import MeshConfig
-    from graph_wavenet_tpu_torch.parallel import multihost
-    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from graph_wavenet_tpu_torch.parallel import multihost, sparse_tp
+    from graph_wavenet_tpu_torch.parallel.mesh import Mesh, make_mesh
 
-    with pytest.raises(SystemExit, match="--mesh_time.*7b\\.4"):
+    with pytest.raises(ValueError, match="ranks do not divide by the model "
+                       "x time axes 2 x 2"):
         train.main(["--mesh_time", "2", "--mesh_model", "2", "--device",
                     CPU])
-    with pytest.raises(NotImplementedError, match="7b\\.4"):
-        MeshConfig(model_axis=2, time_axis=2)
+    both = MeshConfig(model_axis=2, time_axis=2)
+    assert (both.model_axis, both.time_axis) == (2, 2)
     for data in ("syn", "crash"):
-        with pytest.raises(SystemExit, match="dense node-TP.*7b\\.4"):
+        with pytest.raises(ValueError, match="ranks do not divide by the "
+                           "model axis 2"):
             train.main(["--data", data, "--mesh_model", "2", "--device",
                         CPU])
-    with pytest.raises(SystemExit, match="dense node-TP.*7b\\.4"):
+    with pytest.raises(ValueError, match="ranks do not divide by the model "
+                       "axis 2"):
         train.main(["--mesh_model", "2", "--device", CPU])
+    sups, _ = city_supports()
+    with pytest.raises(ValueError, match="8 block-rows must divide by the "
+                       "model axis size 3"):
+        sparse_tp.shard_flat_support(sups[0], Mesh(1, 3, 0,
+                                                   torch.device(CPU)))
     with pytest.raises(ValueError, match="NCCL needs a card per rank"):
         multihost.initialize("nccl", 0, 2, f"file://{tmp_path}/rdzv",
                              device=CPU)

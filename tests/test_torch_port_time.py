@@ -28,8 +28,8 @@
 - the training CLI: ``--data syn --mesh_time 2`` under torchrun on 2
   ranks, ``--data syn --same_g`` and ``--data crash --mesh_dp`` with
   ``--mesh_time 2`` on 4, against the one-process runs (test MAE rtol
-  1e-5); the refusals (model x time names slice 7b.4, a halo wider than
-  a block, a world the time axis does not divide).
+  1e-5); the refusals (a world the model x time axes do not divide, a
+  halo wider than a block, a world the time axis does not divide).
 
 The ranks (a 4-rank gloo group), the one process they are held to and the
 torchrun run are subprocesses started once per module; the ranks and the
@@ -777,18 +777,19 @@ def test_train_cli_under_time_matches_one_process(runs, name):
 
 
 def test_refusals(runs):
-    """``--mesh_time`` with ``--mesh_model > 1`` (model x time) and
-    ``MeshConfig`` with both axes > 1 name slice 7b.4; ``--mesh_time 2`` in
-    one process is a world the time axis does not divide; on the 4 ranks
-    ``--mesh_time 4`` with blocks of 7 steps and a dilation of 8 is a halo
-    wider than a block."""
+    """``--mesh_time`` with ``--mesh_model 2`` (model x time, ported) in
+    one process is a world the model x time axes do not divide, and
+    ``MeshConfig`` takes both axes; ``--mesh_time 2`` in one process is a
+    world the time axis does not divide; on the 4 ranks ``--mesh_time 4``
+    with blocks of 7 steps and a dilation of 8 is a halo wider than a
+    block."""
     from graph_wavenet_tpu_torch.cli import train
     from graph_wavenet_tpu_torch.config import MeshConfig
 
-    with pytest.raises(SystemExit, match="model x time.*7b\\.4"):
+    with pytest.raises(ValueError, match="do not divide by the model x time "
+                       "axes 2 x 2"):
         train.main(SYN_ARGV + ["--mesh_time", "2", "--mesh_model", "2"])
-    with pytest.raises(NotImplementedError, match="7b\\.4"):
-        MeshConfig(model_axis=2, time_axis=2)
+    assert MeshConfig(model_axis=2, time_axis=2).time_axis == 2
     with pytest.raises(ValueError, match="do not divide by the time axis 2"):
         train.main(SYN_ARGV + ["--mesh_time", "2"])
     _, _, ranks, _ = runs

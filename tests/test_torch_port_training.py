@@ -314,11 +314,12 @@ def test_trained_checkpoint_forecasts_like_jax(trained_city):
 def test_train_cli_refuses_what_waits(tmp_path):
     from graph_wavenet_tpu_torch.cli import train
 
-    # the mesh flags of slices 7a-7b.3 are ported; model x time waits for
-    # 7b.4
-    with pytest.raises(SystemExit, match="--mesh_time.*slice 7b\\.4"):
+    # the mesh flags are ported (model x time too): in one process a
+    # 2 x 2 layout is a world its axes do not divide
+    with pytest.raises(ValueError, match="ranks do not divide by the model "
+                       "x time axes 2 x 2"):
         train.main(["--graph_npz", "g.npz", "--gcn_bool", "--mesh_time",
-                    "2", "--mesh_model", "2"])
+                    "2", "--mesh_model", "2", "--device", CPU])
     # the synthetic task is ported: a too-short receptive field for its
     # two-modality supervision is the refusal left (K = 48 needs rf 49)
     with pytest.raises(ValueError, match="collapse time to one step"):
