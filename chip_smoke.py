@@ -64,7 +64,9 @@ exits non-zero:
    are held to the layout and the dispatch rule, and the train step is
    timed (also under kernel 3 at every R, alternating) and profiled;
 11. city ``aptonly`` at 2,048 nodes: the training CLI trains the adaptive
-   adjacency alone and the serve CLI serves it;
+   adjacency alone under ``--profile DIR``, whose trace
+   (``train.profiling.trace``) must name every hand kernel the step
+   launches, and the serve CLI serves it;
 12. the METR path: the port's ETL writes a synthetic 207-node dataset,
    ``gwt-torch-train`` trains the bf16 dense model one epoch (dataset on
    the device, the CLI's default) and the test CLI reproduces its test
@@ -202,6 +204,23 @@ exits non-zero:
    the share of garbage steps; and ``--data syn --mesh_time 2`` under
    torchrun, its test MAE within ``CLI_MAE_RTOL`` of the one-process
    run's (``dist_time_cli``).
+30. ``data_feed``: on the METR data of 12, the native window loader
+   (``data.native_loader``, built with g++) loaded, its window and batch
+   gathers and feature-0 scaling bit for bit numpy's, each timed against
+   numpy; ``Runner.fit`` and ``test`` of the host-resident dataset with
+   ``TrainConfig(prefetch=2)`` bit for bit ``prefetch=0``;
+31. ``dist_pipe``: the GPipe pipeline (``parallel.pipeline``) on one set
+   of 4 gloo processes sharing the card: the METR model at ``bench.py``'s
+   width on 2 data x 2 stages (2 micro-batches) and on 4 stages (4), 2
+   fp32 steps held to one process's ``train_step_accum`` with the same
+   ``n_micro`` (``dist_compare``, the gradients at ``PIPE_GRAD_RTOL``
+   beside fp32's floor ``accum_floor``), one bf16 step with dropout 0.3
+   a rank timed with its peak memory; then the pipelined eval forward of
+   the 2,048-node fp32 city model of 7 over flat supports on 2 stages
+   against the one-process forward (``pipe_eval_check``), its kernel-1
+   and kernel-3 launches counted in the ``kernels`` line's ``dist_pipe``
+   window; it runs beside ``dist_city``'s torchrun pair, after
+   ``dist_metr``.
 
 The script's cuts for time: the tile-width sweep at R = 3,072
 only, the dispatch table at the R of ``DISPATCH_R``, plain and library
@@ -210,9 +229,12 @@ times only on the ``kernels`` line's shapes, fewer timed repeats in
 ``dist_city``, whose 2-rank node-TP group is gone (its all_gather form
 and its checks run under model x time in the 2 x 2 group's processes),
 ``dist_metr``'s layouts in one set of processes, run beside
-``dist_city``'s torchrun pair, the torchrun CLIs of ``dist_city``
-started beside its rank group, and ``determinism``'s two children
-started together; every check still runs. Before the ``kernels``
+``dist_city``'s torchrun pair (``dist_pipe`` too), the torchrun CLIs
+of ``dist_city`` started beside its rank group, ``determinism``'s two
+children started together, each ``export`` artifact's fresh process run
+while the next export is made, and the one-process references of
+``dist_time``, ``dist_metr`` and ``dist_pipe`` computed while their ranks
+run (``start_dist_group``); every check still runs. Before the ``kernels``
 line it prints
 ``{"phase_seconds": {...}}``.
 
@@ -260,11 +282,14 @@ TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
 
 
 _T0 = time.perf_counter()
+# the card's name and power limit (``phase_card``), on every emitted line
+CARD = None
 
 
 def emit(phase: str, **kv) -> None:
-    """One JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, **kv,
+    """One JSON line, with the card's name and power limit and the seconds
+    since the script started."""
+    print(json.dumps({"phase": phase, **kv, "card": CARD,
                       "t": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
@@ -446,10 +471,12 @@ def library_hop_pair(sp, x2, transpose_lhs: bool, add=None):
 def phase_card() -> str:
     import torch
 
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     emit("card", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), python=sys.version.split()[0])
@@ -1318,6 +1345,20 @@ def profile_step(fn) -> dict:
             "top_host_ops": [{"name": e.key[:60], "self_cpu_ms":
                               e.self_cpu_time_total / 1e3, "calls": e.count}
                              for e in host]}
+
+
+def trace_kernels(path: str) -> dict:
+    """What a ``--profile`` trace (``train.profiling.trace``'s Chrome
+    trace) holds: its size, its device kernel events, and the events of
+    each hand kernel (``HAND_KERNELS``) by wrapper."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    hand = {w: sum(part in k for k in kernels)
+            for w, part in HAND_KERNELS.items()}
+    return {"trace_bytes": os.path.getsize(path), "events": len(events),
+            "kernel_events": len(kernels),
+            "hand_kernels": {k: v for k, v in hand.items() if v}}
 
 
 def write_city_data(root: str, n: int, samples: dict = TRAIN_SAMPLES
@@ -2253,12 +2294,15 @@ def phase_aptonly(tmp: str) -> dict:
     city.save_graph_npz(gpath, src, dst, w, pos=pos, n_nodes=N_SMALL)
     write_city_data(data_dir, N_SMALL)
     t0 = time.perf_counter()
+    prof_dir = os.path.join(tmp, "aptonly_profile")
     out = train.main(["--graph_npz", gpath, "--data", data_dir, "--gcn_bool",
                       "--addaptadj", "--aptonly", "--dtype", "bfloat16",
                       "--batch_size", str(TRAIN_BATCH), "--seq_length", "12",
                       "--epochs", "1", "--save",
-                      os.path.join(tmp, "aptonly_ckpt"), "--device", "cuda"])
+                      os.path.join(tmp, "aptonly_ckpt"), "--device", "cuda",
+                      "--profile", prof_dir])
     torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
     result, engine, sups = (out["result"], out["runner"].engine,
                             out["supports"])
     require(len(sups) == 1 and getattr(sups[0], "adaptive_mask", False)
@@ -2301,10 +2345,17 @@ def phase_aptonly(tmp: str) -> dict:
         server.shutdown()
         server.server_close()
         batcher.stop()
+    traced = trace_kernels(os.path.join(prof_dir, "trace.json"))
     emit("aptonly", nodes=N_SMALL, seconds=round(time.perf_counter() - t0, 3),
          test=result.test_metrics, served_supports=len(fc.supports),
          train_launches=counts["aptonly_train"], train_expected=want_train,
-         serve_launches=counts["aptonly_serve"], serve_expected=want_serve)
+         serve_launches=counts["aptonly_serve"], serve_expected=want_serve,
+         profiled_cli_seconds=round(cli_s, 3), profile=traced)
+    launched = [k for k, v in want_train.items() if v]
+    require(launched and all(traced["hand_kernels"].get(k, 0) > 0
+                             for k in launched),
+            f"the --profile trace names {traced['hand_kernels']}, the step "
+            f"launches {launched}")
     require(answer.shape == (12, N_SMALL) and np.isfinite(answer).all(),
             f"bad aptonly forecast {answer.shape}")
     require(len(fc.supports) == 1, "aptonly serves the mask alone")
@@ -2523,6 +2574,108 @@ def phase_metr_cli(tmp: str) -> dict:
     torch.cuda.empty_cache()
     metr_cli_flags(tmp, data_dir, adj)
     return counts
+
+
+def phase_data_feed(tmp: str) -> None:
+    """The host feed on the METR phase's data (``phase_metr_cli``): the
+    native window loader built and loaded (``native_available``), its
+    window gather (a batch of 64 x and y windows of the 207-node series),
+    its batch gather and its feature-0 scaling (the whole ``x_train``) bit
+    for bit numpy's, each timed against numpy on the host; then
+    ``Runner.fit`` (one epoch, bf16, dropout 0.3) and ``Runner.test`` of
+    the host-resident dataset with ``TrainConfig(prefetch=2)`` bit for bit
+    the same run with ``prefetch=0``: history, test metrics and weights."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data import metr
+    from graph_wavenet_tpu_torch.data import native_loader as nl
+    from graph_wavenet_tpu_torch.data.traffic_etl import build_features
+    from graph_wavenet_tpu_torch.train.engine import Engine
+    from graph_wavenet_tpu_torch.train.runner import Runner
+
+    built = nl.native_available()
+    require(built, "the native window loader did not build (g++) or load")
+    rng = np.random.default_rng(14)
+    values = (rng.normal(size=(2016, DENSE_NODES)) * 10 + 55).astype(
+        np.float32)
+    index = (np.datetime64("2012-03-01T00:00")
+             + np.arange(2016) * np.timedelta64(5, "m"))
+    series = build_features(values, index, True, False).astype(np.float32)
+    anchors = rng.integers(0, series.shape[0] - 24, size=DENSE_BATCH)
+    with np.load(os.path.join(tmp, "METR", "train.npz")) as f:
+        x_train = f["x"].astype(np.float32)
+    idx = rng.integers(0, x_train.shape[0], size=DENSE_BATCH)
+
+    def native_scale():
+        a = x_train.copy()
+        nl.standardize_feature0(a, 55.0, 10.0)
+        return a
+
+    def numpy_scale():
+        a = x_train.copy()
+        a[..., 0] = (a[..., 0] - np.float32(55.0)) / np.float32(10.0)
+        return a
+
+    cases = {
+        "x_windows": (lambda: nl.gather_windows(series, anchors, 12),
+                      lambda: series[anchors[:, None] + np.arange(12)]),
+        "y_windows": (lambda: nl.gather_windows(series, anchors + 12, 12),
+                      lambda: series[anchors[:, None] + 12
+                                     + np.arange(12)]),
+        "batch": (lambda: nl.gather_batch(x_train, idx),
+                  lambda: x_train[idx]),
+        "feature0_scaling": (native_scale, numpy_scale)}
+    readings = {}
+    for name, (native, plain) in cases.items():
+        t = time.perf_counter()
+        got = native()
+        native_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = plain()
+        readings[name] = {"shape": list(got.shape),
+                          "bitwise_equal": bool(np.array_equal(got, want)),
+                          "native_ms": native_ms,
+                          "numpy_ms": (time.perf_counter() - t) * 1e3}
+    emit("native_loader", library=str(nl._lib_path().name), **readings,
+         timing_note="host clock, one call each")
+    require(all(r["bitwise_equal"] for r in readings.values()),
+            f"the native loader differs from numpy: {readings}")
+
+    sups = [torch.as_tensor(a, device="cuda") for a in dense_inputs()[0]]
+    cfg = ModelConfig(num_nodes=DENSE_NODES, dtype="bfloat16", dropout=0.3)
+    runs = {}
+    for prefetch in (0, 2):
+        data = metr.load_dataset(os.path.join(tmp, "METR"), DENSE_BATCH,
+                                 resident="host", device="cuda")
+        tcfg = TrainConfig(epochs=1, batch_size=DENSE_BATCH,
+                           print_every=1000, prefetch=prefetch,
+                           save_dir=os.path.join(tmp, f"feed_{prefetch}"))
+        eng = Engine(cfg, tcfg, data["scaler"], device="cuda", seed=0)
+        runner = Runner(eng, tcfg, log_fn=lambda *a: None)
+        with deterministic(True):
+            t = time.perf_counter()
+            res = runner.fit(data, sups)
+            res = runner.test(data, sups, res)
+            torch.cuda.synchronize()
+        runs[prefetch] = (res, state_vector(eng), time.perf_counter() - t)
+        del eng, runner
+    (r0, s0, t0), (r2, s2, t2) = runs[0], runs[2]
+    same = ([(h.train, h.valid) for h in r0.history]
+            == [(h.train, h.valid) for h in r2.history]
+            and r0.test_metrics == r2.test_metrics
+            and all(np.array_equal(s0[k], s2[k]) for k in s0))
+    emit("prefetch", nodes=DENSE_NODES, batch=DENSE_BATCH, epochs=1,
+         steps=data["train_loader"].num_batch,
+         train_loss=[r0.history[0].train["loss"],
+                     r2.history[0].train["loss"]],
+         test_mae=[r0.test_metrics["mae"], r2.test_metrics["mae"]],
+         bitwise_equal=same,
+         fit_and_test_seconds={"prefetch_0": round(t0, 3),
+                               "prefetch_2": round(t2, 3)})
+    require(same, "Runner with prefetch=2 differs from prefetch=0")
+    torch.cuda.empty_cache()
 
 
 def metr_cli_flags(tmp: str, data_dir: str, adj: str) -> None:
@@ -2964,23 +3117,19 @@ def ab_ms(fns: dict, reps: int = 5, rounds: int = 4) -> dict:
             for name, v in times.items()}
 
 
-def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
-    """One checkpoint through ``gwt-torch-export`` at batch 8, its artifact
-    loaded and run in a fresh process (:data:`ARTIFACT_CHILD`) on a batch
-    of 12-step windows left-padded to the artifact's window, the output
-    held bit for bit to ``fc.predict`` on the unpadded windows and its
-    hand-kernel launches to the Forecaster's; then the artifact's predict
-    and the Forecaster's timed in turns in this process. ``det``:
-    deterministic algorithms in both (a bracket the fixed-order mask no
-    longer needs).
-    Returns the artifact predict's launch counts."""
+def export_start(name: str, argv: list, tmp: str, det: bool) -> dict:
+    """One checkpoint through ``gwt-torch-export`` at batch 8, and its
+    artifact started in a fresh process (:data:`ARTIFACT_CHILD`) on a
+    batch of 12-step windows left-padded to the artifact's window; returns
+    at once, so the next export runs while the child does
+    (:func:`export_check` waits). ``det``: deterministic algorithms in the
+    child and in the check (a bracket the fixed-order mask no longer
+    needs)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from graph_wavenet_tpu_torch.cli import export
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-    from graph_wavenet_tpu_torch.train import serving
 
     out = os.path.join(tmp, f"{name}.pt2")
     t0 = time.perf_counter()
@@ -2990,32 +3139,63 @@ def export_run(name: str, argv: list, fc, tmp: str, det: bool) -> dict:
     b, t, n, f = res["in_shape"]
     x = torch.randn(b, 12, n, f, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(9))
-    xp, yp = os.path.join(tmp, "art_x.npy"), os.path.join(tmp, "art_y.npy")
+    xp, yp = (os.path.join(tmp, f"{name}_art_{k}.npy") for k in "xy")
     np.save(xp, F.pad(x, (0, 0, 0, 0, t - 12, 0)).cpu().numpy())
-    child = subprocess.run(
+    logs = [open(os.path.join(tmp, f"{name}_art.{k}"), "w+")
+            for k in ("out", "err")]
+    child = subprocess.Popen(
         [sys.executable, "-c", ARTIFACT_CHILD, out, xp, yp, str(int(det))],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=900)
-    require(child.returncode == 0,
-            f"{name}: the artifact failed in a fresh process:\n"
-            f"{child.stderr[-4000:]}")
-    stats = json.loads(child.stdout.strip().splitlines()[-1])
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=logs[0],
+        stderr=logs[1], text=True)
+    return dict(name=name, out=out, x=x, yp=yp, det=det, child=child,
+                logs=logs, export_s=export_s, in_shape=[b, t, n, f])
+
+
+def export_check(run: dict, fc) -> dict:
+    """Wait for :func:`export_start`'s child; its output held bit for bit
+    to ``fc.predict`` on the unpadded windows and its hand-kernel launches
+    to the Forecaster's; then the artifact's predict and the Forecaster's
+    timed in turns in this process. Returns the artifact predict's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.train import serving
+
+    name, out, x, det = run["name"], run["out"], run["x"], run["det"]
+    try:
+        rc = run["child"].wait(timeout=900)
+    finally:
+        if run["child"].poll() is None:
+            run["child"].kill()
+            run["child"].wait()
+    text = []
+    for f in run["logs"]:
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+    require(rc == 0, f"{name}: the artifact failed in a fresh process:\n"
+            f"{text[1][-4000:]}")
+    stats = json.loads(text[0].strip().splitlines()[-1])
     with deterministic(det):
         bd.reset_launch_counts()
         want = fc.predict(x)
         torch.cuda.synchronize()
         live = dict(bd.LAUNCHES)
-        got = torch.as_tensor(np.load(yp), device="cuda")
+        got = torch.as_tensor(np.load(run["yp"]), device="cuda")
         art = serving.load_exported_forecaster(out)
         times = ab_ms({"artifact": lambda: art.predict(x),
                        "forecaster": lambda: fc.predict(x)}, reps=2,
                       rounds=2)
     diff = float((got - want).abs().max())
-    emit("export", name=name, in_shape=[b, t, n, f],
-         export_seconds=round(export_s, 3),
+    emit("export", name=name, in_shape=run["in_shape"],
+         export_seconds=round(run["export_s"], 3),
          artifact_bytes=os.path.getsize(out), deterministic=det,
          bitwise_equal=bool(torch.equal(got, want)), max_abs_diff=diff,
-         child=stats, forecaster_launches=live, in_process=times)
+         child=stats, forecaster_launches=live, in_process=times,
+         timing_note="the child's predict times ran beside the next "
+                     "export")
     require(torch.equal(got, want),
             f"{name}: the artifact differs from Forecaster.predict by {diff}")
     require(stats["launches"] == live,
@@ -3035,44 +3215,56 @@ def phase_export(tmp: str) -> dict:
     """The export path: ``phase_serve``'s 40,960-node bf16 flat checkpoint
     (no adaptive adjacency), ``phase_train``'s padded checkpoint (with the
     masked adaptive adjacency) and ``phase_metr_cli``'s dense METR
-    checkpoint (``--adjdata``), each exported at batch 8 and checked by
-    :func:`export_run`. Returns the launch counts of the city artifacts'
-    predicts (``artifact``, ``artifact_padded``)."""
+    checkpoint (``--adjdata``), each exported at batch 8
+    (:func:`export_start`, each artifact's fresh process running while the
+    next export does) and checked (:func:`export_check`). Returns the
+    launch counts of the city artifacts' predicts (``artifact``,
+    ``artifact_padded``)."""
     import torch
 
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.serving import Forecaster
 
-    counts = {}
-    flat = [os.path.join(tmp, "city_flat.pt"),
-            os.path.join(tmp, "city_graph.npz")]
-    fc = Forecaster.from_city_checkpoint(*flat, device="cuda")
-    want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
-                            torch.bfloat16)
-    counts["artifact"] = export_run(
-        "city_flat", ["--checkpoint", flat[0], "--graph_npz", flat[1]], fc,
-        tmp, det=False)
-    require(counts["artifact"] == want,
-            f"flat artifact launches {counts['artifact']}, the layout {want}")
-    del fc
-    padded = [only_checkpoint(os.path.join(tmp, "train_ckpt_pallas")),
-              os.path.join(tmp, "train_graph.npz")]
-    fc = Forecaster.from_city_checkpoint(*padded, device="cuda")
-    want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
-                            torch.bfloat16)
-    counts["artifact_padded"] = export_run(
-        "city_padded", ["--checkpoint", padded[0], "--graph_npz", padded[1]],
-        fc, tmp, det=True)
-    require(counts["artifact_padded"] == want,
-            f"padded artifact launches {counts['artifact_padded']}, the "
-            f"layout {want}")
-    del fc
-    metr = ["--checkpoint", only_checkpoint(os.path.join(tmp, "metr_ckpt")),
-            "--adjdata", os.path.join(tmp, "adj_mx.pkl")]
-    dense = export_run("metr_dense", metr, metr_forecaster(tmp), tmp,
-                       det=False)
-    require(not any(dense.values()),
-            f"the dense artifact launched a block kernel: {dense}")
+    counts, started = {}, []
+    try:
+        flat = [os.path.join(tmp, "city_flat.pt"),
+                os.path.join(tmp, "city_graph.npz")]
+        padded = [only_checkpoint(os.path.join(tmp, "train_ckpt_pallas")),
+                  os.path.join(tmp, "train_graph.npz")]
+        metr = ["--checkpoint",
+                only_checkpoint(os.path.join(tmp, "metr_ckpt")),
+                "--adjdata", os.path.join(tmp, "adj_mx.pkl")]
+        started.append(export_start(
+            "city_flat", ["--checkpoint", flat[0], "--graph_npz", flat[1]],
+            tmp, det=False))
+        started.append(export_start(
+            "city_padded", ["--checkpoint", padded[0], "--graph_npz",
+                            padded[1]], tmp, det=True))
+        fc = Forecaster.from_city_checkpoint(*flat, device="cuda")
+        want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
+                                torch.bfloat16)
+        counts["artifact"] = export_check(started[0], fc)
+        require(counts["artifact"] == want,
+                f"flat artifact launches {counts['artifact']}, the layout "
+                f"{want}")
+        del fc
+        started.append(export_start("metr_dense", metr, tmp, det=False))
+        fc = Forecaster.from_city_checkpoint(*padded, device="cuda")
+        want = forward_launches(fc.supports, layer_widths(fc.cfg, 8),
+                                torch.bfloat16)
+        counts["artifact_padded"] = export_check(started[1], fc)
+        require(counts["artifact_padded"] == want,
+                f"padded artifact launches {counts['artifact_padded']}, the "
+                f"layout {want}")
+        del fc
+        dense = export_check(started[2], metr_forecaster(tmp))
+        require(not any(dense.values()),
+                f"the dense artifact launched a block kernel: {dense}")
+    finally:
+        for run in started:
+            if run["child"].poll() is None:
+                run["child"].kill()
+                run["child"].wait()
     torch.cuda.empty_cache()
     bd.reset_launch_counts()
     return counts
@@ -4212,10 +4404,13 @@ def diffg_batch(seed: int = 6, b: int = DIFFG_BATCH, k: int = DIFFG_K,
     return x, y, sups, proj
 
 
-def train_once(eng, sups, x, y) -> dict:
-    """One train step of ``dist_engine``'s engine on a global batch."""
+def train_once(eng, sups, x, y, n_micro: int = 1) -> dict:
+    """One train step of ``dist_engine``'s engine on a global batch
+    (``train_step_accum`` over ``n_micro`` micro-batches where > 1)."""
     if eng.diff_g:
         return eng.train_step_syn(x, y, *sups)
+    if n_micro > 1:
+        return eng.train_step_accum(x, y, sups, n_micro)
     return eng.train_step(x, y, sups)
 
 
@@ -4239,15 +4434,28 @@ def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
 
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
+    from graph_wavenet_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+    )
+
     out_dir = os.path.join(spec["out"], lay["name"])
     os.makedirs(out_dir, exist_ok=True)
     out = {}
     for run in lay.get("runs", spec["runs"]):
+        # a pipeline's engine has no mesh: its step takes the mesh
         eng, sups, x, y = dist_engine(lay.get("kind", spec["kind"]),
                                       run["dtype"], run["dropout"], dev,
-                                      mesh, graph, lay.get("halo",
-                                                           spec["halo"]))
+                                      None if mesh.pipe > 1 else mesh, graph,
+                                      lay.get("halo", spec["halo"]))
         xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+        if mesh.pipe > 1:
+            pipe_step = make_pipeline_train_step(eng, mesh, lay["n_micro"])
+
+            def train_step():
+                return pipe_step(xt, yt, sups)
+        else:
+            def train_step():
+                return train_once(eng, sups, xt, yt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         bd.reset_launch_counts()
@@ -4256,7 +4464,7 @@ def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
             for k in range(run["steps"]):
                 mesh.barrier()
                 t0 = time.perf_counter()
-                m = train_once(eng, sups, xt, yt)
+                m = train_step()
                 losses.append(float(m["loss"]))
                 times.append((time.perf_counter() - t0) * 1e3)
                 if k == 0 and rank == 0 and run.get("keep_state"):
@@ -4307,6 +4515,7 @@ def dist_worker(spec_path: str, rank: int) -> None:
     from graph_wavenet_tpu_torch.config import MeshConfig
     from graph_wavenet_tpu_torch.parallel import multihost
     from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from graph_wavenet_tpu_torch.parallel.pipeline import make_pipeline_mesh
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -4322,11 +4531,17 @@ def dist_worker(spec_path: str, rank: int) -> None:
     out = {"rank": rank, "device": str(dev)}
     meshes = []
     for lay in spec["layouts"]:
-        meshes.append(make_mesh(MeshConfig(model_axis=lay["model"],
-                                           time_axis=lay["time"]), dev,
-                                timeout_s=DIST_TIMEOUT))
+        if lay.get("pipe", 1) > 1:
+            meshes.append(make_pipeline_mesh(lay["pipe"], dev,
+                                             timeout_s=DIST_TIMEOUT))
+        else:
+            meshes.append(make_mesh(MeshConfig(model_axis=lay["model"],
+                                               time_axis=lay["time"]), dev,
+                                    timeout_s=DIST_TIMEOUT))
         out.update(dist_layout_runs(spec, lay, rank, dev, meshes[-1],
                                     graph))
+    if spec.get("pipe_eval"):
+        out["pipe_eval"] = pipe_eval_worker(spec, rank, dev)
     mesh = meshes[0]
     if spec["kind"] == "city":
         # the cost of drawing each layer's dropout mask at the global shape
@@ -4352,62 +4567,105 @@ def dist_group(name: str, tmp: str, world: int, model: int, kind: str,
                runs: list, graph_path: str | None = None,
                halo: bool | str = "auto",
                worker: str = "dist_worker", time_axis: int = 1,
-               more: tuple = ()) -> tuple:
+               more: tuple = (), pipe: int = 1, n_micro: int = 1,
+               pipe_eval: bool = False) -> tuple:
+    """:func:`start_dist_group`'s group, waited for: (backend, per-rank
+    records, seconds)."""
+    return start_dist_group(name, tmp, world, model, kind, runs, graph_path,
+                            halo, worker, time_axis, more, pipe, n_micro,
+                            pipe_eval).wait()
+
+
+class DistGroup:
+    """A started ``dist_*`` rank group; ``wait()`` bounds every process by
+    DIST_TIMEOUT from the start and returns (backend, per-rank records,
+    seconds), raising with a failed rank's log."""
+
+    def __init__(self, name: str, out: str, world: int, backend: str,
+                 procs: list):
+        self.name, self.out, self.world = name, out, world
+        self.backend, self.procs = backend, procs
+        self.t0 = time.perf_counter()
+
+    def wait(self) -> tuple:
+        failed = []
+        try:
+            for rank, log, p in self.procs:
+                left = DIST_TIMEOUT - (time.perf_counter() - self.t0)
+                try:
+                    rc = p.wait(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                if rc != 0:
+                    with open(os.path.join(self.out,
+                                           f"rank{rank}.log")) as f:
+                        failed.append(f"rank {rank}: {rc}: "
+                                      f"{f.read()[-4000:]}")
+        finally:
+            self.close()
+        require(not failed, f"dist {self.name}: " + "\n".join(failed))
+        recs = []
+        for rank in range(self.world):
+            with open(os.path.join(self.out, f"rank{rank}.json")) as f:
+                recs.append(json.load(f))
+        return self.backend, recs, time.perf_counter() - self.t0
+
+    def close(self) -> None:
+        for _, log, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def start_dist_group(name: str, tmp: str, world: int, model: int, kind: str,
+                     runs: list, graph_path: str | None = None,
+                     halo: bool | str = "auto",
+                     worker: str = "dist_worker", time_axis: int = 1,
+                     more: tuple = (), pipe: int = 1, n_micro: int = 1,
+                     pipe_eval: bool = False) -> DistGroup:
     """Start ``world`` rank processes (``worker``: ``dist_worker``, or
     ``graphed_worker``) on this machine's cards, NCCL where every rank has
-    a card of its own, else gloo with the ranks sharing them; every process
-    and the group bounded by DIST_TIMEOUT. ``model``/``time_axis``: the
-    mesh's model and time axes; ``more``: further layouts the same
-    processes run after it, each a dict with ``name``, ``model``, ``time``
-    and optionally ``kind``, ``runs`` and ``halo`` (its records under
-    ``layout_key``, its files in ``dist_<name>/<layout>``). Returns
-    (backend, per-rank records, seconds)."""
+    a card of its own, else gloo with the ranks sharing them, and return
+    at once (the caller computes its reference meanwhile, then waits).
+    ``model``/``time_axis``: the mesh's model and time axes, or ``pipe``
+    stages with ``n_micro`` micro-batches (``parallel.pipeline``);
+    ``more``: further layouts the same processes run after it, each a dict
+    with ``name``, ``model``, ``time`` and optionally ``kind``, ``runs``,
+    ``halo``, ``pipe`` and ``n_micro`` (its records under ``layout_key``,
+    its files in ``dist_<name>/<layout>``); ``pipe_eval``: then the
+    pipelined eval forward of the 2,048-node city model
+    (``pipe_eval_worker``)."""
     import torch
 
     out = os.path.join(tmp, f"dist_{name}")
     os.makedirs(out, exist_ok=True)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    layouts = [dict(name="", model=model, time=time_axis), *more]
+    layouts = [dict(name="", model=model, time=time_axis, pipe=pipe,
+                    n_micro=n_micro), *more]
     spec = dict(world=world, model=model, time=time_axis, kind=kind,
                 runs=runs, backend=backend, out=out, graph=graph_path,
-                halo=halo, layouts=layouts, init=f"file://{out}/rendezvous")
+                halo=halo, layouts=layouts, pipe_eval=pipe_eval,
+                init=f"file://{out}/rendezvous")
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke;"
             f" chip_smoke.{worker}(sys.argv[1], int(sys.argv[2]))")
-    t0 = time.perf_counter()
     procs = []
-    for rank in range(world):
-        env = dict(os.environ, PYTHONPATH=REPO, LOCAL_RANK=str(rank),
-                   OMP_NUM_THREADS="2")
-        log = open(os.path.join(out, f"rank{rank}.log"), "w")
-        procs.append((rank, log, subprocess.Popen(
-            [sys.executable, "-c", code, spec_path, str(rank),
-             os.path.dirname(os.path.abspath(__file__))],
-            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
     try:
-        for rank, log, p in procs:
-            try:
-                rc = p.wait(timeout=DIST_TIMEOUT)
-            except subprocess.TimeoutExpired:
-                rc = "timeout"
-            if rc != 0:
-                with open(os.path.join(out, f"rank{rank}.log")) as f:
-                    failed.append(f"rank {rank}: {rc}: {f.read()[-4000:]}")
-    finally:
-        for _, log, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    require(not failed, f"dist {name}: " + "\n".join(failed))
-    recs = []
-    for rank in range(world):
-        with open(os.path.join(out, f"rank{rank}.json")) as f:
-            recs.append(json.load(f))
-    return backend, recs, time.perf_counter() - t0
+        for rank in range(world):
+            env = dict(os.environ, PYTHONPATH=REPO, LOCAL_RANK=str(rank),
+                       OMP_NUM_THREADS="2")
+            log = open(os.path.join(out, f"rank{rank}.log"), "w")
+            procs.append((rank, log, subprocess.Popen(
+                [sys.executable, "-c", code, spec_path, str(rank),
+                 os.path.dirname(os.path.abspath(__file__))],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    except BaseException:
+        DistGroup(name, out, world, backend, procs).close()
+        raise
+    return DistGroup(name, out, world, backend, procs)
 
 
 # Adam moves each element by lr * (g + wd p) / (|g + wd p| + 1e-8): where
@@ -4556,9 +4814,12 @@ def dist_compare(name: str, recs: list, ref: dict, out: str,
     return readings
 
 
-def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
-    """The single-process fp32 steps (dropout 0) a distributed run is held
-    to, on the card, under deterministic algorithms (without them two
+def single_reference(kind: str, graph=None, steps: int = 2,
+                     n_micro: int = 1) -> dict:
+    """The single-process fp32 steps (dropout 0; ``train_step_accum`` over
+    ``n_micro`` micro-batches where > 1, what a pipeline step is held to)
+    a distributed run is held to, on the card, under deterministic
+    algorithms (without them two
     identical runs differ: ``grad_witness``): the losses, the state after
     the first and the last step, the first step's clipped gradients, and per parameter the
     elements whose L2-decayed gradient Adam resolves at the first step
@@ -4586,7 +4847,8 @@ def single_reference(kind: str, graph=None, steps: int = 2) -> dict:
     losses, state1 = [], None
     with deterministic(True), mask_cotangent() as seen:
         for _ in range(steps):
-            losses.append(float(train_once(eng, sups, xt, yt)["loss"]))
+            losses.append(float(train_once(eng, sups, xt, yt,
+                                           n_micro)["loss"]))
             state1 = state1 or state_vector(eng)
     ref = {"losses": losses, "state1": state1, "state": state_vector(eng),
            "resolved": resolved, "grad1": grad1,
@@ -5205,11 +5467,16 @@ def phase_dist_metr() -> dict:
                       dilation_channels=32, skip_channels=256,
                       end_channels=512, blocks=4, layers=2)
     with tempfile.TemporaryDirectory(prefix="gwt_dist_metr_") as tmp:
-        ref = single_reference("metr")
         (first, s0), *rest = METR_LAYOUTS
-        backend, recs, secs = dist_group(
+        group = start_dist_group(
             "metr", tmp, 4, s0, "metr", runs, more=tuple(
                 dict(name=n, model=m, time=1) for n, m in rest))
+        try:
+            ref = single_reference("metr")
+        except BaseException:
+            group.close()
+            raise
+        backend, recs, secs = group.wait()
         for i, (name, model) in enumerate(METR_LAYOUTS):
             lay = "" if i == 0 else name
             readings = dist_compare(
@@ -5238,6 +5505,221 @@ def phase_dist_metr() -> dict:
             require(all(np.isfinite(r["losses"]).all() for r in bf),
                     f"dist metr {name}: non-finite bf16 losses")
     return {}
+
+
+# the pipeline's layouts of ``dist_pipe``'s 4 processes, run in turn:
+# (name, stages, micro-batches); the data axis takes the rest
+PIPE_LAYOUTS = (("d2_p2", 2, 2), ("p4", 4, 4))
+# the pipelined eval forward over flat supports: ``phase_small_e2e``'s
+# 2,048-node fp32 city model on 2 stages (so 2 data ranks), 2 micro-batches
+# of a batch of 8: a rank's layers run at R = 2 x T x 32, from 768 down,
+# so the dispatch rule launches kernel 3 for stage 0's first three layers
+# (R >= 512) and two kernel-1 launches a support everywhere else
+PIPE_EVAL = dict(stages=2, n_micro=2, batch=8)
+# the first step's gradients of a pipeline step against one process's
+# ``train_step_accum``, per tensor over its largest magnitude: the city's
+# bar. At these widths the adaptive embeddings' gradients are cancellation
+# results (nodevec1's largest 3.5e-8, nodevec2's 1.4e-6 on the CPU, the
+# SVD-initialized embeddings): one process's accumulation step against
+# itself with each micro-batch's rows in reverse order reads 8.9e-3
+# (nodevec2) and 3.0e-3 (nodevec1) on the CPU, and ``accum_floor`` reads
+# it on the card beside every ``dist_pipe`` line
+PIPE_GRAD_RTOL = GRAD_RTOL
+
+
+def accum_floor(ref: dict, n_micro: int) -> dict:
+    """fp32's floor under a ``dist_pipe`` gradient check: one process's
+    first ``train_step_accum`` of the METR model (dropout 0, deterministic
+    algorithms) with each micro-batch's rows in reverse order, the same
+    sums in another order, against ``ref`` (``single_reference``): per
+    tensor, the error over its largest magnitude (``grad_errors``)."""
+    import numpy as np
+    import torch
+
+    eng, sups, x, y = dist_engine("metr", "float32", 0.0, "cuda", None)
+    mb = x.shape[0] // n_micro
+    rows = np.concatenate([np.arange((i + 1) * mb - 1, i * mb - 1, -1)
+                           for i in range(n_micro)])
+    grads = recorded_grads(eng)
+    with deterministic(True):
+        train_once(eng, sups, *(torch.as_tensor(a[rows], device="cuda")
+                                for a in (x, y)), n_micro)
+    err, _ = grad_errors(grads, ref["grad1"])
+    del eng, sups
+    torch.cuda.empty_cache()
+    return err
+
+
+def pipe_eval_inputs(device):
+    """(model, supports, x) of the pipelined eval forward:
+    ``phase_small_e2e``'s model (seed 0) and RCM supports, and a batch of
+    windows in model node order."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import ModelConfig
+    from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+
+    pos, src, dst, w = city_graph(N_SMALL)
+    sups, _, _ = build_city_supports(src, dst, w, N_SMALL, pos=pos,
+                                     ordering="rcm", device=device)
+    cfg = ModelConfig(num_nodes=N_SMALL, addaptadj=False, dropout=0.0,
+                      dtype="float32")
+    x = np.random.default_rng(15).normal(
+        size=(PIPE_EVAL["batch"], 12, N_SMALL, 2)).astype(np.float32)
+    return (GWNet(cfg, device=device, seed=0).eval(), sups,
+            torch.as_tensor(x, device=device))
+
+
+def pipe_eval_worker(spec: dict, rank: int, dev) -> dict:
+    """A ``dist_pipe`` rank's pipelined eval forward (``PIPE_EVAL``): its
+    output rows to ``pipe_eval_rank<r>.npy``; its launches, rows and
+    stage."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.parallel.pipeline import (
+        make_pipeline_mesh,
+        pipeline_apply,
+    )
+
+    mesh = make_pipeline_mesh(PIPE_EVAL["stages"], dev,
+                              timeout_s=DIST_TIMEOUT)
+    model, sups, x = pipe_eval_inputs(dev)
+    mesh.barrier()
+    bd.reset_launch_counts()
+    with torch.no_grad():
+        out = pipeline_apply(model, x, sups, mesh=mesh,
+                             n_micro=PIPE_EVAL["n_micro"])
+    torch.cuda.synchronize()
+    launches = dict(bd.LAUNCHES)
+    np.save(os.path.join(spec["out"], f"pipe_eval_rank{rank}.npy"),
+            out.cpu().numpy())
+    return {"launches": launches, "stage": mesh.pipe_index,
+            "holds": mesh.pipe_index == mesh.pipe - 1,
+            "rows": mesh.batch_rows(PIPE_EVAL["batch"],
+                                    PIPE_EVAL["n_micro"]).tolist()}
+
+
+def pipe_eval_check(out: str, recs: list) -> dict:
+    """The pipelined eval forward's last stages against the one-process
+    forward on the card: within 2e-4 of its scale of the full batch's, and
+    (a reading) bit for bit the forward of the rank's micro-batches, each
+    run alone; every rank's launches those its stage's layers imply at
+    their R (``forward_launches``). Returns the ``dist_pipe`` window: the
+    ranks' launches summed."""
+    import numpy as np
+    import torch
+
+    model, sups, x = pipe_eval_inputs("cuda")
+    cfg, n_micro = model.cfg, PIPE_EVAL["n_micro"]
+    lps = len(cfg.dilations()) // PIPE_EVAL["stages"]
+    with torch.no_grad():
+        full = model(x, sups)
+    scale = float(full.abs().max())
+    errs, bitwise, window = [], [], {}
+    for r, rec in enumerate(recs):
+        ev = rec["pipe_eval"]
+        share = len(ev["rows"]) // n_micro
+        widths = layer_widths(cfg, share)[ev["stage"] * lps:
+                                          (ev["stage"] + 1) * lps]
+        want = {k: n_micro * v for k, v in forward_launches(
+            sups, widths, torch.float32).items()}
+        require(ev["launches"] == want,
+                f"dist pipe eval rank {r}: launches {ev['launches']}, the "
+                f"stage's layers imply {want}")
+        for k, v in ev["launches"].items():
+            window[k] = window.get(k, 0) + v
+        if not ev["holds"]:
+            continue
+        got = torch.as_tensor(np.load(os.path.join(
+            out, f"pipe_eval_rank{r}.npy")), device="cuda")
+        rows = torch.as_tensor(ev["rows"], device="cuda")
+        errs.append(float((got - full[rows]).abs().max()) / scale)
+        with torch.no_grad():
+            alone = torch.cat([model(x[part], sups)
+                               for part in rows.chunk(n_micro)])
+        bitwise.append(bool(torch.equal(got, alone)))
+    emit("dist_pipe_eval", nodes=N_SMALL, dtype="float32", **PIPE_EVAL,
+         ranks=len(recs), max_err_rel_scale=errs,
+         bitwise_equal_micro_batch_forward=bitwise,
+         tolerance="2e-4 x max|one-process forward|",
+         launches_window=window,
+         launches_per_rank=[r["pipe_eval"]["launches"] for r in recs])
+    require(len(errs) == len(recs) // PIPE_EVAL["stages"]
+            and max(errs) <= 2e-4,
+            f"the pipelined eval forward differs by {errs} of its scale")
+    return {"dist_pipe": window}
+
+
+def phase_dist_pipe() -> dict:
+    """The GPipe pipeline (``parallel.pipeline``) on one set of 4 processes
+    (gloo, the ranks sharing the card; NCCL where every rank has a card):
+    ``bench.py``'s METR model (207 nodes, batch 64, the supports and the
+    adaptive adjacency) on 2 data x 2 stages with 2 micro-batches and on 4
+    stages with 4 (``PIPE_LAYOUTS``), each 2 fp32 steps with dropout 0
+    against one process's ``train_step_accum`` with the same ``n_micro``
+    (``dist_compare``: losses rtol 1e-5, the first step's gradients within
+    ``PIPE_GRAD_RTOL`` of each tensor's largest, beside fp32's floor
+    ``accum_floor``, the ranks bit for bit), then one bf16 step with
+    dropout 0.3 a rank timed with its peak memory (not a scaling number);
+    then the pipelined eval forward over flat supports (``PIPE_EVAL``,
+    ``pipe_eval_check``). The one-process references run while the ranks
+    do. Returns the eval forward's
+    launches (the ``dist_pipe`` window)."""
+    import numpy as np
+    import torch
+
+    runs = [dict(name="fp32", dtype="float32", dropout=0.0, steps=2,
+                 keep_state=True),
+            dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
+    with tempfile.TemporaryDirectory(prefix="gwt_dist_pipe_") as tmp:
+        (_, s0, m0), *rest = PIPE_LAYOUTS
+        group = start_dist_group(
+            "pipe", tmp, 4, 1, "metr", runs, pipe=s0, n_micro=m0,
+            pipe_eval=True, more=tuple(
+                dict(name=n, model=1, time=1, pipe=s, n_micro=m)
+                for n, s, m in rest))
+        try:
+            refs = {m: single_reference("metr", n_micro=m)
+                    for _, _, m in PIPE_LAYOUTS}
+            floors = {m: accum_floor(refs[m], m) for m in refs}
+        except BaseException:
+            group.close()
+            raise
+        backend, recs, secs = group.wait()
+        shared = backend == "gloo" and torch.cuda.device_count() < 4
+        for i, (name, stages, n_micro) in enumerate(PIPE_LAYOUTS):
+            lay = "" if i == 0 else name
+            readings = dist_compare(
+                f"pipe {name}", recs, refs[n_micro],
+                os.path.join(tmp, "dist_pipe", lay),
+                key=layout_key(lay, "fp32"), grad_rtol=PIPE_GRAD_RTOL)
+            bf = [r[layout_key(lay, "bf16")] for r in recs]
+            emit("dist_pipe", layout=name, ranks=4, data=4 // stages,
+                 stages=stages, n_micro=n_micro, backend=backend,
+                 nodes=DENSE_NODES, batch=DENSE_BATCH,
+                 seconds_group=round(secs, 3), **readings,
+                 grad1_floor_top=top(floors[n_micro]),
+                 grad1_floor_note="one process against itself, each "
+                 "micro-batch's rows reversed",
+                 fp32_step_ms_per_rank=[r[layout_key(lay, "fp32")]["step_ms"]
+                                        for r in recs],
+                 fp32_peak_memory_bytes_per_rank=[
+                     r[layout_key(lay, "fp32")]["max_memory_allocated_bytes"]
+                     for r in recs],
+                 fp32_peak_memory_bytes_single_process=refs[n_micro][
+                     "max_memory_allocated_bytes"],
+                 bf16_losses=[r["losses"] for r in bf],
+                 bf16_step_ms_per_rank=[r["step_ms"][0] for r in bf],
+                 bf16_peak_memory_bytes_per_rank=[
+                     r["max_memory_allocated_bytes"] for r in bf],
+                 timing_note=SHARED_CARD if shared else "one card per rank")
+            require(all(np.isfinite(r["losses"]).all() for r in bf),
+                    f"dist pipe {name}: non-finite bf16 losses")
+        return pipe_eval_check(os.path.join(tmp, "dist_pipe"), recs)
 
 
 def phase_dist_nccl1(tmp: str) -> None:
@@ -5726,13 +6208,19 @@ def dist_time_groups(tmp: str) -> None:
                  keep_state=True),
             dict(name="bf16", dtype="bfloat16", dropout=0.3, steps=1)]
     for name, world, model, time_axis, kind in TIME_LAYOUTS:
-        ref = single_reference(kind)
+        # the single process of the group's depth runs while its ranks do
+        group = start_dist_group(name, tmp, world, model, kind, runs,
+                                 time_axis=time_axis)
+        try:
+            ref = single_reference(kind)
+        except BaseException:
+            group.close()
+            raise
         cfg = crash_cfg(13 if kind == "crash" else CRASH_BLOCKS_MXT)
         params = sum(p.numel() for p in GWNetDiffG(cfg, device="cpu")
                      .parameters())
         data = world // (model * time_axis)
-        backend, recs, secs = dist_group(name, tmp, world, model, kind, runs,
-                                         time_axis=time_axis)
+        backend, recs, secs = group.wait()
         readings = dist_compare(name, recs, ref,
                                 os.path.join(tmp, f"dist_{name}"))
         bf = [r["bf16"] for r in recs]
@@ -5853,6 +6341,7 @@ def main() -> int:
                             "pallas"))
         counts.update(timed("aptonly", phase_aptonly, tmp))
         counts.update(timed("metr_cli", phase_metr_cli, tmp))
+        timed("data_feed", phase_data_feed, tmp)
         counts.update(timed("export", phase_export, tmp))
         counts.update(timed("serve_artifact", phase_serve_artifact, tmp))
         counts.update(timed("rolling", phase_rolling, tmp))
@@ -5861,9 +6350,17 @@ def main() -> int:
         counts.update(timed("dist_graphed", phase_dist_graphed, graph, tmp))
         timed("dist_diffg", phase_dist_diffg, tmp)
         timed("dist_time", phase_dist_time, tmp)
-        # dist_metr runs beside dist_city's torchrun pair, inside its time
+        # dist_metr and dist_pipe run beside dist_city's torchrun pair,
+        # inside its time
+        beside_counts = {}
+
+        def beside():
+            timed("dist_metr", phase_dist_metr)
+            beside_counts.update(timed("dist_pipe", phase_dist_pipe))
+
         counts.update(timed("dist_city", phase_dist_city, graph, tmp,
-                            lambda: timed("dist_metr", phase_dist_metr)))
+                            beside))
+        counts.update(beside_counts)
         counts.update(timed("dense", phase_dense))
         counts.update(timed("resident", phase_resident, graph))
         timed("determinism", phase_determinism, graph, tmp)
@@ -5884,19 +6381,21 @@ def main() -> int:
     # in the padded artifact, kernel 5 on the gradient through padded
     # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
     # rank's launches), also under model x time; kernels 1, 2 and 3 in the
-    # city step graphed under one NCCL rank; a graphed window counts every
-    # replay
+    # city step graphed under one NCCL rank; kernels 1 and 3 in the
+    # pipelined eval forward over flat supports (every rank's launches); a
+    # graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
               "artifact_padded", "serve_artifact", "rolling",
-              "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed")),
+              "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed", "dist_pipe")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
              ("train", "train_graphed", "dist_dp2_tp2", "dist_tp2_t2",
               "dist_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
-             ("serve", "train", "train_graphed", "rolling", "dist_graphed")),
+             ("serve", "train", "train_graphed", "rolling", "dist_graphed",
+              "dist_pipe")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
              ("serve_padded", "train_padded", "train_graphed_padded",
               "artifact_padded")),

@@ -42,7 +42,8 @@ device``; ``host`` copies every batch from the host), and takes the
 runner's ``--scan_steps`` (optimizer steps per fused call: a CUDA graph
 replayed per step on the card), ``--grad_accum``, ``--early_stop``,
 ``--epoch_timeout`` and ``--resume`` (the shared-graph synthetic task runs
-a step per batch).
+a step per batch); ``--profile DIR`` traces the whole run with
+``torch.profiler`` (``train.profiling.trace``).
 
 Parallel training (``parallel``), one process per rank under torchrun::
 
@@ -160,6 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epoch_timeout", type=float, default=0.0,
                    help="abort with save_dir/emergency.json if an epoch "
                         "exceeds this many seconds; 0 disables")
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler trace of the whole run "
+                        "(host and CUDA activity) to DIR/trace.json "
+                        "(Perfetto / chrome://tracing); under a mesh rank "
+                        "r > 0 writes DIR/rank<r>/trace.json")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume training from (full train "
                         "state); the run continues at its epoch + 1")
@@ -222,6 +228,12 @@ def main(argv=None) -> dict:
             if mesh is not None and mesh.rank:      # only rank 0 prints
                 quiet.enter_context(contextlib.redirect_stdout(
                     quiet.enter_context(open(os.devnull, "w"))))
+            if args.profile:
+                from graph_wavenet_tpu_torch.train.profiling import trace
+
+                quiet.enter_context(trace(
+                    args.profile if mesh is None or mesh.rank == 0
+                    else os.path.join(args.profile, f"rank{mesh.rank}")))
             if args.data == "syn":
                 result, runner, supports = _run_syn(args, mesh)
             elif args.data == "crash":
@@ -231,6 +243,8 @@ def main(argv=None) -> dict:
             else:
                 result, runner, supports = _run_metr(args, mesh)
             print(f"Total time spent: {time.time() - t0:.4f}", flush=True)
+        if args.profile and (mesh is None or mesh.rank == 0):
+            print(f"profiler trace written to {args.profile}", flush=True)
     finally:
         if started:
             import torch.distributed as dist

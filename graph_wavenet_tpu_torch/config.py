@@ -99,8 +99,9 @@ class TrainConfig:
       ``emergency.json`` and raises ``DeviceWedgedError`` (0: no watchdog);
     - ``async_checkpoint``: write epoch checkpoints on a thread;
     - ``keep_checkpoints``: keep the best this many (0: all);
-    - ``prefetch``: a host prefetch depth, which the port refuses (its
-      slice waits, ROADMAP.md; the device-resident loaders need none).
+    - ``prefetch``: batches a host-resident loader copies to the device
+      ahead of the step, on a thread (``data.prefetch``; 0: none); not
+      under a mesh, where the loaders are device-resident.
     """
 
     batch_size: int = 64

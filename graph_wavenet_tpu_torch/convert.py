@@ -15,6 +15,11 @@ keyed "0", "1", ...):
 The per-sample-graph (diff-G) model has the same tree; under
 ``fresh_nodevec`` it has no ``nodevec1``/``nodevec2``, and neither has
 the port's ``GWNetDiffG``.
+
+:func:`load_pth` loads a reference checkpoint (a ``.pth`` holding the
+reference model's raw ``state_dict``, whose names and layouts the port's
+``GWNet`` keeps) into a ``GWNet``: the counterpart of JAX
+``utils/torch_import.load_pth``.
 """
 
 from __future__ import annotations
@@ -80,3 +85,32 @@ def params_from_jax(params: dict, model_state: dict,
         sd[f"bn.{i}.running_var"] = _t(bn["var"])
         sd[f"bn.{i}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+def load_pth(path: str, cfg: ModelConfig, *,
+             device: torch.device | str = "cuda"):
+    """A :class:`models.gwnet.GWNet` of ``cfg`` holding the weights of the
+    reference ``.pth`` at ``path``, in eval mode on ``device``. Refuses a
+    key set or a shape that ``cfg`` does not make (a missing
+    ``num_batches_tracked``, which older checkpoints lack, counts 0)."""
+    from graph_wavenet_tpu_torch import resolve_device
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+
+    device = resolve_device(device)
+    sd = {k: torch.as_tensor(v) for k, v in torch.load(
+        path, map_location="cpu", weights_only=True).items()}
+    model = GWNet(cfg, device="cpu")
+    want = model.state_dict()
+    for k in want:
+        if k.endswith("num_batches_tracked") and k not in sd:
+            sd[k] = torch.zeros((), dtype=torch.long)
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or extra:
+        raise ValueError(f"{path} does not fit the config: missing "
+                         f"{missing[:8]}, unexpected {extra[:8]}")
+    bad = [f"{k} {tuple(sd[k].shape)} (config: {tuple(v.shape)})"
+           for k, v in want.items() if sd[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"{path} does not fit the config: {bad[:8]}")
+    model.load_state_dict({k: sd[k].to(v.dtype) for k, v in want.items()})
+    return model.to(device).eval()

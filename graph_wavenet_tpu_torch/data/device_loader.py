@@ -9,7 +9,7 @@ one (S, B) index matrix for S steps):
 
 - :class:`DeviceWindowLoader`: the raw series resident, the x and y
   windows of each batch gathered from it (the device counterpart of
-  ``data.loader.WindowDataLoader``);
+  ``data.native_loader.WindowDataLoader``);
 - :class:`DeviceArrayLoader`: prebuilt sample arrays resident, each batch
   an ``index_select`` by sample index (the counterpart of
   ``data.loader.DataLoader``); with ``adj_idx`` (per-sample graphs) its
@@ -43,17 +43,14 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch import resolve_device
-from graph_wavenet_tpu_torch.data.loader import (
-    DataLoader,
-    WindowDataLoader,
-    pad_with_last,
-)
+from graph_wavenet_tpu_torch.data.loader import DataLoader, pad_with_last
+from graph_wavenet_tpu_torch.data.native_loader import WindowDataLoader
 
 
 def gather_window_rows(src: torch.Tensor, starts: torch.Tensor,
                        length: int) -> torch.Tensor:
     """(T, ...) resident series and (B,) start rows -> (B, length, ...):
-    the device form of ``data.loader.gather_windows`` (no range check: the
+    the device form of ``data.native_loader.gather_windows`` (no range check: the
     loaders validate their anchors when they are built)."""
     idx = starts[:, None] + torch.arange(length, device=starts.device,
                                          dtype=starts.dtype)[None, :]

@@ -9,8 +9,9 @@ Counterpart of ``graph_wavenet_tpu/data/metr.py``, host resident:
   seeded numpy Generator;
 - :func:`load_dataset_streaming`: the same samples, splits and scaler
   straight from the raw (T, N) readings, windows assembled per batch
-  (:class:`data.loader.WindowDataLoader`); the scaler equals the
-  materialized fit through window-multiplicity weights.
+  (:class:`data.native_loader.WindowDataLoader`, the native window
+  gather); the scaler equals the materialized fit through
+  window-multiplicity weights.
 
 ``resident="device"`` keeps the splits on ``device`` instead and gathers
 every batch there (``data.device_loader``): the same batches in the same
@@ -31,12 +32,15 @@ from graph_wavenet_tpu_torch.data.device_loader import (
     DeviceWindowLoader,
     resident as to_resident,
 )
-from graph_wavenet_tpu_torch.data.loader import (
-    DataLoader,
+from graph_wavenet_tpu_torch.data.loader import DataLoader
+from graph_wavenet_tpu_torch.data.native_loader import (
     WindowDataLoader,
     gather_windows,
 )
-from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+from graph_wavenet_tpu_torch.data.scaler import (
+    StandardScaler,
+    apply_feature0_scaling,
+)
 
 
 def _check_resident(resident: str) -> None:
@@ -72,9 +76,7 @@ def load_dataset(dataset_dir: str, batch_size: int, seed: int = 0,
             data["y_" + category] = cat["y"].astype(np.float32)
     if scaler is None:
         scaler = StandardScaler.fit(data["x_train"][..., 0])
-    for category in ("train", "val", "test"):
-        x = data["x_" + category]
-        x[..., 0] = scaler.transform(x[..., 0])
+    apply_feature0_scaling(data, scaler)
     if node_layout is not None:
         from graph_wavenet_tpu_torch.graphs.city import apply_layout_to_data
 

@@ -1,6 +1,8 @@
 """Standardization of input features (copy of the reference package's
 ``data/scaler.py``): fit on the raw signal channel, transform feature 0
-of every split in place."""
+of every split in place (C-contiguous float32 arrays through the native
+library's threaded kernel, ``data.native_loader``; numpy otherwise, bit
+for bit the same)."""
 
 from __future__ import annotations
 
@@ -29,7 +31,12 @@ class StandardScaler:
 def apply_feature0_scaling(data: dict, scaler: StandardScaler) -> None:
     """Standardize feature 0 of ``x_train``/``x_val``/``x_test`` in place;
     the targets stay in raw units."""
+    from graph_wavenet_tpu_torch.data.native_loader import (
+        standardize_feature0,
+    )
+
     for category in ("train", "val", "test"):
         key = "x_" + category
-        if key in data:
+        if key in data and not standardize_feature0(
+                data[key], scaler.mean, scaler.std):
             data[key][..., 0] = scaler.transform(data[key][..., 0])

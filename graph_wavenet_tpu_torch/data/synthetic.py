@@ -219,8 +219,36 @@ class MultiModalityPrediction:
         """Flattened (n*windows, K, N, 2) arrays (`dataTools.py:240-258`)."""
         x = self.samples[split]["x"]
         y = self.samples[split]["y"]
-        return (x.reshape(-1, *x.shape[2:]).copy(),
-                y.reshape(-1, *y.shape[2:]).copy())
+        return (_copy(x.reshape(-1, *x.shape[2:])),
+                _copy(y.reshape(-1, *y.shape[2:])))
+
+    def astype(self, dtype) -> None:
+        """Cast every stored sample array to the numpy ``dtype``
+        (`dataTools.py:260-273`); a tensor placed by :meth:`to` keeps its
+        device."""
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        for split in self.samples.values():
+            for key, a in split.items():
+                split[key] = (a.to(tdtype) if torch.is_tensor(a)
+                              else np.asarray(a).astype(dtype))
+
+    def to(self, device) -> None:
+        """Place every stored sample on ``device`` as a tensor
+        (`dataTools.py:275-285`)."""
+        for split in self.samples.values():
+            for key in split:
+                split[key] = torch.as_tensor(split[key], device=device)
+
+    def evaluate(self, y_hat, y, tol: float = 1e-9) -> torch.Tensor:
+        """The column-normalized batch-time RMSE of ``y_hat`` against ``y``
+        (`dataTools.py:287-292`; ``tol`` is unused there too)."""
+        from graph_wavenet_tpu_torch.train.metrics import batch_time_mse
+
+        return batch_time_mse(torch.as_tensor(y_hat), torch.as_tensor(y))
+
+
+def _copy(a):
+    return a.clone() if torch.is_tensor(a) else a.copy()
 
 
 def load_dataset_syn(cfg: DataConfig, batch_size: int, seed: int = 0,

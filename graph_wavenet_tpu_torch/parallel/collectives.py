@@ -3,7 +3,8 @@
 all-reduce, the row all_gather and the row reduce-scatter (each
 differentiable, the last two each other's transpose), the two-neighbour
 exchange, the one-direction shift along a chain of ranks (differentiable;
-time-halo sequence parallelism, ``parallel.halo``) and the gradient
+time-halo sequence parallelism, ``parallel.halo``, and the pipeline's
+hand-off from stage to stage, ``parallel.pipeline``) and the gradient
 all-reduce.
 
 Every function takes a process group, or None for a layout of one rank, in

@@ -1,5 +1,5 @@
 """The grid of ranks: data parallelism (DP) x node tensor parallelism x
-time-halo sequence parallelism.
+time-halo sequence parallelism, or data x pipeline stages.
 
 Counterpart of ``graph_wavenet_tpu/parallel/mesh.py``. JAX builds a device
 mesh and lets GSPMD partition a step by the arrays' ``NamedSharding``s; the
@@ -25,6 +25,12 @@ in JAX's ``(data, model, time)`` reshape. Parameters are replicated: every
 rank holds all of them and applies the same update. The axes compose: the
 ranks of a time group share a node range, those of a model group a time
 block.
+
+The pipeline (``parallel.pipeline``) has a mesh of its own, JAX's (data,
+pipe) grid: axis ``pipe`` (S_p ranks) holds the stages, rank ``d * S_p +
+p``, the stage index innermost; ``pipe_group`` is a data row's stages and
+``data_group`` a stage's data ranks (its BatchNorm statistics). It has no
+model or time axis, and :func:`make_mesh` refuses to compose them.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch.distributed as dist
 
 from graph_wavenet_tpu_torch.config import MeshConfig
 
-DATA, MODEL, TIME = "data", "model", "time"
+DATA, MODEL, TIME, PIPE = "data", "model", "time", "pipe"
 
 
 @dataclass(eq=False)
@@ -57,10 +63,19 @@ class Mesh:
     time: int = 1             # ranks on the time axis (S_t)
     time_group: object = None  # the ranks of this rank's (data, model)
     time_ranks: tuple = (0,)  # global ranks of time_group, in order
+    pipe: int = 1             # pipeline stages (S_p)
+    pipe_group: object = None  # the stages of this rank's data row
+    pipe_ranks: tuple = (0,)  # global ranks of pipe_group, in order
+    data_group: object = None  # the pipeline: this stage's data ranks
+    data_ranks: tuple = (0,)  # global ranks of data_group, in order
 
     @property
     def data_index(self) -> int:
-        return self.rank // (self.model * self.time)
+        return self.rank // (self.model * self.time * self.pipe)
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank % self.pipe
 
     @property
     def model_index(self) -> int:
@@ -78,10 +93,12 @@ class Mesh:
 
     @property
     def world_size(self) -> int:
-        return self.data * self.model * self.time
+        return self.data * self.model * self.time * self.pipe
 
     @property
     def shape(self) -> dict:
+        if self.pipe > 1:
+            return {DATA: self.data, PIPE: self.pipe}
         return {DATA: self.data, MODEL: self.model, TIME: self.time}
 
     def batch_rows(self, b: int, n_micro: int = 1) -> np.ndarray:
@@ -154,22 +171,30 @@ class Mesh:
 
 def make_mesh(cfg: MeshConfig | None = None,
               device: torch.device | str = "cpu",
-              timeout_s: float = 600.0) -> Mesh:
+              timeout_s: float = 600.0, pipe: int = 1) -> Mesh:
     """This rank's :class:`Mesh` over the initialized process group
     (``parallel.multihost.initialize``), or the one-rank mesh without one.
-    The data axis takes what the model and time axes leave.
-    Every rank must call it, in the same order: it creates the groups."""
+    The data axis takes what the model and time axes (or the ``pipe``
+    stages) leave. Every rank must call it, in the same order: it creates
+    the groups."""
     cfg = cfg or MeshConfig()
     device = torch.device(device)
     n = dist.get_world_size() if dist.is_initialized() else 1
     s, st = cfg.model_axis, cfg.time_axis
+    if pipe > 1 and (s > 1 or st > 1):
+        raise ValueError(
+            f"the pipeline's mesh is (data, pipe): a model axis of {s} and "
+            f"a time axis of {st} do not compose with {pipe} stages")
+    if pipe < 1 or n % pipe:
+        raise ValueError(f"{n} ranks do not divide into {pipe} pipeline "
+                         "stages")
     if n % (s * st):
         axis = (f"model x time axes {s} x {st}" if s > 1 and st > 1 else
                 f"time axis {st}" if st > 1 else f"model axis {s}")
         raise ValueError(f"{n} ranks do not divide by the {axis}")
-    d = n // (s * st)
+    d = n // (s * st * pipe)
     if not dist.is_initialized():
-        return Mesh(d, s, 0, device, time=st)
+        return Mesh(d, s, 0, device, time=st, pipe=pipe)
     rank = dist.get_rank()
     world = dist.group.WORLD
     timeout = datetime.timedelta(seconds=timeout_s)
@@ -195,6 +220,12 @@ def make_mesh(cfg: MeshConfig | None = None,
     time_group, time_ranks = groups(st, [
         [(i * s + m) * st + t for t in range(st)]
         for i in range(d) for m in range(s)])
-    return Mesh(d, s, rank, device, world=world, model_group=model_group,
+    mesh = Mesh(d, s, rank, device, world=world, model_group=model_group,
                 model_ranks=model_ranks, time=st, time_group=time_group,
-                time_ranks=time_ranks)
+                time_ranks=time_ranks, pipe=pipe)
+    if pipe > 1:
+        mesh.pipe_group, mesh.pipe_ranks = groups(pipe, [
+            [i * pipe + p for p in range(pipe)] for i in range(d)])
+        mesh.data_group, mesh.data_ranks = groups(d, [
+            [i * pipe + p for i in range(d)] for p in range(pipe)])
+    return mesh

@@ -92,6 +92,23 @@ def masked_mape(preds, labels, null_val: float = float("nan")):
     return masked_terms(preds, labels, null_val)[1]
 
 
+def batch_time_l1(yhat, y) -> torch.Tensor:
+    """The mean absolute error over every element, flattened (the
+    reference ``miscTools``' batch-time L1)."""
+    return torch.mean(torch.abs(yhat.reshape(-1) - y.reshape(-1)))
+
+
+def batch_time_mse(yhat, y) -> torch.Tensor:
+    """The mean over columns of ``||yhat - y|| / ||y||``: every axis but the
+    last two flattened into rows, the last two (N * F) kept as columns, as
+    the reference flattens ``x.view(-1, N*F)``; for (B, T, N, F) inputs the
+    norm runs over batch x time per (node, feature) column."""
+    cols = yhat.shape[-1] * yhat.shape[-2]
+    diff = (yhat - y).reshape(-1, cols)
+    return torch.mean(torch.linalg.vector_norm(diff, dim=0)
+                      / torch.linalg.vector_norm(y.reshape(-1, cols), dim=0))
+
+
 def global_terms(mae, mape, mse, group=None) -> torch.Tensor:
     """(3,) global (MAE, MAPE, RMSE) from every rank's parts, detached."""
     parts = all_reduce_(torch.stack([mae, mape, mse]).detach(), group)

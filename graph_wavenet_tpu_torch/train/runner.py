@@ -26,8 +26,11 @@ resume_from=path)`` restores a checkpoint's train state and continues at
 its epoch + 1. After the last epoch the writes drain, the checkpoints are
 pruned once more and the best-validation weights reload; the test scores
 them per horizon on the real (unpadded) test samples. Step metrics stay on
-the device until the end of the epoch. ``prefetch`` waits for its slice
-(ROADMAP.md), and the runner refuses it.
+the device until the end of the epoch. ``prefetch`` > 0 copies a
+host-resident loader's batches to the device that many steps ahead on a
+thread (``data.prefetch``; JAX ``Runner._feed``): the train, validation and
+test loops of every task take them from there, and a device-resident
+loader's batches pass through it unchanged.
 
 Under a mesh (``Runner(engine, cfg, mesh=...)``, the engine's: DP, node-TP
 and time SP, one process per rank) every rank runs the same loop on the same
@@ -78,6 +81,7 @@ import numpy as np
 import torch
 
 from graph_wavenet_tpu_torch.config import TrainConfig
+from graph_wavenet_tpu_torch.data.prefetch import prefetch_to_device
 from graph_wavenet_tpu_torch.parallel.collectives import all_gather_rows
 from graph_wavenet_tpu_torch.parallel.dense_tp import gather_nodes
 from graph_wavenet_tpu_torch.parallel.multihost import replicate_pytree
@@ -171,14 +175,15 @@ class Runner:
     def __init__(self, engine: Engine, train_cfg: TrainConfig,
                  log_fn=_print_flush, extra_meta: dict | None = None,
                  mesh=None):
-        if train_cfg.prefetch > 0:
-            raise NotImplementedError(
-                "TrainConfig.prefetch > 0: the host prefetch pipeline is not "
-                "ported (ROADMAP.md); the device-resident loaders "
-                "(resident='device') need none")
         mesh = engine.mesh if mesh is None else mesh
         if mesh is not engine.mesh:
             raise ValueError("Runner(mesh=) must be the engine's mesh")
+        if mesh is not None and train_cfg.prefetch > 0:
+            raise ValueError(
+                "Runner(mesh=...) does not compose with prefetch > 0: the "
+                "prefetch thread copies whole batches to one device; build "
+                "the loaders device-resident on the rank's device instead "
+                "(load_dataset(..., resident='device', device=mesh.device))")
         self.engine = engine
         self.cfg = train_cfg
         self.mesh = mesh
@@ -190,6 +195,15 @@ class Runner:
         self._ckpt_writer = (ckpt.AsyncCheckpointer()
                              if train_cfg.async_checkpoint and self.lead
                              else None)
+
+    def _feed(self, loader):
+        """The loader's batches, copied to the engine's device
+        ``cfg.prefetch`` steps ahead where that is > 0."""
+        if self.cfg.prefetch > 0:
+            return prefetch_to_device(loader.get_iterator(),
+                                      size=self.cfg.prefetch,
+                                      device=self.engine.device)
+        return loader.get_iterator()
 
     def _barrier(self) -> None:
         if self.mesh is not None:
@@ -233,7 +247,7 @@ class Runner:
                                                          supports))
         else:
             accum = self.cfg.grad_accum
-            for it, (x, y) in enumerate(loader.get_iterator()):
+            for it, (x, y) in enumerate(self._feed(loader)):
                 m = (engine.train_step_accum(x, y, supports, accum)
                      if accum > 1 else engine.train_step(x, y, supports))
                 steps.append(m)
@@ -262,7 +276,7 @@ class Runner:
             sel = next(loader.superbatches(loader.num_batch))
             return [engine.eval_steps_resident(xs, ys, sel, supports)]
         return [engine.eval_step(x, y, supports)
-                for x, y in loader.get_iterator()]
+                for x, y in self._feed(loader)]
 
     def fit(self, data: dict, supports,
             resume_from: str | None = None) -> RunResult:
@@ -330,7 +344,7 @@ class Runner:
         engine = self.engine
         loader = data["test_loader"]
         outputs, ids = [], []
-        for i, (x, _) in enumerate(loader.get_iterator()):
+        for i, (x, _) in enumerate(self._feed(loader)):
             outputs.append(engine.predict_step(x, supports)[:, 0])
             ids.append(i * loader.batch_size
                        + engine.batch_rows(loader.batch_size))
@@ -404,12 +418,12 @@ class Runner:
 
         def train_epoch(loader):
             return [self._syn_step(b[0], b[1], sup, proj, F_t)
-                    for b in loader.get_iterator()]
+                    for b in self._feed(loader)]
 
         def eval_split(loader):
             return [self._scalars(engine.eval_step_syn(b[0], b[1], sup, proj,
                                                        F_t))
-                    for b in loader.get_iterator()]
+                    for b in self._feed(loader)]
 
         return self._epochs(data, train_epoch, eval_split, resume_from)
 
@@ -424,7 +438,7 @@ class Runner:
                                                 n_communities))
         steps = [self._scalars(self.engine.eval_step_syn(b[0], b[1], sup,
                                                          proj, F_t))
-                 for b in data["test_loader"].get_iterator()]
+                 for b in self._feed(data["test_loader"])]
         result.test_metrics = _epoch_mean(steps)
         self._log_test(result.test_metrics)
         return result
@@ -448,8 +462,7 @@ class Runner:
     def _gathered(self, sup, proj, adj_idx):
         """The supports and projector of the graphs of a batch's rows (the
         engine takes this rank's rows of them)."""
-        idx = torch.as_tensor(np.asarray(adj_idx),
-                              device=self.engine.device).long()
+        idx = torch.as_tensor(adj_idx, device=self.engine.device).long()
         return (None if sup is None else [s.index_select(0, idx)
                                           for s in sup],
                 proj.index_select(0, idx))
@@ -476,7 +489,7 @@ class Runner:
 
         def train_epoch(loader):
             steps = []
-            batches = loader.get_iterator()
+            batches = self._feed(loader)
             if scan > 1 and hasattr(loader, "resident_arrays"):
                 xs, ys = loader.resident_arrays()
                 adj = loader.resident_adj_idx()
@@ -493,7 +506,7 @@ class Runner:
         def eval_split(loader):
             return [self._scalars(engine.eval_step_syn(
                 x, y, *self._gathered(sup["val"], proj["val"], adj_idx),
-                F_t)) for x, y, adj_idx in loader.get_iterator()]
+                F_t)) for x, y, adj_idx in self._feed(loader)]
 
         return self._epochs(data, train_epoch, eval_split, resume_from)
 
@@ -510,7 +523,7 @@ class Runner:
             {"test": supports_by_split["test"]},
             {"test": graphs_by_split["test"]}, n_communities)
         steps, reals, pred_fs, pred_es = [], [], [], []
-        for x, y, adj_idx in data["test_loader"].get_iterator():
+        for x, y, adj_idx in self._feed(data["test_loader"]):
             ev = self.engine.eval_step_syn(
                 x, y, *self._gathered(sup["test"], proj["test"], adj_idx),
                 F_t)

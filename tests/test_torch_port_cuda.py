@@ -1372,10 +1372,10 @@ def test_gloo_ranks_sharing_the_card_stage_collectives_and_shard_hops(
     assert res[0]["exchange"] == [x1, x1] and res[1]["exchange"] == [x0, x0]
     # d/dv_r of sum_q (q+1) * sum(all_sum(v)) = 1 + 2 on every rank
     assert res[0]["all_sum_grad"] == [3.0] * 3 == res[1]["all_sum_grad"]
-    # rows 0-1 summed to rank 0, rows 2-3 to rank 1; every summand's
-    # gradient is the all_gather of the cotangents (1 on rank 0's rows, 2
-    # on rank 1's)
-    summed = [[10.0 + 2 * i, 12.0 + 2 * i] for i in range(4)]
+    # rows 0-1 summed to rank 0, rows 2-3 to rank 1 (row i of the sum:
+    # [2i, 2i+1] + [10+2i, 11+2i]); every summand's gradient is the
+    # all_gather of the cotangents (1 on rank 0's rows, 2 on rank 1's)
+    summed = [[10.0 + 4 * i, 12.0 + 4 * i] for i in range(4)]
     assert res[0]["reduce_scatter"] == summed[:2]
     assert res[1]["reduce_scatter"] == summed[2:]
     for r in res:
@@ -1501,3 +1501,107 @@ def test_nccl_one_rank_steps_equal_plain_steps(card, tmp_path):
     one without a mesh, bit for bit (parameters and BatchNorm buffers)."""
     res = run_dist_child(tmp_path, "nccl1", 1)
     assert res[0]["differ"] == []
+
+
+PIPE_CHILD = r'''
+import json
+import sys
+
+import numpy as np
+import torch
+
+from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+from graph_wavenet_tpu_torch.parallel import multihost
+from graph_wavenet_tpu_torch.parallel.pipeline import (
+    make_pipeline_mesh,
+    make_pipeline_train_step,
+)
+from graph_wavenet_tpu_torch.train.engine import Engine
+
+rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+multihost.initialize("nccl", rank, world, init, device="cuda",
+                     timeout_s=240)
+dev = multihost.rank_device("cuda")
+mesh = make_pipeline_mesh(world, dev)
+cfg = ModelConfig(num_nodes=12, in_dim=2, out_dim=6, residual_channels=8,
+                  dilation_channels=8, skip_channels=16, end_channels=32,
+                  blocks=4, layers=2, dropout=0.0)
+rng = np.random.default_rng(0)
+x = rng.normal(size=(8, 12, 12, 2)).astype(np.float32)
+y = (rng.normal(size=(8, 6, 12, 2)) + 5.0).astype(np.float32)
+a = rng.random((2, 12, 12)).astype(np.float32)
+sups = [torch.as_tensor(s / s.sum(-1, keepdims=True), device=dev)
+        for s in a]
+pipe, ref = (Engine(cfg, TrainConfig(batch_size=8), StandardScaler(5.0, 2.0),
+                    device=dev, seed=0) for _ in range(2))
+got = make_pipeline_train_step(pipe, mesh, 2)(x, y, sups)
+want = ref.train_step_accum(x, y, sups, 2)
+rec = {"loss": [float(got["loss"]), float(want["loss"])], "grad_err": 0.0}
+for (k, p), q in zip(pipe.model.named_parameters(), ref.model.parameters()):
+    if q.grad is not None:
+        scale = float(q.grad.abs().max()) or 1.0
+        rec["grad_err"] = max(rec["grad_err"],
+                              float((p.grad - q.grad).abs().max()) / scale)
+rec["params"] = [float(p.double().sum()) for p in pipe.model.parameters()]
+with open(f"{out}/pipe{rank}.json", "w") as f:
+    json.dump(rec, f)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_nccl_two_ranks_pipeline_step_equals_train_step_accum(card,
+                                                              tmp_path):
+    """The pipeline over 2 NCCL stages, one card each (a 4 x 2 dense model,
+    2 micro-batches, dropout 0): its step's loss within 1e-5 and its
+    gradients within 1e-5 of each tensor's largest of one process's
+    ``train_step_accum`` on the same card, the ranks' parameters alike."""
+    import json
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PIPE_CHILD, str(r), "2",
+         f"file://{tmp_path}/rdzv", str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=repo, LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    res = [json.loads((tmp_path / f"pipe{r}.json").read_text())
+           for r in range(2)]
+    for r in res:
+        got, want = r["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want), r
+        assert r["grad_err"] <= 1e-5, r
+    assert res[0]["params"] == res[1]["params"]
+
+
+def test_prefetch_onto_the_card_equals_plain_copies(card):
+    """Batches prefetched onto the card on a side stream equal plain
+    copies of the same arrays, bit for bit, on the consumer's stream."""
+    from graph_wavenet_tpu_torch.data.loader import DataLoader
+    from graph_wavenet_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(64, 12, 207, 2)).astype(np.float32)
+    ys = rng.normal(size=(64, 12, 207, 2)).astype(np.float32)
+    dl = DataLoader(xs, ys, 8, rng=rng)
+    batches = list(dl.get_iterator())
+    got = list(prefetch_to_device(iter(batches), size=2, device=card))
+    assert len(got) == len(batches)
+    for (x, y), (gx, gy) in zip(batches, got):
+        assert gx.is_cuda and gy.is_cuda
+        assert torch.equal(gx * 1.0, torch.as_tensor(x, device=card))
+        assert torch.equal(gy, torch.as_tensor(y, device=card))

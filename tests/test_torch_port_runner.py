@@ -100,8 +100,13 @@ def test_runner_refusals(tmp_path):
     runner = make_runner(tmp_path, scan_steps=2, grad_accum=2)
     with pytest.raises(ValueError, match="grad_accum > 1 does not combine"):
         runner.fit(data, sups)
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        make_runner(tmp_path, prefetch=2)
+    # prefetch runs without a mesh and is refused under one
+    eng = make_runner(tmp_path, prefetch=2).engine
+    from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
+
+    eng.mesh = eng.model.mesh = make_mesh(device=CPU)
+    with pytest.raises(ValueError, match="prefetch > 0"):
+        Runner(eng, dataclasses.replace(eng.train_cfg, prefetch=2))
 
 
 def test_grad_accum_fit(tmp_path):
