@@ -221,6 +221,14 @@ exits non-zero:
    and kernel-3 launches counted in the ``kernels`` line's ``dist_pipe``
    window; it runs beside ``dist_city``'s torchrun pair, after
    ``dist_metr``.
+32. ``bench``: ``graph_wavenet_tpu_torch.benchmarks`` on the card
+   (``phase_bench``): the flagship train step (bf16, batch 64, graphed
+   steps) and inference rows, the 40,960-node sparse train step over flat
+   RCM blocks (kernels 1 and 3) and random padded blocks (kernel 4), each
+   kernel's first launch on the path against its plain version, no plain
+   version on the path, ``0 < mfu <= 1.05``, the flagship's FLOP count on
+   the card equal to the host CPU's, and the TPU's record refused by
+   ``band_check``.
 
 The script's cuts for time: the tile-width sweep at R = 3,072
 only, the dispatch table at the R of ``DISPATCH_R``, plain and library
@@ -6291,6 +6299,174 @@ def phase_dist_time(tmp: str) -> None:
             f"process {want}")
 
 
+# ---------------------------------------------------------------------------
+# the benchmark module
+# ---------------------------------------------------------------------------
+
+BENCH_STEPS = 6
+BENCH_SPARSE = (
+    ("bench_flat", "gathered_block_mix_flat",
+     dict(form="block-flat", graph="spatial", ordering="rcm")),
+    ("bench_pallas", "gathered_block_mix", dict(form="block-pallas")))
+# the wrappers of kernels 1, 3 and 4, each named as its launch count
+BENCH_WRAPPERS = ("gathered_block_mix_flat", "gathered_block_mix_flat2",
+                  "gathered_block_mix")
+PLAIN = ("mix_flat_plain", "mix_flat2_plain", "outer_flat_plain",
+         "mix_padded_plain", "outer_padded_plain")
+
+
+@contextlib.contextmanager
+def bench_watch():
+    """Inside the block: the five plain versions count their calls
+    (``plain``), and the kernel wrappers of 1, 3 and 4 record the first
+    call of each that launched its kernel (``first``: args, kwargs,
+    output), in ``block_diffusion`` and where ``block_sparse`` imported
+    them."""
+    from graph_wavenet_tpu_torch.ops import block_sparse as bsp
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    plain, first, saved = dict.fromkeys(PLAIN, 0), {}, []
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def recording(key, fn):
+        def wrapped(*a, **kw):
+            before = bd.LAUNCHES[key]
+            out = fn(*a, **kw)
+            if key not in first and bd.LAUNCHES[key] > before:
+                first[key] = (a, kw, out)
+            return out
+        return wrapped
+
+    for name in PLAIN:
+        saved.append((bd, name, getattr(bd, name)))
+        setattr(bd, name, counting(name, getattr(bd, name)))
+    for name in BENCH_WRAPPERS:
+        for mod in (bd, bsp):
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, recording(name, getattr(mod, name)))
+    try:
+        yield plain, first
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def bench_kernel_checks(first: dict) -> dict:
+    """Each recorded launch of the bench path (:func:`bench_watch`) against
+    its plain version on the same inputs, on the card: {launch key: max abs
+    error}."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    errs = {}
+    with torch.no_grad():
+        for key, (a, kw, out) in first.items():
+            kw = {k: v for k, v in kw.items()
+                  if k not in ("row_ptr", "dispatch", "lag")}
+            if key == "gathered_block_mix_flat":
+                err, ok, rule = close_err(out, bd.mix_flat_plain(*a, **kw))
+            elif key == "gathered_block_mix":
+                err, ok, rule = close_err(out,
+                                          bd.mix_padded_plain(*a, **kw))
+            else:
+                # hop 2 against the plain hop over the kernel's own out1
+                blocks, slot, _, src, row = a
+                e1, ok1, rule = close_err(out[0],
+                                          bd.mix_flat2_plain(*a, **kw)[0],
+                                          summand=kw.get("add"))
+                e2, ok2, _ = close_err(out[1], bd.mix_flat_plain(
+                    blocks, slot, out[0], src, row, nb=kw["nb"],
+                    transpose_lhs=kw["transpose_lhs"]))
+                err, ok = max(e1, e2), ok1 and ok2
+            errs[key] = err
+            require(ok, f"{key} on the bench path disagrees with its plain "
+                        f"version: {err} ({rule})")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_bench() -> dict:
+    """``graph_wavenet_tpu_torch.benchmarks`` on the card: the flagship
+    train step (bench.py's config in bf16, batch 64, S = 25 graphed steps a
+    call) and inference (fp32, batch 1 and 64, and the autoregressive
+    rollout); the 40,960-node sparse train step (bf16, batch 4) over the
+    RCM spatial graph in flat blocks (kernel 1, and kernel 3 where the
+    dispatch rule picks it) and over random padded blocks (kernel 4),
+    each of 6 timed steps. Checks: each sparse row's launches hold its
+    kernels and no plain version runs on any row (the dense rows launch no
+    hand kernel), the first launch of each kernel on the path agrees with
+    its plain version on the same inputs, ``0 < mfu <= 1.05`` on every
+    counted row, the flagship step's FLOP count equals the same step's
+    count on the host CPU exactly, and ``band_check`` refuses the TPU's
+    record (``fig/perf_table.json``) by device name. Returns the sparse
+    rows' launch windows."""
+    import dataclasses
+
+    import torch
+
+    from graph_wavenet_tpu_torch import benchmarks as B
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    cfg = dataclasses.replace(B.FLAGSHIP, dtype="bfloat16")
+    bd.reset_launch_counts()
+    with bench_watch() as (plain, _):
+        dense = B.bench_train_step(cfg, batch=64, steps=25)
+        infer = B.bench_inference(B.FLAGSHIP, batches=(1, 64))
+    dense_launches = dict(bd.LAUNCHES)
+    host_flops = B.train_step_flops(cfg, batch=64, device="cpu")
+    emit("bench_train_step", config="metr-la-full", dtype="bfloat16",
+         batch=64, row=dense, launches=dense_launches, plain_calls=plain,
+         cpu_flops_per_step=host_flops)
+    emit("bench_inference", config="metr-la-full", dtype="float32",
+         rows=infer)
+    require(not any(dense_launches.values()) and not any(plain.values()),
+            f"the dense rows launched {dense_launches}, plain {plain}")
+    require(dense["flops_per_step"] == host_flops,
+            f"the flagship step counts {dense['flops_per_step']} FLOPs on "
+            f"the card and {host_flops} on the CPU")
+    rows, counts = {"dense": dense}, {}
+    for key, kernel, kw in BENCH_SPARSE:
+        with bench_watch() as (plain, first):
+            bd.reset_launch_counts()
+            row = B.bench_sparse_train_step(n_nodes=N_CITY,
+                                            steps=BENCH_STEPS, **kw)
+            counts[key] = dict(bd.LAUNCHES)
+        launched = {k for k, v in counts[key].items() if v}
+        require(launched <= set(first),
+                f"{key}: {sorted(launched - set(first))} launched with no "
+                f"first launch recorded to hold against its plain version")
+        errs = bench_kernel_checks(first)
+        emit("bench_sparse_train_step", window=key, nodes=N_CITY, batch=4,
+             dtype="bfloat16", row=row, launches=counts[key],
+             plain_calls=plain, max_abs_err=errs)
+        require(counts[key][kernel] > 0 and not any(plain.values()),
+                f"{key}: launches {counts[key]}, plain calls {plain}")
+        rows[key] = row
+        torch.cuda.empty_cache()
+    require(counts["bench_flat"]["gathered_block_mix_flat2"] > 0,
+            "the flat bench step launched no kernel 3")
+    for key, row in rows.items():
+        require(row["mfu"] is not None and 0 < row["mfu"] <= 1.05,
+                f"{key}: mfu {row['mfu']} outside (0, 1.05]")
+    refusal = None
+    try:
+        B.band_check(os.path.join(REPO, "fig", "perf_table.json"))
+    except SystemExit as e:
+        refusal = str(e)
+    kind = torch.cuda.get_device_name(0)
+    emit("bench_band_check", record="fig/perf_table.json", refusal=refusal)
+    require(refusal is not None and "TPU v5 lite" in refusal
+            and kind in refusal,
+            f"band_check did not refuse the TPU record: {refusal!r}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -6367,6 +6543,7 @@ def main() -> int:
     counts.update(timed("kernel5_path", phase_kernel5_path, padded))
     timed("tp_tables", phase_tp_tables, graph)
     timed("tp_local", phase_tp_local, graph)
+    counts.update(timed("bench", phase_bench))
 
     # launches on the main paths (each window driven with the counts set to
     # 0 just before it and read just after): kernel 1 serving the 128x512
@@ -6382,23 +6559,25 @@ def main() -> int:
     # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
     # rank's launches), also under model x time; kernels 1, 2 and 3 in the
     # city step graphed under one NCCL rank; kernels 1 and 3 in the
-    # pipelined eval forward over flat supports (every rank's launches); a
-    # graphed window counts every replay
+    # pipelined eval forward over flat supports (every rank's launches);
+    # kernels 1 and 3 in the benchmark module's flat city step and kernel 4
+    # in its padded one; a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
             ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
               "artifact_padded", "serve_artifact", "rolling",
-              "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed", "dist_pipe")),
+              "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed", "dist_pipe",
+              "bench_flat")),
             ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
              ("train", "train_graphed", "dist_dp2_tp2", "dist_tp2_t2",
               "dist_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
              ("serve", "train", "train_graphed", "rolling", "dist_graphed",
-              "dist_pipe")),
+              "dist_pipe", "bench_flat")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
              ("serve_padded", "train_padded", "train_graphed_padded",
-              "artifact_padded")),
+              "artifact_padded", "bench_pallas")),
             ("k5", "gathered_block_outer", K5_SRC, K5_TPU,
              ("kernel5_path",))):
         rec = summary[key]

@@ -1,18 +1,144 @@
-"""Block-locality node orderings for the flat block-sparse supports.
+"""Node orderings: the reference's graphTools orderings and community
+source nodes, and the block-locality orderings for the flat block-sparse
+supports.
 
-A copy of the block-locality part of ``graph_wavenet_tpu/graphs/ordering.py``
-(``rcm_order_edges``, ``hilbert_order_points``, ``best_block_ordering``,
-``_fusable``, ``block_locality_stats``), host-side numpy. The ordering
-decides how many 128x128 blocks are live, which is what the diffusion
-kernels' work is proportional to, and whether a layout's band is narrow
-enough for the fused order-2 kernel.
+A copy of ``graph_wavenet_tpu/graphs/ordering.py``, host-side numpy:
+
+- ``computeSourceNodes`` and the ``perm*`` orderings of the reference's
+  ``Utils/graphTools.py``: :func:`spectral_clustering`
+  (normalized-Laplacian eigenvectors and a seeded Lloyd :func:`_kmeans`),
+  :func:`compute_source_nodes`, :func:`perm_identity`, :func:`perm_degree`,
+  :func:`perm_spectral_proxies` and :func:`perm_eds`. Each ``perm*`` returns ``(S_permuted, order)``, the
+  order applied to the GSO's rows and columns. One seed gives the reference
+  package's labels and orders bit for bit: the same numpy calls consume the
+  ``np.random.Generator`` in the same order. They are the reference's
+  graphTools API, kept for parity with it: nothing in the package calls
+  them;
+- the block-locality orderings (:func:`rcm_order_edges`,
+  :func:`hilbert_order_points`, :func:`best_block_ordering`, ``_fusable``,
+  :func:`block_locality_stats`). The ordering decides how many 128x128
+  blocks are live, which is what the diffusion kernels' work is
+  proportional to, and whether a layout's band is narrow enough for the
+  fused order-2 kernel.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from graph_wavenet_tpu_torch.graphs.generate import (
+    adjacency_to_laplacian,
+    normalize_laplacian,
+)
 from graph_wavenet_tpu_torch.ops.cuda.block_diffusion import fused2_schedule
+
+
+# ---------------------------------------------------------------------------
+# graphTools orderings and source nodes (graphTools.py:364-393, 829-1000)
+# ---------------------------------------------------------------------------
+
+def _kmeans(points: np.ndarray, k: int, rng: np.random.Generator,
+            iters: int = 100) -> np.ndarray:
+    """Plain Lloyd k-means; returns per-point labels."""
+    n = len(points)
+    centers = points[rng.choice(n, size=k, replace=False)]
+    labels = np.zeros(n, dtype=np.int64)
+    for _ in range(iters):
+        d = ((points[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+        new_labels = d.argmin(1)
+        if np.array_equal(new_labels, labels):
+            break
+        labels = new_labels
+        for c in range(k):
+            mask = labels == c
+            if mask.any():
+                centers[c] = points[mask].mean(0)
+            else:  # re-seed an empty cluster at the farthest point
+                centers[c] = points[d.min(1).argmax()]
+    return labels
+
+
+def spectral_clustering(W: np.ndarray, k: int,
+                        rng: np.random.Generator | None = None
+                        ) -> np.ndarray:
+    """Normalized spectral clustering: bottom-k eigenvectors of the
+    normalized Laplacian, row-normalized, k-means. Returns labels (N,)."""
+    rng = rng if rng is not None else np.random.default_rng(0)
+    W = np.asarray(W, dtype=np.float64)
+    Wsym = 0.5 * (W + W.T)
+    L = normalize_laplacian(adjacency_to_laplacian(Wsym))
+    _, vecs = np.linalg.eigh(L)
+    emb = vecs[:, :k]
+    norms = np.linalg.norm(emb, axis=1, keepdims=True)
+    emb = emb / np.where(norms > 0, norms, 1.0)
+    return _kmeans(emb, k, rng)
+
+
+def compute_source_nodes(A: np.ndarray, C: int,
+                         rng: np.random.Generator | None = None
+                         ) -> list[int]:
+    """Cluster the graph into C communities and pick the highest-degree node
+    of each. Always returns exactly C distinct nodes: an empty cluster
+    (k-means degeneracy on tiny graphs) is backfilled with the
+    highest-degree node not yet chosen, so a C-class source-localization
+    label space stays complete."""
+    A = np.asarray(A, dtype=np.float64)
+    labels = spectral_clustering(A, C, rng)
+    degree = A.sum(axis=1)
+    sources: list[int] = []
+    for c in range(C):
+        idx = np.nonzero(labels == c)[0]
+        if len(idx):
+            sources.append(int(idx[degree[idx].argmax()]))
+    for n in np.argsort(-degree, kind="stable"):
+        if len(sources) >= C:
+            break
+        if int(n) not in sources:
+            sources.append(int(n))
+    return sources
+
+
+def perm_identity(S: np.ndarray) -> tuple[np.ndarray, list[int]]:
+    """No-op ordering."""
+    return S.copy(), list(range(S.shape[0]))
+
+
+def _permute(S: np.ndarray, order: np.ndarray) -> np.ndarray:
+    return S[np.ix_(order, order)]
+
+
+def perm_degree(S: np.ndarray) -> tuple[np.ndarray, list[int]]:
+    """Decreasing-degree ordering; degree summed over symmetrized |S|."""
+    Ssym = 0.5 * (np.abs(S) + np.abs(S).T)
+    order = np.argsort(-Ssym.sum(axis=1), kind="stable")
+    return _permute(S, order), order.tolist()
+
+
+def perm_spectral_proxies(S: np.ndarray, k: int = 8
+                          ) -> tuple[np.ndarray, list[int]]:
+    """Ordering by the spectral-proxy score |S^k 1| (decreasing), a
+    power-iteration proxy for eigenvector centrality (the reference's
+    ``permSpectralProxies`` reduced to its score ordering)."""
+    v = np.ones(S.shape[0])
+    Sk = np.linalg.matrix_power(np.asarray(S, dtype=np.float64), k)
+    score = np.abs(Sk @ v)
+    order = np.argsort(-score, kind="stable")
+    return _permute(S, order), order.tolist()
+
+
+def perm_eds(S: np.ndarray) -> tuple[np.ndarray, list[int]]:
+    """Experimentally-designed-sampling ordering: by leverage score
+    (squared first-eigenvector magnitude, decreasing)."""
+    Ssym = 0.5 * (S + S.T)
+    e, V = np.linalg.eigh(np.asarray(Ssym, dtype=np.float64))
+    lead = V[:, np.argmax(np.abs(e))]
+    order = np.argsort(-(lead ** 2), kind="stable")
+    return _permute(S, order), order.tolist()
+
+
+# ---------------------------------------------------------------------------
+# block-locality orderings (the flat block-sparse supports)
+# ---------------------------------------------------------------------------
 
 
 def rcm_order_edges(src: np.ndarray, dst: np.ndarray, n_nodes: int

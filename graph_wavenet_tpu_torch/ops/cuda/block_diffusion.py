@@ -28,7 +28,9 @@ kernel, so ``torch.export`` writes the ops into an artifact and a loader
 needs this module (not the model code) to run it. A CUDA tensor goes to the
 kernel or raises; a CPU tensor goes to the plain PyTorch version beside it
 (gather, fp32 einsum, and for the mixes ``index_add_`` over the destination
-rows and a cast). Each op counts its kernel launches in :data:`LAUNCHES`.
+rows and a cast). Each op counts its kernel launches in :data:`LAUNCHES`
+and carries a FLOP formula for ``torch.utils.flop_counter.FlopCounterMode``
+(the reference kernel's ``CostEstimate`` flops).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from graph_wavenet_tpu_torch.ops.cuda import build
 
@@ -263,7 +266,12 @@ def _check_aligned(blocks: torch.Tensor) -> None:
 # shape and dtype from the arguments alone, so ``torch.export`` traces the
 # ops into an artifact and a CUDA graph captures them like any ATen op. The
 # public wrappers check their arguments and call the ops; no other device
-# has a kernel.
+# has a kernel. Each op's FLOP formula (``torch.utils.flop_counter``, read
+# by ``benchmarks``) is the reference kernel's ``CostEstimate`` flops over
+# the op's shapes, with R the op's own column count (the reference pads R to
+# its tile) and, in the padded form, every slot of the (NB, MB) table,
+# sentinels included, as the reference counts them. FlopCounterMode does not
+# look inside an op, so a CPU kernel's einsums are not counted twice.
 
 _LIB = torch.library.Library("gwt_torch", "DEF")
 
@@ -308,6 +316,12 @@ def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
     return x.new_empty((nb, bs_o, x.shape[2]))
 
 
+@register_flop_formula(torch.ops.gwt_torch.mix_flat)
+def _(blocks, slot, x, *args, out_shape=None, **kwargs) -> int:
+    # the reference's CostEstimate (Pallas block_diffusion.py:227), R unpadded
+    return 2 * slot[0] * blocks[1] * blocks[2] * x[2]
+
+
 @_mix_flat_op.register_cuda
 def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
     if row_ptr is None:
@@ -345,6 +359,12 @@ _mix_flat2_op = _Op(
 @_mix_flat2_op.register_fake
 def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
     return torch.empty_like(x), torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.gwt_torch.mix_flat2)
+def _(blocks, slot, x, *args, out_shape=None, **kwargs) -> int:
+    # both hops (Pallas block_diffusion.py:620)
+    return 4 * slot[0] * blocks[1] * blocks[2] * x[2]
 
 
 @_mix_flat2_op.register_cuda
@@ -392,6 +412,12 @@ def _(x, g, src, row, slot, n_slots, out_dtype):
                        dtype=out_dtype or torch.float32)
 
 
+@register_flop_formula(torch.ops.gwt_torch.outer_flat)
+def _(x, g, src, *args, out_shape=None, **kwargs) -> int:
+    # Pallas block_diffusion.py:296
+    return 2 * src[0] * x[1] * g[1] * x[2]
+
+
 @_outer_flat_op.register_cuda
 def _(x, g, src, row, slot, n_slots, out_dtype):
     out_dtype = out_dtype or torch.float32
@@ -426,6 +452,13 @@ def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
     return x_pad.new_empty((src_tbl.shape[0],) + tuple(x_pad.shape[1:]))
 
 
+@register_flop_formula(torch.ops.gwt_torch.mix_padded)
+def _(blocks_flat, slot_tbl, x_pad, src_tbl, *args, out_shape=None,
+      **kwargs) -> int:
+    # every (NB, MB) slot, sentinels included (Pallas block_diffusion.py:119)
+    return 2 * src_tbl[0] * src_tbl[1] * x_pad[1] * x_pad[1] * x_pad[2]
+
+
 @_mix_padded_op.register_cuda
 def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
     _check_aligned(blocks_flat)
@@ -458,6 +491,12 @@ _outer_padded_op = _Op(
 def _(x_pad, g_blocks, src_tbl, out_dtype):
     bs = x_pad.shape[1]
     return x_pad.new_empty(tuple(src_tbl.shape) + (bs, bs), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.gwt_torch.outer_padded)
+def _(x_pad, g_blocks, src_tbl, *args, out_shape=None, **kwargs) -> int:
+    # Pallas block_diffusion.py:359
+    return 2 * src_tbl[0] * src_tbl[1] * x_pad[1] * x_pad[1] * x_pad[2]
 
 
 @_outer_padded_op.register_cuda

@@ -171,15 +171,24 @@ class Mesh:
 
 def make_mesh(cfg: MeshConfig | None = None,
               device: torch.device | str = "cpu",
-              timeout_s: float = 600.0, pipe: int = 1) -> Mesh:
+              timeout_s: float = 600.0, pipe: int = 1,
+              ranks: int | None = None) -> Mesh | None:
     """This rank's :class:`Mesh` over the initialized process group
     (``parallel.multihost.initialize``), or the one-rank mesh without one.
     The data axis takes what the model and time axes (or the ``pipe``
     stages) leave. Every rank must call it, in the same order: it creates
-    the groups."""
+    the groups.
+
+    ``ranks``: the mesh spans only the first ``ranks`` ranks of the group
+    (default: all of them), which keep their global rank numbers; a rank
+    outside it gets None and takes no part in the mesh's steps (weak
+    scaling over 1, 2, 4 ... ranks)."""
     cfg = cfg or MeshConfig()
     device = torch.device(device)
-    n = dist.get_world_size() if dist.is_initialized() else 1
+    total = dist.get_world_size() if dist.is_initialized() else 1
+    n = total if ranks is None else ranks
+    if not 1 <= n <= total:
+        raise ValueError(f"a mesh over {n} ranks needs 1 to {total}")
     s, st = cfg.model_axis, cfg.time_axis
     if pipe > 1 and (s > 1 or st > 1):
         raise ValueError(
@@ -196,8 +205,11 @@ def make_mesh(cfg: MeshConfig | None = None,
     if not dist.is_initialized():
         return Mesh(d, s, 0, device, time=st, pipe=pipe)
     rank = dist.get_rank()
-    world = dist.group.WORLD
     timeout = datetime.timedelta(seconds=timeout_s)
+    world = (dist.group.WORLD if n == total else
+             dist.new_group(list(range(n)), timeout=timeout))
+    if rank >= n:
+        world = None
 
     def groups(size: int, members) -> tuple:
         """Every rank creates every group of ``size`` ranks (collectively,
@@ -220,12 +232,18 @@ def make_mesh(cfg: MeshConfig | None = None,
     time_group, time_ranks = groups(st, [
         [(i * s + m) * st + t for t in range(st)]
         for i in range(d) for m in range(s)])
+    pipe_groups = data_groups = (None, ())
+    if pipe > 1:
+        pipe_groups = groups(pipe, [
+            [i * pipe + p for p in range(pipe)] for i in range(d)])
+        data_groups = groups(d, [
+            [i * pipe + p for i in range(d)] for p in range(pipe)])
+    if rank >= n:
+        return None
     mesh = Mesh(d, s, rank, device, world=world, model_group=model_group,
                 model_ranks=model_ranks, time=st, time_group=time_group,
                 time_ranks=time_ranks, pipe=pipe)
     if pipe > 1:
-        mesh.pipe_group, mesh.pipe_ranks = groups(pipe, [
-            [i * pipe + p for p in range(pipe)] for i in range(d)])
-        mesh.data_group, mesh.data_ranks = groups(d, [
-            [i * pipe + p for i in range(d)] for p in range(pipe)])
+        mesh.pipe_group, mesh.pipe_ranks = pipe_groups
+        mesh.data_group, mesh.data_ranks = data_groups
     return mesh

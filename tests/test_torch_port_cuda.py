@@ -1605,3 +1605,36 @@ def test_prefetch_onto_the_card_equals_plain_copies(card):
         assert gx.is_cuda and gy.is_cuda
         assert torch.equal(gx * 1.0, torch.as_tensor(x, device=card))
         assert torch.equal(gy, torch.as_tensor(y, device=card))
+
+
+BENCH_ROWS = ["metr-la-temporal", "metr-la-gcn", "metr-la-full",
+              "pems-bay-full", "city-40k-block-flat"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", BENCH_ROWS)
+def test_bench_row_within_band(card, name):
+    """Every row of the port's record (``fig/perf_table_torch.json``,
+    ``python -m graph_wavenet_tpu_torch.benchmarks --save``) re-measured
+    on a card of the kind that recorded it, inside ``check_band``: step
+    time within x1.08, the counted FLOPs within 2%."""
+    import json
+
+    from graph_wavenet_tpu_torch import benchmarks as B
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), B.RECORD)
+    if not os.path.exists(path):
+        pytest.skip(f"{B.RECORD} not recorded yet")
+    with open(path) as f:
+        rec = json.load(f)
+    kind = torch.cuda.get_device_name(card)
+    if rec.get("device") != kind:
+        pytest.skip(f"recorded on {rec.get('device')!r}, running on "
+                    f"{kind!r}")
+    if name not in rec["configs"]:
+        pytest.skip(f"{name} not in the record")
+    row = rec["configs"][name]
+    meas = B.remeasure_row(name, row, rec["batch"], rec["steps"],
+                           rec["dtype"])
+    B.check_band(row, meas["step_ms"], meas["flops_per_step"], name)
