@@ -39,7 +39,9 @@ exits non-zero:
    paths' R of ``DISPATCH_R``, forward and over the transpose tables with
    ``add``, fp32 and bf16, bit for bit, each line with both branches' host
    time per call and the branch ``"auto"`` picks (``fused2_dispatch``),
-   which must not be the slower by more than 25% and 0.05 ms;
+   which must not be the slower by more than 25% and 0.05 ms; and once on
+   a table whose block rows are shuffled (lag >= half the rows), bit for
+   bit (``dispatch_shuffled``);
 7. small-N end to end: a 2,048-node fp32 city model at full width on the
    card matches the same model on the CPU (plain versions) to 2e-4, and
    its unfused supports give a bitwise-equal forecast;
@@ -56,13 +58,15 @@ exits non-zero:
    and in fp32 (one per order-2 pair); the same checkpoint under the
    128x512 layout, whose supports do not fuse, runs kernel 1 instead;
    predict latency at batch 1 and 8, under the dispatch rule and (flat)
-   under kernel 3 at every R, alternating (``dispatch_ab``);
+   under kernel 3 at every R and under kernel 3 nowhere, alternating
+   (``dispatch_ab``);
 10. training at full width (main paths): the port's training CLI trains
    the 40,960-node city model with the adaptive adjacency (bf16, batch 4)
    for one epoch on synthetic data in the flat and the padded form, its
    checkpoint is served with one request, one train step's launch counters
    are held to the layout and the dispatch rule, and the train step is
-   timed (also under kernel 3 at every R, alternating) and profiled;
+   timed (also under kernel 3 at every R and nowhere, alternating) and
+   profiled;
 11. city ``aptonly`` at 2,048 nodes: the training CLI trains the adaptive
    adjacency alone under ``--profile DIR``, whose trace
    (``train.profiling.trace``) must name every hand kernel the step
@@ -285,6 +289,11 @@ K2_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:256"
 K3_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:497"
 K4_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:74"
 K5_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:325"
+# kernel 3 forward at the batch-8 predict's first layer (bf16), timed with
+# its plain version and two chained library products; the kernels line
+# takes kernel 3 over the transpose tables with add at R = 1,536 (the
+# train step's backward), a pair the dispatch rule sends to kernel 3
+K3_FORWARD_R = 3072
 TRAIN_BATCH = 4
 TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
 
@@ -666,17 +675,13 @@ def phase_kernels(graph) -> dict:
                                          with_add=with_add)
                 rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
                                                          dname)
-                # R = 32: the last layer of a batch-1 predict, where the
-                # dispatch rule picks kernel 3 in bf16; its plain and
-                # library times are the kernels line's
-                if (dname, r, with_add) == ("bfloat16", 32, False):
+                if (dname, r, with_add) == ("bfloat16", K3_FORWARD_R, False):
                     rec["plain_ms"] = cuda_ms(k3_plain, max(2, reps // 5))
                     lib_fn, rec["library"] = library_hop_pair(
                         sq.astype(dtype), x.reshape(-1, r), True,
                         None if add is None else add.reshape(-1, r))
                     rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
                     del lib_fn
-                    summary["k3"] = rec
                 emit("kernel_check", **rec)
                 del add
                 torch.cuda.empty_cache()
@@ -728,11 +733,11 @@ def tile_widths(sq, gen) -> None:
 # channels, T = 12, 10, 9, 7, 6, 4, 3, 1 over the eight layers): the
 # smallest and largest of the main paths (predict at batch 1 and 8, the
 # batch-4 train step forward, and its backward over the transpose tables
-# with add), and the R on both sides of each threshold of
-# ``block_diffusion.FUSED2_R`` (fp32 fused from 512, 448 with add; bf16 at
-# R <= 128). Every R of the main paths (38) gave the same picks
+# with add), each tile width, and the main paths' R on both sides of the
+# threshold of ``block_diffusion.FUSED2_R`` (bf16 forward fused up to
+# 2,048: 1,792 and 2,304, the batch-8 predict's layers 4 and 3)
 DISPATCH_R = {
-    "forward": (32, 128, 192, 384, 448, 512, 576, 1536, 3072),
+    "forward": (32, 128, 192, 384, 448, 512, 576, 1536, 1792, 2304, 3072),
     "transpose+add": (128, 192, 384, 448, 512, 1536)}
 
 
@@ -823,7 +828,59 @@ def phase_dispatch(graph) -> dict:
                 del x, add
             table[dname, tables] = rows
             torch.cuda.empty_cache()
+    shuffled_pair(sups[0].astype(torch.bfloat16), gen)
     return table
+
+
+# R of the large-lag check: the batch-4 train step's first layer
+SHUFFLED_R = 1536
+
+
+def shuffled_pair(sp, gen) -> None:
+    """Kernel 3 on a table whose lag is at least half its rows: the RCM
+    support's block rows renumbered by a random permutation (the same
+    blocks, entries re-sorted by row), bf16 forward at ``SHUFFLED_R``, bit
+    for bit against kernel 1 + kernel 1 and timed against them. Hop 2 then
+    reads out1 rows published far apart in ticket order."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    perm = np.random.default_rng(12).permutation(sp.nb)
+    row = perm[sp.row_tbl.cpu().numpy()]
+    src = perm[sp.src_tbl.cpu().numpy()]
+    order = np.argsort(row, kind="stable")
+    row, src = row[order], src[order]
+    slot = sp.slot_tbl.cpu().numpy()[order]
+    lag = bd.fused2_lag(row, src)
+    require(lag >= sp.nb // 2, f"the shuffled table's lag {lag} is under "
+                               f"half its {sp.nb} rows")
+    row_t, src_t, slot_t = (torch.as_tensor(a.astype(np.int32),
+                                            device="cuda")
+                            for a in (row, src, slot))
+    ptr = bd.row_pointer(row_t, sp.nb)
+    x = torch.randn(sp.nb, 128, SHUFFLED_R, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def run(branch):
+        return bd.gathered_block_mix_flat2(
+            sp.blocks_flat, slot_t, x, src_t, row_t, nb=sp.nb, lag=lag,
+            transpose_lhs=True, row_ptr=ptr, dispatch=branch)
+
+    f1, f2 = run("fused")
+    c1, c2 = run("chain")
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(f1, c1) and torch.equal(f2, c2))
+    del f1, f2, c1, c2
+    t = [cuda_ms(lambda b=b: run(b), 5)
+         for b in ("fused", "chain", "chain", "fused")]
+    rec = dict(dtype="bfloat16", tables="forward, block rows shuffled",
+               R=SHUFFLED_R, nb=sp.nb, lag=lag, bitwise=bitwise,
+               fused_ms=min(t[0], t[3]), chain_ms=min(t[1], t[2]))
+    emit("dispatch_shuffled", **rec)
+    require(bitwise, f"kernel 3 on the shuffled table differs from the "
+                     f"chain: {rec}")
 
 
 def outer_tile_of(dtype, bs_g: int) -> dict:
@@ -1072,6 +1129,7 @@ def phase_train_kernels(graph) -> dict:
                     sp, g.reshape(-1, r), False, x.reshape(-1, r))
                 rec["library_ms"] = cuda_ms(lib_fn, max(2, reps // 5))
                 del lib_fn
+                summary["k3"] = rec
             flops, nbytes = hop_cost(sp, r, isz, fused=True, with_add=True)
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
             emit("kernel_check", **rec)
@@ -1413,12 +1471,14 @@ def layer_widths(cfg, batch: int, t_in: int = 12) -> list[int]:
 
 
 # kernel 3's dispatch rules the main paths are timed under, end to end
-# (``dispatch_ab``): the library's own ``FUSED2_R`` (None) and kernel 3
-# at every R, the rule of the commits before the dispatch seam
+# (``dispatch_ab``): the library's own ``FUSED2_R`` (None), kernel 3 at
+# every R (the rule of the commits before the dispatch seam), and kernel 3
+# nowhere (``{}``: kernel 1 + add + kernel 1 for every pair)
 E2E_RULES = {"auto": None,
              "fused": dict.fromkeys(
                  [(d, a) for d in ("float32", "bfloat16")
-                  for a in (False, True)], (0, None))}
+                  for a in (False, True)], (0, None)),
+             "chain": {}}
 
 
 @contextlib.contextmanager
@@ -6088,10 +6148,14 @@ def phase_dist_graphed(graph, tmp: str) -> dict:
             f"a replayed city step under NCCL launches "
             f"{city['per_replay_launches']}, expected "
             f"{city['expected_per_step']}")
-    for k in ("gathered_block_mix_flat", "gathered_block_outer_flat",
-              "gathered_block_mix_flat2"):
-        require(city["per_replay_launches"][k] > 0,
-                f"{k} did not launch in the replays under NCCL")
+    # kernel 2 for the mask, and the order-2 pairs through kernel 1 or 3 as
+    # the dispatch rule picks (the count itself is held above)
+    per = city["per_replay_launches"]
+    require(per["gathered_block_outer_flat"] > 0
+            and per["gathered_block_mix_flat"]
+            + per["gathered_block_mix_flat2"] > 0,
+            f"the replays under NCCL missed kernel 2 or the pair kernels: "
+            f"{per}")
     return {"dist_graphed": city["graphed_window_launches"]}
 
 
@@ -6304,10 +6368,13 @@ def phase_dist_time(tmp: str) -> None:
 # ---------------------------------------------------------------------------
 
 BENCH_STEPS = 6
+# each sparse row: its launch window, the kernels of which one at least
+# must launch there (the flat row's pairs go to kernel 1 or kernel 3 as the
+# dispatch rule picks), and the row's arguments
 BENCH_SPARSE = (
-    ("bench_flat", "gathered_block_mix_flat",
+    ("bench_flat", ("gathered_block_mix_flat", "gathered_block_mix_flat2"),
      dict(form="block-flat", graph="spatial", ordering="rcm")),
-    ("bench_pallas", "gathered_block_mix", dict(form="block-pallas")))
+    ("bench_pallas", ("gathered_block_mix",), dict(form="block-pallas")))
 # the wrappers of kernels 1, 3 and 4, each named as its launch count
 BENCH_WRAPPERS = ("gathered_block_mix_flat", "gathered_block_mix_flat2",
                   "gathered_block_mix")
@@ -6396,8 +6463,8 @@ def phase_bench() -> dict:
     train step (bench.py's config in bf16, batch 64, S = 25 graphed steps a
     call) and inference (fp32, batch 1 and 64, and the autoregressive
     rollout); the 40,960-node sparse train step (bf16, batch 4) over the
-    RCM spatial graph in flat blocks (kernel 1, and kernel 3 where the
-    dispatch rule picks it) and over random padded blocks (kernel 4),
+    RCM spatial graph in flat blocks (kernels 1 and 3, as the dispatch
+    rule picks) and over random padded blocks (kernel 4),
     each of 6 timed steps. Checks: each sparse row's launches hold its
     kernels and no plain version runs on any row (the dense rows launch no
     hand kernel), the first launch of each kernel on the path agrees with
@@ -6431,7 +6498,7 @@ def phase_bench() -> dict:
             f"the flagship step counts {dense['flops_per_step']} FLOPs on "
             f"the card and {host_flops} on the CPU")
     rows, counts = {"dense": dense}, {}
-    for key, kernel, kw in BENCH_SPARSE:
+    for key, kernels, kw in BENCH_SPARSE:
         with bench_watch() as (plain, first):
             bd.reset_launch_counts()
             row = B.bench_sparse_train_step(n_nodes=N_CITY,
@@ -6445,7 +6512,8 @@ def phase_bench() -> dict:
         emit("bench_sparse_train_step", window=key, nodes=N_CITY, batch=4,
              dtype="bfloat16", row=row, launches=counts[key],
              plain_calls=plain, max_abs_err=errs)
-        require(counts[key][kernel] > 0 and not any(plain.values()),
+        require(any(counts[key][k] > 0 for k in kernels)
+                and not any(plain.values()),
                 f"{key}: launches {counts[key]}, plain calls {plain}")
         rows[key] = row
         torch.cuda.empty_cache()
@@ -6465,6 +6533,15 @@ def phase_bench() -> dict:
             and kind in refusal,
             f"band_check did not refuse the TPU record: {refusal!r}")
     return counts
+
+
+# the kernels that run an order-2 pair, each the other's alternative under
+# the dispatch rule, and the main-path windows whose pairs follow the rule
+PAIR_KERNELS = {"gathered_block_mix_flat": "gathered_block_mix_flat2",
+                "gathered_block_mix_flat2": "gathered_block_mix_flat"}
+RULED_WINDOWS = ("serve", "train", "train_graphed", "artifact",
+                 "serve_artifact", "rolling", "dist_graphed", "dist_pipe",
+                 "bench_flat")
 
 
 def main() -> int:
@@ -6582,8 +6659,15 @@ def main() -> int:
              ("kernel5_path",))):
         rec = summary[key]
         launches = sum(counts[w][name] for w in windows)
-        require(all(counts[w][name] > 0 for w in windows),
-                f"{name} was not launched on the main path")
+        # where the dispatch rule sends a window's order-2 pairs to the
+        # other of kernels 1 and 3, that one must have run there instead
+        other = PAIR_KERNELS.get(name)
+        require(launches > 0 and all(
+                    counts[w][name] > 0
+                    or (other is not None and w in RULED_WINDOWS
+                        and counts[w][other] > 0) for w in windows),
+                f"{name} was not launched on the main path: "
+                f"{ {w: counts[w][name] for w in windows} }")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches,

@@ -39,12 +39,14 @@
 //   before that wait. Its outputs have measured bit for bit equal to those
 //   of the mma.sync product before it (PERF.md).
 //
-// Kernels 1, 3 and 4 all run tile_product on tiles of the same shape for
-// the same R, so each output element sees the same chain of operations in
-// all three: kernel 3 equals two kernel-1 launches and kernel 4 equals
-// kernel 1 on as_flat_pallas's tables, bit for bit. The barrier, TMA,
-// swizzle and wgmma pieces below also build hopper_outer.cuh's product
-// (kernels 2 and 5).
+// Kernels 1 and 4 run tile_product, one output tile a thread block;
+// kernel 3's persistent blocks run its two roles (produce, consume) tile
+// after tile with their ring cursors carried over. All three use tiles of
+// the same shape for the same R, so each output element sees the same
+// chain of operations in all three: kernel 3 equals two kernel-1 launches
+// and kernel 4 equals kernel 1 on as_flat_pallas's tables, bit for bit.
+// The barrier, TMA, swizzle and wgmma pieces below also build
+// hopper_outer.cuh's product (kernels 2 and 5).
 
 #pragma once
 
@@ -340,10 +342,6 @@ struct AnyEntry {                 // kernels 1 and 3: every entry is live
   __device__ bool operator()(int, int) const { return true; }
 };
 
-struct NoWait {
-  __device__ void operator()(int) const {}
-};
-
 // x rows [0, KC) of `rows` (row pitch r), columns c0 .. c0 + CT - 1 (zero
 // from r on), into the stage's swizzled boxes by the producer warp's
 // element loads. kL2: through L2 only (ld.global.cg).
@@ -367,20 +365,17 @@ __device__ __forceinline__ void load_x_chunk(uint8_t* xs, const bf16* rows,
   }
 }
 
-// The producer warp: for each live entry in [begin, end), wait(src) on lane
-// 0 (kernel 3's hop 2 waits for the source row there), then one ring step
-// per KC contracted rows.
-template <int CT, bool kL2, class Live, class Wait>
+// The producer warp: for each live entry in [begin, end), one ring step per
+// KC contracted rows from `cur` on (kernel 3's persistent blocks carry it
+// from one output tile to the next).
+template <int CT, bool kL2, class Live>
 __device__ void produce(const Ring<CT>& ring, const Operands& op,
                         const int* slot, const int* src, int begin, int end,
-                        Live live, Wait wait) {
+                        Live live, Cursor& cur) {
   const int lane = threadIdx.x % 32;
-  Cursor cur;
   for (int l = begin; l < end; ++l) {
     const int k = slot[l], s = src[l];
     if (!live(k, s)) continue;
-    if (lane == 0) wait(s);
-    __syncwarp();
     for (int k0 = 0; k0 < op.bs_c; k0 += KC) {
       uint64_t* full = ring.full + cur.stage;
       uint8_t* as = ring.a(cur.stage);
@@ -413,13 +408,14 @@ __device__ void produce(const Ring<CT>& ring, const Operands& op,
   }
 }
 
-// A consumer warpgroup: `steps` ring steps into its 64 rows x CT, one
-// wgmma m64nCTk16 per 16 contracted rows.
+// A consumer warpgroup: `steps` ring steps from `cur` on into its 64 rows x
+// CT, one wgmma m64nCTk16 per 16 contracted rows. Every stage it read is
+// back with the producer when it returns.
 template <int CT, bool kFwd>
-__device__ void consume(const Ring<CT>& ring, int steps, WideAcc<CT>& acc) {
+__device__ void consume(const Ring<CT>& ring, int steps, WideAcc<CT>& acc,
+                        Cursor& cur) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = warp / 4;
-  Cursor cur;
   int held = -1;                  // the stage the last wgmmas read
   for (int s = 0; s < steps; ++s) {
     bar_wait(ring.full + cur.stage, cur.parity);
@@ -446,21 +442,23 @@ __device__ void consume(const Ring<CT>& ring, int steps, WideAcc<CT>& acc) {
   }
   wgmma_wait<0>();
   fence_regs(acc);
+  if (held >= 0 && lane == 0) bar_arrive(ring.empty + held);
 }
 
 // The output tile of one destination row: sets up the ring, runs the
 // producer warp on the live entries of [begin, end) and the consumer warps
 // on as many steps. Returns false on the producer warp, which holds no part
 // of the tile. Every thread of the block must call it.
-template <int CT, bool kL2, class Live, class Wait>
+template <int CT, bool kL2, class Live>
 __device__ bool tile_product(WideAcc<CT>& acc, const Operands& op,
                              const int* slot, const int* src, int begin,
-                             int end, Live live, Wait wait) {
+                             int end, Live live) {
   Ring<CT> ring;
   ring.base = setup_ring(Tile<CT>::STAGES, Tile<CT>::STAGE_BYTES, ring.full,
                          ring.empty);
+  Cursor cur;
   if (threadIdx.x >= 32 * CONSUMER_WARPS) {
-    produce<CT, kL2>(ring, op, slot, src, begin, end, live, wait);
+    produce<CT, kL2>(ring, op, slot, src, begin, end, live, cur);
     return false;
   }
 #pragma unroll
@@ -469,33 +467,23 @@ __device__ bool tile_product(WideAcc<CT>& acc, const Operands& op,
   for (int l = begin; l < end; ++l) n += live(slot[l], src[l]) ? 1 : 0;
   const int steps = n * (op.bs_c / KC);
   if (op.fwd)
-    consume<CT, true>(ring, steps, acc);
+    consume<CT, true>(ring, steps, acc, cur);
   else
-    consume<CT, false>(ring, steps, acc);
+    consume<CT, false>(ring, steps, acc, cur);
   return true;
 }
 
-// Barrier of the 256 consumer threads only (the producer warp may be gone).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
-}
-
 // Casts the consumers' tile once and stores it at out (bs_o, r) row-major
-// from (o0, c0), columns < r only. add (optional, same layout, never out)
-// is added after the cast, in bf16: the cast value and add summed in fp32
-// and rounded once, as block_tile.cuh's store_tile. Without __restrict__
-// every load of add would wait for the stores before it. Pairs of columns
-// move as one 4-byte access where r is even and the base is 4-byte aligned
-// (add may be a view at an odd element offset).
+// from (o0, c0), columns < r only. Pairs of columns move as one 4-byte
+// store where r is even and the base is 4-byte aligned. Thread t holds
+// rows 16 (t / 32) + (t % 32) / 4 + 8 h and columns 8 nt + 2 (t % 4) + {0, 1}
+// of the tile (wgmma's accumulator layout).
 template <int CT>
 __device__ __forceinline__ void store_wide(const WideAcc<CT>& acc,
-                                           bf16* __restrict__ out,
-                                           const bf16* __restrict__ add,
-                                           int o0, int c0, int r) {
+                                           bf16* __restrict__ out, int o0,
+                                           int c0, int r) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool pairs = r % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const bool add_pairs =
-      r % 2 == 0 && reinterpret_cast<uintptr_t>(add) % 4 == 0;
 #pragma unroll
   for (int nt = 0; nt < CT / 8; ++nt) {
     const int c = c0 + 8 * nt + 2 * (lane % 4);
@@ -503,23 +491,9 @@ __device__ __forceinline__ void store_wide(const WideAcc<CT>& acc,
     const bool both = c + 1 < r;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = o0 + 16 * warp + lane / 4 + 8 * h;
-      const size_t at = (size_t)row * r + c;
-      bf16 v0 = __float2bfloat16_rn(acc[4 * nt + 2 * h]);
-      bf16 v1 = __float2bfloat16_rn(acc[4 * nt + 2 * h + 1]);
-      if (add != nullptr) {
-        __nv_bfloat162 a;
-        if (both && add_pairs) {
-          a = *reinterpret_cast<const __nv_bfloat162*>(add + at);
-        } else {
-          a.x = add[at];
-          a.y = both ? add[at + 1] : a.x;
-        }
-        v0 = __float2bfloat16_rn(__bfloat162float(v0) +
-                                 __bfloat162float(a.x));
-        v1 = __float2bfloat16_rn(__bfloat162float(v1) +
-                                 __bfloat162float(a.y));
-      }
+      const size_t at = (size_t)(o0 + 16 * warp + lane / 4 + 8 * h) * r + c;
+      const bf16 v0 = __float2bfloat16_rn(acc[4 * nt + 2 * h]);
+      const bf16 v1 = __float2bfloat16_rn(acc[4 * nt + 2 * h + 1]);
       if (both && pairs) {
         __nv_bfloat162 v;
         v.x = v0;
@@ -528,6 +502,75 @@ __device__ __forceinline__ void store_wide(const WideAcc<CT>& acc,
       } else {
         out[at] = v0;
         if (both) out[at + 1] = v1;
+      }
+    }
+  }
+}
+
+// store_wide, with add (same layout, never out) added after the cast, in
+// bf16: the cast value and add summed in fp32 and rounded once, as
+// block_tile.cuh's store_tile and PyTorch's bf16 add. The loads of add are
+// issued SUM_BATCH column groups at a time before any of their sums is
+// stored, so their latencies overlap instead of adding up (one at a time
+// they cost more than the chain's separate add). add may be a view at an
+// odd element offset: pairs then load one element at a time.
+constexpr int SUM_BATCH = 4;
+
+template <int CT>
+__device__ __forceinline__ void store_wide_sum(const WideAcc<CT>& acc,
+                                               bf16* __restrict__ out,
+                                               const bf16* __restrict__ add,
+                                               int o0, int c0, int r) {
+  constexpr int NT = CT / 8;
+  constexpr int BATCH = NT < SUM_BATCH ? NT : SUM_BATCH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool pairs = r % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const bool add_pairs =
+      r % 2 == 0 && reinterpret_cast<uintptr_t>(add) % 4 == 0;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int b0 = 0; b0 < NT; b0 += BATCH) {
+    __nv_bfloat162 a[BATCH][2];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int c = c0 + 8 * (b0 + i) + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t at =
+            (size_t)(o0 + 16 * warp + lane / 4 + 8 * h) * r + c;
+        if (c + 1 < r && add_pairs) {
+          a[i][h] = *reinterpret_cast<const __nv_bfloat162*>(add + at);
+        } else {
+          a[i][h].x = c < r ? add[at] : zero;
+          a[i][h].y = c + 1 < r ? add[at + 1] : zero;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int nt = b0 + i;
+      const int c = c0 + 8 * nt + 2 * (lane % 4);
+      if (c >= r) continue;
+      const bool both = c + 1 < r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t at =
+            (size_t)(o0 + 16 * warp + lane / 4 + 8 * h) * r + c;
+        const bf16 v0 = __float2bfloat16_rn(
+            __bfloat162float(__float2bfloat16_rn(acc[4 * nt + 2 * h])) +
+            __bfloat162float(a[i][h].x));
+        const bf16 v1 = __float2bfloat16_rn(
+            __bfloat162float(__float2bfloat16_rn(acc[4 * nt + 2 * h + 1])) +
+            __bfloat162float(a[i][h].y));
+        if (both && pairs) {
+          __nv_bfloat162 v;
+          v.x = v0;
+          v.y = v1;
+          *reinterpret_cast<__nv_bfloat162*>(out + at) = v;
+        } else {
+          out[at] = v0;
+          if (both) out[at + 1] = v1;
+        }
       }
     }
   }

@@ -77,10 +77,9 @@ mix_flat_bf16(const __grid_constant__ CUtensorMap tm_a,
                     static_cast<int>(blockIdx.x) * CT, transpose_lhs != 0};
   WideAcc<CT> acc;
   if (!tile_product<CT, false>(acc, op, slot, src, row_ptr[row],
-                               row_ptr[row + 1], AnyEntry{}, NoWait{}))
+                               row_ptr[row + 1], AnyEntry{}))
     return;
-  store_wide<CT>(acc, out + (size_t)row * bs_o * r, nullptr, op.o0, op.c0,
-                 r);
+  store_wide<CT>(acc, out + (size_t)row * bs_o * r, op.o0, op.c0, r);
 }
 
 int launch_f32(const void* blocks, const void* slot, const void* x,

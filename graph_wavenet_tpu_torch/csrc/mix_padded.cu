@@ -90,9 +90,9 @@ mix_padded_bf16(const __grid_constant__ CUtensorMap tm_a,
                     static_cast<int>(blockIdx.x) * CT, transpose_lhs != 0};
   WideAcc<CT> acc;
   if (!tile_product<CT, false>(acc, op, slot, src, row * mb, (row + 1) * mb,
-                               LiveSlot{n_blocks, nbx}, NoWait{}))
+                               LiveSlot{n_blocks, nbx}))
     return;
-  store_wide<CT>(acc, out + (size_t)row * bs * r, nullptr, op.o0, op.c0, r);
+  store_wide<CT>(acc, out + (size_t)row * bs * r, op.o0, op.c0, r);
 }
 
 int launch_f32(const void* blocks, const void* slot, const void* x,

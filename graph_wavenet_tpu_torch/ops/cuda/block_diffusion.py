@@ -18,7 +18,9 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
   padded weight cotangent ``x[src[i, m]] . g[i]^T``, sentinel slots zero;
 - :func:`fused2_schedule`: the reference's host-side (delay, ring width)
   schedule, copied verbatim; it decides which layouts fuse;
-- :func:`fused2_lag`: the row lag the CUDA kernel orders its work by;
+- :func:`fused2_lag`: the row lag the CUDA kernel orders its work by, and
+  :func:`fused2_launch` its persistent grid and the span (lag plus slack)
+  between its two hops;
 - :func:`tile_cols`: the R columns of one output tile of kernels 1, 3 and
   4, by one rule for all three.
 
@@ -80,14 +82,16 @@ DISPATCHES = ("auto", "chain", "fused")
 
 # R at which kernel 3 beats kernel 1 + add + kernel 1 on the H100, by
 # activation dtype and whether the pair has ``add``: (least, most), None
-# unbounded. fp32: one pass saves a read of out1 once the FMA product runs
-# long enough; bf16: two launches cost more than one pass only at R <= 128,
-# where a launch is mostly fixed cost. chip_smoke.py's ``dispatch`` phase
-# times both branches at every R of the main paths; PERF.md has the table.
-FUSED2_R = {(torch.float32, False): (512, None),
-            (torch.float32, True): (448, None),
-            (torch.bfloat16, False): (0, 128),
-            (torch.bfloat16, True): (0, 128)}
+# unbounded. fp32 and bf16 with add: kernel 3 at every R (it saves the
+# chain's separate add and out1's trip through device memory). bf16
+# forward: kernel 3 up to R = 2,048; above, it ties two kernel-1 launches
+# or trails them by ~1.5% (its persistent loop runs kernel 1's product
+# ~2.6% slower a tile). chip_smoke.py's ``dispatch`` phase times both
+# branches at the main paths' R; PERF.md has the table.
+FUSED2_R = {(torch.float32, False): (0, None),
+            (torch.float32, True): (0, None),
+            (torch.bfloat16, False): (0, 2048),
+            (torch.bfloat16, True): (0, None)}
 
 
 def fused2_dispatch(r: int, dtype: torch.dtype, *, add: bool) -> str:
@@ -105,6 +109,26 @@ def flag_count(nb: int, r: int, dtype: torch.dtype) -> int:
     (destination row, R tile), then the ticket counter."""
     ct = tile_cols(r, dtype)
     return nb * -(-r // ct) + 1
+
+
+def fused2_launch(nb: int, r: int, dtype: torch.dtype, lag: int,
+                  resident: int) -> tuple[int, int]:
+    """Kernel 3's ``(span, grid)`` for ``nb`` block rows of ``r`` columns
+    of ``dtype`` with row lag ``lag`` (:func:`fused2_lag`), on a card that
+    holds ``resident`` of its thread blocks at once.
+
+    The grid is persistent: ``min(items, resident)`` blocks pull the
+    ``2 * nb * tiles`` (hop, row, R tile) items by ticket. Ticket step s
+    holds hop 1 of row s and hop 2 of row ``s - span``; ``span = lag +
+    slack``, at most ``nb``, where the slack is the steps the tickets held
+    at once cover (two a block in bf16, whose producer warp takes the next
+    item while its consumers finish one; one in fp32). So the out1 rows hop
+    2 reads were published about a wave before it asks for them."""
+    tiles = -(-r // tile_cols(r, dtype))
+    grid = min(2 * nb * tiles, resident)
+    held = (2 if dtype == torch.bfloat16 else 1) * grid
+    slack = -(-held // (2 * tiles))
+    return min(lag + slack, nb), grid
 
 
 def row_pointer(row_tbl: torch.Tensor, nb: int) -> torch.Tensor:
@@ -229,6 +253,31 @@ def _check_cuda(x: torch.Tensor, other: torch.Tensor,
         raise ValueError(f"x and {name} must be contiguous")
     _check_tables(*tables)
     return _DTYPE_CODE[x.dtype]
+
+
+# blocks of kernel 3 a card holds at once, by (device, dtype, tile width):
+# the occupancy the card reports for the launch times its SMs
+_RESIDENT: dict = {}
+
+
+def _resident(lib: ctypes.CDLL, x: torch.Tensor, ct: int) -> int:
+    key = (x.device.index, x.dtype, ct)
+    if key not in _RESIDENT:
+        if lib.gwt_mix_flat2_per_sm.argtypes is None:
+            lib.gwt_mix_flat2_per_sm.argtypes = [_I, _I,
+                                                 ctypes.POINTER(_I)]
+            lib.gwt_mix_flat2_per_sm.restype = _I
+        n = _I(0)
+        with torch.cuda.device(x.device):
+            rc = lib.gwt_mix_flat2_per_sm(_DTYPE_CODE[x.dtype], ct,
+                                          ctypes.byref(n))
+        _raise_on(lib, rc, "gathered_block_mix_flat2 occupancy")
+        if n.value < 1:
+            raise RuntimeError(f"kernel 3 does not fit an SM at {ct} "
+                               f"columns of {x.dtype}")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _RESIDENT[key] = n.value * sms
+    return _RESIDENT[key]
 
 
 def _raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
@@ -378,7 +427,9 @@ def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
     out2 = torch.empty_like(x)
     if r == 0 or nb == 0:
         return out1, out2
-    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 7)
+    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 8)
+    ct = tile_cols(r, x.dtype)
+    span, grid = fused2_launch(nb, r, x.dtype, lag, _resident(lib, x, ct))
     # a completion flag per (row, R tile) and the ticket counter, zeroed
     # per launch (a captured launch re-zeroes them on every replay)
     flags = torch.zeros(flag_count(nb, r, x.dtype), dtype=torch.int32,
@@ -388,9 +439,8 @@ def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
             _DTYPE_CODE[x.dtype], blocks.data_ptr(), slot.data_ptr(),
             x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
             None if add is None else add.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], lag,
-            blocks.shape[1], r, int(transpose_lhs), tile_cols(r, x.dtype),
-            _stream(x))
+            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], span,
+            blocks.shape[1], r, int(transpose_lhs), ct, grid, _stream(x))
     _raise_on(lib, rc, "gathered_block_mix_flat2")
     LAUNCHES["gathered_block_mix_flat2"] += 1
     return out1, out2
@@ -588,8 +638,8 @@ def gathered_block_mix_flat2(blocks: torch.Tensor, slot: torch.Tensor,
 
     ``lag`` (:func:`fused2_lag`) replaces the reference's ``delay`` and
     ``ring_w``: kernel 3 runs hop 2 of row ``i`` after hop 1 of row
-    ``i + lag``, and keeps finished out1 rows in device memory rather than
-    in a ring."""
+    ``i + lag`` or later (:func:`fused2_launch`), and keeps finished out1
+    rows in device memory rather than in a ring."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch must be one of {DISPATCHES}, got "
                          f"{dispatch!r}")

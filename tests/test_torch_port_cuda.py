@@ -368,6 +368,172 @@ def test_kernel3_repeats_bit_for_bit(card, r, transpose_lhs):
         assert torch.equal(o1, c1) and torch.equal(o2, c2)
 
 
+def kernel3_case(card, dtype, r, kind, seed):
+    """Square-block tables of one of three orders, their blocks and x:
+    ``lag0`` (every entry on the diagonal, lag 0), ``band`` (a band of
+    five block rows each side, the 40,960-node city's RCM lag), and
+    ``shuffled`` (the band's block rows renumbered by a random permutation,
+    entries re-sorted by row: lag >= nb / 2)."""
+    nb = 24
+    rng = np.random.default_rng(seed)
+    if kind == "lag0":
+        row = src = np.arange(nb)
+        slot, n_live = rng.permutation(nb), nb
+    else:
+        row, src, slot, n_live = tables(seed, nb, nb, band=5, per_row=6)
+        if kind == "shuffled":
+            perm = rng.permutation(nb)
+            row, src = perm[row], perm[src]
+            order = np.argsort(row, kind="stable")
+            row, src, slot = row[order], src[order], slot[order]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    blocks = (torch.rand(n_live + 1, 128, 128, device=card, generator=gen)
+              / 16).to(dtype)
+    blocks[n_live] = 0
+    x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    return nb, (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
+
+
+def chain_of(args, nb, transpose_lhs, add=None):
+    """Kernel 1, ``+ add``, kernel 1: what kernel 3 equals bit for bit."""
+    c1 = bd.gathered_block_mix_flat(*args, nb=nb, transpose_lhs=transpose_lhs)
+    if add is not None:
+        c1 = c1 + add
+    return c1, bd.gathered_block_mix_flat(args[0], args[1], c1, args[3],
+                                          args[4], nb=nb,
+                                          transpose_lhs=transpose_lhs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["lag0", "band", "shuffled"])
+@pytest.mark.parametrize("r", [64, 200, 768])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("with_add", [False, True], ids=["plain", "add"])
+def test_kernel3_bitwise_at_every_lag(card, dtype, kind, r, transpose_lhs,
+                                      with_add):
+    """Kernel 3 bit for bit kernel 1 + add + kernel 1 whatever the tables'
+    lag: 0, the city's 5, and a random block order whose lag is at least
+    half the rows (then hop 2 waits on rows published far apart in ticket
+    order). 768 columns of bf16 give three 256-column tiles a row, so the
+    24 rows' 144 items outnumber the persistent grid's blocks."""
+    nb, args = kernel3_case(card, dtype, r, kind, seed=400 + r)
+    lag = bd.fused2_lag(args[4].cpu(), args[3].cpu())
+    assert lag == {"lag0": 0, "band": 5}.get(kind, lag)
+    if kind == "shuffled":
+        assert lag >= nb // 2
+    add = (torch.randn(nb, 128, r, device=card).to(dtype) if with_add
+           else None)
+    o1, o2 = bd.gathered_block_mix_flat2(*args, nb=nb, lag=lag,
+                                         transpose_lhs=transpose_lhs,
+                                         add=add, dispatch="fused")
+    c1, c2 = chain_of(args, nb, transpose_lhs, add)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, c1) and torch.equal(o2, c2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("transpose_lhs", [True, False], ids=["fwd", "bwd"])
+def test_kernel3_rows_without_entries(card, dtype, transpose_lhs):
+    """Rows no entry names (no dummy entry either): hop 1 still publishes
+    their (zero) out1 tiles, so the hop-2 rows that read them finish, and
+    both outputs equal the chain's, the empty rows zero in out2."""
+    nb, r = 12, 300
+    row, src, slot, n_live = tables(17, nb, nb, band=3)
+    keep = (slot < n_live) & (row != 4) & (row != 5)
+    row, src, slot = row[keep], src[keep], slot[keep]
+    gen = torch.Generator(device=card).manual_seed(17)
+    blocks = (torch.rand(n_live, 128, 128, device=card, generator=gen)
+              / 16).to(dtype)
+    x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
+    args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
+    o1, o2 = bd.gathered_block_mix_flat2(*args, nb=nb,
+                                         lag=bd.fused2_lag(row, src),
+                                         transpose_lhs=transpose_lhs,
+                                         dispatch="fused")
+    c1, c2 = chain_of(args, nb, transpose_lhs)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, c1) and torch.equal(o2, c2)
+    empty = torch.as_tensor(np.setdiff1d(np.arange(nb), row), device=card)
+    assert len(empty) >= 2 and not o2[empty].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid", [1, 3, None], ids=["g1", "g3", "full"])
+@pytest.mark.parametrize("slack", [0, 2, None], ids=["s0", "s2", "serial"])
+def test_kernel3_any_grid_and_span(card, dtype, grid, slack):
+    """The schedule's claim, through the C entry point: any grid that
+    fits the card (one block doing every item in ticket order, a few, as
+    many as the card holds at once or one per item if fewer) and
+    any span from the lag (no slack) to nb (every hop 1 before any hop 2)
+    finishes and gives the chain's bits, with add."""
+    r = 384
+    nb, args = kernel3_case(card, dtype, r, "shuffled", seed=23)
+    blocks, slot, x, src, row = args
+    lag = bd.fused2_lag(row.cpu(), src.cpu())
+    add = torch.randn(nb, 128, r, device=card).to(dtype)
+    ct = bd.tile_cols(r, dtype)
+    items = 2 * nb * -(-r // ct)
+    span = nb if slack is None else min(lag + slack, nb)
+    lib = bd._lib("mix_flat2.cu", "gwt_mix_flat2", 9, 8)
+    grid = grid or min(items, bd._resident(lib, x, ct))
+    o1, o2 = torch.empty_like(x), torch.empty_like(x)
+    flags = torch.zeros(bd.flag_count(nb, r, dtype), dtype=torch.int32,
+                        device=card)
+    rc = lib.gwt_mix_flat2(
+        bd._DTYPE_CODE[dtype], blocks.data_ptr(), slot.data_ptr(),
+        x.data_ptr(), src.data_ptr(), bd.row_pointer(row, nb).data_ptr(),
+        add.data_ptr(), o1.data_ptr(), o2.data_ptr(), flags.data_ptr(), nb,
+        blocks.shape[0], span, 128, r, 1, ct, grid,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, lib.gwt_error_string(rc)
+    c1, c2 = chain_of(args, nb, True, add)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, c1) and torch.equal(o2, c2)
+    # every block's first ticket is its index; the counter handed out the
+    # rest and one past the last item to every block
+    assert int(flags[-1]) == items
+    assert bool((flags[:-1] == 1).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_kernel3_ten_launches_and_a_replayed_graph(card, dtype):
+    """Ten launches in a row on the city's band, then one launch captured
+    in a CUDA graph and replayed five times: every output bit for bit the
+    chain's (the flags and the ticket counter are zeroed inside the op, so
+    a replay starts from zero too)."""
+    r = 1536
+    nb, args = kernel3_case(card, dtype, r, "band", seed=31)
+    lag = bd.fused2_lag(args[4].cpu(), args[3].cpu())
+    add = torch.randn(nb, 128, r, device=card).to(dtype)
+
+    def k3():
+        return bd.gathered_block_mix_flat2(*args, nb=nb, lag=lag,
+                                           transpose_lhs=True, add=add,
+                                           dispatch="fused")
+
+    c1, c2 = chain_of(args, nb, True, add)
+    runs = [k3() for _ in range(10)]
+    torch.cuda.synchronize()
+    for o1, o2 in runs:
+        assert torch.equal(o1, c1) and torch.equal(o2, c2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k3()                      # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = bd.LAUNCHES["gathered_block_mix_flat2"]
+    with torch.cuda.graph(graph):
+        g1, g2 = k3()
+    assert bd.LAUNCHES["gathered_block_mix_flat2"] == before + 1
+    for _ in range(5):
+        g1.zero_()
+        g2.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g1, c1) and torch.equal(g2, c2)
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "chained"])
 def test_hop_backward_matches_cpu(card, fused):
     """dx and dblocks of both hops of a 128-block support on the card
@@ -746,11 +912,14 @@ def test_graphed_city_steps_equal_eager(card):
     segment sums and its gathers' backward run in a fixed order
     (``ops.adaptive_block``), so nothing accumulates with atomics. Kernels
     1, 2 and 3 run inside the graph: its per-replay launches equal an
-    eager step's."""
+    eager step's. fp32 sends every order-2 pair of a fused support to
+    kernel 3, so the second support is given unfused (the same function
+    bit for bit), whose hops run kernel 1."""
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.graphs.city import build_city_supports
     from graph_wavenet_tpu_torch.graphs.spatial import knn_graph_edges
+    from graph_wavenet_tpu_torch.ops.block_sparse import as_unfused
     from graph_wavenet_tpu_torch.train.engine import Engine
 
     n = 2048
@@ -759,7 +928,7 @@ def test_graphed_city_steps_equal_eager(card):
     sup, mask, _ = build_city_supports(src, dst, w, n, pos=pos,
                                        ordering="rcm", form="flat",
                                        addaptadj=True, device=card)
-    sups = sup + [mask]
+    sups = [sup[0], as_unfused(sup[1]), mask]
     cfg = ModelConfig(num_nodes=n, addaptadj=True, dropout=0.3)
     rng = np.random.default_rng(3)
     xs = torch.as_tensor(rng.normal(size=(6, 12, n, 2)).astype(np.float32),
@@ -921,8 +1090,12 @@ def test_exported_city_artifact_equals_forecaster(card, tmp_path, form,
         torch.use_deterministic_algorithms(False)
     assert torch.equal(got, want)
     assert dict(bd.LAUNCHES) == live
+    # the flat supports' pairs go where the dispatch rule sends the first
+    # layer's (R = 2 x 12 x 32)
     kernel = "gathered_block_mix" if form == "pallas" else (
-        "gathered_block_mix_flat")
+        "gathered_block_mix_flat2"
+        if bd.fused2_dispatch(768, torch.bfloat16, add=False) == "fused"
+        else "gathered_block_mix_flat")
     assert live[kernel] > 0
 
 

@@ -236,6 +236,82 @@ def test_fused2_lag_orders_every_dependency(rng, band):
         assert (src == row + lag).any()
 
 
+@pytest.mark.parametrize("dtype,r,resident,lag,want", [
+    # bf16 at the city's widest R: 12 tiles of 256, one block an SM on 132;
+    # a block's producer holds a second ticket, so 264 tickets span 11 steps
+    (torch.bfloat16, 3072, 132, 5, (16, 132)),
+    # bf16 R = 1536 (6 tiles): 22 steps of slack
+    (torch.bfloat16, 1536, 132, 5, (27, 132)),
+    # fp32 R = 512 (8 tiles of 64), two blocks an SM, a ticket each: 264
+    # tickets, 17 steps
+    (torch.float32, 512, 264, 5, (22, 264)),
+    # one tile a row: 528 tickets span 264 steps
+    (torch.bfloat16, 32, 264, 5, (269, 264)),
+    # fewer items than blocks: the grid shrinks to the items, and the span
+    # stops at nb (every hop 1 before any hop 2)
+    (torch.float32, 64, 10_000, 0, (320, 640)),
+    (torch.bfloat16, 256, 1, 0, (1, 1)),
+])
+def test_fused2_launch(dtype, r, resident, lag, want):
+    """Kernel 3's persistent grid (at most the resident blocks, at most the
+    items) and span (lag plus the steps the held tickets cover, at most
+    nb), at the 40,960-node city's 320 block rows."""
+    assert tbd.fused2_launch(320, r, dtype, lag, resident) == want
+
+
+def fused2_item(t, nb, nt, span):
+    """Kernel 3's ticket-to-item map (``item_of`` in csrc/mix_flat2.cu):
+    (hop, row, tile), or None past the last item."""
+    a, b = span * nt, 2 * nt * (nb - span)
+    if t < a:
+        return 0, t // nt, t % nt
+    t -= a
+    if t < b:
+        step, w = span + t // (2 * nt), t % (2 * nt)
+        hop = w // nt
+        return hop, step if hop == 0 else step - span, w % nt
+    t -= b
+    return (1, nb - span + t // nt, t % nt) if t < a else None
+
+
+@pytest.mark.parametrize("band", [0, 2, 5, None])
+@pytest.mark.parametrize("dtype,r,resident", [
+    (torch.bfloat16, 768, 4), (torch.bfloat16, 100, 1),
+    (torch.float32, 200, 7), (torch.float32, 64, 1000)])
+def test_fused2_tickets_order_every_dependency(rng, band, dtype, r,
+                                                resident):
+    """On hand-built tables (banded, or unbanded: lag near nb), the tickets
+    of :func:`fused2_launch`'s span hand out every (hop, row, tile) item
+    once, and every hop-2 item comes after the hop-1 items of its row's
+    source rows, at least ``slack`` steps after (or every hop 1 first);
+    each item's flag lies inside :func:`flag_count`'s buffer, before the
+    ticket counter."""
+    nb = 30
+    row, src, _, _, _ = flat_tables(rng, nb, nb, 4, band=band)
+    lag = tbd.fused2_lag(row, src)
+    span, grid = tbd.fused2_launch(nb, r, dtype, lag, resident)
+    assert lag <= span <= nb and 1 <= grid <= resident
+    nt = -(-r // tbd.tile_cols(r, dtype))
+    n_flags = tbd.flag_count(nb, r, dtype) - 1
+    ticket = {}
+    for t in range(2 * nb * nt + grid):
+        item = fused2_item(t, nb, nt, span)
+        if item is None:
+            assert t >= 2 * nb * nt
+            continue
+        assert item not in ticket
+        ticket[item] = t
+        assert item[1] * nt + item[2] < n_flags
+    assert len(ticket) == 2 * nb * nt
+    for rw, s in zip(row, src):
+        for tile in range(nt):
+            assert ticket[0, s, tile] < ticket[1, rw, tile]
+    if span < nb:
+        # hop 2 of row i shares its step with hop 1 of row i + span
+        for rw in range(nb - span):
+            assert (ticket[1, rw, 0] - ticket[0, rw + span, 0]) == nt
+
+
 def test_row_pointer_is_csr_of_sorted_rows():
     row = torch.tensor([0, 0, 2, 2, 2, 3], dtype=torch.int32)
     ptr = tbd.row_pointer(row, 5)
@@ -355,16 +431,19 @@ def test_mix_flat2_dispatch_is_validated():
 
 
 def test_fused2_dispatch_rule():
-    """The card's rule (PERF.md's table): fp32 fuses from R = 512 forward
-    and from 448 with ``add``; bf16 fuses only at R <= 128, where two
-    launches cost more than one pass."""
+    """The card's rule (PERF.md's table): fp32 fuses at every R, and so
+    does bf16 with ``add``; bf16 forward fuses up to R = 2,048 and leaves
+    wider pairs to two kernel-1 launches, which measure ~1.5% faster
+    there."""
     f32, bf16 = torch.float32, torch.bfloat16
-    want = {(f32, False): {32: "chain", 448: "chain", 512: "fused",
+    want = {(f32, False): {32: "fused", 448: "fused", 512: "fused",
                            3072: "fused"},
-            (f32, True): {384: "chain", 448: "fused", 1536: "fused"},
-            (bf16, False): {32: "fused", 128: "fused", 129: "chain",
-                            384: "chain", 3072: "chain"},
-            (bf16, True): {128: "fused", 384: "chain", 1536: "chain"}}
+            (f32, True): {128: "fused", 384: "fused", 1536: "fused"},
+            (bf16, False): {32: "fused", 128: "fused", 384: "fused",
+                            1536: "fused", 2048: "fused", 2049: "chain",
+                            2304: "chain", 3072: "chain"},
+            (bf16, True): {128: "fused", 384: "fused", 1536: "fused",
+                           3072: "fused"}}
     for (dtype, add), cases in want.items():
         for r, branch in cases.items():
             assert tbd.fused2_dispatch(r, dtype, add=add) == branch, (
