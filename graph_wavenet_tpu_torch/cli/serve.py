@@ -32,7 +32,10 @@ server and predictions return in raw units.
 
 Endpoints (JSON):
 - ``GET  /healthz`` -> {"status": "ok", "source", "device", ...model info}
-- ``GET  /stats``   -> request and batch counters of the micro-batcher
+- ``GET  /stats``   -> request and batch counters of the micro-batcher,
+  and ``queue_wait_ms`` and ``call_ms``: {"p50", "p95", "count"} of the
+  requests' waits in its queue and of its calls, over the spans kept in
+  ``train.profiling``'s ring (the process's last 65,536 spans)
 - ``POST /predict`` body {"x": <(K, N, F) or (B, K, N, F) nested lists>}
   -> {"y": <(H, N) or (B, H, N)>}; a diff-G model also needs {"adj_idx":
   <an int, or a list of length B>}, and every instance goes to the batcher
@@ -185,6 +188,21 @@ def _predictor(args):
     return fc.predict, fc.scaler, info, None, fc, None
 
 
+def span_ms(name: str) -> dict:
+    """Median, 95th percentile (ms) and count of the spans ``name`` in
+    ``train.profiling``'s ring; None for both where there is none."""
+    import numpy as np
+
+    from graph_wavenet_tpu_torch.train import profiling
+
+    ms = [(s["end_ns"] - s["start_ns"]) / 1e6 for s in profiling.spans()
+          if s["name"] == name]
+    if not ms:
+        return {"p50": None, "p95": None, "count": 0}
+    p50, p95 = np.percentile(ms, (50, 95)).tolist()
+    return {"p50": p50, "p95": p95, "count": len(ms)}
+
+
 def make_server(predict_batch, scaler, info: dict, host: str, port: int,
                 max_batch: int, window_ms: float,
                 fixed_batch: int | None = None, modalities_fn=None):
@@ -236,7 +254,9 @@ def make_server(predict_batch, scaler, info: dict, host: str, port: int,
             if self.path == "/healthz":
                 self._json(200, {"status": "ok", **info})
             elif self.path == "/stats":
-                self._json(200, batcher.stats)
+                self._json(200, {**batcher.stats,
+                                 "queue_wait_ms": span_ms("serve.queued"),
+                                 "call_ms": span_ms("serve.call")})
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 

@@ -1,30 +1,46 @@
-"""Tracing and step timing.
+"""Tracing: a ``torch.profiler`` trace of a run, and the serving front's
+spans on the profiler's clock.
 
-Counterpart of ``graph_wavenet_tpu/train/profiling.py``:
+Counterpart of ``graph_wavenet_tpu/train/profiling.py`` (its ``trace``):
 
 - :func:`trace`: a ``torch.profiler`` context over host and CUDA activity
   that writes a Chrome trace (``trace.json``, loadable in Perfetto or
   ``chrome://tracing``) into a directory; ``gwt-torch-train --profile
   DIR`` wraps a whole run in it;
-- :class:`StepTimer`: wall-clock step timing that synchronizes the step
-  output's CUDA device before it reads the clock, so an interval covers
-  the device work and not only the launches;
-- :func:`log_compile_time`: the first call's time against a steady one;
-  on the card the first call pays the kernels' loading and any CUDA graph
-  capture.
+- the span store: a ring of the process's last ``SPANS`` spans, each a
+  dict ``{"name", "id", "parent", "thread", "start_ns", "end_ns",
+  "attrs"}``. :func:`span` times a block on one thread; :func:`record`
+  keeps an interval whose ends were read elsewhere (a request's wait in a
+  queue: put on a client's thread, taken on the worker's);
+  :func:`spans` copies the ring, oldest first; :func:`clear` empties it.
+  ``ids`` numbers spans and the requests they belong to, so an id names
+  one span, or the spans of one request. ``now_ns`` is the clock of
+  ``torch.profiler``'s host events (Unix time in ns), to which the
+  profiler aligns its CUDA device timestamps: a span compares directly
+  with a traced device interval.
+
+Spans are always recorded (a few per served call, about 1-2 us each) and
+do not enter the profiler: its events are not recorded on threads other
+than the one that started it, where the serving front's worker runs.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from dataclasses import dataclass, field
 
-import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+SPANS = 2 ** 16
+
+now_ns = time.time_ns
+ids = itertools.count(1)
+_ring: collections.deque = collections.deque(maxlen=SPANS)
 
 
 @contextlib.contextmanager
@@ -43,61 +59,38 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-def _sync(leaf) -> None:
-    """Wait for the CUDA device of the first tensor in ``leaf`` (a tensor,
-    or a dict, list or tuple holding tensors)."""
-    if torch.is_tensor(leaf):
-        if leaf.is_cuda:
-            torch.cuda.synchronize(leaf.device)
-        return
-    if isinstance(leaf, dict):
-        leaf = list(leaf.values())
-    if isinstance(leaf, (list, tuple)):
-        for v in leaf:
-            if torch.is_tensor(v) or isinstance(v, (dict, list, tuple)):
-                return _sync(v)
+def record(name: str, start_ns: int, end_ns: int, parent: int | None = None,
+           span_id: int | None = None, **attrs) -> int:
+    """Keep the span ``name`` over ``[start_ns, end_ns]`` (``now_ns``
+    readings), under the span ``parent``; ``span_id`` is drawn from
+    ``ids`` unless given. Returns the span's id."""
+    if span_id is None:
+        span_id = next(ids)
+    _ring.append({"name": name, "id": span_id, "parent": parent,
+                  "thread": threading.current_thread().name,
+                  "start_ns": start_ns, "end_ns": end_ns, "attrs": attrs})
+    return span_id
 
 
-@dataclass
-class StepTimer:
-    """Call ``start()`` once, then ``tick(leaf)`` after each step; ``leaf``
-    is any output of the step, whose device is synchronized first."""
-
-    times: list = field(default_factory=list)
-    _t0: float | None = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def tick(self, leaf=None):
-        if leaf is not None:
-            _sync(leaf)
-        now = time.perf_counter()
-        if self._t0 is not None:
-            self.times.append(now - self._t0)
-        self._t0 = now
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        t = np.asarray(self.times)
-        return {
-            "steps": len(t),
-            "mean_s": float(t.mean()),
-            "p50_s": float(np.percentile(t, 50)),
-            "p95_s": float(np.percentile(t, 95)),
-            "steps_per_s": float(1.0 / t.mean()),
-        }
+@contextlib.contextmanager
+def span(name: str, parent: int | None = None, **attrs):
+    """Keep the span ``name`` over the block; yields its id. A block that
+    raises closes its span with ``error=True``."""
+    span_id, start = next(ids), now_ns()
+    try:
+        yield span_id
+    except BaseException:
+        attrs["error"] = True
+        raise
+    finally:
+        record(name, start, now_ns(), parent, span_id, **attrs)
 
 
-def log_compile_time(fn, *args, **kwargs) -> dict:
-    """Wall times of a first and a second call of ``fn``, each up to its
-    output's device sync, and their difference."""
-    t0 = time.perf_counter()
-    _sync(fn(*args, **kwargs))
-    first = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _sync(fn(*args, **kwargs))
-    steady = time.perf_counter() - t0
-    return {"first_call_s": first, "steady_call_s": steady,
-            "compile_overhead_s": first - steady}
+def spans() -> list[dict]:
+    """The ring's spans in the order they were kept, oldest first (a
+    copy)."""
+    return list(_ring)
+
+
+def clear() -> None:
+    _ring.clear()

@@ -26,7 +26,8 @@ Counterpart of ``graph_wavenet_tpu/train/serving.py``:
   called as ``(x, adj_idx)`` with the bank baked in;
 - :class:`MicroBatcher`: dynamic request batching, to power-of-two buckets
   or to an artifact's fixed batch; a request may be a tuple of arrays
-  (diff-G's ``(x, adj_idx)``), batched component by component.
+  (diff-G's ``(x, adj_idx)``), batched component by component. Each call
+  and request leaves spans in ``train.profiling``'s store.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch.nn.functional as F
 from graph_wavenet_tpu_torch import resolve_device
 from graph_wavenet_tpu_torch.config import ModelConfig
 from graph_wavenet_tpu_torch.data.scaler import StandardScaler
-from graph_wavenet_tpu_torch.train import step_graph
+from graph_wavenet_tpu_torch.train import profiling, step_graph
 
 
 @dataclass(eq=False)
@@ -718,6 +719,14 @@ class MicroBatcher:
     pads every call to exactly that batch instead (an artifact bakes one)
     and caps a call at it. Pad rows repeat the last real example and are
     dropped. Thread-safe; use as a context manager or call :meth:`stop`.
+
+    Spans (``train.profiling``, on the profiler's clock): a call's
+    ``serve.call``, from taking its first request to handing back the last
+    answer (``requests``, ``bucket``, ``request_ids``; ``error=True`` if it
+    failed), and inside it ``serve.stack`` (the stack and pad rows;
+    ``bytes``) and ``serve.predict`` (``predict_fn`` and the read back;
+    ``bucket``); each request's ``serve.queued``, from ``submit`` to the
+    worker taking it, under its call and with the request's id.
     """
 
     def __init__(self, predict_fn, max_batch: int = 64,
@@ -752,7 +761,7 @@ class MicroBatcher:
             item = self._q.get()
             if item is None:
                 return
-            batch = [item]
+            batch = [(*item, profiling.now_ns())]
             deadline = time.monotonic() + self.window_s
             while len(batch) < self.max_batch:
                 timeout = deadline - time.monotonic()
@@ -765,12 +774,15 @@ class MicroBatcher:
                 if nxt is None:
                     self._flush(batch)
                     return
-                batch.append(nxt)
+                batch.append((*nxt, profiling.now_ns()))
             self._flush(batch)
 
     def _flush(self, batch):
+        """One call for ``batch``, items ``(x, future, request id, put_ns,
+        taken_ns)``; records the call's spans."""
         n = len(batch)
         bucket = self._bucket(n)
+        call = next(profiling.ids)
 
         def stack(parts):
             xs = np.stack(parts)
@@ -779,27 +791,33 @@ class MicroBatcher:
                                                    axis=0)])
             return xs
 
-        first = batch[0][0]
-        if isinstance(first, tuple):
-            args = tuple(stack([b[0][i] for b in batch])
-                         for i in range(len(first)))
-        else:
-            args = (stack([b[0] for b in batch]),)
+        rows = [b[0] if isinstance(b[0], tuple) else (b[0],) for b in batch]
+        error = {}
         try:
-            out = self._predict(*args)
-            out = (out.cpu().numpy() if isinstance(out, torch.Tensor)
-                   else np.asarray(out))
+            with profiling.span("serve.stack", call, bytes=bucket * sum(
+                    a.nbytes for a in rows[0])):
+                args = tuple(stack(parts) for parts in zip(*rows))
+            with profiling.span("serve.predict", call, bucket=bucket):
+                out = self._predict(*args)
+                out = (out.cpu().numpy() if isinstance(out, torch.Tensor)
+                       else np.asarray(out))
         except Exception as e:              # deliver, don't kill the worker
-            for _, fut in batch:
-                fut.set_exception(e)
-            return
-        with self._stats_lock:
-            self.stats["requests"] += n
-            self.stats["device_calls"] += 1
-            h = self.stats["batch_histogram"]
-            h[n] = h.get(n, 0) + 1
-        for i, (_, fut) in enumerate(batch):
-            fut.set_result(out[i])
+            error = {"error": True}
+            for b in batch:
+                b[1].set_exception(e)
+        else:
+            with self._stats_lock:
+                self.stats["requests"] += n
+                self.stats["device_calls"] += 1
+                h = self.stats["batch_histogram"]
+                h[n] = h.get(n, 0) + 1
+            for i, b in enumerate(batch):
+                b[1].set_result(out[i])
+        profiling.record("serve.call", batch[0][4], profiling.now_ns(),
+                         span_id=call, requests=n, bucket=bucket,
+                         request_ids=[b[2] for b in batch], **error)
+        for _, _, rid, put, taken in batch:
+            profiling.record("serve.queued", put, taken, call, span_id=rid)
 
     def submit(self, x) -> np.ndarray:
         """Enqueue one example (no batch dim; a tuple of arrays for a
@@ -809,7 +827,7 @@ class MicroBatcher:
         fut: concurrent.futures.Future = concurrent.futures.Future()
         x = (tuple(map(np.asarray, x)) if isinstance(x, tuple)
              else np.asarray(x))
-        self._q.put((x, fut))
+        self._q.put((x, fut, next(profiling.ids), profiling.now_ns()))
         return fut.result()
 
     def stop(self):

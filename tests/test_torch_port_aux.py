@@ -1,8 +1,10 @@
 """The port's auxiliary modules against their JAX counterparts, on the CPU:
 
 - ``train/profiling.py``: ``trace`` writes a Chrome trace naming the ops
-  it saw, ``StepTimer``'s summary is JAX's on the same intervals,
-  ``log_compile_time``'s three numbers; the train CLI's ``--profile``;
+  it saw; the train CLI's ``--profile``; the span store (its bound and
+  order, intervals kept across threads, the profiler's clock), the
+  ``MicroBatcher``'s spans of a call and of a failed one, and
+  ``gwt-torch-serve``'s ``/stats`` percentiles of them;
 - ``utils/misc.py`` against JAX ``utils/misc.py`` on
   ``tests/test_e2e.py``'s cases, with ``torch.Generator`` states in the
   place of JAX keys;
@@ -50,37 +52,204 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.get("name") == "aten::mm" for e in events)
 
 
-def test_step_timer_summary_matches_jax():
-    from graph_wavenet_tpu.train.profiling import StepTimer as JTimer
-    from graph_wavenet_tpu_torch.train.profiling import StepTimer
+@pytest.fixture
+def ring():
+    """The span store, emptied before and after the test."""
+    from graph_wavenet_tpu_torch.train import profiling
 
-    timer = StepTimer()
-    assert timer.summary() == {}
-    timer.start()
-    for _ in range(3):
-        timer.tick({"loss": torch.ones(()), "other": [torch.zeros(2)]})
-    assert len(timer.times) == 3 and min(timer.times) >= 0.0
-    times = [0.5, 0.25, 0.125, 1.0]
-    got, want = StepTimer(times=list(times)), JTimer(times=list(times))
-    assert got.summary() == want.summary()
+    profiling.clear()
+    yield profiling
+    profiling.clear()
 
 
-def test_log_compile_time_reports_both_calls():
-    from graph_wavenet_tpu_torch.train.profiling import log_compile_time
+def test_span_ring_keeps_the_last_spans_in_order(ring):
+    first = ring.now_ns()
+    for i in range(ring.SPANS + 3):
+        ring.record("s", first + i, first + i + 1, i=i)
+    got = ring.spans()
+    assert len(got) == ring.SPANS
+    assert [s["attrs"]["i"] for s in got] == list(range(3, ring.SPANS + 3))
+    assert got[0]["start_ns"] == first + 3
+    with ring.span("outer", k="v") as outer:
+        with pytest.raises(KeyError):
+            with ring.span("inner", outer):
+                raise KeyError("x")
+    inner, out = ring.spans()[-2:]
+    assert (inner["name"], inner["parent"], inner["attrs"]) == (
+        "inner", outer, {"error": True})
+    assert (out["name"], out["id"], out["parent"], out["attrs"]) == (
+        "outer", outer, None, {"k": "v"})
+    assert out["start_ns"] <= inner["start_ns"] <= inner["end_ns"] \
+        <= out["end_ns"]
+    ring.clear()
+    assert ring.spans() == []
 
-    calls = []
 
-    def fn(x):
-        calls.append(1)
-        time.sleep(0.02 if len(calls) == 1 else 0.0)
-        return {"y": x * 2}
+def test_record_across_threads(ring):
+    """An interval read on one thread is kept by another, under that
+    thread's name; many threads recording at once lose no span."""
+    import sys
 
-    out = log_compile_time(fn, torch.ones(3))
-    assert len(calls) == 2
-    assert set(out) == {"first_call_s", "steady_call_s", "compile_overhead_s"}
-    assert out["first_call_s"] >= 0.02
-    assert out["compile_overhead_s"] == pytest.approx(
-        out["first_call_s"] - out["steady_call_s"])
+    opened = []
+    t = threading.Thread(target=lambda: opened.append(ring.now_ns()),
+                         name="client")
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive() and opened
+
+    def close():
+        ring.record("queued", opened[0], ring.now_ns(), 7, span_id=99,
+                    why="test")
+
+    w = threading.Thread(target=close, name="worker")
+    w.start()
+    w.join(timeout=10)
+    assert not w.is_alive()
+    (s,) = ring.spans()
+    assert (s["name"], s["id"], s["parent"], s["thread"], s["attrs"]) == (
+        "queued", 99, 7, "worker", {"why": "test"})
+    assert opened[0] == s["start_ns"] <= s["end_ns"]
+    ring.clear()
+
+    def many():
+        for _ in range(500):
+            with ring.span("busy"):
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=many) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    got = ring.spans()
+    assert len(got) == 16 * 500
+    assert len({s["id"] for s in got}) == len(got)
+
+
+def test_span_is_on_the_profilers_clock(ring):
+    """An op run inside a span has its profiler event inside the span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(256, 256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ring.span("mm"):
+            torch.mm(a, a)
+    (s,) = ring.spans()
+    (ev,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::mm"]
+    assert s["start_ns"] <= ev.start_ns()
+    assert ev.start_ns() + ev.duration_ns() <= s["end_ns"]
+
+
+def _batcher_calls(ring):
+    by_name = {}
+    for s in ring.spans():
+        by_name.setdefault(s["name"], []).append(s)
+    return by_name
+
+
+def test_micro_batcher_spans_a_call_and_its_requests(ring):
+    """Three concurrent requests in one call: the call's span with its
+    bucket, the stack and predict inside it, each request's wait under
+    it."""
+    from graph_wavenet_tpu_torch.train.serving import MicroBatcher
+
+    def predict(x):
+        time.sleep(0.02)
+        return torch.as_tensor(x * 2.0)
+
+    xs = np.arange(3 * 5, dtype=np.float32).reshape(3, 5)
+    answers = [None] * 3
+    with MicroBatcher(predict, max_batch=8, window_ms=300.0) as mb:
+        def ask(i):
+            answers[i] = mb.submit(xs[i])
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    np.testing.assert_array_equal(np.stack(answers), xs * 2.0)
+    got = _batcher_calls(ring)
+    (call,) = got["serve.call"]
+    assert call["attrs"]["requests"] == 3 and call["attrs"]["bucket"] == 4
+    assert call["thread"] == "gwt-microbatcher" and call["parent"] is None
+    queued = got["serve.queued"]
+    assert sorted(q["id"] for q in queued) == sorted(
+        call["attrs"]["request_ids"])
+    for q in queued:
+        assert q["parent"] == call["id"]
+        assert q["start_ns"] <= q["end_ns"] <= call["end_ns"]
+    assert min(q["end_ns"] for q in queued) == call["start_ns"]
+    (stack,), (pred,) = got["serve.stack"], got["serve.predict"]
+    assert stack["attrs"] == {"bytes": 4 * 5 * 4}
+    assert pred["attrs"] == {"bucket": 4}
+    assert call["start_ns"] <= stack["start_ns"] <= stack["end_ns"] \
+        <= pred["start_ns"] <= pred["end_ns"] <= call["end_ns"]
+    assert stack["parent"] == pred["parent"] == call["id"]
+    assert pred["end_ns"] - pred["start_ns"] >= 0.02e9
+
+
+def test_micro_batcher_failed_call_closes_its_span(ring):
+    from graph_wavenet_tpu_torch.train.serving import MicroBatcher
+
+    def predict(x):
+        raise RuntimeError("no card")
+
+    with MicroBatcher(predict, window_ms=1.0) as mb:
+        with pytest.raises(RuntimeError, match="no card"):
+            mb.submit(np.zeros(3, np.float32))
+        assert mb.stats["device_calls"] == 0
+    got = _batcher_calls(ring)
+    (call,) = got["serve.call"]
+    assert call["attrs"]["error"] is True
+    assert call["attrs"]["requests"] == 1
+    assert got["serve.predict"][0]["attrs"]["error"] is True
+    assert got["serve.queued"][0]["parent"] == call["id"]
+
+
+def test_serve_stats_reports_queue_wait_and_call_ms(ring):
+    """``GET /stats``: the batcher's counters, and the percentiles of the
+    spans of its requests' waits and of its calls."""
+    import urllib.request
+
+    from graph_wavenet_tpu_torch.cli import serve
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+
+    assert serve.span_ms("serve.call") == {"p50": None, "p95": None,
+                                           "count": 0}
+    server, batcher = serve.make_server(
+        lambda x: torch.as_tensor(x[:, :2, :, 0]), StandardScaler(0.0, 1.0),
+        {}, "127.0.0.1", 0, max_batch=4, window_ms=50.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    try:
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps(
+                {"x": np.ones((3, 12, 5, 2)).tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert np.asarray(json.loads(r.read())["y"]).shape == (3, 2, 5)
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    assert stats["requests"] == 3
+    assert stats["queue_wait_ms"]["count"] == 3
+    assert stats["call_ms"]["count"] == stats["device_calls"] == 3
+    for k in ("queue_wait_ms", "call_ms"):
+        assert 0 <= stats[k]["p50"] <= stats[k]["p95"]
 
 
 def test_train_cli_profile_writes_a_trace(tmp_path):

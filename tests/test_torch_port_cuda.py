@@ -31,7 +31,7 @@ kernels as ``torch.library`` ops: ``opcheck`` of each on CUDA tensors, a
 2,048-node exported city artifact (flat with the masked adaptive
 adjacency, and padded) bit for bit against its Forecaster, and rolling and
 autoregressive forecasts, replayed graphs, bit for bit against eager
-predicts.
+predicts. And the span store's clock against the profiler's device clock.
 """
 
 import dataclasses
@@ -1782,6 +1782,37 @@ def test_prefetch_onto_the_card_equals_plain_copies(card):
 
 BENCH_ROWS = ["metr-la-temporal", "metr-la-gcn", "metr-la-full",
               "pems-bay-full", "city-40k-block-flat"]
+
+
+def test_span_holds_the_kernel_it_waits_for(card):
+    """The span store's clock is the one ``torch.profiler`` aligns its
+    device timestamps to: a span around a sleeping kernel and a
+    synchronize holds the kernel's device interval, widened by at most
+    50 us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from graph_wavenet_tpu_torch.train import profiling
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with profiling.span("sleep") as sid:
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+    (s,) = [x for x in profiling.spans() if x["id"] == sid]
+    kernel = max((e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation()),
+                 key=lambda e: e.duration_ns())
+    start, end = kernel.start_ns(), kernel.start_ns() + kernel.duration_ns()
+    print(f"span_clock kernel {kernel.name()} {kernel.duration_ns()} ns; "
+          f"starts {start - s['start_ns']} ns after the span, ends "
+          f"{s['end_ns'] - end} ns before its end")
+    assert kernel.duration_ns() > 1_000_000
+    assert s["start_ns"] - 50_000 <= start
+    assert end <= s["end_ns"] + 50_000
 
 
 @pytest.mark.slow
