@@ -35,6 +35,15 @@ exits non-zero:
    bit-identical, and (fp32 output) bitwise against kernel 2 on
    ``as_flat_pallas``'s tables; the host build of the padded supports
    timed beside the flat one;
+5b. the projection kernel (``csrc/chan_proj.cu``, ``phase_chan_proj``) at
+   the city train step's first-layer shapes (batch 4, 40,960 nodes: the
+   sparse diffusion's 7 x 32 -> 32 over node-leading views and over
+   row-major operands, the temporal taps, skip, end_conv_1 and 2, start):
+   the forward through ``ops.linear.project``, the operands' gradient and
+   the weight and bias gradient, each against its plain version within
+   one bf16 ulp plus 2^-16 of the largest value, timed beside it, beside
+   cuBLAS's bf16 GEMM and beside its bound; its launches are held to the
+   model's count in the train steps of 10 and 13 and the serving of 9;
 6. kernel 3's dispatch: the fused pass against the chain at the main
    paths' R of ``DISPATCH_R``, forward and over the transpose tables with
    ``add``, fp32 and bf16, bit for bit, each line with both branches' host
@@ -253,8 +262,9 @@ line it prints
 The launch counts of a graphed window add each replay's launches (a
 wrapper counts its Python calls, so a capture counts a step once).
 
-Before the last line it prints one ``{"kernels": [...]}`` line and the
-card's name and power limit; the last line is
+Before the last line it prints one ``{"kernels": [...]}`` line (kernels
+1-5, then the projection kernel's three ops at the sparse diffusion's
+shape) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. It needs the repository around it and a
 CUDA card, and exits non-zero without either.
 """
@@ -284,6 +294,7 @@ K2_SRC = "graph_wavenet_tpu_torch/csrc/outer_flat.cu"
 K3_SRC = "graph_wavenet_tpu_torch/csrc/mix_flat2.cu"
 K4_SRC = "graph_wavenet_tpu_torch/csrc/mix_padded.cu"
 K5_SRC = "graph_wavenet_tpu_torch/csrc/outer_padded.cu"
+PROJ_SRC = "graph_wavenet_tpu_torch/csrc/chan_proj.cu"
 K1_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:167"
 K2_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:256"
 K3_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:497"
@@ -382,11 +393,12 @@ def tile_of(r: int, dtype) -> dict:
             "product": "wgmma" if dtype == torch.bfloat16 else "fp32 FMA"}
 
 
-def close_err(got, want, summand=None) -> tuple[float, bool, str]:
+def close_err(got, want, summand=None,
+              slack: float = 2.0 ** -20) -> tuple[float, bool, str]:
     """Max |got - want| and whether it is within the dtype's tolerance:
     fp32 rtol 1e-5 (atol 1e-5 of the largest value); bf16 one bf16 ulp of
-    the larger of the two values, plus fp32 accumulation-order slack of
-    2^-20 of the largest value. ``summand``: the term added after the
+    the larger of the two values, plus fp32 accumulation-order ``slack``
+    of the largest value. ``summand``: the term added after the
     rounding that the tolerance covers (kernel 3's ``add``); its result is
     rounded once more, so one more ulp, of the value before the add, is
     allowed."""
@@ -403,8 +415,8 @@ def close_err(got, want, summand=None) -> tuple[float, bool, str]:
         tol = 1e-5 * w.abs() + 1e-5 * scale
         rule = "rtol 1e-5, atol 1e-5 x max|plain|"
     else:
-        tol = ulp(torch.maximum(g.abs(), w.abs())) + scale * 2.0 ** -20
-        rule = "1 bf16 ulp + 2^-20 x max|plain|"
+        tol = ulp(torch.maximum(g.abs(), w.abs())) + scale * slack
+        rule = f"1 bf16 ulp + 2^{math.log2(slack):.0f} x max|plain|"
         if summand is not None:
             tol = tol + ulp((w - summand.float()).abs())
             rule += " (+1 ulp of the value before add)"
@@ -1182,6 +1194,144 @@ def phase_train_kernels(graph) -> dict:
     return summary
 
 
+# the city train step's projections at its first layer (batch 4, 40,960
+# nodes): name, C, F, operands, layout. ``nodes``: the sparse diffusion's
+# node-leading hops read as (B*T, N, C) views; ``rows``: the same over
+# (B, T, N, C) operands (the dense modes'); ``taps``: the temporal conv's
+# two time slices of one tensor; ``last``: the skip conv's last 12 steps
+PROJ_SHAPES = (("diffusion", 32, 32, 7, "nodes"),
+               ("diffusion_rows", 32, 32, 7, "rows"),
+               ("tcn", 32, 64, 2, "taps"), ("skip", 32, 256, 1, "last"),
+               ("end_conv_1", 256, 512, 1, "end"),
+               ("end_conv_2", 512, 12, 1, "end"),
+               ("start", 2, 32, 1, "start"))
+
+
+def proj_operands(layout: str, c: int, k: int, gen) -> list:
+    import torch
+
+    b, t, n = TRAIN_BATCH, 12, N_CITY
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    if layout == "nodes":
+        return [draw(n, b * t * c).reshape(n, b * t, c).transpose(0, 1)
+                for _ in range(k)]
+    if layout == "rows":
+        return [draw(b, t, n, c) for _ in range(k)]
+    if layout == "taps":
+        x = draw(b, t + 1, n, c)
+        return [x[:, i:i + t] for i in range(k)]
+    if layout == "last":
+        return [draw(b, t + 1, n, c)[:, -t:]]
+    if layout == "end":
+        return [draw(b, 1, n, c)]
+    return [draw(b, t + 1, n, c)]                        # start
+
+
+def phase_chan_proj() -> dict:
+    """The projection kernel (``csrc/chan_proj.cu``) at the city train
+    step's shapes (``PROJ_SHAPES``): its forward through ``ops.linear.
+    project``, its operands' gradient and its weight and bias gradient
+    (``chan_proj_dgrad``, ``chan_proj_wgrad``), each against its plain
+    version (``chan_proj_*_plain``: fp32 matmuls, sums and one cast) on
+    the same card tensors, within one bf16 ulp plus 2^-16 of the largest
+    value (fp32 sums in another order; the fp32 bias gradient within rtol
+    1e-5), and timed beside the plain version, cuBLAS's bf16 GEMM on the
+    operands already concatenated (``library_ms``, bf16 output, which
+    reads each operand once) and its bound (each byte read and written
+    once, or the bf16 tensor cores' peak). Returns the diffusion's rows
+    for the kernels line."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops import linear
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
+
+    ops = torch.ops.gwt_torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    summary = {}
+    for name, c, f, k, layout in PROJ_SHAPES:
+        xs = proj_operands(layout, c, k, gen)
+        ctot = c * k
+        w = torch.randn(f, ctot, generator=gen, device="cuda") / ctot ** 0.5
+        bias = torch.randn(f, generator=gen, device="cuda")
+        rows = linear._row_views(xs)
+        wb = w.bfloat16()
+        m = rows[0].shape[0] * rows[0].shape[1]
+        g = torch.randn(rows[0].shape[:2] + (f,), generator=gen,
+                        device="cuda").bfloat16()
+        # the library's operands: concatenated, contiguous, outside its time
+        x2 = torch.cat([x.reshape(m, c) for x in rows], dim=1)
+        g2 = g.reshape(m, f)
+        passes = {
+            "forward": (
+                lambda: linear.project(xs, w, bias),
+                lambda: cp.chan_proj_plain(rows, wb, bias),
+                lambda: torch.addmm(bias.bfloat16(), x2, wb.t())),
+            "dgrad": (
+                lambda: ops.chan_proj_dgrad(g, wb, rows),
+                lambda: cp.chan_proj_dgrad_plain(g, wb, rows),
+                lambda: g2 @ wb),
+            "wgrad": (
+                lambda: ops.chan_proj_wgrad(rows, g),
+                lambda: cp.chan_proj_wgrad_plain(rows, g),
+                lambda: (g2.t() @ x2, g2.sum(0, dtype=torch.float32)))}
+        for direction, (kern, plain, library) in passes.items():
+            cp.reset_launch_counts()
+            with torch.no_grad():
+                got, want = kern(), plain()
+            torch.cuda.synchronize()
+            require(cp.LAUNCHES[direction] == 1 and sum(
+                cp.LAUNCHES.values()) == 1,
+                    f"{name} {direction}: launches {cp.LAUNCHES}")
+            got = list(got) if isinstance(got, (list, tuple)) else [got]
+            want = list(want) if isinstance(want, (list, tuple)) else [want]
+            errs = []
+            for a, b in zip(got, want):
+                # project's output keeps the operands' leading shape
+                require(a.numel() == b.numel() and a.dtype == b.dtype,
+                        f"{name} {direction}: {a.shape} {a.dtype} against "
+                        f"the plain version's {b.shape} {b.dtype}")
+                err, ok, rule = close_err(a.reshape(b.shape), b,
+                                          slack=2.0 ** -16)
+                require(ok, f"{name} {direction} disagrees with its plain "
+                            f"version: {err} ({rule})")
+                errs.append(err)
+            del got, want
+            flops = 2 * m * ctot * f
+            nbytes = 2 * m * (ctot + f)
+            with torch.no_grad():
+                rec = dict(op={"forward": "chan_proj", "dgrad":
+                               "chan_proj_dgrad", "wgrad":
+                               "chan_proj_wgrad"}[direction],
+                           projection=name, C=c, F=f, operands=k,
+                           layout=layout, rows=m, max_abs_err=max(errs),
+                           kernel_ms=cuda_ms(kern, 20),
+                           plain_ms=cuda_ms(plain, 3),
+                           library_ms=cuda_ms(library, 20))
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
+                                                     "bfloat16")
+            emit("chan_proj_check", **rec)
+            if name == "diffusion":
+                summary["proj_" + direction] = rec
+        del xs, rows, x2, g, g2, passes
+        torch.cuda.empty_cache()
+    return summary
+
+
+def proj_expected(cfg, forwards: int, steps: int = 0) -> dict:
+    """The projection kernel's launches in ``forwards`` model forwards of
+    which ``steps`` are train steps: a forward projects every layer's taps,
+    skip and diffusion and the start and two end convs once; a step's
+    backward runs the weight gradient of each but the last layer's
+    diffusion (no loss term reads it) and the operands' gradient of those
+    but the start conv (its input needs none)."""
+    n = 3 * cfg.blocks * cfg.layers + 3
+    return {"forward": forwards * n, "dgrad": steps * (n - 2),
+            "wgrad": steps * (n - 1)}
+
+
 def phase_small_e2e(seed: int = 0) -> None:
     import numpy as np
     import torch
@@ -1597,6 +1747,7 @@ def phase_train(graph, tmp: str, form: str) -> dict:
     from graph_wavenet_tpu_torch.cli import serve, train
     from graph_wavenet_tpu_torch.graphs import city
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
 
     tag = "" if form == "flat" else "_padded"
     pos, src, dst, w = graph
@@ -1646,16 +1797,23 @@ def phase_train(graph, tmp: str, form: str) -> dict:
     counts = {}
     mcfg = engine.model_cfg
     bd.reset_launch_counts()
+    cp.reset_launch_counts()
     engine.train_step(xt, yt, sups)
     torch.cuda.synchronize()
     counts["train" + tag] = dict(bd.LAUNCHES)
+    counts["proj_train" + tag] = dict(cp.LAUNCHES)
     want = expected_step_launches(
         sups, layer_widths(mcfg, TRAIN_BATCH, 13), torch.bfloat16)
+    want_proj = proj_expected(mcfg, 1, 1)
     emit("train_step_launches", form=form, launches=counts["train" + tag],
-         expected=want)
+         expected=want, projection=counts["proj_train" + tag],
+         projection_expected=want_proj)
     require(counts["train" + tag] == want,
             f"train-step launches {counts['train' + tag]} do not match "
             f"{want}")
+    require(counts["proj_train" + tag] == want_proj,
+            f"train-step projection launches {counts['proj_train' + tag]} "
+            f"do not match {want_proj}")
 
     for _ in range(2):
         engine.train_step(xt, yt, sups)
@@ -1730,6 +1888,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
 
     from graph_wavenet_tpu_torch.cli import serve
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
 
     t0 = time.perf_counter()
     run = serve.main(["--checkpoint", path, "--graph_npz", gpath,
@@ -1766,6 +1925,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
                 errors.append(f"{type(e).__name__}: {e}")
 
         bd.reset_launch_counts()
+        cp.reset_launch_counts()
         t1 = time.perf_counter()
         threads = [threading.Thread(target=ask, args=(i,))
                    for i in range(n_req)]
@@ -1776,6 +1936,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t1
         counts = dict(bd.LAUNCHES)
+        proj = dict(cp.LAUNCHES)
         require(not errors and not any(t.is_alive() for t in threads),
                 f"requests failed: {errors}")
         stats = json.loads(urllib.request.urlopen(
@@ -1792,11 +1953,15 @@ def serve_run(path: str, gpath: str, form: str, cfg):
                     fc.supports, layer_widths(cfg, bucket),
                     torch.bfloat16).items():
                 want[k] += count * v
+        want_proj = proj_expected(cfg, sum(stats["batch_histogram"].values()))
         emit("serve", form=form, requests=n_req, device_calls=calls,
              batch_histogram=stats["batch_histogram"],
-             seconds=round(serve_s, 3), launches=counts, expected=want)
+             seconds=round(serve_s, 3), launches=counts, expected=want,
+             projection=proj, projection_expected=want_proj)
         require(counts == want,
                 f"launch counts {counts} do not match the layout {want}")
+        require(proj == want_proj,
+                f"projection launches {proj} do not match {want_proj}")
 
         # predict latency through the Forecaster, batch 1 and 8
         for b in (1, 8):
@@ -1833,7 +1998,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
         batcher.stop()
     del fc, run
     torch.cuda.empty_cache()
-    return counts, x1, pred
+    return counts, proj, x1, pred
 
 
 def phase_serve(graph, tmp: str) -> dict:
@@ -1879,11 +2044,11 @@ def phase_serve(graph, tmp: str) -> dict:
          n_blocks=layout["n_blocks"], fused2=layout["fused2"])
 
     counts = {}
-    counts["serve"], x1, fused_pred = serve_run(paths["flat"], gpath, "flat",
-                                                cfg)
+    counts["serve"], counts["proj_serve"], x1, fused_pred = serve_run(
+        paths["flat"], gpath, "flat", cfg)
     phase_block_casts(paths["flat"], gpath)
-    counts["serve_padded"], _, padded_pred = serve_run(
-        paths["pallas"], gpath, "pallas", cfg)
+    counts["serve_padded"], counts["proj_serve_padded"], _, padded_pred = (
+        serve_run(paths["pallas"], gpath, "pallas", cfg))
     emit("predict_padded_vs_flat", batch=1,
          bitwise_equal=bool(torch.equal(padded_pred, fused_pred)),
          max_abs_diff=float((padded_pred - fused_pred).abs().max()))
@@ -2460,8 +2625,9 @@ def phase_dense(seed: int = 0) -> dict:
     against the CPU's (2e-4), the card's bf16 forecast against its fp32
     (within 5e-2 of the fp32 forecast's largest magnitude), 12 bf16 train
     steps with finite losses, timed (median of 10 after 2), the step time
-    of each ``gcn_mode``, and one profiled step. No hand kernel runs on
-    this path; its launch counts are read and must stay 0. Returns them."""
+    of each ``gcn_mode``, and one profiled step. No block kernel runs on
+    this path (its launch counts must stay 0); the projection kernel's
+    launches in two steps are the model's. Returns both counts."""
     import dataclasses
 
     import numpy as np
@@ -2471,6 +2637,7 @@ def phase_dense(seed: int = 0) -> dict:
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
     from graph_wavenet_tpu_torch.train.engine import Engine
 
     sups_np, x_np, y_np = dense_inputs(seed)
@@ -2517,11 +2684,13 @@ def phase_dense(seed: int = 0) -> dict:
                         seed=seed, aptinit=sups_np[0])
         n_timed = 10 if mode == "auto" else 5
         bd.reset_launch_counts()
+        cp.reset_launch_counts()
         losses = [float(engine.train_step(xt, yt, sups)["loss"])
                   for _ in range(2)]
         torch.cuda.synchronize()
         if mode == "auto":
             counts["dense_train"] = dict(bd.LAUNCHES)
+            counts["proj_dense_train"] = dict(cp.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(n_timed):
@@ -2545,10 +2714,16 @@ def phase_dense(seed: int = 0) -> dict:
             emit("dense_train_step_profile", gcn_mode=mcfg.resolved_gcn_mode,
                  **profile_step(lambda: engine.train_step(xt, yt, sups)))
         del engine
+    want_proj = proj_expected(cfg, 2, 2)
     emit("dense_gcn_modes", step_median_ms=steps,
-         launches=counts["dense_train"])
+         launches=counts["dense_train"],
+         projection=counts["proj_dense_train"],
+         projection_expected=want_proj)
     require(not any(counts["dense_train"].values()),
             f"the dense path launched a block kernel: {counts}")
+    require(counts["proj_dense_train"] == want_proj,
+            f"dense projection launches {counts['proj_dense_train']} do not "
+            f"match {want_proj}")
     torch.cuda.empty_cache()
     return counts
 
@@ -6542,6 +6717,13 @@ PAIR_KERNELS = {"gathered_block_mix_flat": "gathered_block_mix_flat2",
 RULED_WINDOWS = ("serve", "train", "train_graphed", "artifact",
                  "serve_artifact", "rolling", "dist_graphed", "dist_pipe",
                  "bench_flat")
+# the windows whose projection-kernel launches the kernels line counts,
+# each held to the model's count where it was read
+PROJ_TRAIN_WINDOWS = ("proj_train", "proj_train_padded", "proj_dense_train")
+PROJ_SERVE_WINDOWS = ("proj_serve", "proj_serve_padded")
+PROJ_SYMBOLS = {"forward": ["chan_proj_kernel"],
+                "dgrad": ["chan_proj_kernel"],
+                "wgrad": ["chan_proj_wgrad", "chan_proj_reduce"]}
 
 
 def main() -> int:
@@ -6583,6 +6765,7 @@ def main() -> int:
     padded, padded_summary = timed("padded_kernels", phase_padded_kernels,
                                    graph)
     summary.update(padded_summary)
+    summary.update(timed("chan_proj", phase_chan_proj))
     timed("dispatch", phase_dispatch, graph)
     timed("small_e2e", phase_small_e2e)
     timed("small_train", phase_small_train)
@@ -6673,6 +6856,26 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": rec.get("max_abs_err",
                                    rec.get("max_abs_err_out2")),
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"]})
+    # the projection kernel's three ops, a dense-ops kernel with no Pallas
+    # counterpart (the JAX package leaves channel matmuls to XLA): times at
+    # the city step's sparse diffusion (7 x 32 -> 32, 1.97 M rows),
+    # launches in the flat and padded train steps, the dense METR steps
+    # and (forward only) the flat and padded serving windows
+    for direction, windows in (
+            ("forward", PROJ_TRAIN_WINDOWS + PROJ_SERVE_WINDOWS),
+            ("dgrad", PROJ_TRAIN_WINDOWS), ("wgrad", PROJ_TRAIN_WINDOWS)):
+        rec = summary["proj_" + direction]
+        launches = sum(counts[w][direction] for w in windows)
+        require(all(counts[w][direction] > 0 for w in windows),
+                f"{rec['op']} was not launched on the main path: "
+                f"{ {w: counts[w][direction] for w in windows} }")
+        kernels.append({
+            "name": rec["op"], "route": "cuda", "source": PROJ_SRC,
+            "replaces": None, "symbols": PROJ_SYMBOLS[direction],
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})

@@ -32,6 +32,13 @@ All-sparse lists (every support has ``mix_2d``) take the reference's
 hop block, ``(B, T, N, C) -> (N, R)`` with ``R = B*T*C``; every hop is a
 support's ``mix_2d`` (or both order-2 hops at once through a fused
 support's ``mix2_2d``), projected in place and accumulated in fp32.
+
+bf16 activations on a CUDA device project every hop (x included) in one
+launch of the projection kernel (``ops.linear.project``), the bias added
+in its epilogue: the dense modes without the concatenation, the stacked
+mode from each power stack's hops, and the all-sparse path reading the
+node-leading hops in place, its output already ``(B, T, N, F)``. Every
+other dtype and device keeps the chains below.
 """
 
 from __future__ import annotations
@@ -41,7 +48,12 @@ import functools
 import torch
 from torch import nn
 
-from graph_wavenet_tpu_torch.ops.linear import Linear, channel_matmul
+from graph_wavenet_tpu_torch.ops.linear import (
+    Linear,
+    channel_matmul,
+    project,
+    takes_kernel,
+)
 from graph_wavenet_tpu_torch.ops.sparse import nconv_sparse
 
 GCN_MODES = ("fused", "stacked", "concat")
@@ -160,14 +172,19 @@ def _stacked_hops_project(x: torch.Tensor, pw: torch.Tensor,
     contraction, projected with one (hop, channel) contraction by ``wk``
     (order*C, F), this support's rows in concat order. Returns fp32."""
     c_in, f = x.shape[-1], wk.shape[-1]
-    if _is_sharded(pw):
-        hops = pw.hops(x)
-    else:
-        pw = pw.to(x.dtype).float()
-        eq = "btvc,bkvw->btkwc" if pw.ndim == 4 else "btvc,kvw->btkwc"
-        hops = torch.einsum(eq, x.float(), pw).to(x.dtype)
+    hops = _stacked_hops(x, pw)
     wk = wk.reshape(order, c_in, f).to(x.dtype).float()
     return torch.einsum("btkwc,kcf->btwf", hops.float(), wk)
+
+
+def _stacked_hops(x: torch.Tensor, pw) -> torch.Tensor:
+    """All hops of one support from its power stack ``pw`` in one
+    contraction: (B, T, order, N, C) in x's dtype."""
+    if _is_sharded(pw):
+        return pw.hops(x)
+    pw = pw.to(x.dtype).float()
+    eq = "btvc,bkvw->btkwc" if pw.ndim == 4 else "btvc,kvw->btkwc"
+    return torch.einsum(eq, x.float(), pw).to(x.dtype)
 
 
 def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
@@ -189,7 +206,11 @@ def gcn_apply(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
         raise ValueError(
             f"gcn weight expects {w.shape[0] // c_in} hops, got {n_hops}: "
             "n_supports at init must match the supports list")
-    if supports and all(_is_sparse(s) for s in supports):
+    sparse = bool(supports) and all(_is_sparse(s) for s in supports)
+    if takes_kernel(x):
+        h = _kernel_project(weight[:, :, 0, 0], bias, x, supports, order,
+                            mode, stacks, sparse)
+    elif sparse:
         b, t, n, _ = x.shape
         h = (_sparse_hops_project(w, x, supports, order)
              + bias.float()).to(x.dtype)                # (N, B*T, F)
@@ -227,28 +248,56 @@ def _dense_hops_project(w: torch.Tensor, x: torch.Tensor, supports: list,
     return h
 
 
+def _sparse_hops(x: torch.Tensor, supports: list, order: int):
+    """The all-sparse path's hops in concat order, node-leading (N,
+    B*T*C), one at a time: x, then each support's (both order-2 hops of a
+    fused support from one ``mix2_2d``). A caller that projects each hop
+    as it comes keeps the chain's order of operations."""
+    b, t, n, c_in = x.shape
+    xn = x.permute(2, 0, 1, 3).reshape(n, b * t * c_in)
+    yield xn
+    for sp in supports:
+        if order == 2 and hasattr(sp, "mix2_2d"):
+            yield from sp.mix2_2d(xn)
+            continue
+        xk = xn
+        for _ in range(order):
+            xk = sp.mix_2d(xk)
+            yield xk
+
+
 def _sparse_hops_project(w: torch.Tensor, x: torch.Tensor, supports: list,
                          order: int) -> torch.Tensor:
     """The all-sparse path: every hop node-leading, projected in place;
     returns the fp32 sum (N, B*T, F) before the bias."""
     b, t, n, c_in = x.shape
-    xn = x.permute(2, 0, 1, 3).reshape(n, b * t * c_in)
-
-    def project(xk, k):
-        return channel_matmul(xk.reshape(n, b * t, c_in),
-                              w[k * c_in:(k + 1) * c_in])
-
-    h = project(xn, 0)
-    k = 1
-    for sp in supports:
-        if order == 2 and hasattr(sp, "mix2_2d"):
-            x1, x2h = sp.mix2_2d(xn)
-            h = h + project(x1, k) + project(x2h, k + 1)
-            k += 2
-            continue
-        xk = xn
-        for _ in range(order):
-            xk = sp.mix_2d(xk)
-            h = h + project(xk, k)
-            k += 1
+    h = None
+    for k, xk in enumerate(_sparse_hops(x, supports, order)):
+        p = channel_matmul(xk.reshape(n, b * t, c_in),
+                           w[k * c_in:(k + 1) * c_in])
+        h = p if h is None else h + p
     return h
+
+
+def _kernel_project(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    supports: list, order: int, mode: str,
+                    stacks: list | None, sparse: bool) -> torch.Tensor:
+    """Every hop of x, x included, through one projection-kernel launch
+    with the bias: w (F, n_hops*C). Returns bf16 (B, T, N, F)."""
+    b, t, n, c_in = x.shape
+    if sparse:
+        # node-leading hops read as (B*T, N, C) views: the rows come out in
+        # (B, T, N) order
+        hops = [xk.reshape(n, b * t, c_in).transpose(0, 1)
+                for xk in _sparse_hops(x, supports, order)]
+        return project(hops, w, bias).reshape(b, t, n, -1)
+    if mode == "stacked" and not any(_is_sparse(s) for s in supports):
+        if stacks is None:
+            stacks = [support_powers(a, order) for a in supports]
+        hops = [x]
+        for pw in stacks:
+            hk = _stacked_hops(x, pw)
+            hops += [hk[:, :, j] for j in range(order)]
+    else:
+        hops = diffusion_hops(x, supports, order)
+    return project(hops, w, bias)

@@ -5,6 +5,8 @@ reference's Conv2d shape ``(out, in, 1, k)``; tap ``i`` multiplies
 ``x[:, t + i*dilation]`` (cross-correlation), so a (1, k) valid conv is k
 shifted channel matmuls, summed in fp32 in tap order, plus the fp32 bias,
 cast once. The filter and gate convs run packed as one double-width conv.
+bf16 activations on a CUDA device run every tap in one launch of the
+projection kernel (``ops.linear.project``), reading the taps in place.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from graph_wavenet_tpu_torch.ops.linear import channel_matmul, conv_uniform_
+from graph_wavenet_tpu_torch.ops.linear import conv_uniform_, project
 
 
 class CausalConv(nn.Module):
@@ -39,12 +41,10 @@ def causal_conv_apply(weight: torch.Tensor, bias: torch.Tensor,
     length ``T - dilation*(k-1)``, right-aligned to the input."""
     k = weight.shape[-1]
     t_out = x.shape[1] - dilation * (k - 1)
-    taps = weight[:, :, 0, :].permute(2, 1, 0)          # (k, in, out)
-    out = channel_matmul(x[:, :t_out], taps[0])
-    for i in range(1, k):
-        out = out + channel_matmul(
-            x[:, i * dilation:i * dilation + t_out], taps[i])
-    return (out + bias.float()).to(x.dtype)
+    # (k*in, out), tap-major rows: tap i's block multiplies x's slice i
+    taps = weight[:, :, 0, :].permute(2, 1, 0).reshape(-1, weight.shape[0])
+    return project([x[:, i * dilation:i * dilation + t_out]
+                    for i in range(k)], taps.t(), bias)
 
 
 def gated_tcn_apply(filter_conv: CausalConv, gate_conv: CausalConv,

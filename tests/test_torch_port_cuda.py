@@ -32,6 +32,13 @@ kernels as ``torch.library`` ops: ``opcheck`` of each on CUDA tensors, a
 adjacency, and padded) bit for bit against its Forecaster, and rolling and
 autoregressive forecasts, replayed graphs, bit for bit against eager
 predicts. And the span store's clock against the profiler's device clock.
+And the channel projection kernel (``csrc/chan_proj.cu``): every width the
+model runs against the fp32 chain at ragged rows (forward, each operand's
+gradient, the weight's and the bias's), a replayed graph against eager,
+2,048-node city and 207-node METR bf16 steps against the chain within the
+benchmark's ``grad_gap`` limits and both against the fp32 model's step,
+every projection launching the kernel, the fp32 call sites bit for bit
+against their old chains, and ``opcheck`` of its three ops.
 """
 
 import dataclasses
@@ -1842,3 +1849,279 @@ def test_bench_row_within_band(card, name):
     meas = B.remeasure_row(name, row, rec["batch"], rec["steps"],
                            rec["dtype"])
     B.check_band(row, meas["step_ms"], meas["flops_per_step"], name)
+
+
+# ---------------------------------------------------------------------------
+# the channel projection kernel (csrc/chan_proj.cu)
+# ---------------------------------------------------------------------------
+
+# (C, F, K) of every projection the cells run: start, packed filter/gate
+# taps, residual, skip, the sparse and the dense diffusion (7 operands or
+# the concatenation's one), end_conv_1, end_conv_2
+PROJ_WIDTHS = {"start": (2, 32, 1), "tcn": (32, 64, 2),
+               "residual": (32, 32, 1), "skip": (32, 256, 1),
+               "gcn7": (32, 32, 7), "concat": (224, 32, 1),
+               "end1": (256, 512, 1), "end2": (512, 12, 1)}
+
+
+def proj_case(card, name, layout, rows, seed=0):
+    """Operands of one projection as the model passes them, the weight
+    (F, K*C) fp32 and the bias. ``layout``: ``rows`` (B, T, N, C)
+    contiguous; ``taps`` the K time slices of one (B, T + K - 1, N, C)
+    tensor (the temporal conv's); ``last`` the last T steps of a longer
+    one (the skip conv's); ``nodes`` node-leading (N, B*T, C) hops read as
+    (B*T, N, C) (the sparse diffusion's)."""
+    c, f, k = PROJ_WIDTHS[name]
+    b, t, n = rows
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=card, generator=gen)
+
+    if layout == "taps":
+        base = rand(b, t + k - 1, n, c).bfloat16().requires_grad_()
+        xs = [base[:, i:i + t] for i in range(k)]
+    elif layout == "last":
+        base = rand(b, t + 3, n, c).bfloat16().requires_grad_()
+        xs = [base[:, -t:]] * k
+    elif layout == "nodes":
+        base = rand(k, n, b * t * c).bfloat16().requires_grad_()
+        xs = [base[i].reshape(n, b * t, c).transpose(0, 1)
+              for i in range(k)]
+    else:
+        base = rand(k, b, t, n, c).bfloat16().requires_grad_()
+        xs = list(base.unbind(0))
+    w = (rand(f, k * c) / (k * c) ** 0.5).requires_grad_()
+    bias = rand(f).requires_grad_()
+    return base, xs, w, bias
+
+
+PROJ_CASES = [("start", "rows"), ("tcn", "taps"), ("residual", "rows"),
+              ("skip", "last"), ("gcn7", "nodes"), ("gcn7", "rows"),
+              ("concat", "rows"), ("end1", "rows"), ("end2", "rows")]
+
+
+@pytest.mark.parametrize("rows", [(2, 5, 37), (3, 13, 407)],
+                         ids=["ragged", "splits"])
+@pytest.mark.parametrize("name,layout", PROJ_CASES,
+                         ids=[f"{n}-{lay}" for n, lay in PROJ_CASES])
+def test_chan_proj_matches_fp32_chain(card, name, layout, rows):
+    """The kernel's forward, every operand's gradient, the bf16-rounded
+    weight gradient and the fp32 bias gradient against the fp32 chain
+    (``ops.linear._chain``: fp32 upcasts, FFMA GEMMs, fp32 adds, one cast),
+    each within bf16 rounding, at ragged row counts and with the strided
+    operands and the node-leading output the model uses."""
+    from graph_wavenet_tpu_torch.ops import linear
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj
+
+    base, xs, w, bias = proj_case(card, name, layout, rows)
+    chan_proj.reset_launch_counts()
+    y = linear.project(xs, w, bias)
+    want = linear._chain(xs, w, bias)
+    assert y.shape == want.shape and y.dtype == torch.bfloat16
+    assert_close(y, want)
+    g = torch.randn(y.shape, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1)
+                    ).bfloat16()
+    # each operand's own gradient: where taps overlap, their bf16 sum
+    # rounds again
+    got = torch.autograd.grad(y, (*xs, w, bias), g)
+    ref = torch.autograd.grad(want, (*xs, w, bias), g)
+    for a, b in zip(got[:-2], ref[:-2]):
+        assert_close(a, b)
+    assert_close(got[-2].bfloat16(), ref[-2].bfloat16())
+    assert_close(got[-1], ref[-1])
+    assert chan_proj.LAUNCHES == {"forward": 1, "dgrad": 1, "wgrad": 1}
+
+
+def test_chan_proj_graphed_equals_eager(card):
+    """The forward and both backward passes captured in a CUDA graph and
+    replayed on new inputs give the eager results bit for bit."""
+    from graph_wavenet_tpu_torch.ops import linear
+
+    base, xs, w, bias = proj_case(card, "gcn7", "nodes", (2, 5, 300))
+    gen = torch.Generator(device=card).manual_seed(2)
+    static_x = base.detach().clone().requires_grad_()
+    static_g = torch.randn(10, 300, 32, device=card,
+                           generator=gen).bfloat16()
+
+    def step():
+        n = static_x.shape[1]
+        ops = [static_x[i].reshape(n, 10, 32).transpose(0, 1)
+               for i in range(7)]
+        y = linear.project(ops, w, bias)
+        return (y,) + torch.autograd.grad(y, (static_x, w, bias), static_g)
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        step()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for seed in (3, 4):
+        with torch.no_grad():
+            static_x.copy_(torch.randn(
+                static_x.shape, device=card,
+                generator=torch.Generator(device=card).manual_seed(seed)))
+            static_g.normal_(generator=gen)
+        graph.replay()
+        want = step()
+        for a, b in zip(captured, want):
+            assert torch.equal(a, b)
+
+
+def proj_model_step(card, cfg, sups, x, y, kernel: bool, monkeypatch):
+    """One training forward and backward of a fresh GWNet (seed 0) with the
+    dropout stream seeded: the loss and every parameter's gradient. With
+    ``kernel`` False the dispatch is patched to the fp32 chain."""
+    from graph_wavenet_tpu_torch.models.gwnet import GWNet
+    from graph_wavenet_tpu_torch.ops import diffusion, linear
+
+    with monkeypatch.context() as mp:
+        if not kernel:
+            for mod in (linear, diffusion):
+                mp.setattr(mod, "takes_kernel", lambda t: False)
+        model = GWNet(cfg, device=card, seed=0)
+        model.train()
+        gen = torch.Generator(device=card).manual_seed(7)
+        out = model(x, sups, generator=gen)
+        loss = (out - y).abs().mean()
+        loss.backward()
+    return loss.item(), {k: p.grad for k, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """The benchmark's ``grad_gap`` (``gwbench/compare.py``): the worst
+    leaf's gap of gradient norms over the larger of its reference norm
+    and the median kept leaf's, leaves under a thousandth of the median
+    reference gradient left out; and, beside it, the worst leaf's norm of
+    the difference on the same scale. Each with its leaf's name."""
+    assert got.keys() == want.keys()
+    ref = {k: float(v.double().norm()) for k, v in want.items()}
+    med = float(np.median(list(ref.values())))
+    keep = [k for k in ref if ref[k] >= 1e-3 * med]
+    base = float(np.median([ref[k] for k in keep]))
+    norm = {k: abs(float(got[k].double().norm()) - ref[k])
+            / max(ref[k], base) for k in keep}
+    diff = {k: float((got[k].double() - want[k].double()).norm())
+            / max(ref[k], base) for k in keep}
+    worst_norm, worst_diff = max(norm, key=norm.get), max(diff, key=diff.get)
+    return {"grad_gap": norm[worst_norm], "grad_gap_leaf": worst_norm,
+            "diff": diff[worst_diff], "diff_leaf": worst_diff}
+
+
+# how much farther the kernel's bf16 step may lie from the fp32 model's
+# than the chain's: both differ from it by bf16 roundings at the same
+# places and from each other only in the order of fp32 sums, so the two
+# distances are of one size
+STEP_DIFF_FACTOR = 1.5
+
+
+@pytest.mark.parametrize("kind", ["city", "metr"])
+def test_chan_proj_model_step_matches_fp32_chain(card, kind, monkeypatch):
+    """A bf16 training step of the 2,048-node flat city model (masked
+    adaptive adjacency, the sparse diffusion) and of the 207-node dense
+    METR model (concat mode) through the kernel against the same step
+    through the fp32 chain: the loss within the benchmark's loss limit
+    (6e-4) and the gradients within its ``grad_gap`` limit (2e-2 city,
+    1.5e-2 METR). Both bf16 steps against the fp32 model's step on the same
+    inputs, parameters and dropout draws: the kernel's worst leaf's norm of
+    the difference within ``STEP_DIFF_FACTOR`` of the chain's. Every
+    projection takes the kernel: its launches are the model's count."""
+    from graph_wavenet_tpu_torch.config import ModelConfig
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj
+
+    rng = np.random.default_rng(11)
+    if kind == "city":
+        from graph_wavenet_tpu_torch.graphs.city import build_city_supports
+        from graph_wavenet_tpu_torch.graphs.spatial import knn_graph_edges
+
+        n = 2048
+        pos = rng.random((n, 2))
+        src, dst, w = knn_graph_edges(pos, 8)
+        sup, mask, _ = build_city_supports(src, dst, w, n, pos=pos,
+                                           ordering="rcm", form="flat",
+                                           addaptadj=True, device=card)
+        sups = [s.astype(torch.bfloat16) for s in sup] + [mask]
+        sups32 = list(sup) + [mask]
+        limit = 2e-2
+    else:
+        n = 207
+        a = rng.random((2, n, n)).astype(np.float32)
+        sups = sups32 = [torch.as_tensor(m / m.sum(-1, keepdims=True),
+                                         device=card) for m in a]
+        limit = 1.5e-2
+    cfg = ModelConfig(num_nodes=n, addaptadj=True, dropout=0.3,
+                      dtype="bfloat16")
+    x = torch.as_tensor(rng.normal(size=(4, 13, n, 2)).astype(np.float32),
+                        device=card)
+    y = torch.as_tensor(rng.normal(size=(4, 1, n, 12)).astype(np.float32),
+                        device=card)
+    chan_proj.reset_launch_counts()
+    loss, grads = proj_model_step(card, cfg, sups, x, y, True, monkeypatch)
+    counts = dict(chan_proj.LAUNCHES)
+    ref_loss, ref = proj_model_step(card, cfg, sups, x, y, False,
+                                    monkeypatch)
+    assert chan_proj.LAUNCHES == counts
+    loss32, ref32 = proj_model_step(
+        card, dataclasses.replace(cfg, dtype="float32"), sups32, x, y, True,
+        monkeypatch)
+    assert chan_proj.LAUNCHES == counts
+    # per layer: taps, skip and diffusion; then start and the two end
+    # convs. The last layer's diffusion reaches no loss term (no backward),
+    # and the start conv's input needs no gradient (no dgrad)
+    layers = cfg.blocks * cfg.layers
+    assert counts["forward"] == 3 * layers + 3
+    assert counts["wgrad"] == counts["forward"] - 1
+    assert counts["dgrad"] == counts["forward"] - 2
+    assert abs(loss - ref_loss) <= 6e-4 * abs(ref_loss)
+    vs_chain = grad_gaps(grads, ref)
+    kernel32, chain32 = grad_gaps(grads, ref32), grad_gaps(ref, ref32)
+    print(f"chan_proj {kind} step: loss {loss} vs chain {ref_loss} vs "
+          f"fp32 {loss32}; kernel vs chain {vs_chain}; kernel vs fp32 "
+          f"{kernel32}; chain vs fp32 {chain32}")
+    assert vs_chain["grad_gap"] < limit
+    assert kernel32["diff"] <= STEP_DIFF_FACTOR * chain32["diff"]
+
+
+@pytest.mark.parametrize("site", ["linear", "taps", "sparse",
+                                  "sparse_fused", "fused", "concat",
+                                  "stacked"])
+def test_fp32_projections_keep_the_chain_bitwise_on_the_card(card, site):
+    """Each call site on fp32 card tensors against a copy of the chain it
+    ran before (``tests/test_torch_port_proj.py``'s): the output and every
+    gradient bit for bit, and the projection kernel never launched."""
+    import test_torch_port_proj as P
+
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj
+
+    rng = np.random.default_rng(P.SITES.index(site))
+    leaves, new, old = P.site_call(site, rng, torch.float32, device=card)
+    chan_proj.reset_launch_counts()
+    y, want = new(), old()
+    assert y.dtype == torch.float32 and torch.equal(y, want)
+    g = torch.randn(y.shape, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    for a, b in zip(torch.autograd.grad(y, leaves, g),
+                    torch.autograd.grad(want, leaves, g)):
+        assert torch.equal(a, b)
+    assert not any(chan_proj.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["chan_proj", "chan_proj_dgrad",
+                                  "chan_proj_wgrad"])
+def test_chan_proj_ops_pass_opcheck_on_the_card(card, name):
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj  # noqa: F401
+
+    _, xs, w, bias = proj_case(card, "tcn", "taps", (2, 5, 37))
+    xs = [x.detach() for x in xs]
+    wb = w.detach().bfloat16()
+    g = torch.randn(2, 5 * 37, 64, device=card).bfloat16()
+    rows = [x.reshape(2, 5 * 37, 32) for x in xs]
+    args = {"chan_proj": (rows, wb, bias.detach()),
+            "chan_proj_dgrad": (g, wb, rows),
+            "chan_proj_wgrad": (rows, g)}[name]
+    torch.library.opcheck(getattr(torch.ops.gwt_torch, name), args)
