@@ -42,8 +42,21 @@ exits non-zero:
    the forward through ``ops.linear.project``, the operands' gradient and
    the weight and bias gradient, each against its plain version within
    one bf16 ulp plus 2^-16 of the largest value, timed beside it, beside
-   cuBLAS's bf16 GEMM and beside its bound; its launches are held to the
+   cuBLAS's bf16 GEMM and beside its bound; likewise at DCRNN's shapes
+   (batch 8: a cell's gate and candidate over five node-leading hops of 72
+   or 128 channels, its output 64 -> 1); its launches are held to the
    model's count in the train steps of 10 and 13 and the serving of 9;
+5c. DCRNN on the city (``phase_dcrnn``, the cell ``dcrnn-city-40k.train``'s
+   path): kernel 3 in bf16 at its pairs' R (576 and 1,024), forward and
+   over the transpose tables with ``add``, against its plain version and
+   bit for bit against the chain; then one graphed call of two bf16 train
+   steps at batch 8 and 40,960 sensors (``DCRNNEngine.
+   train_steps_resident``) with the launch counters zeroed just before it:
+   the captured step's block-kernel launches (``models.dcrnn.COUNTS``) held
+   to the model's count (every pair forward and its transpose backward on
+   kernel 3, less the first cell's gate backward), the projection kernel's
+   to one per projection forward and weight gradient and one operands'
+   gradient fewer;
 6. kernel 3's dispatch: the fused pass against the chain at the main
    paths' R of ``DISPATCH_R``, forward and over the transpose tables with
    ``add``, fp32 and bf16, bit for bit, each line with both branches' host
@@ -307,6 +320,10 @@ K5_TPU = "graph_wavenet_tpu/ops/pallas/block_diffusion.py:325"
 K3_FORWARD_R = 3072
 TRAIN_BATCH = 4
 TRAIN_SAMPLES = {"train": 16, "val": 4, "test": 4}
+# DCRNN's cell (dcrnn-city-40k.train): batch 8, its kernel-3 pairs at R = 8
+# x 72 (a first-layer cell) and 8 x 128 (a second-layer cell)
+DCRNN_BATCH = 8
+DCRNN_R = (576, 1024)
 
 
 _T0 = time.perf_counter()
@@ -745,12 +762,14 @@ def tile_widths(sq, gen) -> None:
 # channels, T = 12, 10, 9, 7, 6, 4, 3, 1 over the eight layers): the
 # smallest and largest of the main paths (predict at batch 1 and 8, the
 # batch-4 train step forward, and its backward over the transpose tables
-# with add), each tile width, and the main paths' R on both sides of the
+# with add), each tile width, the main paths' R on both sides of the
 # threshold of ``block_diffusion.FUSED2_R`` (bf16 forward fused up to
-# 2,048: 1,792 and 2,304, the batch-8 predict's layers 4 and 3)
+# 2,048: 1,792 and 2,304, the batch-8 predict's layers 4 and 3), and
+# DCRNN's pairs (``DCRNN_R``) both ways
 DISPATCH_R = {
-    "forward": (32, 128, 192, 384, 448, 512, 576, 1536, 1792, 2304, 3072),
-    "transpose+add": (128, 192, 384, 448, 512, 1536)}
+    "forward": (32, 128, 192, 384, 448, 512, 576, 1024, 1536, 1792, 2304,
+                3072),
+    "transpose+add": (128, 192, 384, 448, 512, 576, 1024, 1536)}
 
 
 def phase_dispatch(graph) -> dict:
@@ -1198,13 +1217,21 @@ def phase_train_kernels(graph) -> dict:
 # nodes): name, C, F, operands, layout. ``nodes``: the sparse diffusion's
 # node-leading hops read as (B*T, N, C) views; ``rows``: the same over
 # (B, T, N, C) operands (the dense modes'); ``taps``: the temporal conv's
-# two time slices of one tensor; ``last``: the skip conv's last 12 steps
+# two time slices of one tensor; ``last``: the skip conv's last 12 steps;
+# ``dcrnn``: DCRNN's (N, B, C) hops at its cell's batch (a first-layer
+# cell's 8 padded input + 64 state channels, a second-layer cell's 128;
+# F = 2 x 64 for the gate, 64 for the candidate, 1 for the output)
 PROJ_SHAPES = (("diffusion", 32, 32, 7, "nodes"),
                ("diffusion_rows", 32, 32, 7, "rows"),
                ("tcn", 32, 64, 2, "taps"), ("skip", 32, 256, 1, "last"),
                ("end_conv_1", 256, 512, 1, "end"),
                ("end_conv_2", 512, 12, 1, "end"),
-               ("start", 2, 32, 1, "start"))
+               ("start", 2, 32, 1, "start"),
+               ("dcrnn_gate_1", 72, 128, 5, "dcrnn"),
+               ("dcrnn_cand_1", 72, 64, 5, "dcrnn"),
+               ("dcrnn_gate_2", 128, 128, 5, "dcrnn"),
+               ("dcrnn_cand_2", 128, 64, 5, "dcrnn"),
+               ("dcrnn_output", 64, 1, 1, "dcrnn"))
 
 
 def proj_operands(layout: str, c: int, k: int, gen) -> list:
@@ -1227,12 +1254,15 @@ def proj_operands(layout: str, c: int, k: int, gen) -> list:
         return [draw(b, t + 1, n, c)[:, -t:]]
     if layout == "end":
         return [draw(b, 1, n, c)]
+    if layout == "dcrnn":
+        return [draw(n, DCRNN_BATCH, c) for _ in range(k)]
     return [draw(b, t + 1, n, c)]                        # start
 
 
 def phase_chan_proj() -> dict:
     """The projection kernel (``csrc/chan_proj.cu``) at the city train
-    step's shapes (``PROJ_SHAPES``): its forward through ``ops.linear.
+    step's and DCRNN's shapes (``PROJ_SHAPES``): its forward through
+    ``ops.linear.
     project``, its operands' gradient and its weight and bias gradient
     (``chan_proj_dgrad``, ``chan_proj_wgrad``), each against its plain
     version (``chan_proj_*_plain``: fp32 matmuls, sums and one cast) on
@@ -1318,6 +1348,158 @@ def phase_chan_proj() -> dict:
         del xs, rows, x2, g, g2, passes
         torch.cuda.empty_cache()
     return summary
+
+
+def pair_check(sp, r: int, dtype, tables: str, gen) -> dict:
+    """Kernel 3 (dispatch "fused") on flat support ``sp`` at R = ``r``:
+    ``"forward"`` over its tables, ``"transpose+add"`` over its transpose
+    tables with ``add`` (a pair's backward); hop 1 against the plain
+    version, hop 2 against the plain hop over the kernel's own hop 1, and
+    both bit for bit against the chain. Returns the line emitted."""
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+    fwd = tables == "forward"
+    blocks = sp.blocks_flat
+    tbl = ((sp.slot_tbl, sp.src_tbl, sp.row_tbl) if fwd
+           else (sp.slot_t, sp.src_t, sp.row_t))
+    lag, ptr = (sp.lag, sp.row_ptr) if fwd else (sp.lag_t, sp.row_ptr_t)
+    x = torch.randn(sp.nb, 128, r, generator=gen, device="cuda").to(dtype)
+    add = (None if fwd else torch.randn(sp.nb, 128, r, generator=gen,
+                                        device="cuda").to(dtype))
+
+    def run(branch):
+        return bd.gathered_block_mix_flat2(
+            blocks, tbl[0], x, tbl[1], tbl[2], nb=sp.nb, lag=lag,
+            transpose_lhs=fwd, add=add, row_ptr=ptr, dispatch=branch)
+
+    o1, o2 = run("fused")
+    c1, c2 = run("chain")
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(o1, c1) and torch.equal(o2, c2))
+    del c1, c2
+    p1, _ = bd.mix_flat2_plain(blocks, tbl[0], x, tbl[1], tbl[2], nb=sp.nb,
+                               transpose_lhs=fwd, add=add)
+    err1, ok1, rule = close_err(o1, p1, summand=add)
+    del p1
+    p2 = bd.mix_flat_plain(blocks, tbl[0], o1, tbl[1], tbl[2], nb=sp.nb,
+                           transpose_lhs=fwd)
+    err2, ok2, _ = close_err(o2, p2)
+    del p2, o1, o2
+    dname = str(dtype).split(".")[1]
+    rec = dict(kernel="gathered_block_mix_flat2", dtype=dname, R=r,
+               **tile_of(r, dtype), tables=tables, add=not fwd,
+               max_abs_err_out1=err1, max_abs_err_out2=err2, tolerance=rule,
+               bitwise_vs_chain=bitwise,
+               auto=bd.fused2_dispatch(r, dtype, add=not fwd))
+    require(ok1 and ok2, f"kernel 3 disagrees with its plain version: {rec}")
+    require(bitwise, f"kernel 3 is not bitwise equal to the chain: {rec}")
+    rec["kernel_ms"] = cuda_ms(lambda: run("fused"), 20)
+    flops, nbytes = hop_cost(sp, r, torch.tensor([], dtype=dtype)
+                             .element_size(), fused=True, with_add=not fwd)
+    rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dname)
+    emit("kernel_check", **rec)
+    del x, add
+    return rec
+
+
+def dcrnn_expected(cfg) -> tuple[dict, dict]:
+    """One DCRNN train step's launches on fused flat supports: (block
+    kernels, projection kernel). Each cell runs two projections (gate,
+    candidate) over one kernel-3 pair per support; the backward runs each
+    pair's transpose with add, but for the first cell's gate, whose input
+    and zero state carry no gradient; the decoder's output projection runs
+    once a step. Every projection takes a weight gradient, all but the
+    first cell's gate an operands' gradient."""
+    cells = cfg.num_rnn_layers * (cfg.seq_len + cfg.horizon)
+    pairs = 2 * cells * cfg.n_supports
+    blocks = {"gathered_block_mix_flat": 0,
+              "gathered_block_mix_flat2": 2 * pairs - cfg.n_supports,
+              "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
+              "gathered_block_outer": 0}
+    n = 2 * cells + cfg.horizon
+    return blocks, {"forward": n, "dgrad": n - 1, "wgrad": n}
+
+
+def phase_dcrnn(graph) -> dict:
+    """DCRNN's path on the card (``dcrnn-city-40k.train``): kernel 3 at its
+    pairs' R (``pair_check``, bf16, both ways) on the 40,960-node RCM
+    support, then one call of two graphed bf16 train steps at batch 8 (the
+    first eager, the second captured) with the counters zeroed just before
+    it: the captured step's block-kernel launches
+    (``models.dcrnn.COUNTS``) and the call's block- and projection-kernel
+    launches (twice a step's) against :func:`dcrnn_expected`. Returns the
+    call's launches as windows ``dcrnn`` and ``proj_dcrnn``."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.config import DCRNNConfig, TrainConfig
+    from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+    from graph_wavenet_tpu_torch.graphs.ordering import rcm_order_edges
+    from graph_wavenet_tpu_torch.graphs.spatial import (
+        doubletransition_block_supports,
+    )
+    from graph_wavenet_tpu_torch.models import dcrnn
+    from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
+    from graph_wavenet_tpu_torch.train.engine import DCRNNEngine
+
+    _, src, dst, w = graph
+    perm = rcm_order_edges(src, dst, N_CITY)
+    sups = [s.astype(torch.bfloat16) for s in
+            doubletransition_block_supports(src, dst, w, N_CITY, perm=perm,
+                                            form="flat", device="cuda")]
+    require(all(isinstance(s, Fused2FlatSupport) for s in sups),
+            "the RCM supports at 40,960 nodes must fuse")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for r in DCRNN_R:
+        for tables in ("forward", "transpose+add"):
+            pair_check(sups[0], r, torch.bfloat16, tables, gen)
+    torch.cuda.empty_cache()
+
+    cfg = DCRNNConfig(num_nodes=N_CITY, dtype="bfloat16")
+    engine = DCRNNEngine(cfg, TrainConfig(batch_size=DCRNN_BATCH,
+                                          learning_rate=1e-5,
+                                          weight_decay=0.0),
+                         StandardScaler(54.4, 19.5), device="cuda", seed=0)
+    samples = 2 * DCRNN_BATCH
+    xs = torch.randn(samples, cfg.seq_len, N_CITY, cfg.input_dim,
+                     generator=gen, device="cuda")
+    ys = 54.4 + 19.5 * torch.randn(samples, cfg.horizon, N_CITY, 2,
+                                   generator=gen, device="cuda")
+    idx = np.arange(samples, dtype=np.int64).reshape(2, DCRNN_BATCH)
+    bd.reset_launch_counts()
+    cp.reset_launch_counts()
+    t = time.perf_counter()
+    loss = engine.train_steps_resident(xs, ys, idx, sups)["loss"]
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t
+    got_blocks, got_proj = dict(bd.LAUNCHES), dict(cp.LAUNCHES)
+    per_step = dict(dcrnn.COUNTS["step_launches"])
+    want_blocks, want_proj = dcrnn_expected(cfg)
+    rec = dict(batch=DCRNN_BATCH, nodes=N_CITY, dtype="bfloat16",
+               losses=loss.tolist(), call_s=round(call_s, 3),
+               captured_step_launches=per_step,
+               expected_step_launches=want_blocks,
+               call_launches=got_blocks, call_proj_launches=got_proj,
+               expected_step_proj_launches=want_proj,
+               peak_gib=round(torch.cuda.max_memory_reserved() / 2 ** 30, 3))
+    emit("dcrnn_step", **rec)
+    require(bool(torch.isfinite(loss).all()), f"DCRNN's losses: {rec}")
+    require(per_step == want_blocks,
+            f"a captured DCRNN step launches {per_step}, expected "
+            f"{want_blocks}")
+    require(got_blocks == {k: 2 * v for k, v in want_blocks.items()},
+            f"two DCRNN steps launched {got_blocks}, expected twice "
+            f"{want_blocks}")
+    require(got_proj == {k: 2 * v for k, v in want_proj.items()},
+            f"two DCRNN steps launched projections {got_proj}, expected "
+            f"twice {want_proj}")
+    del engine, xs, ys, sups, loss
+    torch.cuda.empty_cache()
+    return {"dcrnn": got_blocks, "proj_dcrnn": got_proj}
 
 
 def proj_expected(cfg, forwards: int, steps: int = 0) -> dict:
@@ -6719,7 +6901,8 @@ RULED_WINDOWS = ("serve", "train", "train_graphed", "artifact",
                  "bench_flat")
 # the windows whose projection-kernel launches the kernels line counts,
 # each held to the model's count where it was read
-PROJ_TRAIN_WINDOWS = ("proj_train", "proj_train_padded", "proj_dense_train")
+PROJ_TRAIN_WINDOWS = ("proj_train", "proj_train_padded", "proj_dense_train",
+                      "proj_dcrnn")
 PROJ_SERVE_WINDOWS = ("proj_serve", "proj_serve_padded")
 PROJ_SYMBOLS = {"forward": ["chan_proj_kernel"],
                 "dgrad": ["chan_proj_kernel"],
@@ -6767,11 +6950,13 @@ def main() -> int:
     summary.update(padded_summary)
     summary.update(timed("chan_proj", phase_chan_proj))
     timed("dispatch", phase_dispatch, graph)
+    dcrnn_counts = timed("dcrnn", phase_dcrnn, graph)
     timed("small_e2e", phase_small_e2e)
     timed("small_train", phase_small_train)
     timed("small_padded", phase_small_padded)
     with tempfile.TemporaryDirectory(prefix="gwt_chip_smoke_") as tmp:
         counts = timed("serve", phase_serve, graph, tmp)
+        counts.update(dcrnn_counts)
         counts.update(timed("train_flat", phase_train, graph, tmp, "flat"))
         counts.update(timed("train_pallas", phase_train, graph, tmp,
                             "pallas"))
@@ -6813,7 +6998,8 @@ def main() -> int:
     # (the padded one's adaptive support), serving the artifact and
     # replaying the rolling forecast, kernel 2 in a train step, eager and
     # graphed, kernel 3 serving, in a train step and in the rolling
-    # forecast where the dispatch rule picks it (the last layers in bf16),
+    # forecast where the dispatch rule picks it (the last layers in bf16)
+    # and in DCRNN's graphed steps,
     # kernel 4 serving and training the padded form, eager and graphed, and
     # in the padded artifact, kernel 5 on the gradient through padded
     # blocks; kernels 1 and 2 per shard in the node-TP train steps (every
@@ -6834,7 +7020,7 @@ def main() -> int:
               "dist_graphed")),
             ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
              ("serve", "train", "train_graphed", "rolling", "dist_graphed",
-              "dist_pipe", "bench_flat")),
+              "dist_pipe", "bench_flat", "dcrnn")),
             ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
              ("serve_padded", "train_padded", "train_graphed_padded",
               "artifact_padded", "bench_pallas")),

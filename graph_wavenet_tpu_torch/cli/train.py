@@ -90,6 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adjtype", type=str, default="doubletransition",
                    help="METR: support normalization (graphs.normalize."
                         "mod_adj)")
+    p.add_argument("--model", type=str, default="gwnet",
+                   choices=["gwnet", "dcrnn"],
+                   help="gwnet: Graph WaveNet; dcrnn: DCRNN's diffusion-"
+                        "convolutional GRU encoder-decoder (its published "
+                        "settings: --learning_rate 0.01 --weight_decay 0)")
     p.add_argument("--graph_npz", type=str, default=None,
                    help="edge-list graph (.npz with src, dst, weight[, pos, "
                         "n_nodes]); builds the ordered block-sparse "
@@ -234,7 +239,9 @@ def main(argv=None) -> dict:
                 quiet.enter_context(trace(
                     args.profile if mesh is None or mesh.rank == 0
                     else os.path.join(args.profile, f"rank{mesh.rank}")))
-            if args.data == "syn":
+            if args.model == "dcrnn":
+                result, runner, supports = _run_dcrnn(args, mesh)
+            elif args.data == "syn":
                 result, runner, supports = _run_syn(args, mesh)
             elif args.data == "crash":
                 result, runner, supports = _run_crash(args, mesh)
@@ -249,6 +256,11 @@ def main(argv=None) -> dict:
         if started:
             import torch.distributed as dist
 
+            from graph_wavenet_tpu_torch.train import step_graph
+
+            # NCCL's destroy waits for every graph that captured the
+            # group's collectives (--scan_steps > 1) to be freed
+            step_graph.release_all()
             dist.destroy_process_group()
     return {"result": result, "runner": runner, "supports": supports}
 
@@ -461,6 +473,75 @@ def _run_city(args, mesh=None):
     sup_list = fixed + ([mask] if args.addaptadj else [])
     return _fit(args, cfg, data, sup_list,
                 extra_meta={"graph_layout": layout}, mesh=mesh)
+
+
+def _run_dcrnn(args, mesh=None):
+    """``--model dcrnn``: DCRNN on the city's ordered flat supports
+    (``--graph_npz``; the fused order-2 kernel where the band qualifies,
+    no adaptive adjacency) or on the dense doubletransition pair of
+    ``--adjdata``, through ``DCRNNEngine`` and the runner."""
+    import torch
+
+    from graph_wavenet_tpu_torch import resolve_device
+    from graph_wavenet_tpu_torch.config import DCRNNConfig
+    from graph_wavenet_tpu_torch.data.metr import load_dataset
+    from graph_wavenet_tpu_torch.train.engine import DCRNNEngine
+    from graph_wavenet_tpu_torch.train.runner import Runner
+
+    if mesh is not None:
+        raise SystemExit("--model dcrnn trains in one process: drop the "
+                         "--mesh_* flags")
+    if args.data in ("syn", "crash"):
+        raise SystemExit("--model dcrnn trains on windows of readings "
+                         "(--data DIR), not --data syn|crash")
+    device = resolve_device(args.device)
+    extra = {"model": "dcrnn"}
+    if args.graph_npz:
+        from graph_wavenet_tpu_torch.graphs import city
+
+        g = city.load_graph_npz(args.graph_npz)
+        supports, _, layout = city.build_city_supports(
+            g["src"], g["dst"], g["weight"], g["n_nodes"], pos=g["pos"],
+            ordering=args.ordering, form=args.sparse,
+            block_size=args.block_size, device=device)
+        sup_dtype = (args.dtype if args.support_dtype == "auto"
+                     else args.support_dtype)
+        supports = [s.astype(getattr(torch, sup_dtype)) for s in supports]
+        layout["support_dtype"] = sup_dtype
+        extra["graph_layout"] = layout
+        n = layout["n_pad"]
+        print(f"graph: {g['n_nodes']} nodes, ordering="
+              f"{layout['ordering']}, form={layout['form']}, "
+              f"{layout['n_blocks']} live blocks, fused2="
+              f"{layout['fused2']}", flush=True)
+        data = load_dataset(args.data, args.batch_size, seed=args.seed,
+                            node_layout=layout, resident=args.resident,
+                            device=device)
+    else:
+        from graph_wavenet_tpu_torch.graphs.normalize import load_adj
+
+        _, _, adj = load_adj(args.adjdata, args.adjtype)
+        supports = [torch.as_tensor(a, device=device) for a in adj]
+        n = args.num_nodes
+        data = load_dataset(args.data, args.batch_size, seed=args.seed,
+                            resident=args.resident, device=device)
+        if data["num_nodes"] != n or adj[0].shape[0] != n:
+            raise SystemExit(
+                f"--num_nodes {n}, but the data has {data['num_nodes']} "
+                f"nodes and {args.adjdata} {adj[0].shape[0]}")
+    _check_horizon(args, data)
+    cfg = DCRNNConfig(
+        num_nodes=n, input_dim=args.in_dim, n_supports=len(supports),
+        seq_len=int(data["x_train"].shape[1]), horizon=args.seq_length,
+        dtype=args.dtype)
+    train_cfg = train_config(args)
+    engine = DCRNNEngine(cfg, train_cfg, data["scaler"], device=device,
+                         seed=args.seed,
+                         steps_per_epoch=data["train_loader"].num_batch)
+    runner = Runner(engine, train_cfg, extra_meta=extra)
+    result = runner.fit(data, supports, resume_from=args.resume)
+    runner.test(data, supports, result)
+    return result, runner, supports
 
 
 def _syn_runner(args, cfg, data, diff_g: bool, mesh=None):

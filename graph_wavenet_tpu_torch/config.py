@@ -1,7 +1,8 @@
 """Configuration dataclasses, field for field the reference package's
 (``graph_wavenet_tpu/config.py``), so that its checkpoint sidecars load:
 the model, the optimization, the synthetic datasets' ``DataConfig`` and
-the grid of ranks' ``MeshConfig``.
+the grid of ranks' ``MeshConfig``; beside them DCRNN's ``DCRNNConfig``,
+which the reference package does not have.
 
 ``TrainConfig.rng_impl`` names a TPU random-bit generator; it is accepted and
 ignored here.
@@ -81,6 +82,39 @@ class ModelConfig:
                 out.append(d)
                 d *= 2
         return out
+
+
+@dataclass(frozen=True)
+class DCRNNConfig:
+    """DCRNN (Li, Yu, Shahabi and Liu, ICLR 2018, arXiv:1707.01926): the
+    diffusion-convolutional GRU encoder-decoder, its defaults the released
+    ``data/model/dcrnn_la.yaml``'s model block. ``n_supports`` 2 is its
+    ``dual_random_walk`` filter (the doubletransition pair); the
+    curriculum feeds the decoder the label in training with probability
+    ``tau / (tau + exp(step / tau))``, ``tau = cl_decay_steps``.
+    ``dtype``: the activations; the recurrent states are carried in
+    float32 whatever it is (``models.dcrnn``)."""
+
+    num_nodes: int = 207
+    input_dim: int = 2
+    output_dim: int = 1
+    rnn_units: int = 64
+    num_rnn_layers: int = 2
+    max_diffusion_step: int = 2
+    n_supports: int = 2
+    seq_len: int = 12
+    horizon: int = 12
+    cl_decay_steps: int = 2000
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"dtype must be float32 or bfloat16, got {self.dtype!r}")
+        if self.max_diffusion_step < 1 or self.n_supports < 1:
+            raise ValueError("DCRNN diffuses over at least one support by "
+                             "at least one step")
 
 
 @dataclass(frozen=True)

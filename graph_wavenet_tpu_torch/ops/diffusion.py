@@ -301,3 +301,89 @@ def _kernel_project(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     else:
         hops = diffusion_hops(x, supports, order)
     return project(hops, w, bias)
+
+
+# ---------------------------------------------------------------------------
+# DCRNN's diffusion convolution (models.dcrnn)
+# ---------------------------------------------------------------------------
+# DCRNN's released ``_gconv`` (github.com/liyaguang/DCRNN, model/
+# dcrnn_cell.py) emits, for node-leading features z (N, R) and supports
+# S_1..S_S, ``x0 = z``, then per support ``x1 = S x0`` and for k = 2..K
+# ``x2 = 2 S x1 - x0; x1, x0 = x2, x1``, with x0 NOT reset between
+# supports: support s + 1's chain starts from what support s left in x0.
+# At K = 2 that is ``[z, S1 z, 2 S1 S1 z - z, S2 S1 z, 2 S2 S2 S1 z -
+# S1 z]``. Two forms compute its projection:
+#
+# - ``dcrnn_features`` (any K): the features themselves, the recurrence's
+#   combinations as elementwise passes in the activations' dtype;
+# - ``dcrnn_pairs`` + ``dcrnn_fold`` (K = 2): every support's order-2 pair
+#   ``(S a, S S a)`` in one call (kernel 3 on a fused flat support), its
+#   start ``a`` support s - 1's first hop, and the combinations folded into
+#   the projection's weight columns: ``(W0 - W2) a + W1 S a + 2 W2 S S a``
+#   per support, the same function with no elementwise pass.
+
+def dcrnn_hop(x2: torch.Tensor, a) -> torch.Tensor:
+    """One diffusion step of node-leading (N, R) ``x2``, ``out[w] = sum_v
+    x2[v] A[v, w]``: a dense (N, N) support in fp32 accumulation (cast
+    once, as :func:`nconv`), or any support with ``mix_2d``."""
+    if _is_sparse(a):
+        return a.mix_2d(x2)
+    return (a.to(x2.dtype).float().t() @ x2.float()).to(x2.dtype)
+
+
+def _pair(x2: torch.Tensor, a):
+    """``(S a, S S a)`` of node-leading (N, R): one ``mix2_2d`` call on a
+    fused flat support, else two hops."""
+    if hasattr(a, "mix2_2d"):
+        return a.mix2_2d(x2)
+    h1 = dcrnn_hop(x2, a)
+    return h1, dcrnn_hop(h1, a)
+
+
+def dcrnn_features(z2: torch.Tensor, supports: list,
+                   order: int) -> list[torch.Tensor]:
+    """DCRNN's ``1 + len(supports) * order`` diffusion features of
+    node-leading (N, R) ``z2``, as its ``_gconv`` concatenates them."""
+    x0 = z2
+    out = [z2]
+    for a in supports:
+        x1 = dcrnn_hop(x0, a)
+        out.append(x1)
+        for _ in range(2, order + 1):
+            x2 = 2.0 * dcrnn_hop(x1, a) - x0
+            out.append(x2)
+            x1, x0 = x2, x1
+    return out
+
+
+def dcrnn_pairs(z2: torch.Tensor, supports: list) -> list[torch.Tensor]:
+    """The raw order-2 hops ``[z, S1 z, S1 S1 z, S2 S1 z, S2 S2 S1 z,
+    ...]`` of node-leading (N, R) ``z2``: support s's pair starts from
+    support s - 1's first hop (the carry), so the pairs run in turn."""
+    out = [z2]
+    a = z2
+    for sp in supports:
+        h1, h2 = _pair(a, sp)
+        out += [h1, h2]
+        a = h1
+    return out
+
+
+def dcrnn_fold(w: torch.Tensor, n_supports: int) -> torch.Tensor:
+    """The projection weight ``(F, 1 + 2 S, C)`` over the K = 2 features
+    (hop-major) refolded onto :func:`dcrnn_pairs`' raw hops: raw 0 takes
+    ``W0 - W[f2 of support 0]``, support s's first hop ``W[f1_s] -
+    W[f2_{s+1}]`` (its carry into the next support), its second ``2
+    W[f2_s]``."""
+    cols = []
+    for k in range(1 + 2 * n_supports):
+        s, second = (k - 1) // 2, (k - 1) % 2 == 1
+        if k == 0:
+            cols.append(w[:, 0] - w[:, 2])
+        elif second:
+            cols.append(2.0 * w[:, k])
+        elif s + 1 < n_supports:
+            cols.append(w[:, k] - w[:, k + 3])
+        else:
+            cols.append(w[:, k])
+    return torch.stack(cols, dim=1)

@@ -22,7 +22,12 @@ from typing import Any
 
 import torch
 
-from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig, from_dict
+from graph_wavenet_tpu_torch.config import (
+    DCRNNConfig,
+    ModelConfig,
+    TrainConfig,
+    from_dict,
+)
 from graph_wavenet_tpu_torch.data.scaler import StandardScaler
 
 FORMAT = "graph_wavenet_tpu_torch/v2"
@@ -74,7 +79,10 @@ def load_metadata(path: str) -> dict:
     with open(path + ".json") as f:
         meta = json.load(f)
     if "model_cfg" in meta:
-        meta["model_cfg"] = from_dict(ModelConfig, meta["model_cfg"])
+        # a DCRNN checkpoint's extra record names its model
+        cls = (DCRNNConfig if meta.get("extra", {}).get("model") == "dcrnn"
+               else ModelConfig)
+        meta["model_cfg"] = from_dict(cls, meta["model_cfg"])
     if "train_cfg" in meta:
         meta["train_cfg"] = from_dict(TrainConfig, meta["train_cfg"])
     if "scaler" in meta:

@@ -26,6 +26,10 @@ MAPE and RMSE score Ê against both target channels. Under
 generator, and eval and predict draw them from a generator seeded 0 per
 call (so they are deterministic).
 
+:class:`DCRNNEngine` runs DCRNN's seq2seq step (``models.dcrnn``, which
+the reference package does not have) on the same machinery: its fused
+steps, clip and Adam, with DCRNN's loss, curriculum and epsilon.
+
 PyTorch's idiom: a step updates the module and the optimizer in place and
 returns its metrics as device tensors, which the caller syncs. On a CUDA
 device Adam is ``capturable`` (its step count and bias correction live in
@@ -75,18 +79,25 @@ rank.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from graph_wavenet_tpu_torch import resolve_device
-from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
+from graph_wavenet_tpu_torch.config import (
+    DCRNNConfig,
+    ModelConfig,
+    TrainConfig,
+)
 from graph_wavenet_tpu_torch.data.device_loader import (
     gather_window_rows,
     gather_xy_windows,
 )
 from graph_wavenet_tpu_torch.data.scaler import StandardScaler
+from graph_wavenet_tpu_torch.models import dcrnn
 from graph_wavenet_tpu_torch.models.gwnet import GWNet
 from graph_wavenet_tpu_torch.models.gwnet_diff_g import GWNetDiffG
 from graph_wavenet_tpu_torch.ops.diffusion import nconv, nconv_batched
@@ -95,15 +106,15 @@ from graph_wavenet_tpu_torch.parallel.collectives import (
     all_reduce_grads,
 )
 from graph_wavenet_tpu_torch.parallel.dense_tp import shard_dense_support
-from graph_wavenet_tpu_torch.train import step_graph
+from graph_wavenet_tpu_torch.train import profiling, step_graph
 from graph_wavenet_tpu_torch.train.metrics import (
     global_terms,
     masked_terms,
 )
 
-__all__ = ["Engine", "cluster_mean_projector", "gather_window_rows",
-           "horizon_target", "learning_rate", "modality_target", "pool_E",
-           "pool_F"]
+__all__ = ["DCRNNEngine", "Engine", "cluster_mean_projector",
+           "gather_window_rows", "horizon_target", "learning_rate",
+           "modality_target", "pool_E", "pool_F"]
 
 METRICS = ("loss", "mape", "rmse")
 
@@ -202,13 +213,15 @@ class Engine:
     adaptive embeddings (:class:`models.gwnet.GWNet`); ``diff_g``: the
     per-sample-graph model (:class:`models.gwnet_diff_g.GWNetDiffG`),
     whose supports are (B, N, N) per batch; ``mesh``: this rank's
-    :class:`parallel.mesh.Mesh` (its device is the engine's)."""
+    :class:`parallel.mesh.Mesh` (its device is the engine's);
+    ``adam_eps``: Adam's epsilon."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  scaler: StandardScaler | None, *,
                  device: torch.device | str = "cuda",
                  seed: int | None = None, steps_per_epoch: int = 0,
-                 aptinit=None, diff_g: bool = False, mesh=None):
+                 aptinit=None, diff_g: bool = False, mesh=None,
+                 adam_eps: float = 1e-8):
         if train_cfg.lr_decay < 1.0 and steps_per_epoch <= 0:
             raise ValueError(
                 f"TrainConfig.lr_decay={train_cfg.lr_decay} < 1 needs "
@@ -221,8 +234,7 @@ class Engine:
         self.steps_per_epoch = steps_per_epoch
         seed = train_cfg.seed if seed is None else seed
         self.diff_g = diff_g
-        self.model = (GWNetDiffG if diff_g else GWNet)(
-            model_cfg, device=self.device, seed=seed, aptinit=aptinit)
+        self.model = self._make_model(model_cfg, seed, aptinit)
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh's device {mesh.device} is not the "
                              f"engine's {self.device}")
@@ -236,7 +248,8 @@ class Engine:
         self.optimizer = torch.optim.Adam(
             self.model.parameters(),
             lr=self._lr if cuda else train_cfg.learning_rate,
-            weight_decay=train_cfg.weight_decay, eps=1e-8, capturable=cuda)
+            weight_decay=train_cfg.weight_decay, eps=adam_eps,
+            capturable=cuda)
         # eager steps are capturable on purpose (see the module docstring):
         # silence the optimizer's one-time advice against it
         self.optimizer._warned_capturable_if_run_uncaptured = True
@@ -246,6 +259,10 @@ class Engine:
         # they are warmed up and captured on
         self._graphs: dict = {}
         self._stream = torch.cuda.Stream(self.device) if cuda else None
+
+    def _make_model(self, model_cfg, seed: int, aptinit) -> torch.nn.Module:
+        return (GWNetDiffG if self.diff_g else GWNet)(
+            model_cfg, device=self.device, seed=seed, aptinit=aptinit)
 
     def _tensor(self, a, n_micro: int = 1) -> torch.Tensor:
         """A batch array on the device; under a mesh the rank's rows and
@@ -700,3 +717,99 @@ class Engine:
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
         self._graphs.clear()
+
+
+class DCRNNEngine(Engine):
+    """DCRNN's seq2seq train step (:class:`models.dcrnn.DCRNN`, a
+    :class:`config.DCRNNConfig`) on the engine's machinery: the fused
+    steps as CUDA graphs, the clip and Adam (DCRNN's epsilon, 1e-3). The
+    loss is the masked MAE of the inverse-scaled outputs over the
+    horizon; in training the standardized labels go to the decoder,
+    each step's curriculum coins drawn on the device from the engine's
+    generator against the threshold of the global step, a device tensor
+    that the step increments (:meth:`set_global_step` sets it). Predictions
+    take the Graph WaveNet engine's (B, 1, N, horizon) layout, so the
+    runner's loops and test run unchanged. One process: no mesh."""
+
+    def __init__(self, model_cfg: DCRNNConfig, train_cfg: TrainConfig,
+                 scaler: StandardScaler | None, *,
+                 device: torch.device | str = "cuda",
+                 seed: int | None = None, steps_per_epoch: int = 0,
+                 mesh=None):
+        if mesh is not None:
+            raise ValueError("DCRNN trains in one process: no mesh")
+        super().__init__(model_cfg, train_cfg, scaler, device=device,
+                         seed=seed, steps_per_epoch=steps_per_epoch,
+                         adam_eps=1e-3)
+        self._global = torch.zeros((), dtype=torch.int64,
+                                   device=self.device)
+
+    def _make_model(self, model_cfg, seed: int, aptinit) -> torch.nn.Module:
+        return dcrnn.DCRNN(model_cfg, device=self.device, seed=seed)
+
+    def set_global_step(self, step: int) -> None:
+        """The optimizer step count and the curriculum's global step."""
+        self.step = int(step)
+        self._global.fill_(self.step)
+
+    def _teacher(self) -> torch.Tensor:
+        """The step's coins: decoder input t + 1 is the label where True."""
+        cfg = self.model_cfg
+        coins = torch.rand((cfg.horizon - 1,), generator=self.generator,
+                           device=self.device)
+        return coins < dcrnn.curriculum_threshold(self._global,
+                                                  cfg.cl_decay_steps)
+
+    def _predict(self, x: torch.Tensor, y: torch.Tensor | None,
+                 supports) -> torch.Tensor:
+        """(B, 1, N, horizon) fp32 in raw units; in train mode the
+        decoder takes the labels of ``y`` under the coins."""
+        labels = teacher = None
+        if self.model.training:
+            k = self.model_cfg.output_dim
+            labels = self.scaler.transform(y[..., :k])
+            teacher = self._teacher()
+        out = self.model(x, supports, labels=labels, teacher=teacher)
+        return out[..., 0].permute(0, 2, 1)[:, None] * self.scaler.std \
+            + self.scaler.mean
+
+    def _loss(self, x: torch.Tensor, y: torch.Tensor, supports):
+        mae, mape, mse = masked_terms(self._predict(x, y, supports),
+                                      horizon_target(y), 0.0)
+        with torch.no_grad():
+            return mae, global_terms(mae, mape, mse)
+
+    def _train_core(self, x: torch.Tensor, y: torch.Tensor,
+                    supports) -> torch.Tensor:
+        m = super()._train_core(x, y, supports)
+        self._global.add_(1)
+        return m
+
+    def train_steps_resident(self, xs: torch.Tensor, ys: torch.Tensor, idx,
+                             supports) -> dict:
+        """:meth:`Engine.train_steps_resident`; on the card a call that
+        captures the step graph runs inside the span ``dcrnn.capture``
+        (``train.profiling``), and every call sets
+        ``models.dcrnn.COUNTS["step_launches"]`` to what a replay of the
+        graph launches."""
+        capture = (self.device.type == "cuda"
+                   and not any(k[0] == "train" for k in self._graphs))
+        with (profiling.span("dcrnn.capture") if capture
+              else contextlib.nullcontext()):
+            out = super().train_steps_resident(xs, ys, idx, supports)
+        for key, g in self._graphs.items():
+            if key[0] == "train":
+                dcrnn.COUNTS["step_launches"] = dict(g.launches)
+        return out
+
+    @torch.no_grad()
+    def predict_step(self, x, supports) -> torch.Tensor:
+        """Standardized forecasts (B, 1, N, horizon), the decoder feeding
+        back its own outputs."""
+        self.model.eval()
+        out = self.model(self._tensor(x), supports)
+        return out[..., 0].permute(0, 2, 1)[:, None]
+
+    def load_train_state(self, state: dict) -> None:
+        super().load_train_state(state)
+        self._global.fill_(self.step)

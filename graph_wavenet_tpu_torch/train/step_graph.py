@@ -27,15 +27,35 @@ The hand kernels' launch counters (``ops.cuda.block_diffusion.LAUNCHES``)
 count Python calls, so the capture counts a step's launches once and a
 replay not at all: ``launches`` is what one replay launches and
 ``replays`` how often it ran.
+
+A graph that captured NCCL collectives holds a reference on the group's
+communicator, and NCCL's destroy waits until every such graph is gone:
+:func:`release_all` frees every live graph of the process, which a
+process calls before ``destroy_process_group`` (the training CLI does).
+A released graph is captured anew if its owner runs it again.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable
 
 import torch
 
 from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+
+
+# every StepGraph not yet collected, for release_all
+_LIVE: weakref.WeakSet = weakref.WeakSet()
+
+
+def release_all() -> None:
+    """Wait for the card, then free every live graph's CUDA graph
+    (:meth:`StepGraph.release`)."""
+    if _LIVE:
+        torch.cuda.synchronize()
+    for g in list(_LIVE):
+        g.release()
 
 
 class StepGraph:
@@ -48,6 +68,15 @@ class StepGraph:
         self.out: torch.Tensor | None = None
         self.launches: dict = {}
         self.replays = 0
+        self.released = False
+        _LIVE.add(self)
+
+    def release(self) -> None:
+        """Free the captured graph (and with it its hold on any NCCL
+        communicator); :func:`run_steps` captures a released step anew."""
+        self.graph.reset()
+        self.out = None
+        self.released = True
 
     def capture(self, body: Callable[[torch.Tensor], torch.Tensor],
                 stream: torch.cuda.Stream,
@@ -99,7 +128,7 @@ def run_steps(graphs: dict, key: tuple, body, idx: torch.Tensor,
     goes to :meth:`StepGraph.capture`."""
     s = idx.shape[0]
     g = graphs.get(key)
-    if g is None:
+    if g is None or g.released:
         g = StepGraph(tuple(idx.shape[1:]), idx.device, keep)
         if before is not None:
             before()
