@@ -46,6 +46,14 @@ exits non-zero:
    (batch 8: a cell's gate and candidate over five node-leading hops of 72
    or 128 channels, its output 64 -> 1); its launches are held to the
    model's count in the train steps of 10 and 13 and the serving of 9;
+5b'. the layer-tail kernel (``csrc/bn_tail.cu``, ``phase_layer_tail``):
+   the dropout multiply, residual add and BatchNorm of every city layer
+   shape (batch 4, 40,960 nodes, 32 channels, T = 12 to 1), each op
+   against its plain version (x bit for bit), timed beside its byte bound,
+   and the training tail forward and backward and the eval tail timed
+   beside the chain of PyTorch ops; its launches held to one per layer and
+   kind in two graphed city train steps (none backward in the last layer)
+   and a batch-8 eval forward;
 5c. DCRNN on the city (``phase_dcrnn``, the cell ``dcrnn-city-40k.train``'s
    path): kernel 3 in bf16 at its pairs' R (576 and 1,024), forward and
    over the transpose tables with ``add``, against its plain version and
@@ -1347,6 +1355,211 @@ def phase_chan_proj() -> dict:
                 summary["proj_" + direction] = rec
         del xs, rows, x2, g, g2, passes
         torch.cuda.empty_cache()
+    return summary
+
+
+# the city step's layers: (output steps, dilation); each layer's residual
+# is its input, ``dilation`` steps longer
+TAIL_LAYERS = ((12, 1), (10, 2), (9, 1), (7, 2), (6, 1), (4, 2), (3, 1),
+               (1, 2))
+TAIL_TRAIN_KINDS = ("stats", "var", "apply", "grad_reduce", "grad_apply")
+# bytes an element each op reads and writes once (bf16): stats reads h,
+# the mask and the residual and writes x; var reads x; apply reads x and
+# writes y; eval reads h and the residual and writes y; grad_reduce reads
+# g and x; grad_apply reads g, x and the mask and writes dh and dres
+TAIL_BYTES = {"stats": 8, "var": 2, "apply": 4, "eval": 6,
+              "grad_reduce": 4, "grad_apply": 10}
+TAIL_SRC = "graph_wavenet_tpu_torch/csrc/bn_tail.cu"
+TAIL_SYMBOLS = {"stats": ["bn_tail_stats", "bn_tail_finish"],
+                "var": ["bn_tail_var", "bn_tail_finish"],
+                "apply": ["bn_tail_apply"], "eval": ["bn_tail_apply"],
+                "grad_reduce": ["bn_tail_grad_reduce", "bn_tail_finish"],
+                "grad_apply": ["bn_tail_grad_apply"]}
+
+
+def tail_chain(bn, h, drop, res):
+    """The tail as the chain of PyTorch ops (``BatchNorm._chain``)."""
+    x = h if drop is None else h * drop
+    return bn._chain(x + res[:, -x.shape[1]:], None, None, None)
+
+
+def phase_layer_tail(graph) -> dict:
+    """The layer-tail kernel (``csrc/bn_tail.cu``) at the city train step's
+    eight layer shapes (batch 4, 40,960 nodes, 32 channels, the residual
+    the layer input's last T steps): each op against its plain version on
+    the same card tensors (x bit for bit; sums within rtol 1e-5; y, dh and
+    dres within one bf16 ulp plus 2^-16 of the largest value), timed
+    beside its bound (its bytes read and written once at 3.35 TB/s), and
+    the whole training tail forward and backward and the eval tail timed
+    beside the chain of PyTorch ops they replace. Then one call of two
+    graphed bf16 city train steps at batch 4 (the first eager, the second
+    captured) and one batch-8 eval forward with the counters zeroed just
+    before each: every forward kind 8 times a step and every backward kind
+    7 (the last layer's output reaches no loss term), ``eval`` 8 times a
+    forward. Returns the
+    first layer's rows for the kernels line and the windows' launches."""
+    import numpy as np
+    import torch
+
+    from graph_wavenet_tpu_torch.ops.cuda import bn_tail as bt
+    from graph_wavenet_tpu_torch.ops.normalization import BatchNorm
+
+    ops = torch.ops.gwt_torch
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, n, c = TRAIN_BATCH, N_CITY, 32
+    summary = {}
+    totals = {"tail_ms": 0.0, "chain_ms": 0.0, "eval_ms": 0.0,
+              "chain_eval_ms": 0.0, "bound_ms": 0.0}
+    for t, dil in TAIL_LAYERS:
+        shape = (b, t, n, c)
+        h = (2 * torch.randn(shape, generator=gen, device="cuda")
+             + 0.5).bfloat16()
+        keep = torch.rand(shape, generator=gen, device="cuda") < 0.7
+        drop = keep.bfloat16() / torch.full((), 0.7, dtype=torch.bfloat16,
+                                            device="cuda")
+        res = torch.randn((b, t + dil, n, c), generator=gen,
+                          device="cuda").bfloat16()
+        resv = res[:, -t:]
+        dy = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        w = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        count = b * t * n
+        with torch.no_grad():
+            x, s1 = ops.bn_tail_stats(h, drop, resv)
+            xw, s1w = bt.stats_plain(h, drop, resv)
+            require(torch.equal(x, xw),
+                    f"tail stats at T = {t}: x differs from the chain's")
+            mean = s1w / count
+            s2w = bt.var_plain(x, mean)
+            inv = torch.rsqrt(s2w / count + 1e-5)
+            rinv = inv * 0.8
+            sums_w = bt.grad_reduce_plain(dy, x, mean, inv)
+            passes = {
+                "stats": (lambda: ops.bn_tail_stats(h, drop, resv)[1],
+                          lambda: s1w),
+                "var": (lambda: ops.bn_tail_var(x, mean), lambda: s2w),
+                "apply": (lambda: ops.bn_tail_apply(x, mean, inv, w, bias),
+                          lambda: bt.apply_plain(x, mean, inv, w, bias)),
+                "eval": (lambda: ops.bn_tail_eval(h, None, resv, mean, rinv,
+                                                  w, bias),
+                         lambda: bt.eval_plain(h, None, resv, mean, rinv, w,
+                                               bias)),
+                "grad_reduce": (
+                    lambda: ops.bn_tail_grad_reduce(dy, x, mean, inv),
+                    lambda: sums_w),
+                "grad_apply": (
+                    lambda: ops.bn_tail_grad_apply(dy, x, drop, mean, inv,
+                                                   w, sums_w, count, t + dil),
+                    lambda: bt.grad_apply_plain(dy, x, drop, mean, inv, w,
+                                                sums_w, count, t + dil))}
+            for kind, (kern, plain) in passes.items():
+                bt.reset_launch_counts()
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                require(bt.LAUNCHES[kind] == 1
+                        and sum(bt.LAUNCHES.values()) == 1,
+                        f"tail {kind} at T = {t}: launches {bt.LAUNCHES}")
+                got = list(got) if isinstance(got, tuple) else [got]
+                want = list(want) if isinstance(want, tuple) else [want]
+                errs = []
+                for j, (a, w_) in enumerate(zip(got, want)):
+                    # dh is dx times the mask, rounded once more
+                    once_more = (torch.zeros_like(w_) if kind == "grad_apply"
+                                 and j == 0 else None)
+                    err, ok, rule = close_err(a, w_, once_more,
+                                              slack=2.0 ** -16)
+                    require(ok, f"tail {kind} at T = {t} disagrees with its "
+                                f"plain version: {err} ({rule})")
+                    errs.append(err)
+                nbytes = TAIL_BYTES[kind] * count * c
+                if kind == "grad_apply":
+                    nbytes += 2 * b * dil * n * c     # dres's leading zeros
+                rec = dict(op="bn_tail_" + kind, T=t, dilation=dil,
+                           elements=count * c, max_abs_err=max(errs),
+                           kernel_ms=cuda_ms(kern, 20),
+                           plain_ms=cuda_ms(plain, 3) if kind in (
+                               "apply", "eval", "grad_apply") else None,
+                           library_ms=None)
+                rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes,
+                                                         "bfloat16")
+                emit("bn_tail_check", **rec)
+                if kind != "eval":
+                    totals["bound_ms"] += rec["bound_ms"]
+                if t == TAIL_LAYERS[0][0]:
+                    summary["tail_" + kind] = rec
+                del got, want
+        # the whole tail, forward and backward, against the chain
+        bn = BatchNorm(c, device="cuda")
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(bias)
+        hg = h.clone().requires_grad_()
+        rg = res.clone().requires_grad_()
+        leaves = (hg, rg, bn.weight, bn.bias)
+
+        def tail_step():
+            y, _ = bn.tail(hg, rg, drop)
+            return torch.autograd.grad(y, leaves, dy)
+
+        def chain_step():
+            y, _ = tail_chain(bn, hg, drop, rg)
+            return torch.autograd.grad(y, leaves, dy)
+
+        bn.eval()
+        with torch.no_grad():
+            def eval_tail():
+                return bn.tail(h, res)[0]
+
+            def eval_chain():
+                return tail_chain(bn, h, None, res)[0]
+
+            e_ms, ec_ms = cuda_ms(eval_tail, 20), cuda_ms(eval_chain, 5)
+        bn.train()
+        rec = dict(T=t, dilation=dil, elements=count * c,
+                   tail_ms=cuda_ms(tail_step, 10),
+                   chain_ms=cuda_ms(chain_step, 5), eval_ms=e_ms,
+                   chain_eval_ms=ec_ms)
+        emit("bn_tail_layer", **rec)
+        for k in ("tail_ms", "chain_ms", "eval_ms", "chain_eval_ms"):
+            totals[k] += rec[k]
+        del h, drop, res, resv, dy, x, xw, hg, rg, passes, bn
+        torch.cuda.empty_cache()
+    emit("bn_tail_step", layers=len(TAIL_LAYERS), batch=b, nodes=n,
+         **{k: round(v, 4) for k, v in totals.items()})
+
+    # the launches of a graphed city train step and of a serving forward
+    eng, sups, x_np, y_np = dist_engine("city", "bfloat16", 0.3, "cuda",
+                                        None, graph)
+    xs = torch.as_tensor(np.concatenate([x_np, x_np[::-1]]), device="cuda")
+    ys = torch.as_tensor(np.concatenate([y_np, y_np[::-1]]), device="cuda")
+    idx = np.arange(2 * b, dtype=np.int64).reshape(2, b)
+    layers = len(TAIL_LAYERS)
+    bt.reset_launch_counts()
+    first = eng.train_steps_resident(xs, ys, idx, sups)["loss"]
+    torch.cuda.synchronize()
+    train_counts = dict(bt.LAUNCHES)
+    want = {k: 2 * (layers if k in ("stats", "var", "apply") else layers - 1)
+            for k in TAIL_TRAIN_KINDS}
+    want["eval"] = 0
+    require(train_counts == want,
+            f"two graphed city steps launched the tail {train_counts}, "
+            f"expected {want}")
+    bt.reset_launch_counts()
+    eng.model.eval()
+    with torch.no_grad():
+        eng.model(xs, sups)
+    torch.cuda.synchronize()
+    serve_counts = dict(bt.LAUNCHES)
+    require(serve_counts == dict({k: 0 for k in TAIL_TRAIN_KINDS},
+                                 eval=layers),
+            f"a batch-8 city forward launched the tail {serve_counts}")
+    emit("bn_tail_launches", train_call=train_counts, serve=serve_counts,
+         losses=first.tolist(),
+         peak_gib=round(torch.cuda.max_memory_reserved() / 2 ** 30, 3))
+    del eng, sups, xs, ys
+    torch.cuda.empty_cache()
+    summary["tail_windows"] = {"tail_train": train_counts,
+                               "tail_serve": serve_counts}
     return summary
 
 
@@ -6949,6 +7162,7 @@ def main() -> int:
                                    graph)
     summary.update(padded_summary)
     summary.update(timed("chan_proj", phase_chan_proj))
+    summary.update(timed("layer_tail", phase_layer_tail, graph))
     timed("dispatch", phase_dispatch, graph)
     dcrnn_counts = timed("dcrnn", phase_dcrnn, graph)
     timed("small_e2e", phase_small_e2e)
@@ -7065,6 +7279,23 @@ def main() -> int:
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    # the layer-tail kernel's ops, a dense-ops kernel with no Pallas
+    # counterpart (the JAX package leaves BatchNorm to XLA's fusion): times
+    # at the city step's first layer (4 x 12 x 40,960 x 32), launches in
+    # the graphed city train call and the batch-8 serving forward
+    windows = summary["tail_windows"]
+    for kind in TAIL_TRAIN_KINDS + ("eval",):
+        rec = summary["tail_" + kind]
+        launches = sum(w[kind] for w in windows.values())
+        require(launches > 0, f"{rec['op']} was not launched on the main "
+                              f"path: {windows}")
+        kernels.append({
+            "name": rec["op"], "route": "cuda", "source": TAIL_SRC,
+            "replaces": None, "symbols": TAIL_SYMBOLS[kind],
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
     emit("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

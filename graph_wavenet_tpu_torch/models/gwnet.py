@@ -271,24 +271,26 @@ class GWNet(nn.Module):
                             dilation)
         s = self.skip_convs[i](x[:, -t_final:])
         skip = s if skip is None else s + skip
+        # the dropout mask multiplies the graph conv's output in the tail,
+        # with the residual add and BatchNorm
         if supports is not None and self.cfg.gcn_bool:
-            x = self.gconv[i](x, supports, drop=drop,
-                              mode=self.cfg.resolved_gcn_mode, stacks=stacks)
+            h = self.gconv[i](x, supports, mode=self.cfg.resolved_gcn_mode,
+                              stacks=stacks)
         else:
-            x = self.residual_convs[i](x)
-        x = x + residual[:, -x.shape[1]:]
+            h = self.residual_convs[i](x)
         mesh, t_valid, count = self.mesh, None, None
         if mesh is not None:
             # the global count: every real node once, whatever the ranks'
             # shares of the nodes and steps
-            b, width = x.shape[:2]
+            b, width = h.shape[:2]
             steps = width
             if mesh.time > 1:
                 t_valid = time_halo.valid_steps(t_len, width, mesh)
                 steps = t_len
             count = b * mesh.data * self.cfg.num_nodes * steps
-        x, stats = self.bn[i].normalize(
-            x, None if mesh is None else mesh.world, t_valid, count)
+        x, stats = self.bn[i].tail(
+            h, residual, drop, None if mesh is None else mesh.world, t_valid,
+            count)
         return x, skip, stats
 
     def _with_adaptive(self, supports: list | None) -> list | None:

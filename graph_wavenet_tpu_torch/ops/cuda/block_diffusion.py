@@ -44,9 +44,9 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from graph_wavenet_tpu_torch.ops.cuda import build
-# the projection kernel's ops join the namespace: a loader of an exported
-# artifact imports this module alone
-from graph_wavenet_tpu_torch.ops.cuda import chan_proj  # noqa: F401
+# the projection and layer-tail kernels' ops join the namespace: a loader
+# of an exported artifact imports this module alone
+from graph_wavenet_tpu_torch.ops.cuda import bn_tail, chan_proj  # noqa: F401
 
 # kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,

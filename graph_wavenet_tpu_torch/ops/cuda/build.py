@@ -25,7 +25,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mix_flat.cu", "mix_flat2.cu", "outer_flat.cu", "mix_padded.cu",
-           "outer_padded.cu", "chan_proj.cu")
+           "outer_padded.cu", "chan_proj.cu", "bn_tail.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

@@ -25,6 +25,14 @@ parallelism a rank's block holds part of the valid steps, or none:
 ``t_valid`` is its share, and ``count`` the global number of (B, T, N)
 positions the statistics cover. Under node-TP over uneven node ranges the
 ranks' shares differ too, so the model always passes ``count``.
+
+:meth:`BatchNorm.tail` normalizes a layer's tail, ``h * drop + residual``
+before the normalization. bf16 activations on a CUDA device with
+statistics over every step take the layer-tail kernel
+(``ops.cuda.bn_tail``): the multiply, the add and the statistics in one
+pass, the normalize in another, and two passes backward, the sums in fp32
+as here and all-reduced over the group between the launches. Every other
+dtype and device, and ``t_valid``, keep the chain of PyTorch ops below.
 """
 
 from __future__ import annotations
@@ -32,10 +40,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from graph_wavenet_tpu_torch.ops.cuda import bn_tail
+from graph_wavenet_tpu_torch.ops.linear import takes_kernel
 from graph_wavenet_tpu_torch.parallel.collectives import all_sum, group_size
 
 
 MOMENTUM = 0.1
+
+
+def takes_tail_kernel(h: torch.Tensor, t_valid: int | None) -> bool:
+    """Whether a tail over ``h`` runs the layer-tail kernel: bf16 on a CUDA
+    device (:func:`ops.linear.takes_kernel`) with statistics over every
+    step (time-halo sequence parallelism's ``t_valid`` keeps the chain)."""
+    return takes_kernel(h) and t_valid is None
 
 
 class BatchNorm(nn.Module):
@@ -70,6 +87,30 @@ class BatchNorm(nn.Module):
         ``t_valid`` steps of axis 1 only; ``count``: the statistics'
         number of positions over the group (default: every rank's share
         equal to this one's, which uneven node ranges break)."""
+        return self.tail(x, group=group, t_valid=t_valid, count=count)
+
+    def tail(self, h: torch.Tensor, residual: torch.Tensor | None = None,
+             drop: torch.Tensor | None = None, group=None,
+             t_valid: int | None = None, count: float | None = None):
+        """:meth:`normalize` of a layer's tail ``x = h * drop +
+        residual[:, -T:]`` (each step in h's dtype; ``drop`` and
+        ``residual`` may be None). Where :func:`takes_tail_kernel` holds the
+        tail runs on the layer-tail kernel (``ops.cuda.bn_tail``), else as
+        the chain of PyTorch ops."""
+        if takes_tail_kernel(h, t_valid):
+            running = None
+            if not self.training:
+                running = (self.running_mean.float(),
+                           self.running_var.float())
+            return bn_tail.tail(h, drop, residual, self.weight, self.bias,
+                                self.eps, group, count, running)
+        x = h if drop is None else h * drop
+        if residual is not None:
+            x = x + residual[:, -x.shape[1]:]
+        return self._chain(x, group, t_valid, count)
+
+    def _chain(self, x: torch.Tensor, group, t_valid: int | None,
+               count: float | None):
         xf = x.float()
         stats = None
         if self.training:

@@ -223,14 +223,13 @@ def _pipeline(model, x, supports, mesh: Mesh, n_micro: int, train: bool,
             h = gated_tcn_apply(model.filter_convs[i], model.gate_convs[i],
                                 h, stage_dils[j])
             skip = model.skip_convs[i](h[:, -t_final:]) + skip
+            drop = None
             if use_gcn:
-                h = model.gconv[i](
-                    h, supports, mode=mode, stacks=stacks,
-                    drop=None if masks is None else masks[mb][i])
+                h = model.gconv[i](h, supports, mode=mode, stacks=stacks)
+                drop = None if masks is None else masks[mb][i]
             else:
                 h = model.residual_convs[i](h)
-            h = h + residual[:, -h.shape[1]:]
-            h, st = model.bn[i].normalize(h, mesh.data_group)
+            h, st = model.bn[i].tail(h, residual, drop, mesh.data_group)
             out_stats.append(st)
         return h, skip, out_stats
 

@@ -1975,14 +1975,17 @@ def test_chan_proj_graphed_equals_eager(card):
 def proj_model_step(card, cfg, sups, x, y, kernel: bool, monkeypatch):
     """One training forward and backward of a fresh GWNet (seed 0) with the
     dropout stream seeded: the loss and every parameter's gradient. With
-    ``kernel`` False the dispatch is patched to the fp32 chain."""
+    ``kernel`` False the dispatch is patched to the fp32 chain: the
+    projections' and the layer tail's."""
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
-    from graph_wavenet_tpu_torch.ops import diffusion, linear
+    from graph_wavenet_tpu_torch.ops import diffusion, linear, normalization
 
     with monkeypatch.context() as mp:
         if not kernel:
             for mod in (linear, diffusion):
                 mp.setattr(mod, "takes_kernel", lambda t: False)
+            mp.setattr(normalization, "takes_tail_kernel",
+                       lambda h, t_valid: False)
         model = GWNet(cfg, device=card, seed=0)
         model.train()
         gen = torch.Generator(device=card).manual_seed(7)
