@@ -371,6 +371,20 @@ def deterministic(on: bool):
         torch.use_deterministic_algorithms(False)
 
 
+def reset_launches() -> None:
+    """Zero the hand kernels' launch counter (``ops.cuda.build.LAUNCHES``)."""
+    from graph_wavenet_tpu_torch.ops.cuda import build
+    build.reset_launch_counts()
+
+
+def kernel_launches(ops=None) -> dict:
+    """Launches since :func:`reset_launches` of each op of ``ops``, by
+    default the five block kernels' (``block_diffusion.OPS``)."""
+    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import build
+    return {k: build.LAUNCHES[k] for k in ops or bd.OPS}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs after one warm-up. At
     small R a launch takes ~40 us, so the callers time 100 there: over 20,
@@ -622,7 +636,7 @@ def phase_kernels(graph) -> dict:
                     torch.cuda.synchronize()
                     err, ok, rule = close_err(got, want)
                     del want
-                    rec = dict(kernel="gathered_block_mix_flat",
+                    rec = dict(kernel="mix_flat",
                                dtype=dname, R=r, **tile_of(r, dtype),
                                blocks=label,
                                orientation="forward" if tl else "transpose",
@@ -696,7 +710,7 @@ def phase_kernels(graph) -> dict:
                                        transpose_lhs=True)
                 err2, ok2, _ = close_err(o2, p2)
                 del p2, o1, o2
-                rec = dict(kernel="gathered_block_mix_flat2", dtype=dname,
+                rec = dict(kernel="mix_flat2", dtype=dname,
                            R=r, **tile_of(r, dtype), blocks="128x128",
                            add=with_add,
                            max_abs_err_out1=err1, max_abs_err_out2=err2,
@@ -740,27 +754,22 @@ def tile_widths(sq, gen) -> None:
     import torch
 
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+    from graph_wavenet_tpu_torch.ops.cuda import build
 
     blocks = sq.astype(torch.bfloat16).blocks_flat
-    lib = bd._lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
     for r in TILE_WIDTH_R:
         x = torch.randn(sq.nb, 128, r, generator=gen,
                         device="cuda").to(torch.bfloat16)
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream().cuda_stream
 
         def at(ct):
-            rc = lib.gwt_mix_flat(
-                1, blocks.data_ptr(), sq.slot_tbl.data_ptr(), x.data_ptr(),
-                sq.src_tbl.data_ptr(), sq.row_ptr.data_ptr(), out.data_ptr(),
-                sq.nb, blocks.shape[0], x.shape[0], 128, 128, r, 1, ct,
-                stream)
-            require(rc == 0, f"kernel 1 at {ct} columns: "
-                             f"{lib.gwt_error_string(rc).decode()}")
+            build.launch("mix_flat.cu", "gwt_mix_flat", bd.mix_flat_desc(
+                blocks, sq.slot_tbl, x, sq.src_tbl, sq.row_ptr, out, sq.nb,
+                True, ct), x.device)
 
         ms = {ct: cuda_ms(lambda: at(ct), 20 if r < 1000 else 5)
               for ct in (64, 128, 256)}
-        emit("tile_widths", kernel="gathered_block_mix_flat", dtype="bfloat16",
+        emit("tile_widths", kernel="mix_flat", dtype="bfloat16",
              R=r, orientation="forward", ms_by_ct=ms,
              tile_cols=bd.tile_cols(r, torch.bfloat16))
         del x, out
@@ -1042,7 +1051,7 @@ def phase_train_kernels(graph) -> dict:
             again = k2()
             deterministic = bool(torch.equal(got, again))
             del got, again
-            rec = dict(kernel="gathered_block_outer_flat", dtype=dname, R=r,
+            rec = dict(kernel="outer_flat", dtype=dname, R=r,
                        **outer_tile_of(dtype, bs), blocks="128x128",
                        form="per entry", table_entries=sp.row_tbl.numel(),
                        max_abs_err=err, tolerance="rtol 1e-5 of sum |terms|",
@@ -1090,7 +1099,7 @@ def phase_train_kernels(graph) -> dict:
             err, ok = outer_check(got, x, g, sp.src_tbl, sp.row_tbl,
                                   sp.slot_tbl)
             del got
-            rec = dict(kernel="gathered_block_outer_flat", dtype=dname, R=r,
+            rec = dict(kernel="outer_flat", dtype=dname, R=r,
                        **outer_tile_of(dtype, bs), blocks="128x128",
                        form="storage order", out_dtype=dname,
                        n_slots=n_slots, live_entries=sp.n_live,
@@ -1150,7 +1159,7 @@ def phase_train_kernels(graph) -> dict:
                                    nb=nb, transpose_lhs=False)
             err2, ok2, _ = close_err(o2, p2)
             del p2, o1, o2
-            rec = dict(kernel="gathered_block_mix_flat2", dtype=dname, R=r,
+            rec = dict(kernel="mix_flat2", dtype=dname, R=r,
                        **tile_of(r, dtype), tables="transpose", add=True,
                        max_abs_err_out1=err1, max_abs_err_out2=err2,
                        tolerance=rule, bitwise_vs_kernel1_add_kernel1=bitwise)
@@ -1183,7 +1192,7 @@ def phase_train_kernels(graph) -> dict:
             torch.cuda.synchronize()
             err, ok, rule = close_err(got, want)
             del got, want
-            rec = dict(kernel="gathered_block_mix_flat", dtype=dname, R=r,
+            rec = dict(kernel="mix_flat", dtype=dname, R=r,
                        **tile_of(r, dtype), tables="transpose (mask)",
                        max_abs_err=err, tolerance=rule)
             require(ok, f"kernel 1 (transpose, mask) disagrees with its "
@@ -1215,7 +1224,7 @@ def phase_train_kernels(graph) -> dict:
     got = bd.gathered_block_outer_flat(x, g, rect.src_tbl, rect.row_tbl)
     torch.cuda.synchronize()
     err, ok = outer_check(got, x, g, rect.src_tbl, rect.row_tbl)
-    emit("kernel_check", kernel="gathered_block_outer_flat", dtype="float32",
+    emit("kernel_check", kernel="outer_flat", dtype="float32",
          R=128, blocks="128x512", max_abs_err=err)
     require(ok, f"kernel 2 on 128x512 blocks disagrees: {err}")
     return summary
@@ -1303,47 +1312,44 @@ def phase_chan_proj() -> dict:
         x2 = torch.cat([x.reshape(m, c) for x in rows], dim=1)
         g2 = g.reshape(m, f)
         passes = {
-            "forward": (
+            "chan_proj": (
                 lambda: linear.project(xs, w, bias),
                 lambda: cp.chan_proj_plain(rows, wb, bias),
                 lambda: torch.addmm(bias.bfloat16(), x2, wb.t())),
-            "dgrad": (
+            "chan_proj_dgrad": (
                 lambda: ops.chan_proj_dgrad(g, wb, rows),
                 lambda: cp.chan_proj_dgrad_plain(g, wb, rows),
                 lambda: g2 @ wb),
-            "wgrad": (
+            "chan_proj_wgrad": (
                 lambda: ops.chan_proj_wgrad(rows, g),
                 lambda: cp.chan_proj_wgrad_plain(rows, g),
                 lambda: (g2.t() @ x2, g2.sum(0, dtype=torch.float32)))}
-        for direction, (kern, plain, library) in passes.items():
-            cp.reset_launch_counts()
+        for op, (kern, plain, library) in passes.items():
+            reset_launches()
             with torch.no_grad():
                 got, want = kern(), plain()
             torch.cuda.synchronize()
-            require(cp.LAUNCHES[direction] == 1 and sum(
-                cp.LAUNCHES.values()) == 1,
-                    f"{name} {direction}: launches {cp.LAUNCHES}")
+            counts = kernel_launches(cp.OPS)
+            require(counts[op] == 1 and sum(counts.values()) == 1,
+                    f"{name} {op}: launches {counts}")
             got = list(got) if isinstance(got, (list, tuple)) else [got]
             want = list(want) if isinstance(want, (list, tuple)) else [want]
             errs = []
             for a, b in zip(got, want):
                 # project's output keeps the operands' leading shape
                 require(a.numel() == b.numel() and a.dtype == b.dtype,
-                        f"{name} {direction}: {a.shape} {a.dtype} against "
+                        f"{name} {op}: {a.shape} {a.dtype} against "
                         f"the plain version's {b.shape} {b.dtype}")
                 err, ok, rule = close_err(a.reshape(b.shape), b,
                                           slack=2.0 ** -16)
-                require(ok, f"{name} {direction} disagrees with its plain "
+                require(ok, f"{name} {op} disagrees with its plain "
                             f"version: {err} ({rule})")
                 errs.append(err)
             del got, want
             flops = 2 * m * ctot * f
             nbytes = 2 * m * (ctot + f)
             with torch.no_grad():
-                rec = dict(op={"forward": "chan_proj", "dgrad":
-                               "chan_proj_dgrad", "wgrad":
-                               "chan_proj_wgrad"}[direction],
-                           projection=name, C=c, F=f, operands=k,
+                rec = dict(op=op, projection=name, C=c, F=f, operands=k,
                            layout=layout, rows=m, max_abs_err=max(errs),
                            kernel_ms=cuda_ms(kern, 20),
                            plain_ms=cuda_ms(plain, 3),
@@ -1352,7 +1358,7 @@ def phase_chan_proj() -> dict:
                                                      "bfloat16")
             emit("chan_proj_check", **rec)
             if name == "diffusion":
-                summary["proj_" + direction] = rec
+                summary[op] = rec
         del xs, rows, x2, g, g2, passes
         torch.cuda.empty_cache()
     return summary
@@ -1362,19 +1368,23 @@ def phase_chan_proj() -> dict:
 # is its input, ``dilation`` steps longer
 TAIL_LAYERS = ((12, 1), (10, 2), (9, 1), (7, 2), (6, 1), (4, 2), (3, 1),
                (1, 2))
-TAIL_TRAIN_KINDS = ("stats", "var", "apply", "grad_reduce", "grad_apply")
+TAIL_TRAIN_OPS = ("bn_tail_stats", "bn_tail_var", "bn_tail_apply",
+                  "bn_tail_grad_reduce", "bn_tail_grad_apply")
 # bytes an element each op reads and writes once (bf16): stats reads h,
 # the mask and the residual and writes x; var reads x; apply reads x and
 # writes y; eval reads h and the residual and writes y; grad_reduce reads
 # g and x; grad_apply reads g, x and the mask and writes dh and dres
-TAIL_BYTES = {"stats": 8, "var": 2, "apply": 4, "eval": 6,
-              "grad_reduce": 4, "grad_apply": 10}
+TAIL_BYTES = {"bn_tail_stats": 8, "bn_tail_var": 2, "bn_tail_apply": 4,
+              "bn_tail_eval": 6, "bn_tail_grad_reduce": 4,
+              "bn_tail_grad_apply": 10}
 TAIL_SRC = "graph_wavenet_tpu_torch/csrc/bn_tail.cu"
-TAIL_SYMBOLS = {"stats": ["bn_tail_stats", "bn_tail_finish"],
-                "var": ["bn_tail_var", "bn_tail_finish"],
-                "apply": ["bn_tail_apply"], "eval": ["bn_tail_apply"],
-                "grad_reduce": ["bn_tail_grad_reduce", "bn_tail_finish"],
-                "grad_apply": ["bn_tail_grad_apply"]}
+TAIL_SYMBOLS = {"bn_tail_stats": ["bn_tail_stats", "bn_tail_finish"],
+                "bn_tail_var": ["bn_tail_var", "bn_tail_finish"],
+                "bn_tail_apply": ["bn_tail_apply"],
+                "bn_tail_eval": ["bn_tail_apply"],
+                "bn_tail_grad_reduce": ["bn_tail_grad_reduce",
+                                        "bn_tail_finish"],
+                "bn_tail_grad_apply": ["bn_tail_grad_apply"]}
 
 
 def tail_chain(bn, h, drop, res):
@@ -1435,58 +1445,64 @@ def phase_layer_tail(graph) -> dict:
             rinv = inv * 0.8
             sums_w = bt.grad_reduce_plain(dy, x, mean, inv)
             passes = {
-                "stats": (lambda: ops.bn_tail_stats(h, drop, resv)[1],
-                          lambda: s1w),
-                "var": (lambda: ops.bn_tail_var(x, mean), lambda: s2w),
-                "apply": (lambda: ops.bn_tail_apply(x, mean, inv, w, bias),
-                          lambda: bt.apply_plain(x, mean, inv, w, bias)),
-                "eval": (lambda: ops.bn_tail_eval(h, None, resv, mean, rinv,
-                                                  w, bias),
-                         lambda: bt.eval_plain(h, None, resv, mean, rinv, w,
-                                               bias)),
-                "grad_reduce": (
+                "bn_tail_stats": (
+                    lambda: ops.bn_tail_stats(h, drop, resv)[1],
+                    lambda: s1w),
+                "bn_tail_var": (lambda: ops.bn_tail_var(x, mean),
+                                lambda: s2w),
+                "bn_tail_apply": (
+                    lambda: ops.bn_tail_apply(x, mean, inv, w, bias),
+                    lambda: bt.apply_plain(x, mean, inv, w, bias)),
+                "bn_tail_eval": (
+                    lambda: ops.bn_tail_eval(h, None, resv, mean, rinv, w,
+                                             bias),
+                    lambda: bt.eval_plain(h, None, resv, mean, rinv, w,
+                                          bias)),
+                "bn_tail_grad_reduce": (
                     lambda: ops.bn_tail_grad_reduce(dy, x, mean, inv),
                     lambda: sums_w),
-                "grad_apply": (
+                "bn_tail_grad_apply": (
                     lambda: ops.bn_tail_grad_apply(dy, x, drop, mean, inv,
                                                    w, sums_w, count, t + dil),
                     lambda: bt.grad_apply_plain(dy, x, drop, mean, inv, w,
                                                 sums_w, count, t + dil))}
             for kind, (kern, plain) in passes.items():
-                bt.reset_launch_counts()
+                reset_launches()
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
-                require(bt.LAUNCHES[kind] == 1
-                        and sum(bt.LAUNCHES.values()) == 1,
-                        f"tail {kind} at T = {t}: launches {bt.LAUNCHES}")
+                counts = kernel_launches(bt.OPS)
+                require(counts[kind] == 1 and sum(counts.values()) == 1,
+                        f"{kind} at T = {t}: launches {counts}")
                 got = list(got) if isinstance(got, tuple) else [got]
                 want = list(want) if isinstance(want, tuple) else [want]
                 errs = []
                 for j, (a, w_) in enumerate(zip(got, want)):
                     # dh is dx times the mask, rounded once more
-                    once_more = (torch.zeros_like(w_) if kind == "grad_apply"
-                                 and j == 0 else None)
+                    once_more = (torch.zeros_like(w_)
+                                 if kind == "bn_tail_grad_apply" and j == 0
+                                 else None)
                     err, ok, rule = close_err(a, w_, once_more,
                                               slack=2.0 ** -16)
-                    require(ok, f"tail {kind} at T = {t} disagrees with its "
+                    require(ok, f"{kind} at T = {t} disagrees with its "
                                 f"plain version: {err} ({rule})")
                     errs.append(err)
                 nbytes = TAIL_BYTES[kind] * count * c
-                if kind == "grad_apply":
+                if kind == "bn_tail_grad_apply":
                     nbytes += 2 * b * dil * n * c     # dres's leading zeros
-                rec = dict(op="bn_tail_" + kind, T=t, dilation=dil,
+                rec = dict(op=kind, T=t, dilation=dil,
                            elements=count * c, max_abs_err=max(errs),
                            kernel_ms=cuda_ms(kern, 20),
                            plain_ms=cuda_ms(plain, 3) if kind in (
-                               "apply", "eval", "grad_apply") else None,
+                               "bn_tail_apply", "bn_tail_eval",
+                               "bn_tail_grad_apply") else None,
                            library_ms=None)
                 rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes,
                                                          "bfloat16")
                 emit("bn_tail_check", **rec)
-                if kind != "eval":
+                if kind != "bn_tail_eval":
                     totals["bound_ms"] += rec["bound_ms"]
                 if t == TAIL_LAYERS[0][0]:
-                    summary["tail_" + kind] = rec
+                    summary[kind] = rec
                 del got, want
         # the whole tail, forward and backward, against the chain
         bn = BatchNorm(c, device="cuda")
@@ -1534,24 +1550,24 @@ def phase_layer_tail(graph) -> dict:
     ys = torch.as_tensor(np.concatenate([y_np, y_np[::-1]]), device="cuda")
     idx = np.arange(2 * b, dtype=np.int64).reshape(2, b)
     layers = len(TAIL_LAYERS)
-    bt.reset_launch_counts()
+    reset_launches()
     first = eng.train_steps_resident(xs, ys, idx, sups)["loss"]
     torch.cuda.synchronize()
-    train_counts = dict(bt.LAUNCHES)
-    want = {k: 2 * (layers if k in ("stats", "var", "apply") else layers - 1)
-            for k in TAIL_TRAIN_KINDS}
-    want["eval"] = 0
+    train_counts = kernel_launches(bt.OPS)
+    want = {k: 2 * (layers if k in TAIL_TRAIN_OPS[:3] else layers - 1)
+            for k in TAIL_TRAIN_OPS}
+    want["bn_tail_eval"] = 0
     require(train_counts == want,
             f"two graphed city steps launched the tail {train_counts}, "
             f"expected {want}")
-    bt.reset_launch_counts()
+    reset_launches()
     eng.model.eval()
     with torch.no_grad():
         eng.model(xs, sups)
     torch.cuda.synchronize()
-    serve_counts = dict(bt.LAUNCHES)
-    require(serve_counts == dict({k: 0 for k in TAIL_TRAIN_KINDS},
-                                 eval=layers),
+    serve_counts = kernel_launches(bt.OPS)
+    require(serve_counts == dict(dict.fromkeys(TAIL_TRAIN_OPS, 0),
+                                 bn_tail_eval=layers),
             f"a batch-8 city forward launched the tail {serve_counts}")
     emit("bn_tail_launches", train_call=train_counts, serve=serve_counts,
          losses=first.tolist(),
@@ -1601,7 +1617,7 @@ def pair_check(sp, r: int, dtype, tables: str, gen) -> dict:
     err2, ok2, _ = close_err(o2, p2)
     del p2, o1, o2
     dname = str(dtype).split(".")[1]
-    rec = dict(kernel="gathered_block_mix_flat2", dtype=dname, R=r,
+    rec = dict(kernel="mix_flat2", dtype=dname, R=r,
                **tile_of(r, dtype), tables=tables, add=not fwd,
                max_abs_err_out1=err1, max_abs_err_out2=err2, tolerance=rule,
                bitwise_vs_chain=bitwise,
@@ -1627,12 +1643,11 @@ def dcrnn_expected(cfg) -> tuple[dict, dict]:
     first cell's gate an operands' gradient."""
     cells = cfg.num_rnn_layers * (cfg.seq_len + cfg.horizon)
     pairs = 2 * cells * cfg.n_supports
-    blocks = {"gathered_block_mix_flat": 0,
-              "gathered_block_mix_flat2": 2 * pairs - cfg.n_supports,
-              "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
-              "gathered_block_outer": 0}
+    blocks = {"mix_flat": 0, "mix_flat2": 2 * pairs - cfg.n_supports,
+              "outer_flat": 0, "mix_padded": 0, "outer_padded": 0}
     n = 2 * cells + cfg.horizon
-    return blocks, {"forward": n, "dgrad": n - 1, "wgrad": n}
+    return blocks, {"chan_proj": n, "chan_proj_dgrad": n - 1,
+                    "chan_proj_wgrad": n}
 
 
 def phase_dcrnn(graph) -> dict:
@@ -1655,7 +1670,6 @@ def phase_dcrnn(graph) -> dict:
     )
     from graph_wavenet_tpu_torch.models import dcrnn
     from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
     from graph_wavenet_tpu_torch.train.engine import DCRNNEngine
 
@@ -1683,13 +1697,12 @@ def phase_dcrnn(graph) -> dict:
     ys = 54.4 + 19.5 * torch.randn(samples, cfg.horizon, N_CITY, 2,
                                    generator=gen, device="cuda")
     idx = np.arange(samples, dtype=np.int64).reshape(2, DCRNN_BATCH)
-    bd.reset_launch_counts()
-    cp.reset_launch_counts()
+    reset_launches()
     t = time.perf_counter()
     loss = engine.train_steps_resident(xs, ys, idx, sups)["loss"]
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t
-    got_blocks, got_proj = dict(bd.LAUNCHES), dict(cp.LAUNCHES)
+    got_blocks, got_proj = kernel_launches(), kernel_launches(cp.OPS)
     per_step = dict(dcrnn.COUNTS["step_launches"])
     want_blocks, want_proj = dcrnn_expected(cfg)
     rec = dict(batch=DCRNN_BATCH, nodes=N_CITY, dtype="bfloat16",
@@ -1723,8 +1736,8 @@ def proj_expected(cfg, forwards: int, steps: int = 0) -> dict:
     diffusion (no loss term reads it) and the operands' gradient of those
     but the start conv (its input needs none)."""
     n = 3 * cfg.blocks * cfg.layers + 3
-    return {"forward": forwards * n, "dgrad": steps * (n - 2),
-            "wgrad": steps * (n - 1)}
+    return {"chan_proj": forwards * n, "chan_proj_dgrad": steps * (n - 2),
+            "chan_proj_wgrad": steps * (n - 1)}
 
 
 def phase_small_e2e(seed: int = 0) -> None:
@@ -1736,7 +1749,6 @@ def phase_small_e2e(seed: int = 0) -> None:
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
     from graph_wavenet_tpu_torch.ops import block_sparse as bsp
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.serving import Forecaster
 
     pos, src, dst, w = city_graph(N_SMALL)
@@ -1753,19 +1765,19 @@ def phase_small_e2e(seed: int = 0) -> None:
                 for s in fcs["cuda"].supports), "2,048-node RCM must fuse")
     x = np.random.default_rng(1).normal(
         size=(2, 12, N_SMALL, 2)).astype(np.float32)
-    bd.reset_launch_counts()
+    reset_launches()
     card = fcs["cuda"].predict(x)
     torch.cuda.synchronize()
-    fused_counts = dict(bd.LAUNCHES)
+    fused_counts = kernel_launches()
     cpu = fcs["cpu"].predict(x)
     err = float((card.cpu() - cpu).abs().max())
     unfused = Forecaster(cfg, fcs["cuda"].model,
                          [bsp.as_unfused(s) for s in fcs["cuda"].supports],
                          scaler, node_layout=fcs["cuda"].node_layout)
-    bd.reset_launch_counts()
+    reset_launches()
     card_unfused = unfused.predict(x)
     torch.cuda.synchronize()
-    unfused_counts = dict(bd.LAUNCHES)
+    unfused_counts = kernel_launches()
     bitwise = bool(torch.equal(card, card_unfused))
     ok = bool(torch.allclose(card.cpu(), cpu, rtol=2e-4, atol=2e-4))
     widths = layer_widths(cfg, x.shape[0])
@@ -1795,7 +1807,6 @@ def small_train_run(form: str, seed: int = 0):
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.graphs.city import build_city_supports
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.engine import Engine
 
     pos, src, dst, w = city_graph(N_SMALL)
@@ -1820,12 +1831,12 @@ def small_train_run(form: str, seed: int = 0):
     ys[:, :, :, :16, 0] = 0.0
     losses = {}
     for where, eng in engines.items():
-        bd.reset_launch_counts()
+        reset_launches()
         losses[where] = [float(eng.train_step(xs[i], ys[i],
                                               sups[where])["loss"])
                          for i in range(steps)]
         if where == "card":
-            counts = dict(bd.LAUNCHES)
+            counts = kernel_launches()
     sd = {where: {k: v.float().cpu() for k, v in
                   eng.model.state_dict().items()}
           for where, eng in engines.items()}
@@ -1870,8 +1881,7 @@ def phase_small_train(seed: int = 0) -> None:
                 for s in sup[:-1])
             and mask.fuse2 is not None and mask.fuse2[2] > 0,
             "the 2,048-node supports and mask must fuse both ways")
-    require(counts["gathered_block_outer_flat"] > 0
-            and counts["gathered_block_mix_flat2"] > 0,
+    require(counts["outer_flat"] > 0 and counts["mix_flat2"] > 0,
             f"launch counts {counts} do not reach kernels 2 and 3")
 
     # one step from the same state with fused and with unfused supports
@@ -1904,11 +1914,11 @@ def phase_small_train(seed: int = 0) -> None:
 
 # each hand kernel's device functions, by a part of their names in a
 # profile (kernels 2 and 5 share one template, told apart by its job type)
-HAND_KERNELS = {"gathered_block_mix_flat": "mix_flat_",
-                "gathered_block_outer_flat": "FlatJobs",
-                "gathered_block_mix_flat2": "mix_flat2_",
-                "gathered_block_mix": "mix_padded_",
-                "gathered_block_outer": "PaddedJobs"}
+HAND_KERNELS = {"mix_flat": "mix_flat_",
+                "outer_flat": "FlatJobs",
+                "mix_flat2": "mix_flat2_",
+                "mix_padded": "mix_padded_",
+                "outer_padded": "PaddedJobs"}
 
 
 def profile_step(fn) -> dict:
@@ -2084,16 +2094,16 @@ def forward_launches(supports, widths: list[int], dtype) -> dict:
     from graph_wavenet_tpu_torch.ops.block_sparse import BlockSparseSupport
     from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
-    n = dict.fromkeys(bd.LAUNCHES, 0)
+    n = dict.fromkeys(bd.OPS, 0)
     for s in supports:
         for r in widths:
             if isinstance(s, BlockSparseSupport):
-                n["gathered_block_mix"] += 2
+                n["mix_padded"] += 2
             elif (_fused(s)
                   and bd.fused2_dispatch(r, dtype, add=False) == "fused"):
-                n["gathered_block_mix_flat2"] += 1
+                n["mix_flat2"] += 1
             else:
-                n["gathered_block_mix_flat"] += 2
+                n["mix_flat"] += 2
     return n
 
 
@@ -2118,14 +2128,14 @@ def expected_step_launches(supports, widths: list[int], dtype) -> dict:
                    else getattr(s, "delay_t", 0))
         for r in widths[:-1]:
             if isinstance(s, BlockSparseSupport):
-                n["gathered_block_mix"] += 2
+                n["mix_padded"] += 2
                 continue
             if (_fused(s) and delay_t > 0
                     and bd.fused2_dispatch(r, dtype, add=True) == "fused"):
-                n["gathered_block_mix_flat2"] += 1
+                n["mix_flat2"] += 1
             else:
-                n["gathered_block_mix_flat"] += 2
-            n["gathered_block_outer_flat"] += 2 * adaptive
+                n["mix_flat"] += 2
+            n["outer_flat"] += 2 * adaptive
     return n
 
 
@@ -2141,7 +2151,6 @@ def phase_train(graph, tmp: str, form: str) -> dict:
 
     from graph_wavenet_tpu_torch.cli import serve, train
     from graph_wavenet_tpu_torch.graphs import city
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
 
     tag = "" if form == "flat" else "_padded"
@@ -2191,12 +2200,11 @@ def phase_train(graph, tmp: str, form: str) -> dict:
     xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
     counts = {}
     mcfg = engine.model_cfg
-    bd.reset_launch_counts()
-    cp.reset_launch_counts()
+    reset_launches()
     engine.train_step(xt, yt, sups)
     torch.cuda.synchronize()
-    counts["train" + tag] = dict(bd.LAUNCHES)
-    counts["proj_train" + tag] = dict(cp.LAUNCHES)
+    counts["train" + tag] = kernel_launches()
+    counts["proj_train" + tag] = kernel_launches(cp.OPS)
     want = expected_step_launches(
         sups, layer_widths(mcfg, TRAIN_BATCH, 13), torch.bfloat16)
     want_proj = proj_expected(mcfg, 1, 1)
@@ -2243,11 +2251,11 @@ def phase_train(graph, tmp: str, form: str) -> dict:
         url = f"http://127.0.0.1:{server.server_port}"
         raw = np.random.default_rng(7).normal(
             50.0, 10.0, size=(12, N_CITY, 2)).astype(np.float32)
-        bd.reset_launch_counts()
+        reset_launches()
         answer = np.asarray(post_json(url + "/predict",
                                       {"x": raw.tolist()})["y"])
         torch.cuda.synchronize()
-        counts["serve_trained" + tag] = dict(bd.LAUNCHES)
+        counts["serve_trained" + tag] = kernel_launches()
         want = forward_launches(run["forecaster"].supports,
                                 layer_widths(mcfg, 1), torch.bfloat16)
     finally:
@@ -2319,8 +2327,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
             except Exception as e:         # reported below; fails the run
                 errors.append(f"{type(e).__name__}: {e}")
 
-        bd.reset_launch_counts()
-        cp.reset_launch_counts()
+        reset_launches()
         t1 = time.perf_counter()
         threads = [threading.Thread(target=ask, args=(i,))
                    for i in range(n_req)]
@@ -2330,8 +2337,8 @@ def serve_run(path: str, gpath: str, form: str, cfg):
             t.join(timeout=600)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t1
-        counts = dict(bd.LAUNCHES)
-        proj = dict(cp.LAUNCHES)
+        counts = kernel_launches()
+        proj = kernel_launches(cp.OPS)
         require(not errors and not any(t.is_alive() for t in threads),
                 f"requests failed: {errors}")
         stats = json.loads(urllib.request.urlopen(
@@ -2341,7 +2348,7 @@ def serve_run(path: str, gpath: str, form: str, cfg):
             require(a.shape == (12, N_CITY) and np.isfinite(a).all(),
                     f"bad answer shape {a.shape} or non-finite values")
         # each device call runs the batch padded to its power-of-two bucket
-        want = dict.fromkeys(bd.LAUNCHES, 0)
+        want = dict.fromkeys(bd.OPS, 0)
         for n, count in stats["batch_histogram"].items():
             bucket = batcher._bucket(int(n))
             for k, v in forward_launches(
@@ -2408,7 +2415,6 @@ def phase_serve(graph, tmp: str) -> dict:
     from graph_wavenet_tpu_torch.graphs import city
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
     from graph_wavenet_tpu_torch.ops.block_sparse import Fused2FlatSupport
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train import checkpoint as ckpt
     from graph_wavenet_tpu_torch.train.serving import Forecaster
 
@@ -2455,10 +2461,10 @@ def phase_serve(graph, tmp: str) -> dict:
                                            device="cuda")
     require(not any(isinstance(s, Fused2FlatSupport)
                     for s in rect.supports), "rect supports must not fuse")
-    bd.reset_launch_counts()
+    reset_launches()
     rect_pred = rect.predict(x1)
     torch.cuda.synchronize()
-    counts["rect"] = dict(bd.LAUNCHES)
+    counts["rect"] = kernel_launches()
     want = forward_launches(rect.supports, layer_widths(cfg, 1),
                             torch.bfloat16)
     diff = float((rect_pred - fused_pred).abs().max())
@@ -2580,7 +2586,7 @@ def phase_padded_kernels(graph):
                 bitwise = bool(torch.equal(got, k1))
                 k1_diff = float((got.float() - k1.float()).abs().max())
                 del want, k1
-                rec = dict(kernel="gathered_block_mix", dtype=dname, R=r,
+                rec = dict(kernel="mix_padded", dtype=dname, R=r,
                            **tile_of(r, dtype),
                            orientation="forward" if tl else "transpose",
                            slots=[nb, slot.shape[1]], max_abs_err=err,
@@ -2644,7 +2650,7 @@ def phase_padded_kernels(graph):
             torch.cuda.synchronize()
             bitwise = bool(torch.equal(k5f[live], k2f[:flat.n_live]))
             del k5f, k2f
-            rec = dict(kernel="gathered_block_outer", dtype=dname,
+            rec = dict(kernel="outer_padded", dtype=dname,
                        out_dtype=dname, R=r, **outer_tile_of(dtype, bs),
                        slots=nb * mb, live=n_live,
                        max_abs_err=err, tolerance="rtol 1e-5 of sum |terms| "
@@ -2694,7 +2700,6 @@ def phase_small_padded(seed: int = 0) -> None:
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.graphs.city import build_city_supports
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.serving import Forecaster
 
     pos, src, dst, w = city_graph(N_SMALL)
@@ -2712,10 +2717,10 @@ def phase_small_padded(seed: int = 0) -> None:
         sups[where, form] = sup
         fc = Forecaster(cfg, GWNet(cfg, device=dev, seed=seed), sup,
                         StandardScaler(50.0, 10.0), node_layout=layout)
-        bd.reset_launch_counts()
+        reset_launches()
         preds[where, form] = fc.predict(x)
         torch.cuda.synchronize()
-        counts[where, form] = dict(bd.LAUNCHES)
+        counts[where, form] = kernel_launches()
     card, cpu = preds["card", "pallas"], preds["host", "pallas"]
     err = float((card.cpu() - cpu).abs().max())
     bitwise = bool(torch.equal(card, preds["card", "flat"]))
@@ -2746,12 +2751,12 @@ def phase_small_padded(seed: int = 0) -> None:
         blocks = sp.blocks.clone().requires_grad_(True)
         out = dataclasses.replace(sp, blocks=blocks).mix_2d(
             torch.as_tensor(x2, device=dev))
-        bd.reset_launch_counts()
+        reset_launches()
         grads[where], = torch.autograd.grad(out, blocks,
                                             torch.as_tensor(cot, device=dev))
         torch.cuda.synchronize()
         if where == "card":
-            k5 = bd.LAUNCHES["gathered_block_outer"]
+            k5 = kernel_launches()["outer_padded"]
     sp = sups["card", "pallas"][0]
     sent = sp.block_idx == sp.block_idx.shape[0]
     got, want_g = grads["card"].cpu(), grads["host"]
@@ -2804,12 +2809,12 @@ def phase_kernel5_path(sups) -> dict:
 
     bsp.gathered_block_outer = recording
     try:
-        bd.reset_launch_counts()
+        reset_launches()
         t0 = time.perf_counter()
         gcn_apply(weight, bias, x, grad_sups, 2).backward(cot)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(bd.LAUNCHES)
+        counts = kernel_launches()
     finally:
         bsp.gathered_block_outer = kernel5
     errs = []
@@ -2822,8 +2827,8 @@ def phase_kernel5_path(sups) -> dict:
     nb = sups[0].block_idx.shape[0]
     zero = all(not bool(b.grad[s.block_idx == nb].any())
                for s, b in zip(sups, leaves))
-    want = dict.fromkeys(bd.LAUNCHES, 0)
-    want.update(gathered_block_mix=8, gathered_block_outer=4)
+    want = dict.fromkeys(bd.OPS, 0)
+    want.update(mix_padded=8, outer_padded=4)
     emit("kernel5_path", nodes=N_CITY, batch=TRAIN_BATCH, dtype="bfloat16",
          R=TRAIN_BATCH * t * c, launches=counts, expected=want,
          max_abs_err=errs, sentinel_slots_zero=zero, wall_ms=wall_ms)
@@ -2914,7 +2919,6 @@ def phase_aptonly(tmp: str) -> dict:
 
     from graph_wavenet_tpu_torch.cli import serve, train
     from graph_wavenet_tpu_torch.graphs import city
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
     pos, src, dst, w = city_graph(N_SMALL)
     gpath = os.path.join(tmp, "aptonly_graph.npz")
@@ -2945,10 +2949,10 @@ def phase_aptonly(tmp: str) -> dict:
     y = torch.as_tensor(rng.normal(50.0, 10.0, size=(
         TRAIN_BATCH, 12, N_SMALL, 2)).astype(np.float32), device="cuda")
     counts = {}
-    bd.reset_launch_counts()
+    reset_launches()
     engine.train_step(x, y, sups)
     torch.cuda.synchronize()
-    counts["aptonly_train"] = dict(bd.LAUNCHES)
+    counts["aptonly_train"] = kernel_launches()
     want_train = expected_step_launches(
         sups, layer_widths(engine.model_cfg, TRAIN_BATCH, 13),
         torch.bfloat16)
@@ -2960,12 +2964,12 @@ def phase_aptonly(tmp: str) -> dict:
     try:
         raw = rng.normal(50.0, 10.0, size=(12, N_SMALL, 2)).astype(
             np.float32)
-        bd.reset_launch_counts()
+        reset_launches()
         answer = np.asarray(post_json(
             f"http://127.0.0.1:{server.server_port}/predict",
             {"x": raw.tolist()})["y"])
         torch.cuda.synchronize()
-        counts["aptonly_serve"] = dict(bd.LAUNCHES)
+        counts["aptonly_serve"] = kernel_launches()
         want_serve = forward_launches(fc.supports,
                                       layer_widths(fc.cfg, 1),
                                       torch.bfloat16)
@@ -3031,7 +3035,6 @@ def phase_dense(seed: int = 0) -> dict:
     from graph_wavenet_tpu_torch.config import ModelConfig, TrainConfig
     from graph_wavenet_tpu_torch.data.scaler import StandardScaler
     from graph_wavenet_tpu_torch.models.gwnet import GWNet
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.ops.cuda import chan_proj as cp
     from graph_wavenet_tpu_torch.train.engine import Engine
 
@@ -3078,14 +3081,13 @@ def phase_dense(seed: int = 0) -> dict:
         engine = Engine(mcfg, TrainConfig(), scaler, device="cuda",
                         seed=seed, aptinit=sups_np[0])
         n_timed = 10 if mode == "auto" else 5
-        bd.reset_launch_counts()
-        cp.reset_launch_counts()
+        reset_launches()
         losses = [float(engine.train_step(xt, yt, sups)["loss"])
                   for _ in range(2)]
         torch.cuda.synchronize()
         if mode == "auto":
-            counts["dense_train"] = dict(bd.LAUNCHES)
-            counts["proj_dense_train"] = dict(cp.LAUNCHES)
+            counts["dense_train"] = kernel_launches()
+            counts["proj_dense_train"] = kernel_launches(cp.OPS)
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(n_timed):
@@ -3154,7 +3156,6 @@ def phase_metr_cli(tmp: str) -> dict:
     from graph_wavenet_tpu_torch.data.traffic_etl import (
         generate_train_val_test,
     )
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
     rng = np.random.default_rng(14)
     t_steps = 2016
@@ -3169,7 +3170,7 @@ def phase_metr_cli(tmp: str) -> dict:
     shapes = generate_train_val_test(values, data_dir, index=index)
     write_adj_pickle(adj, DENSE_NODES)
     etl_s = time.perf_counter() - t0
-    bd.reset_launch_counts()
+    reset_launches()
     t1 = time.perf_counter()
     out = train.main(["--data", data_dir, "--adjdata", adj, "--num_nodes",
                       str(DENSE_NODES), "--gcn_bool", "--addaptadj",
@@ -3187,7 +3188,7 @@ def phase_metr_cli(tmp: str) -> dict:
                         "--csv_out", os.path.join(tmp, "wave.csv"),
                         "--device", "cuda"])
     torch.cuda.synchronize()
-    counts = {"metr_cli": dict(bd.LAUNCHES)}
+    counts = {"metr_cli": kernel_launches()}
     hist = result.history[0]
     emit("metr_cli", nodes=DENSE_NODES, splits={k: list(v) for k, v in
                                                 shapes.items()},
@@ -3445,21 +3446,19 @@ def graphed_vs_eager(eager, graphed, xs, ys, idx, sups) -> tuple:
     of both windows, the graph's per-replay launches)."""
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-
-    bd.reset_launch_counts()
+    reset_launches()
     got = [metric_rows(graphed.train_steps_resident(xs, ys, sel, sups))
            for sel in idx]
     torch.cuda.synchronize()
-    n_graphed = graphed_window_launches(graphed, bd.LAUNCHES)
-    bd.reset_launch_counts()
+    n_graphed = graphed_window_launches(graphed, kernel_launches())
+    reset_launches()
     want = []
     for sel in torch.as_tensor(idx, device="cuda"):
         ms = [eager.train_step(xs.index_select(0, r), ys.index_select(0, r),
                                sups) for r in sel]
         want.append(torch.cat([metric_rows(m) for m in ms], 1))
     torch.cuda.synchronize()
-    n_eager = dict(bd.LAUNCHES)
+    n_eager = kernel_launches()
     # 0.0 exactly when bit for bit equal (a NaN compares as a difference)
     m_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     diff = first_difference(step_state(graphed), step_state(eager))
@@ -3691,7 +3690,7 @@ ARTIFACT_CHILD = r'''
 import json, sys, time
 import numpy as np
 import torch
-from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd, build
 
 path, x_path, y_path, deterministic = sys.argv[1:5]
 torch.use_deterministic_algorithms(deterministic == "1")
@@ -3705,10 +3704,10 @@ x = torch.as_tensor(np.load(x_path), device="cuda")
 with torch.inference_mode():
     module(x)
     torch.cuda.synchronize()
-    bd.reset_launch_counts()
+    build.reset_launch_counts()
     y = module(x)
     torch.cuda.synchronize()
-    launches = dict(bd.LAUNCHES)
+    launches = {k: build.LAUNCHES[k] for k in bd.OPS}
     times = []
     for _ in range(10):
         t = time.perf_counter()
@@ -3798,7 +3797,6 @@ def export_check(run: dict, fc) -> dict:
     import numpy as np
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train import serving
 
     name, out, x, det = run["name"], run["out"], run["x"], run["det"]
@@ -3817,10 +3815,10 @@ def export_check(run: dict, fc) -> dict:
             f"{text[1][-4000:]}")
     stats = json.loads(text[0].strip().splitlines()[-1])
     with deterministic(det):
-        bd.reset_launch_counts()
+        reset_launches()
         want = fc.predict(x)
         torch.cuda.synchronize()
-        live = dict(bd.LAUNCHES)
+        live = kernel_launches()
         got = torch.as_tensor(np.load(run["yp"]), device="cuda")
         art = serving.load_exported_forecaster(out)
         times = ab_ms({"artifact": lambda: art.predict(x),
@@ -3860,7 +3858,6 @@ def phase_export(tmp: str) -> dict:
     ``artifact_padded``)."""
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train.serving import Forecaster
 
     counts, started = {}, []
@@ -3904,7 +3901,7 @@ def phase_export(tmp: str) -> dict:
                 run["child"].kill()
                 run["child"].wait()
     torch.cuda.empty_cache()
-    bd.reset_launch_counts()
+    reset_launches()
     return counts
 
 
@@ -3931,7 +3928,6 @@ def serve_concurrently(argv: list, fc, n: int, seed: int):
     import torch
 
     from graph_wavenet_tpu_torch.cli import serve
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
     run = serve.main([*argv, "--port", "0", "--window_ms", "3000",
                       "--max_batch", "8"], serve_forever=False)
@@ -3952,14 +3948,14 @@ def serve_concurrently(argv: list, fc, n: int, seed: int):
             except Exception as e:         # reported below; fails the run
                 errors.append(f"{type(e).__name__}: {e}")
 
-        bd.reset_launch_counts()
+        reset_launches()
         threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
         torch.cuda.synchronize()
-        launches = dict(bd.LAUNCHES)
+        launches = kernel_launches()
         require(not errors and not any(t.is_alive() for t in threads),
                 f"requests failed: {errors}")
         stats = json.loads(urllib.request.urlopen(
@@ -4059,7 +4055,6 @@ def rolling_run(name: str, fc, n_origins: int) -> dict:
     window's launch counts, every replay counted."""
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train import serving
 
     history = torch.randn(n_origins + 11, fc.input_nodes, 2, device="cuda",
@@ -4069,15 +4064,15 @@ def rolling_run(name: str, fc, n_origins: int) -> dict:
         return torch.stack([fc.predict(h[None, k:k + 12])[0]
                             for k in range(h.shape[0] - 11)])
 
-    bd.reset_launch_counts()
+    reset_launches()
     want = eager()
     torch.cuda.synchronize()
-    one = {k: v // n_origins for k, v in bd.LAUNCHES.items()}
-    bd.reset_launch_counts()
+    one = {k: v // n_origins for k, v in kernel_launches().items()}
+    reset_launches()
     got = [serving.rolling_forecast(fc, history, 12) for _ in range(3)]
     torch.cuda.synchronize()
     (g,) = fc.step_graphs()
-    window = graphed_window_launches(fc, bd.LAUNCHES)
+    window = graphed_window_launches(fc, kernel_launches())
     # profiled over the first 24 origins at most: a profile of every
     # kernel of 288 origins takes minutes to read back
     short = history[:35] if n_origins > 24 else history
@@ -4193,7 +4188,7 @@ DIFFG_CHILD = r'''
 import json, sys, time
 import numpy as np
 import torch
-from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd, build
 
 path, x_path, i_path, y_path = sys.argv[1:5]
 t0 = time.perf_counter()
@@ -4204,10 +4199,10 @@ idx = torch.as_tensor(np.load(i_path), device="cuda")
 with torch.inference_mode():
     module(x, idx)
     torch.cuda.synchronize()
-    bd.reset_launch_counts()
+    build.reset_launch_counts()
     y = module(x, idx)
     torch.cuda.synchronize()
-    launches = dict(bd.LAUNCHES)
+    launches = {k: build.LAUNCHES[k] for k in bd.OPS}
 np.save(y_path, y.cpu().numpy())
 bad = [m for m in sys.modules if m == "jax" or m.startswith((
     "jax.", "graph_wavenet_tpu.", "graph_wavenet_tpu_torch.models",
@@ -4224,13 +4219,12 @@ def diffg_cli(name: str, tmp: str, argv: list) -> dict:
     import torch
 
     from graph_wavenet_tpu_torch.cli import train
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
-    bd.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     out = train.main(argv + ["--save", os.path.join(tmp, name)])
     torch.cuda.synchronize()
-    out.update(seconds=time.perf_counter() - t0, launches=dict(bd.LAUNCHES))
+    out.update(seconds=time.perf_counter() - t0, launches=kernel_launches())
     res, engine = out["result"], out["runner"].engine
     emit("diffg_train", name=name, seconds=round(out["seconds"], 3),
          diff_g=engine.diff_g, fresh_nodevec=engine.model_cfg.fresh_nodevec,
@@ -4416,10 +4410,9 @@ def diffg_serve(ckpt: str, bank: str, resident: dict, F_t: int) -> dict:
     import torch
 
     from graph_wavenet_tpu_torch.cli import serve
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train import serving
 
-    bd.reset_launch_counts()
+    reset_launches()
     fc = serving.DiffGForecaster.from_checkpoint(ckpt, device="cuda")
     fc.bind_bank(serving.load_graph_bank(bank))
     xs, ys = resident["test_xs"], resident["test_ys"]
@@ -4498,7 +4491,7 @@ def diffg_serve(ckpt: str, bank: str, resident: dict, F_t: int) -> dict:
         times[f"batch_{b}"] = ab_ms({"predict_indexed":
                                      lambda: fc.predict_indexed(xb, ib)},
                                     reps=20, rounds=2)["predict_indexed"]
-    launches = dict(bd.LAUNCHES)
+    launches = kernel_launches()
     emit("diffg_serve", health=health, requests=stats["requests"],
          device_calls=stats["device_calls"],
          batch_histogram=stats["batch_histogram"],
@@ -4528,10 +4521,9 @@ def diffg_export(ckpt: str, bank: str, resident: dict, tmp: str) -> dict:
     import torch
 
     from graph_wavenet_tpu_torch.cli import export, serve
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.train import serving
 
-    bd.reset_launch_counts()
+    reset_launches()
     out = os.path.join(tmp, "diffg.pt2")
     t0 = time.perf_counter()
     export.main(["--checkpoint", ckpt, "--graph_bank", bank, "--out", out,
@@ -4576,7 +4568,7 @@ def diffg_export(ckpt: str, bank: str, resident: dict, tmp: str) -> dict:
                                   np.full(4, idx[0]))[0].cpu().numpy()
     srv_diff = float(np.abs(served - want_srv).max())
     tol = 1e-5 * float(np.abs(want_srv).max())
-    launches = dict(bd.LAUNCHES)
+    launches = kernel_launches()
     emit("diffg_export", in_shape=list(art.in_shape), n_graphs=art.n_graphs,
          export_seconds=round(export_s, 3),
          artifact_bytes=os.path.getsize(out), child=stats,
@@ -4674,16 +4666,15 @@ def phase_diffg(tmp: str) -> dict:
              for g in G["train"]]), device="cuda"),
         "test_xs": data["test_loader"].resident_arrays()[0],
         "test_ys": data["test_loader"].resident_arrays()[1]}
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
-    bd.reset_launch_counts()
+    reset_launches()
     diffg_vs_cpu(dataclasses.replace(cfg, dropout=0.0, fresh_nodevec=False),
                  resident, F_t)
     diffg_graphed(dataclasses.replace(cfg, dropout=0.3), resident, F_t,
                   "trained")
     diffg_graphed(dataclasses.replace(cfg, dropout=0.3, fresh_nodevec=True),
                   resident, F_t, "fresh_nodevec")
-    windows["graphed"] = dict(bd.LAUNCHES)
+    windows["graphed"] = kernel_launches()
     bank = os.path.join(tmp, "diffg_bank.npz")
     serving.save_graph_bank(
         bank, np.stack([g.W for g in G["test"]]),
@@ -4847,7 +4838,7 @@ def phase_tp_local(graph) -> dict:
     nb = N_CITY // bs
     tables = {(s, halo): partition_tables(adp, s, halo)
               for s in TP_SHARDS for halo in (False, True)}
-    counts = {"tp_local": {k: 0 for k in bd.LAUNCHES}}
+    counts = {"tp_local": dict.fromkeys(bd.OPS, 0)}
     for dtype in (torch.float32, torch.bfloat16):
         sp = adp.astype(dtype)
         x = torch.randn((nb, bs, r), generator=gen, device="cuda").to(dtype)
@@ -4869,7 +4860,7 @@ def phase_tp_local(graph) -> dict:
             same_f, same_b = tp_same_order(t, s_count, adp)
             outs, dxs = [], []
             dw = torch.zeros_like(ref_dw)
-            bd.reset_launch_counts()
+            reset_launches()
             t0 = time.perf_counter()
             for s in range(s_count):
                 own = slice(s * nbl, (s + 1) * nbl)
@@ -4902,7 +4893,7 @@ def phase_tp_local(graph) -> dict:
                 dw[on_card(t["glob_f"][s][:n_live]).long()] = dwf[:n_live]
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            launches = dict(bd.LAUNCHES)
+            launches = kernel_launches()
             for k, v in launches.items():
                 counts["tp_local"][k] += v
             got = {"out": torch.cat(outs), "dx": torch.cat(dxs), "dw": dw}
@@ -4925,8 +4916,7 @@ def phase_tp_local(graph) -> dict:
                             "tables sum the same entries in the same order")
                 else:
                     require(errs[k][1], f"tp_local {k}: {errs[k][0]}")
-            want_l = {"gathered_block_mix_flat": 2 * s_count,
-                      "gathered_block_outer_flat": s_count}
+            want_l = {"mix_flat": 2 * s_count, "outer_flat": s_count}
             require(all(launches[k] == v for k, v in want_l.items())
                     and sum(launches.values()) == 3 * s_count,
                     f"tp_local launches {launches}, want {want_l}")
@@ -5070,8 +5060,6 @@ def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
     import numpy as np
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-
     from graph_wavenet_tpu_torch.parallel.pipeline import (
         make_pipeline_train_step,
     )
@@ -5096,7 +5084,7 @@ def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
                 return train_once(eng, sups, xt, yt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        bd.reset_launch_counts()
+        reset_launches()
         losses, times = [], []
         with deterministic(run.get("keep_state", False)):
             for k in range(run["steps"]):
@@ -5122,7 +5110,7 @@ def dist_layout_runs(spec: dict, lay: dict, rank: int, dev, mesh,
         for k in sorted(state):
             h.update(state[k].tobytes())
         rec = {"losses": losses, "step_ms": times,
-               "launches": dict(bd.LAUNCHES), "state_sha256": h.hexdigest(),
+               "launches": kernel_launches(), "state_sha256": h.hexdigest(),
                "max_memory_allocated_bytes":
                torch.cuda.max_memory_allocated(dev)}
         if rank == 0 and run.get("keep_state"):
@@ -5793,12 +5781,9 @@ def dist_step_launches(steps: int) -> dict:
     backward), kernel 2 per hop of the mask in the backward; a sharded
     support has no fused pair, so no kernel 3."""
     layers, sups, order = 8, 3, 2
-    want = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,
-            "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
-            "gathered_block_outer": 0}
-    want["gathered_block_mix_flat"] = steps * order * sups * (2 * layers - 1)
-    want["gathered_block_outer_flat"] = steps * order * (layers - 1)
-    return want
+    return {"mix_flat": steps * order * sups * (2 * layers - 1),
+            "mix_flat2": 0, "outer_flat": steps * order * (layers - 1),
+            "mix_padded": 0, "outer_padded": 0}
 
 
 def dist_cli_paths(tmp: str, graph) -> tuple:
@@ -6217,7 +6202,6 @@ def pipe_eval_worker(spec: dict, rank: int, dev) -> dict:
     import numpy as np
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
     from graph_wavenet_tpu_torch.parallel.pipeline import (
         make_pipeline_mesh,
         pipeline_apply,
@@ -6227,12 +6211,12 @@ def pipe_eval_worker(spec: dict, rank: int, dev) -> dict:
                               timeout_s=DIST_TIMEOUT)
     model, sups, x = pipe_eval_inputs(dev)
     mesh.barrier()
-    bd.reset_launch_counts()
+    reset_launches()
     with torch.no_grad():
         out = pipeline_apply(model, x, sups, mesh=mesh,
                              n_micro=PIPE_EVAL["n_micro"])
     torch.cuda.synchronize()
-    launches = dict(bd.LAUNCHES)
+    launches = kernel_launches()
     np.save(os.path.join(spec["out"], f"pipe_eval_rank{rank}.npy"),
             out.cpu().numpy())
     return {"launches": launches, "stage": mesh.pipe_index,
@@ -6511,13 +6495,11 @@ def graphed_case(eager, graphed, fused_call, eager_step, s: int,
     profiled device idle share of each."""
     import torch
 
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
-
-    bd.reset_launch_counts()
+    reset_launches()
     got = metric_rows(fused_call())
     torch.cuda.synchronize()
-    n_graphed = graphed_window_launches(graphed, bd.LAUNCHES)
-    bd.reset_launch_counts()
+    n_graphed = graphed_window_launches(graphed, kernel_launches())
+    reset_launches()
     want = torch.cat([metric_rows(eager_step(k)) for k in range(s)], 1)
     torch.cuda.synchronize()
     rec = {"scan_steps": s,
@@ -6525,7 +6507,7 @@ def graphed_case(eager, graphed, fused_call, eager_step, s: int,
            "first_state_difference": first_difference(step_state(graphed),
                                                        step_state(eager)),
            "graphed_window_launches": n_graphed,
-           "eager_window_launches": dict(bd.LAUNCHES),
+           "eager_window_launches": kernel_launches(),
            "per_replay_launches": dict(graphed.step_graphs()[0].launches)}
     it = {"k": 0}
 
@@ -6721,9 +6703,8 @@ def phase_dist_graphed(graph, tmp: str) -> dict:
     # kernel 2 for the mask, and the order-2 pairs through kernel 1 or 3 as
     # the dispatch rule picks (the count itself is held above)
     per = city["per_replay_launches"]
-    require(per["gathered_block_outer_flat"] > 0
-            and per["gathered_block_mix_flat"]
-            + per["gathered_block_mix_flat2"] > 0,
+    require(per["outer_flat"] > 0
+            and per["mix_flat"] + per["mix_flat2"] > 0,
             f"the replays under NCCL missed kernel 2 or the pair kernels: "
             f"{per}")
     return {"dist_graphed": city["graphed_window_launches"]}
@@ -6942,12 +6923,13 @@ BENCH_STEPS = 6
 # must launch there (the flat row's pairs go to kernel 1 or kernel 3 as the
 # dispatch rule picks), and the row's arguments
 BENCH_SPARSE = (
-    ("bench_flat", ("gathered_block_mix_flat", "gathered_block_mix_flat2"),
+    ("bench_flat", ("mix_flat", "mix_flat2"),
      dict(form="block-flat", graph="spatial", ordering="rcm")),
-    ("bench_pallas", ("gathered_block_mix",), dict(form="block-pallas")))
-# the wrappers of kernels 1, 3 and 4, each named as its launch count
-BENCH_WRAPPERS = ("gathered_block_mix_flat", "gathered_block_mix_flat2",
-                  "gathered_block_mix")
+    ("bench_pallas", ("mix_padded",), dict(form="block-pallas")))
+# the wrappers of kernels 1, 3 and 4, each with its op
+BENCH_WRAPPERS = {"gathered_block_mix_flat": "mix_flat",
+                  "gathered_block_mix_flat2": "mix_flat2",
+                  "gathered_block_mix": "mix_padded"}
 PLAIN = ("mix_flat_plain", "mix_flat2_plain", "outer_flat_plain",
          "mix_padded_plain", "outer_padded_plain")
 
@@ -6970,22 +6952,22 @@ def bench_watch():
             return fn(*a, **kw)
         return wrapped
 
-    def recording(key, fn):
+    def recording(op, fn):
         def wrapped(*a, **kw):
-            before = bd.LAUNCHES[key]
+            before = kernel_launches()[op]
             out = fn(*a, **kw)
-            if key not in first and bd.LAUNCHES[key] > before:
-                first[key] = (a, kw, out)
+            if op not in first and kernel_launches()[op] > before:
+                first[op] = (a, kw, out)
             return out
         return wrapped
 
     for name in PLAIN:
         saved.append((bd, name, getattr(bd, name)))
         setattr(bd, name, counting(name, getattr(bd, name)))
-    for name in BENCH_WRAPPERS:
+    for name, op in BENCH_WRAPPERS.items():
         for mod in (bd, bsp):
             saved.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, recording(name, getattr(mod, name)))
+            setattr(mod, name, recording(op, getattr(mod, name)))
     try:
         yield plain, first
     finally:
@@ -7006,9 +6988,9 @@ def bench_kernel_checks(first: dict) -> dict:
         for key, (a, kw, out) in first.items():
             kw = {k: v for k, v in kw.items()
                   if k not in ("row_ptr", "dispatch", "lag")}
-            if key == "gathered_block_mix_flat":
+            if key == "mix_flat":
                 err, ok, rule = close_err(out, bd.mix_flat_plain(*a, **kw))
-            elif key == "gathered_block_mix":
+            elif key == "mix_padded":
                 err, ok, rule = close_err(out,
                                           bd.mix_padded_plain(*a, **kw))
             else:
@@ -7048,14 +7030,13 @@ def phase_bench() -> dict:
     import torch
 
     from graph_wavenet_tpu_torch import benchmarks as B
-    from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
 
     cfg = dataclasses.replace(B.FLAGSHIP, dtype="bfloat16")
-    bd.reset_launch_counts()
+    reset_launches()
     with bench_watch() as (plain, _):
         dense = B.bench_train_step(cfg, batch=64, steps=25)
         infer = B.bench_inference(B.FLAGSHIP, batches=(1, 64))
-    dense_launches = dict(bd.LAUNCHES)
+    dense_launches = kernel_launches()
     host_flops = B.train_step_flops(cfg, batch=64, device="cpu")
     emit("bench_train_step", config="metr-la-full", dtype="bfloat16",
          batch=64, row=dense, launches=dense_launches, plain_calls=plain,
@@ -7070,10 +7051,10 @@ def phase_bench() -> dict:
     rows, counts = {"dense": dense}, {}
     for key, kernels, kw in BENCH_SPARSE:
         with bench_watch() as (plain, first):
-            bd.reset_launch_counts()
+            reset_launches()
             row = B.bench_sparse_train_step(n_nodes=N_CITY,
                                             steps=BENCH_STEPS, **kw)
-            counts[key] = dict(bd.LAUNCHES)
+            counts[key] = kernel_launches()
         launched = {k for k, v in counts[key].items() if v}
         require(launched <= set(first),
                 f"{key}: {sorted(launched - set(first))} launched with no "
@@ -7087,7 +7068,7 @@ def phase_bench() -> dict:
                 f"{key}: launches {counts[key]}, plain calls {plain}")
         rows[key] = row
         torch.cuda.empty_cache()
-    require(counts["bench_flat"]["gathered_block_mix_flat2"] > 0,
+    require(counts["bench_flat"]["mix_flat2"] > 0,
             "the flat bench step launched no kernel 3")
     for key, row in rows.items():
         require(row["mfu"] is not None and 0 < row["mfu"] <= 1.05,
@@ -7107,8 +7088,7 @@ def phase_bench() -> dict:
 
 # the kernels that run an order-2 pair, each the other's alternative under
 # the dispatch rule, and the main-path windows whose pairs follow the rule
-PAIR_KERNELS = {"gathered_block_mix_flat": "gathered_block_mix_flat2",
-                "gathered_block_mix_flat2": "gathered_block_mix_flat"}
+PAIR_KERNELS = {"mix_flat": "mix_flat2", "mix_flat2": "mix_flat"}
 RULED_WINDOWS = ("serve", "train", "train_graphed", "artifact",
                  "serve_artifact", "rolling", "dist_graphed", "dist_pipe",
                  "bench_flat")
@@ -7117,9 +7097,9 @@ RULED_WINDOWS = ("serve", "train", "train_graphed", "artifact",
 PROJ_TRAIN_WINDOWS = ("proj_train", "proj_train_padded", "proj_dense_train",
                       "proj_dcrnn")
 PROJ_SERVE_WINDOWS = ("proj_serve", "proj_serve_padded")
-PROJ_SYMBOLS = {"forward": ["chan_proj_kernel"],
-                "dgrad": ["chan_proj_kernel"],
-                "wgrad": ["chan_proj_wgrad", "chan_proj_reduce"]}
+PROJ_SYMBOLS = {"chan_proj": ["chan_proj_kernel"],
+                "chan_proj_dgrad": ["chan_proj_kernel"],
+                "chan_proj_wgrad": ["chan_proj_wgrad", "chan_proj_reduce"]}
 
 
 def main() -> int:
@@ -7224,21 +7204,21 @@ def main() -> int:
     # in its padded one; a graphed window counts every replay
     kernels = []
     for key, name, src, tpu, windows in (
-            ("k1", "gathered_block_mix_flat", K1_SRC, K1_TPU,
+            ("k1", "mix_flat", K1_SRC, K1_TPU,
              ("rect", "serve", "train", "train_graphed", "artifact",
               "artifact_padded", "serve_artifact", "rolling",
               "dist_dp2_tp2", "dist_tp2_t2", "dist_graphed", "dist_pipe",
               "bench_flat")),
-            ("k2", "gathered_block_outer_flat", K2_SRC, K2_TPU,
+            ("k2", "outer_flat", K2_SRC, K2_TPU,
              ("train", "train_graphed", "dist_dp2_tp2", "dist_tp2_t2",
               "dist_graphed")),
-            ("k3", "gathered_block_mix_flat2", K3_SRC, K3_TPU,
+            ("k3", "mix_flat2", K3_SRC, K3_TPU,
              ("serve", "train", "train_graphed", "rolling", "dist_graphed",
               "dist_pipe", "bench_flat", "dcrnn")),
-            ("k4", "gathered_block_mix", K4_SRC, K4_TPU,
+            ("k4", "mix_padded", K4_SRC, K4_TPU,
              ("serve_padded", "train_padded", "train_graphed_padded",
               "artifact_padded", "bench_pallas")),
-            ("k5", "gathered_block_outer", K5_SRC, K5_TPU,
+            ("k5", "outer_padded", K5_SRC, K5_TPU,
              ("kernel5_path",))):
         rec = summary[key]
         launches = sum(counts[w][name] for w in windows)
@@ -7264,18 +7244,19 @@ def main() -> int:
     # the city step's sparse diffusion (7 x 32 -> 32, 1.97 M rows),
     # launches in the flat and padded train steps, the dense METR steps
     # and (forward only) the flat and padded serving windows
-    for direction, windows in (
-            ("forward", PROJ_TRAIN_WINDOWS + PROJ_SERVE_WINDOWS),
-            ("dgrad", PROJ_TRAIN_WINDOWS), ("wgrad", PROJ_TRAIN_WINDOWS)):
-        rec = summary["proj_" + direction]
-        launches = sum(counts[w][direction] for w in windows)
-        require(all(counts[w][direction] > 0 for w in windows),
-                f"{rec['op']} was not launched on the main path: "
-                f"{ {w: counts[w][direction] for w in windows} }")
+    for op, windows in (
+            ("chan_proj", PROJ_TRAIN_WINDOWS + PROJ_SERVE_WINDOWS),
+            ("chan_proj_dgrad", PROJ_TRAIN_WINDOWS),
+            ("chan_proj_wgrad", PROJ_TRAIN_WINDOWS)):
+        rec = summary[op]
+        n = sum(counts[w][op] for w in windows)
+        require(all(counts[w][op] > 0 for w in windows),
+                f"{op} was not launched on the main path: "
+                f"{ {w: counts[w][op] for w in windows} }")
         kernels.append({
-            "name": rec["op"], "route": "cuda", "source": PROJ_SRC,
-            "replaces": None, "symbols": PROJ_SYMBOLS[direction],
-            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "name": op, "route": "cuda", "source": PROJ_SRC,
+            "replaces": None, "symbols": PROJ_SYMBOLS[op],
+            "launches": n, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
@@ -7284,15 +7265,14 @@ def main() -> int:
     # at the city step's first layer (4 x 12 x 40,960 x 32), launches in
     # the graphed city train call and the batch-8 serving forward
     windows = summary["tail_windows"]
-    for kind in TAIL_TRAIN_KINDS + ("eval",):
-        rec = summary["tail_" + kind]
-        launches = sum(w[kind] for w in windows.values())
-        require(launches > 0, f"{rec['op']} was not launched on the main "
-                              f"path: {windows}")
+    for op in TAIL_TRAIN_OPS + ("bn_tail_eval",):
+        rec = summary[op]
+        n = sum(w[op] for w in windows.values())
+        require(n > 0, f"{op} was not launched on the main path: {windows}")
         kernels.append({
-            "name": rec["op"], "route": "cuda", "source": TAIL_SRC,
-            "replaces": None, "symbols": TAIL_SYMBOLS[kind],
-            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "name": op, "route": "cuda", "source": TAIL_SRC,
+            "replaces": None, "symbols": TAIL_SYMBOLS[op],
+            "launches": n, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None})

@@ -96,14 +96,7 @@ def build_variants() -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
-        lib.gwt_mix_flat2.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                                      + [ctypes.c_int] * 8
-                                      + [ctypes.c_void_p])
-        lib.gwt_mix_flat2.restype = ctypes.c_int
-        lib.gwt_error_string.argtypes = [ctypes.c_int]
-        lib.gwt_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
     return libs
 
 
@@ -135,7 +128,6 @@ def main() -> int:
     fwd = sups[0].astype(dtype)
     bwd = mask_from_supports(sups, hops=1).materialize(nv1, nv2,
                                                        out_dtype=dtype)
-    pkg = bd._lib(SRC, "gwt_mix_flat2", 9, 8)
     for tables, r in SHAPES:
         if tables == "forward":
             sp, tl, lag, ptr = fwd, True, fwd.lag, fwd.row_ptr
@@ -148,21 +140,15 @@ def main() -> int:
                                            device="cuda").to(dtype))
         ct = bd.tile_cols(r, dtype)
         span, grid = bd.fused2_launch(sp.nb, r, dtype, lag,
-                                      bd._resident(pkg, x, ct))
+                                      bd.resident(x, ct))
 
         def direct(lib, span=span):
             o1, o2 = torch.empty_like(x), torch.empty_like(x)
             flags = torch.zeros(bd.flag_count(sp.nb, r, dtype),
                                 dtype=torch.int32, device="cuda")
-            rc = lib.gwt_mix_flat2(
-                1, sp.blocks_flat.data_ptr(), tbl[0].data_ptr(), x.data_ptr(),
-                tbl[1].data_ptr(), ptr.data_ptr(),
-                None if add is None else add.data_ptr(), o1.data_ptr(),
-                o2.data_ptr(), flags.data_ptr(), sp.nb,
-                sp.blocks_flat.shape[0], span, 128, r, int(tl), ct, grid,
-                torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(lib.gwt_error_string(rc).decode())
+            build.call(lib, "gwt_mix_flat2", bd.mix_flat2_desc(
+                sp.blocks_flat, tbl[0], x, tbl[1], ptr, add, o1, o2, flags,
+                sp.nb, span, tl, ct, grid), x.device)
             return o1, o2
 
         def chain():

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "entry.cuh"
+
 namespace {
 
 constexpr int MAX_THREADS = 1024;
@@ -320,30 +322,33 @@ struct Head {
   bool ok;
 };
 
-Head read_head(const long long* d) {
+Head read_head(gwt::Desc& a) {
   Head h;
-  h.b = static_cast<int>(d[0]);
-  h.g.t = static_cast<int>(d[1]);
-  h.g.n = static_cast<int>(d[2]);
-  h.g.c = static_cast<int>(d[3]);
-  h.vec = static_cast<int>(d[4]);
-  h.g.lanes = static_cast<int>(d[5]);
-  h.g.rows = static_cast<int>(d[6]);
-  h.gx = static_cast<int>(d[7]);
+  h.b = a.i32();
+  h.g.t = a.i32();
+  h.g.n = a.i32();
+  h.g.c = a.i32();
+  h.vec = a.i32();
+  h.g.lanes = a.i32();
+  h.g.rows = a.i32();
+  h.gx = a.i32();
   const long long planes = (long long)h.b * h.g.t;
   const long long threads = (long long)h.g.lanes * h.g.rows;
-  h.ok = h.b > 0 && h.g.t > 0 && h.g.n > 0 && (h.vec == 1 || h.vec == 8) &&
+  h.ok = a.ok() && h.b > 0 && h.g.t > 0 && h.g.n > 0 &&
+         (h.vec == 1 || h.vec == 8) &&
          (long long)h.g.lanes * h.vec == h.g.c && threads <= MAX_THREADS &&
-         threads * h.vec <= RED && h.gx > 0 &&
-         planes <= 65535 && d[2] <= 0x7fffffffLL;
+         threads * h.vec <= RED && h.gx > 0 && planes <= 65535;
   return h;
 }
 
-View read_view(const long long* d) {
-  return View{reinterpret_cast<__nv_bfloat16*>(d[0]), d[1], d[2], d[3]};
+View read_view(gwt::Desc& a) {
+  View v;
+  v.p = a.ptr<__nv_bfloat16>();
+  v.s0 = a.i64();
+  v.s1 = a.i64();
+  v.s2 = a.i64();
+  return v;
 }
-
-const float* fptr(long long v) { return reinterpret_cast<const float*>(v); }
 
 dim3 grid(const Head& h) { return dim3(h.gx, h.b * h.g.t); }
 
@@ -355,8 +360,6 @@ int finish(const float* part, const Head& h, int k, float* out,
                                            k * h.g.c, out);
   return static_cast<int>(cudaGetLastError());
 }
-
-constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
 
 }  // namespace
 
@@ -370,12 +373,12 @@ constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
 
 // head, h, drop, res, x, part, sum
 extern "C" int gwt_bn_tail_stats(const long long* d, void* stream) {
-  const Head h = read_head(d);
-  if (!h.ok) return BAD;
-  const View hv = read_view(d + 8), dv = read_view(d + 12),
-             rv = read_view(d + 16), xv = read_view(d + 20);
-  auto* part = reinterpret_cast<float*>(d[24]);
-  auto* sum = reinterpret_cast<float*>(d[25]);
+  gwt::Desc a(d);
+  const Head h = read_head(a);
+  if (!h.ok) return gwt::BAD;
+  const View hv = read_view(a), dv = read_view(a), rv = read_view(a),
+             xv = read_view(a);
+  float *part = a.ptr<float>(), *sum = a.ptr<float>();
   auto s = static_cast<cudaStream_t>(stream);
   if (h.vec == 8)
     bn_tail_stats<8><<<grid(h), threads(h), 0, s>>>(hv, dv, rv, xv, h.g,
@@ -389,12 +392,12 @@ extern "C" int gwt_bn_tail_stats(const long long* d, void* stream) {
 
 // head, x, mean, part, sum_sq
 extern "C" int gwt_bn_tail_var(const long long* d, void* stream) {
-  const Head h = read_head(d);
-  if (!h.ok) return BAD;
-  const View xv = read_view(d + 8);
-  const float* mean = fptr(d[12]);
-  auto* part = reinterpret_cast<float*>(d[13]);
-  auto* out = reinterpret_cast<float*>(d[14]);
+  gwt::Desc a(d);
+  const Head h = read_head(a);
+  if (!h.ok) return gwt::BAD;
+  const View xv = read_view(a);
+  const float* mean = a.ptr<const float>();
+  float *part = a.ptr<float>(), *out = a.ptr<float>();
   auto s = static_cast<cudaStream_t>(stream);
   if (h.vec == 8)
     bn_tail_var<8><<<grid(h), threads(h), 0, s>>>(xv, mean, h.g, part);
@@ -407,14 +410,14 @@ extern "C" int gwt_bn_tail_var(const long long* d, void* stream) {
 // head, parts (1: x from h, drop and res; 0: x given), h, drop, res, x, y,
 // mean, inv, w, bias
 extern "C" int gwt_bn_tail_apply(const long long* d, void* stream) {
-  const Head h = read_head(d);
-  if (!h.ok) return BAD;
-  const bool parts = d[8] != 0;
-  const View hv = read_view(d + 9), dv = read_view(d + 13),
-             rv = read_view(d + 17), xv = read_view(d + 21),
-             yv = read_view(d + 25);
-  const float *mean = fptr(d[29]), *inv = fptr(d[30]), *w = fptr(d[31]),
-              *bias = fptr(d[32]);
+  gwt::Desc a(d);
+  const Head h = read_head(a);
+  if (!h.ok) return gwt::BAD;
+  const bool parts = a.i64() != 0;
+  const View hv = read_view(a), dv = read_view(a), rv = read_view(a),
+             xv = read_view(a), yv = read_view(a);
+  const float *mean = a.ptr<const float>(), *inv = a.ptr<const float>(),
+              *w = a.ptr<const float>(), *bias = a.ptr<const float>();
   auto s = static_cast<cudaStream_t>(stream);
   if (h.vec == 8 && parts)
     bn_tail_apply<8, true><<<grid(h), threads(h), 0, s>>>(
@@ -433,12 +436,12 @@ extern "C" int gwt_bn_tail_apply(const long long* d, void* stream) {
 
 // head, g, x, mean, inv, part, sums (2, c)
 extern "C" int gwt_bn_tail_grad_reduce(const long long* d, void* stream) {
-  const Head h = read_head(d);
-  if (!h.ok) return BAD;
-  const View gv = read_view(d + 8), xv = read_view(d + 12);
-  const float *mean = fptr(d[16]), *inv = fptr(d[17]);
-  auto* part = reinterpret_cast<float*>(d[18]);
-  auto* sums = reinterpret_cast<float*>(d[19]);
+  gwt::Desc a(d);
+  const Head h = read_head(a);
+  if (!h.ok) return gwt::BAD;
+  const View gv = read_view(a), xv = read_view(a);
+  const float *mean = a.ptr<const float>(), *inv = a.ptr<const float>();
+  float *part = a.ptr<float>(), *sums = a.ptr<float>();
   auto s = static_cast<cudaStream_t>(stream);
   if (h.vec == 8)
     bn_tail_grad_reduce<8><<<grid(h), threads(h), 0, s>>>(gv, xv, mean, inv,
@@ -452,14 +455,16 @@ extern "C" int gwt_bn_tail_grad_reduce(const long long* d, void* stream) {
 
 // head, g, x, drop, dh, dres, mean, inv, w, sums (2, c), count
 extern "C" int gwt_bn_tail_grad_apply(const long long* d, void* stream) {
-  const Head h = read_head(d);
-  if (!h.ok || d[32] < 1) return BAD;
-  const View gv = read_view(d + 8), xv = read_view(d + 12),
-             dv = read_view(d + 16), dhv = read_view(d + 20),
-             drv = read_view(d + 24);
-  const float *mean = fptr(d[28]), *inv = fptr(d[29]), *w = fptr(d[30]),
-              *sums = fptr(d[31]);
-  const float count = static_cast<float>(d[32]);
+  gwt::Desc a(d);
+  const Head h = read_head(a);
+  if (!h.ok) return gwt::BAD;
+  const View gv = read_view(a), xv = read_view(a), dv = read_view(a),
+             dhv = read_view(a), drv = read_view(a);
+  const float *mean = a.ptr<const float>(), *inv = a.ptr<const float>(),
+              *w = a.ptr<const float>(), *sums = a.ptr<const float>();
+  const long long n = a.i64();
+  if (n < 1) return gwt::BAD;
+  const float count = static_cast<float>(n);
   auto s = static_cast<cudaStream_t>(stream);
   if (h.vec == 8)
     bn_tail_grad_apply<8><<<grid(h), threads(h), 0, s>>>(
@@ -468,8 +473,4 @@ extern "C" int gwt_bn_tail_grad_apply(const long long* d, void* stream) {
     bn_tail_grad_apply<1><<<grid(h), threads(h), 0, s>>>(
         gv, xv, dv, dhv, drv, mean, inv, w, sums, count, h.g);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "entry.cuh"
+
 namespace {
 
 constexpr int MAXOP = 16;
@@ -613,13 +615,13 @@ bool aligned16(const void* p) {
 bool strides8(long long so, long long si) { return so % 8 == 0 && si % 8 == 0; }
 
 // one operand from the descriptor: ptr, so, si, c, koff
-In read_in(const long long* d, const void* w, int ktot) {
+In read_in(gwt::Desc& a, const void* w, int ktot) {
   In in;
-  in.ptr = reinterpret_cast<const __nv_bfloat16*>(d[0]);
-  in.so = d[1];
-  in.si = d[2];
-  in.c = static_cast<int>(d[3]);
-  in.koff = static_cast<int>(d[4]);
+  in.ptr = a.ptr<const __nv_bfloat16>();
+  in.so = a.i64();
+  in.si = a.i64();
+  in.c = a.i32();
+  in.koff = a.i32();
   in.q0 = 0;
   in.vec = in.c % 8 == 0 && strides8(in.so, in.si) && aligned16(in.ptr);
   in.wvec = w != nullptr && in.c % 8 == 0 && in.koff % 8 == 0 &&
@@ -642,84 +644,84 @@ int launch_wgrad(Grad& p, int n_split, cudaStream_t s) {
 
 }  // namespace
 
-// Forward or dgrad. desc (int64): n_in, n_out, m, inner, n, ktot, w, bias,
-// then per input (ptr, so, si, c, koff), then per output (ptr, so, si, n0,
-// f). W is (n, ktot) bf16 row-major; input j contracts with its columns
-// [koff, koff + c); output h takes columns [n0, n0 + f) of the n. Returns
+// Forward or dgrad. d: n_in, n_out, m, inner, n, ktot, w, bias, then per
+// input (ptr, so, si, c, koff), then per output (ptr, so, si, n0, f). W is
+// (n, ktot) bf16 row-major; input j contracts with its columns [koff, koff +
+// c); output h takes columns [n0, n0 + f) of the n. Returns
 // cudaGetLastError() after the launch.
-extern "C" int gwt_chan_proj(const long long* desc, void* stream) {
+extern "C" int gwt_chan_proj(const long long* d, void* stream) {
+  gwt::Desc a(d);
   Proj p;
-  p.n_in = static_cast<int>(desc[0]);
-  p.n_out = static_cast<int>(desc[1]);
-  const long long m = desc[2];
-  const int inner = static_cast<int>(desc[3]);
-  p.n = static_cast<int>(desc[4]);
-  p.ktot = static_cast<int>(desc[5]);
-  p.w = reinterpret_cast<const __nv_bfloat16*>(desc[6]);
-  p.bias = reinterpret_cast<const float*>(desc[7]);
-  if (p.n_in < 1 || p.n_in > MAXOP || p.n_out < 1 || p.n_out > MAXOP ||
-      m < 1 || m > 0x7fffffffLL || inner < 1 || p.n < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.n_in = a.i32();
+  p.n_out = a.i32();
+  const long long m = a.i64();
+  const int inner = a.i32();
+  p.n = a.i32();
+  p.ktot = a.i32();
+  p.w = a.ptr<const __nv_bfloat16>();
+  p.bias = a.ptr<const float>();
+  if (!a.ok() || p.n_in < 1 || p.n_in > MAXOP || p.n_out < 1 ||
+      p.n_out > MAXOP || m < 1 || m > 0x7fffffffLL || inner < 1 || p.n < 1)
+    return gwt::BAD;
   p.m = static_cast<int>(m);
   p.inner = make_div(inner);
-  const long long* d = desc + 8;
   int q = 0;
-  for (int j = 0; j < p.n_in; ++j, d += 5) {
-    p.in[j] = read_in(d, p.w, p.ktot);
+  for (int j = 0; j < p.n_in; ++j) {
+    p.in[j] = read_in(a, p.w, p.ktot);
     p.in[j].q0 = q;
     q += (p.in[j].c + BK - 1) / BK;
   }
   p.n_chunks = q;
-  for (int h = 0; h < p.n_out; ++h, d += 5) {
+  for (int h = 0; h < p.n_out; ++h) {
     Out& o = p.out[h];
-    o.ptr = reinterpret_cast<__nv_bfloat16*>(d[0]);
-    o.so = d[1];
-    o.si = d[2];
-    o.n0 = static_cast<int>(d[3]);
-    o.f = static_cast<int>(d[4]);
+    o.ptr = a.ptr<__nv_bfloat16>();
+    o.so = a.i64();
+    o.si = a.i64();
+    o.n0 = a.i32();
+    o.f = a.i32();
     o.vec = o.f % 8 == 0 && o.n0 % 8 == 0 && strides8(o.so, o.si) &&
             aligned16(o.ptr);
   }
+  if (!a.ok()) return gwt::BAD;
   p.n_tiles = (p.n + BN - 1) / BN;
   const long long blocks = ((m + BM - 1) / BM) * p.n_tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0x7fffffffLL) return gwt::BAD;
   chan_proj_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Weight gradient. desc (int64): n_in, m, inner, f, ctot, n_split, wf (the
-// tile's f rows: 32, 64 or 128), g, gso, gsi, part, dw, db, then per input
-// (ptr, so, si, c, koff). part holds n_split * f * (ctot + 1) fp32; dw is
-// (f, ctot) bf16, db (f,) fp32.
-// Returns cudaGetLastError() after the two launches.
-extern "C" int gwt_chan_proj_wgrad(const long long* desc, void* stream) {
+// Weight gradient. d: n_in, m, inner, f, ctot, n_split, wf (the tile's f
+// rows: 32, 64 or 128), g, gso, gsi, part, dw, db, then per input (ptr, so,
+// si, c, koff). part holds n_split * f * (ctot + 1) fp32; dw is (f, ctot)
+// bf16, db (f,) fp32. Returns cudaGetLastError() after the two launches.
+extern "C" int gwt_chan_proj_wgrad(const long long* d, void* stream) {
+  gwt::Desc a(d);
   Grad p;
-  p.n_in = static_cast<int>(desc[0]);
-  const long long m = desc[1];
-  const int inner = static_cast<int>(desc[2]);
-  p.f = static_cast<int>(desc[3]);
-  p.ctot = static_cast<int>(desc[4]);
-  const int n_split = static_cast<int>(desc[5]);
-  const int wf = static_cast<int>(desc[6]);
-  p.g = reinterpret_cast<const __nv_bfloat16*>(desc[7]);
-  p.gso = desc[8];
-  p.gsi = desc[9];
-  p.part = reinterpret_cast<float*>(desc[10]);
-  auto* dw = reinterpret_cast<__nv_bfloat16*>(desc[11]);
-  auto* db = reinterpret_cast<float*>(desc[12]);
-  if (p.n_in < 1 || p.n_in > MAXOP || m < 1 || m > 0x7fffffffLL ||
+  p.n_in = a.i32();
+  const long long m = a.i64();
+  const int inner = a.i32();
+  p.f = a.i32();
+  p.ctot = a.i32();
+  const int n_split = a.i32(), wf = a.i32();
+  p.g = a.ptr<const __nv_bfloat16>();
+  p.gso = a.i64();
+  p.gsi = a.i64();
+  p.part = a.ptr<float>();
+  auto* dw = a.ptr<__nv_bfloat16>();
+  auto* db = a.ptr<float>();
+  if (!a.ok() || p.n_in < 1 || p.n_in > MAXOP || m < 1 || m > 0x7fffffffLL ||
       inner < 1 || p.f < 1 || p.ctot < 1 || n_split < 1 || n_split > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return gwt::BAD;
   p.m = static_cast<int>(m);
   p.inner = make_div(inner);
   p.cext = p.ctot + 1;
   p.gvec = p.f % 8 == 0 && strides8(p.gso, p.gsi) && aligned16(p.g);
-  const long long* d = desc + 13;
-  for (int j = 0; j < p.n_in; ++j, d += 5) p.in[j] = read_in(d, nullptr, 0);
+  for (int j = 0; j < p.n_in; ++j) p.in[j] = read_in(a, nullptr, 0);
+  if (!a.ok()) return gwt::BAD;
   p.rows_per_split = static_cast<int>((m + n_split - 1) / n_split);
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = static_cast<int>(cudaErrorInvalidValue);
+  int rc = gwt::BAD;
   if (wf == 32) rc = launch_wgrad<WTile<32>>(p, n_split, s);
   if (wf == 64) rc = launch_wgrad<WTile<64>>(p, n_split, s);
   if (wf == 128) rc = launch_wgrad<WTile<128>>(p, n_split, s);
@@ -728,8 +730,4 @@ extern "C" int gwt_chan_proj_wgrad(const long long* desc, void* stream) {
   chan_proj_reduce<<<static_cast<unsigned>((total + 31) / 32), THREADS, 0,
                      s>>>(p.part, n_split, p.f, p.ctot, p.cext, dw, db);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

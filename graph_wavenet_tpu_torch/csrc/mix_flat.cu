@@ -33,6 +33,7 @@
 // - fp32: block_tile.cuh's FMA product on 64-column tiles.
 
 #include "block_tile.cuh"
+#include "entry.cuh"
 #include "hopper_tile.cuh"
 
 namespace {
@@ -120,28 +121,29 @@ int launch_bf16(const void* blocks, const void* slot, const void* x,
 
 }  // namespace
 
-// dtype: 0 = float32 (ct must be 64), 1 = bfloat16 (ct 64, 128 or 256).
-// blocks (n_blocks, bs_a, bs_b), x (nbx, bs_c, r), out (nb, bs_o, r). Returns
-// cudaGetLastError() after the launch (0 = cudaSuccess).
-extern "C" int gwt_mix_flat(int dtype, const void* blocks, const void* slot,
-                            const void* x, const void* src,
-                            const void* row_ptr, void* out, int nb,
-                            int n_blocks, int nbx, int bs_c, int bs_o, int r,
-                            int transpose_lhs, int ct, void* stream) {
+// d: dtype (0 = float32, ct must be 64; 1 = bfloat16, ct 64, 128 or 256),
+// blocks, slot, x, src, row_ptr, out, nb, n_blocks, nbx, bs_c, bs_o, r,
+// transpose_lhs, ct. blocks (n_blocks, bs_a, bs_b), x (nbx, bs_c, r), out
+// (nb, bs_o, r). Returns cudaGetLastError() after the launch.
+extern "C" int gwt_mix_flat(const long long* d, void* stream) {
+  gwt::Desc a(d);
+  const int dtype = a.i32();
+  const void *blocks = a.ptr<const void>(), *slot = a.ptr<const void>(),
+             *x = a.ptr<const void>(), *src = a.ptr<const void>(),
+             *row_ptr = a.ptr<const void>();
+  void* out = a.ptr<void>();
+  const int nb = a.i32(), n_blocks = a.i32(), nbx = a.i32(), bs_c = a.i32(),
+            bs_o = a.i32(), r = a.i32(), transpose_lhs = a.i32(),
+            ct = a.i32();
   auto s = static_cast<cudaStream_t>(stream);
-  if (bs_o % gwt::OT) return static_cast<int>(cudaErrorInvalidValue);
+  if (!a.ok() || bs_o % gwt::OT) return gwt::BAD;
   if (dtype == 0 && ct == gwt::CT && bs_c % gwt::KC == 0)
     return launch_f32(blocks, slot, x, src, row_ptr, out, nb, bs_c, bs_o, r,
                       transpose_lhs, s);
-  if (dtype != 1 || bs_c % gwt::wide::KC)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || bs_c % gwt::wide::KC) return gwt::BAD;
   return gwt::wide::with_ct(ct, [&](auto c) {
     return launch_bf16<decltype(c)::value>(blocks, slot, x, src, row_ptr, out,
                                            nb, n_blocks, nbx, bs_c, bs_o, r,
                                            transpose_lhs, s);
   });
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -81,6 +81,7 @@
 // ticket counter. Times: PERF.md (chip_smoke.py's dispatch phase).
 
 #include "block_tile.cuh"
+#include "entry.cuh"
 #include "hopper_tile.cuh"
 
 namespace {
@@ -388,31 +389,36 @@ int launch_bf16(const void* blocks, const void* slot, const void* x,
 
 }  // namespace
 
-// dtype: 0 = float32 (ct must be 64), 1 = bfloat16 (ct 64, 128 or 256);
-// add may be null. Square blocks of bs = 128 rows, n_blocks of them.
-// span: hop 2 of row i runs in the step of hop 1 of row i + span
-// (lag <= span <= nb). grid: the persistent blocks, at least 1 and at most
-// the items and the blocks the card holds at once. flags:
+// d: dtype (0 = float32, ct must be 64; 1 = bfloat16, ct 64, 128 or 256),
+// blocks, slot, x, src, row_ptr, add (0: none), out1, out2, flags, nb,
+// n_blocks, span, bs, r, transpose_lhs, ct, grid. Square blocks of bs = 128
+// rows, n_blocks of them. span: hop 2 of row i runs in the step of hop 1 of
+// row i + span (lag <= span <= nb). grid: the persistent blocks, at least 1
+// and at most the items and the blocks the card holds at once. flags:
 // nb * ceil(r / ct) + 1 zeroed int32. Returns cudaGetLastError() after the
 // launch.
-extern "C" int gwt_mix_flat2(int dtype, const void* blocks, const void* slot,
-                             const void* x, const void* src,
-                             const void* row_ptr, const void* add,
-                             void* out1, void* out2, void* flags, int nb,
-                             int n_blocks, int span, int bs, int r,
-                             int transpose_lhs, int ct, int grid,
-                             void* stream) {
+extern "C" int gwt_mix_flat2(const long long* d, void* stream) {
+  gwt::Desc a(d);
+  const int dtype = a.i32();
+  const void *blocks = a.ptr<const void>(), *slot = a.ptr<const void>(),
+             *x = a.ptr<const void>(), *src = a.ptr<const void>(),
+             *row_ptr = a.ptr<const void>(), *add = a.ptr<const void>();
+  void *out1 = a.ptr<void>(), *out2 = a.ptr<void>(), *flags = a.ptr<void>();
+  const int nb = a.i32(), n_blocks = a.i32(), span = a.i32(), bs = a.i32(),
+            r = a.i32(), transpose_lhs = a.i32(), ct = a.i32(),
+            grid = a.i32();
   auto s = static_cast<cudaStream_t>(stream);
-  if (bs != gwt::OT || span < 0 || span > nb || ct <= 0 || grid <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!a.ok() || bs != gwt::OT || span < 0 || span > nb || ct <= 0 ||
+      grid <= 0)
+    return gwt::BAD;
   // every block takes one ticket past the last item
   const long long tickets = 2LL * ((r + ct - 1) / ct) * nb + grid;
-  if (grid > tickets - grid) return static_cast<int>(cudaErrorInvalidValue);
-  if (tickets > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid > tickets - grid) return gwt::BAD;
+  if (tickets > 0x7fffffffLL) return gwt::BAD;
   if (dtype == 0 && ct == gwt::CT)
     return launch_f32(blocks, slot, x, src, row_ptr, add, out1, out2, flags,
                       nb, span, r, transpose_lhs, grid, s);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return gwt::BAD;
   return gwt::wide::with_ct(ct, [&](auto c) {
     return launch_bf16<decltype(c)::value>(blocks, slot, x, src, row_ptr, add,
                                            out1, out2, flags, nb, n_blocks,
@@ -420,13 +426,18 @@ extern "C" int gwt_mix_flat2(int dtype, const void* blocks, const void* slot,
   });
 }
 
-// Blocks of kernel 3 one SM holds at once for dtype and ct (the card's
-// occupancy for the launch's threads and shared memory) into *n.
-extern "C" int gwt_mix_flat2_per_sm(int dtype, int ct, int* n) {
+// d: dtype, ct, n (int*). Blocks of kernel 3 one SM holds at once for dtype
+// and ct (the card's occupancy for the launch's threads and shared memory)
+// into *n; stream unused.
+extern "C" int gwt_mix_flat2_per_sm(const long long* d, void*) {
+  gwt::Desc a(d);
+  const int dtype = a.i32(), ct = a.i32();
+  int* n = a.ptr<int>();
+  if (!a.ok()) return gwt::BAD;
   if (dtype == 0 && ct == gwt::CT)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, mix_flat2_f32, gwt::NTHREADS, 0));
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return gwt::BAD;
   return gwt::wide::with_ct(ct, [&](auto c) {
     constexpr int CT = decltype(c)::value;
     using gwt::wide::Tile;
@@ -434,8 +445,4 @@ extern "C" int gwt_mix_flat2_per_sm(int dtype, int ct, int* n) {
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, mix_flat2_bf16<CT>, K3_THREADS, Tile<CT>::SMEM));
   });
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -35,6 +35,7 @@
 // live slot come out zero.
 
 #include "block_tile.cuh"
+#include "entry.cuh"
 #include "hopper_tile.cuh"
 
 namespace {
@@ -130,29 +131,28 @@ int launch_bf16(const void* blocks, const void* slot, const void* x,
 
 }  // namespace
 
-// dtype: 0 = float32 (ct must be 64), 1 = bfloat16 (ct 64, 128 or 256;
-// blocks, x and out). blocks (n_blocks, bs, bs), x (nbx, bs, r), out (nb,
+// d: dtype (0 = float32, ct must be 64; 1 = bfloat16, ct 64, 128 or 256;
+// blocks, x and out), blocks, slot, x, src, out, nb, mb, n_blocks, nbx, bs,
+// r, transpose_lhs, ct. blocks (n_blocks, bs, bs), x (nbx, bs, r), out (nb,
 // bs, r) row-major; slot/src (nb * mb,) int32. bs % 128 == 0, nb >= 1,
-// r >= 1. Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-extern "C" int gwt_mix_padded(int dtype, const void* blocks, const void* slot,
-                              const void* x, const void* src, void* out,
-                              int nb, int mb, int n_blocks, int nbx, int bs,
-                              int r, int transpose_lhs, int ct,
-                              void* stream) {
+// r >= 1. Returns cudaGetLastError() after the launch.
+extern "C" int gwt_mix_padded(const long long* d, void* stream) {
+  gwt::Desc a(d);
+  const int dtype = a.i32();
+  const void *blocks = a.ptr<const void>(), *slot = a.ptr<const void>(),
+             *x = a.ptr<const void>(), *src = a.ptr<const void>();
+  void* out = a.ptr<void>();
+  const int nb = a.i32(), mb = a.i32(), n_blocks = a.i32(), nbx = a.i32(),
+            bs = a.i32(), r = a.i32(), transpose_lhs = a.i32(), ct = a.i32();
   auto s = static_cast<cudaStream_t>(stream);
-  if (bs % gwt::OT || nb < 1 || r < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!a.ok() || bs % gwt::OT || nb < 1 || r < 1) return gwt::BAD;
   if (dtype == 0 && ct == gwt::CT)
     return launch_f32(blocks, slot, x, src, out, nb, mb, n_blocks, nbx, bs,
                       r, transpose_lhs, s);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return gwt::BAD;
   return gwt::wide::with_ct(ct, [&](auto c) {
     return launch_bf16<decltype(c)::value>(blocks, slot, x, src, out, nb, mb,
                                            n_blocks, nbx, bs, r,
                                            transpose_lhs, s);
   });
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -36,6 +36,7 @@
 // outer_tile.cuh's FMA product, both shared with the padded cotangent
 // (kernel 5, outer_padded.cu).
 
+#include "entry.cuh"
 #include "hopper_outer.cuh"
 
 namespace {
@@ -59,27 +60,30 @@ struct FlatJobs {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and g); out_dtype likewise for out.
-// x (nbx, bs_x, r) and g (nbg, bs_g, r) row-major; src/row (lt,) int32.
-// slot null: out is (lt, bs_x, bs_g), per entry (out_dtype must be 0).
+// d: dtype (0 = float32, 1 = bfloat16; x and g), x, g, src, row, slot (0:
+// none), out, out_dtype (likewise, for out), lt, n_slots, nbx, nbg, bs_x,
+// bs_g, r. x (nbx, bs_x, r) and g (nbg, bs_g, r) row-major; src/row (lt,)
+// int32. No slot: out is (lt, bs_x, bs_g), per entry (out_dtype must be 0).
 // Else slot (lt,) int32 and out (n_slots, bs_x, bs_g) in storage order, the
 // zero slot n_slots - 1. bs_x % 128 == 0, bs_g % 64 == 0, lt >= 1, r >= 1.
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-extern "C" int gwt_outer_flat(int dtype, const void* x, const void* g,
-                              const void* src, const void* row,
-                              const void* slot, void* out, int out_dtype,
-                              int lt, int n_slots, int nbx, int nbg,
-                              int bs_x, int bs_g, int r, void* stream) {
-  if (lt < 1 || (slot == nullptr ? out_dtype != 0 : n_slots < 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Returns cudaGetLastError() after the launch.
+extern "C" int gwt_outer_flat(const long long* d, void* stream) {
+  gwt::Desc a(d);
+  const int dtype = a.i32();
+  const void *x = a.ptr<const void>(), *g = a.ptr<const void>(),
+             *src = a.ptr<const void>(), *row = a.ptr<const void>(),
+             *slot = a.ptr<const void>();
+  void* out = a.ptr<void>();
+  const int out_dtype = a.i32(), lt = a.i32(), n_slots = a.i32(),
+            nbx = a.i32(), nbg = a.i32(), bs_x = a.i32(), bs_g = a.i32(),
+            r = a.i32();
+  if (!a.ok() || lt < 1 ||
+      (slot == nullptr ? out_dtype != 0 : n_slots < 1))
+    return gwt::BAD;
   const FlatJobs jobs{static_cast<const int*>(src),
                       static_cast<const int*>(row),
                       static_cast<const int*>(slot), lt, n_slots - 1};
   return gwt::outer::launch(dtype, out_dtype, x, g, out, jobs,
                             lt + (slot != nullptr), nbx, nbg, bs_x, bs_g, r,
                             static_cast<cudaStream_t>(stream));
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -28,6 +28,7 @@
 // Every live slot runs the tile product kernel 2 runs for its entry, so on
 // as_flat_pallas's tables kernel 5 equals kernel 2 bit for bit.
 
+#include "entry.cuh"
 #include "hopper_outer.cuh"
 
 namespace {
@@ -45,22 +46,22 @@ struct PaddedJobs {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and g); out_dtype likewise for out.
-// x (nbx, bs, r), g (n_slots / mb, bs, r), out (n_slots, bs, bs) row-major;
-// src (n_slots,) int32, slot l in row l / mb. bs % 128 == 0, n_slots >= 1,
-// mb >= 1, r >= 1. Returns cudaGetLastError() after the launch (0 =
-// cudaSuccess).
-extern "C" int gwt_outer_padded(int dtype, const void* x, const void* g,
-                                const void* src, void* out, int out_dtype,
-                                int n_slots, int mb, int nbx, int bs, int r,
-                                void* stream) {
-  if (mb < 1 || n_slots % mb) return static_cast<int>(cudaErrorInvalidValue);
+// d: dtype (0 = float32, 1 = bfloat16; x and g), x, g, src, out, out_dtype
+// (likewise, for out), n_slots, mb, nbx, bs, r. x (nbx, bs, r), g (n_slots /
+// mb, bs, r), out (n_slots, bs, bs) row-major; src (n_slots,) int32, slot l
+// in row l / mb. bs % 128 == 0, n_slots >= 1, mb >= 1, r >= 1. Returns
+// cudaGetLastError() after the launch.
+extern "C" int gwt_outer_padded(const long long* d, void* stream) {
+  gwt::Desc a(d);
+  const int dtype = a.i32();
+  const void *x = a.ptr<const void>(), *g = a.ptr<const void>(),
+             *src = a.ptr<const void>();
+  void* out = a.ptr<void>();
+  const int out_dtype = a.i32(), n_slots = a.i32(), mb = a.i32(),
+            nbx = a.i32(), bs = a.i32(), r = a.i32();
+  if (!a.ok() || mb < 1 || n_slots % mb) return gwt::BAD;
   const PaddedJobs jobs{static_cast<const int*>(src), mb, nbx};
   return gwt::outer::launch(dtype, out_dtype, x, g, out, jobs, n_slots, nbx,
                             n_slots / mb, bs, bs, r,
                             static_cast<cudaStream_t>(stream));
-}
-
-extern "C" const char* gwt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -34,7 +34,7 @@ and cast once for their hops and projections (:func:`gru_update`), so the
 gates and the update run in fp32.
 
 ``COUNTS``: the block-kernel launches of the last captured train step, by
-kernel (``train.step_graph.StepGraph.launches``, set by the engine), and
+op name (``train.step_graph.StepGraph.launches``, set by the engine), and
 the decoder's inputs teacher-forced and fed back, counted on the device
 (:meth:`DCRNN.feeds`) and copied here by :func:`read_counts`.
 """

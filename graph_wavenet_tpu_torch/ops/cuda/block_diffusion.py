@@ -24,43 +24,32 @@ Counterpart of ``graph_wavenet_tpu/ops/pallas/block_diffusion.py``:
 - :func:`tile_cols`: the R columns of one output tile of kernels 1, 3 and
   4, by one rule for all three.
 
-Each kernel is a ``torch.library`` op (``torch.ops.gwt_torch.mix_flat``,
-``mix_flat2``, ``outer_flat``, ``mix_padded``, ``outer_padded``) with a fake
-kernel, so ``torch.export`` writes the ops into an artifact and a loader
-needs this module (not the model code) to run it. A CUDA tensor goes to the
-kernel or raises; a CPU tensor goes to the plain PyTorch version beside it
-(gather, fp32 einsum, and for the mixes ``index_add_`` over the destination
-rows and a cast). Each op counts its kernel launches in :data:`LAUNCHES`
-and carries a FLOP formula for ``torch.utils.flop_counter.FlopCounterMode``
-(the reference kernel's ``CostEstimate`` flops).
+Each kernel is an op of the seam (``ops/cuda/build.py``):
+``torch.ops.gwt_torch.mix_flat``, ``mix_flat2``, ``outer_flat``,
+``mix_padded`` and ``outer_padded`` (:data:`OPS`), so ``torch.export``
+writes the ops into an artifact and a loader needs this module (not the
+model code) to run it. A CUDA tensor goes to the kernel or raises; a CPU
+tensor goes to the plain PyTorch version beside it (gather, fp32 einsum,
+and for the mixes ``index_add_`` over the destination rows and a cast).
+The seam counts each op's launches in ``build.LAUNCHES``; each op carries
+a FLOP formula for ``torch.utils.flop_counter.FlopCounterMode`` (the
+reference kernel's ``CostEstimate`` flops).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from graph_wavenet_tpu_torch.ops.cuda import build
 # the projection and layer-tail kernels' ops join the namespace: a loader
 # of an exported artifact imports this module alone
 from graph_wavenet_tpu_torch.ops.cuda import bn_tail, chan_proj  # noqa: F401
 
-# kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"gathered_block_mix_flat": 0, "gathered_block_mix_flat2": 0,
-            "gathered_block_outer_flat": 0, "gathered_block_mix": 0,
-            "gathered_block_outer": 0}
+# the block kernels' ops, kernels 1-5 (their counts in build.LAUNCHES)
+OPS = ("mix_flat", "mix_flat2", "outer_flat", "mix_padded", "outer_padded")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VP = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def tile_cols(r: int, dtype: torch.dtype) -> int:
@@ -263,41 +252,19 @@ def _check_cuda(x: torch.Tensor, other: torch.Tensor,
 _RESIDENT: dict = {}
 
 
-def _resident(lib: ctypes.CDLL, x: torch.Tensor, ct: int) -> int:
+def resident(x: torch.Tensor, ct: int) -> int:
+    """Kernel 3's blocks that ``x``'s card holds at once at tile width
+    ``ct`` in ``x``'s dtype."""
     key = (x.device.index, x.dtype, ct)
     if key not in _RESIDENT:
-        if lib.gwt_mix_flat2_per_sm.argtypes is None:
-            lib.gwt_mix_flat2_per_sm.argtypes = [_I, _I,
-                                                 ctypes.POINTER(_I)]
-            lib.gwt_mix_flat2_per_sm.restype = _I
-        n = _I(0)
-        with torch.cuda.device(x.device):
-            rc = lib.gwt_mix_flat2_per_sm(_DTYPE_CODE[x.dtype], ct,
-                                          ctypes.byref(n))
-        _raise_on(lib, rc, "gathered_block_mix_flat2 occupancy")
-        if n.value < 1:
+        n = torch.zeros(1, dtype=torch.int32)
+        build.launch("mix_flat2.cu", "gwt_mix_flat2_per_sm",
+                     [_DTYPE_CODE[x.dtype], ct, n.data_ptr()], x.device)
+        if int(n) < 1:
             raise RuntimeError(f"kernel 3 does not fit an SM at {ct} "
                                f"columns of {x.dtype}")
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        _RESIDENT[key] = n.value * sms
+        _RESIDENT[key] = int(n) * build.sms(x.device)
     return _RESIDENT[key]
-
-
-def _raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.gwt_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({code})")
-
-
-def _lib(source: str, fn: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
-    lib = build.load(source)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = [_I] + [_VP] * n_ptr + [_I] * n_int + [_VP]
-        f.restype = _I
-        lib.gwt_error_string.argtypes = [_I]
-        lib.gwt_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check_aligned(blocks: torch.Tensor) -> None:
@@ -310,51 +277,54 @@ def _check_aligned(blocks: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the kernels as torch.library ops
+# the kernels as ops
 # ---------------------------------------------------------------------------
-# One op per kernel in the ``gwt_torch`` namespace. Its CPU kernel is the
-# plain version, its CUDA kernel the ctypes launch (with the work on data
-# pointers and the launch count), and its fake kernel gives the output's
-# shape and dtype from the arguments alone, so ``torch.export`` traces the
-# ops into an artifact and a CUDA graph captures them like any ATen op. The
-# public wrappers check their arguments and call the ops; no other device
-# has a kernel. Each op's FLOP formula (``torch.utils.flop_counter``, read
-# by ``benchmarks``) is the reference kernel's ``CostEstimate`` flops over
-# the op's shapes, with R the op's own column count (the reference pads R to
-# its tile) and, in the padded form, every slot of the (NB, MB) table,
+# One op per kernel (``build.Op``). Its CUDA kernel does the work on data
+# pointers through ``build.launch``; its fake kernel gives the output's shape
+# and dtype from the arguments alone. The public wrappers check their
+# arguments and call the ops; no other device has a kernel. Each op's FLOP
+# formula is the reference kernel's ``CostEstimate`` flops over the op's
+# shapes, with R the op's own column count (the reference pads R to its
+# tile) and, in the padded form, every slot of the (NB, MB) table,
 # sentinels included, as the reference counts them. FlopCounterMode does not
-# look inside an op, so a CPU kernel's einsums are not counted twice.
-
-_LIB = torch.library.Library("gwt_torch", "DEF")
-
-
-class _Op:
-    """One kernel's op: its schema and CPU kernel at construction; the
-    decorators register its fake kernel and its CUDA kernel. Registered
-    straight with the dispatcher (``torch.library.Library``), with no
-    autograd kernel: the hops' autograd functions call the ops under
-    no-grad, and ``torch.library.custom_op``'s Python autograd layer would
-    double the host time of every launch."""
-
-    def __init__(self, name: str, schema: str, cpu):
-        _LIB.define(name + schema)
-        _LIB.impl(name, cpu, "CPU")
-        self.name = name
-
-    def register_fake(self, fn):
-        torch.library.register_fake(f"gwt_torch::{self.name}", fn, lib=_LIB)
-        return fn
-
-    def register_cuda(self, fn):
-        _LIB.impl(self.name, fn, "CUDA")
-        return fn
+# look inside an op, so a CPU kernel's einsums are not counted twice. The
+# CPU kernels look the plain versions up when called, so a stand-in for one
+# (a counting test) takes effect.
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
-_mix_flat_op = _Op(
+def mix_flat_desc(blocks, slot, x, src, row_ptr, out, nb: int,
+                  transpose_lhs: bool, ct: int) -> list[int]:
+    """``gwt_mix_flat``'s descriptor (``csrc/mix_flat.cu``)."""
+    bs_c, bs_o = ((blocks.shape[1], blocks.shape[2]) if transpose_lhs
+                  else (blocks.shape[2], blocks.shape[1]))
+    return [_DTYPE_CODE[x.dtype], blocks.data_ptr(), slot.data_ptr(),
+            x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+            nb, blocks.shape[0], x.shape[0], bs_c, bs_o, x.shape[2],
+            int(transpose_lhs), ct]
+
+
+def mix_flat2_desc(blocks, slot, x, src, row_ptr, add, out1, out2, flags,
+                   nb: int, span: int, transpose_lhs: bool, ct: int,
+                   grid: int) -> list[int]:
+    """``gwt_mix_flat2``'s descriptor (``csrc/mix_flat2.cu``)."""
+    return [_DTYPE_CODE[x.dtype], blocks.data_ptr(), slot.data_ptr(),
+            x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(), _ptr(add),
+            out1.data_ptr(), out2.data_ptr(), flags.data_ptr(), nb,
+            blocks.shape[0], span, blocks.shape[1], x.shape[2],
+            int(transpose_lhs), ct, grid]
+
+
+def _need_row_ptr(row_ptr) -> None:
+    if row_ptr is None:
+        raise ValueError("the CUDA kernel reads the CSR row pointer; pass "
+                         "row_ptr")
+
+
+_mix_flat_op = build.Op(
     "mix_flat", "(Tensor blocks, Tensor slot, Tensor x, Tensor src, "
     "Tensor row, Tensor? row_ptr, int nb, bool transpose_lhs) -> Tensor",
     lambda blocks, slot, x, src, row, row_ptr, nb, transpose_lhs:
@@ -362,44 +332,35 @@ _mix_flat_op = _Op(
                    transpose_lhs=transpose_lhs))
 
 
-@_mix_flat_op.register_fake
+@_mix_flat_op.fake
 def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
     bs_o = blocks.shape[2] if transpose_lhs else blocks.shape[1]
     return x.new_empty((nb, bs_o, x.shape[2]))
 
 
-@register_flop_formula(torch.ops.gwt_torch.mix_flat)
+@_mix_flat_op.flops
 def _(blocks, slot, x, *args, out_shape=None, **kwargs) -> int:
     # the reference's CostEstimate (Pallas block_diffusion.py:227), R unpadded
     return 2 * slot[0] * blocks[1] * blocks[2] * x[2]
 
 
-@_mix_flat_op.register_cuda
+@_mix_flat_op.cuda
 def _(blocks, slot, x, src, row, row_ptr, nb, transpose_lhs):
-    if row_ptr is None:
-        raise ValueError("the CUDA kernel reads the CSR row pointer; pass "
-                         "row_ptr")
+    _need_row_ptr(row_ptr)
     _check_aligned(blocks)
-    bs_c, bs_o = ((blocks.shape[1], blocks.shape[2]) if transpose_lhs
-                  else (blocks.shape[2], blocks.shape[1]))
+    bs_o = blocks.shape[2] if transpose_lhs else blocks.shape[1]
     r = x.shape[2]
     out = torch.empty((nb, bs_o, r), dtype=x.dtype, device=x.device)
     if r == 0 or nb == 0:
         return out
-    lib = _lib("mix_flat.cu", "gwt_mix_flat", 6, 8)
-    with torch.cuda.device(x.device):
-        rc = lib.gwt_mix_flat(_DTYPE_CODE[x.dtype], blocks.data_ptr(),
-                              slot.data_ptr(), x.data_ptr(), src.data_ptr(),
-                              row_ptr.data_ptr(), out.data_ptr(), nb,
-                              blocks.shape[0], x.shape[0], bs_c, bs_o, r,
-                              int(transpose_lhs), tile_cols(r, x.dtype),
-                              _stream(x))
-    _raise_on(lib, rc, "gathered_block_mix_flat")
-    LAUNCHES["gathered_block_mix_flat"] += 1
+    build.launch("mix_flat.cu", "gwt_mix_flat",
+                 mix_flat_desc(blocks, slot, x, src, row_ptr, out, nb,
+                               transpose_lhs, tile_cols(r, x.dtype)),
+                 x.device, "mix_flat")
     return out
 
 
-_mix_flat2_op = _Op(
+_mix_flat2_op = build.Op(
     "mix_flat2", "(Tensor blocks, Tensor slot, Tensor x, Tensor src, "
     "Tensor row, Tensor? row_ptr, Tensor? add, int nb, int lag, "
     "bool transpose_lhs) -> (Tensor, Tensor)",
@@ -408,70 +369,63 @@ _mix_flat2_op = _Op(
                     transpose_lhs=transpose_lhs, add=add))
 
 
-@_mix_flat2_op.register_fake
+@_mix_flat2_op.fake
 def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
     return torch.empty_like(x), torch.empty_like(x)
 
 
-@register_flop_formula(torch.ops.gwt_torch.mix_flat2)
+@_mix_flat2_op.flops
 def _(blocks, slot, x, *args, out_shape=None, **kwargs) -> int:
     # both hops (Pallas block_diffusion.py:620)
     return 4 * slot[0] * blocks[1] * blocks[2] * x[2]
 
 
-@_mix_flat2_op.register_cuda
+@_mix_flat2_op.cuda
 def _(blocks, slot, x, src, row, row_ptr, add, nb, lag, transpose_lhs):
-    if row_ptr is None:
-        raise ValueError("the CUDA kernel reads the CSR row pointer; pass "
-                         "row_ptr")
+    _need_row_ptr(row_ptr)
     _check_aligned(blocks)
     r = x.shape[2]
     out1 = torch.empty_like(x)
     out2 = torch.empty_like(x)
     if r == 0 or nb == 0:
         return out1, out2
-    lib = _lib("mix_flat2.cu", "gwt_mix_flat2", 9, 8)
     ct = tile_cols(r, x.dtype)
-    span, grid = fused2_launch(nb, r, x.dtype, lag, _resident(lib, x, ct))
+    span, grid = fused2_launch(nb, r, x.dtype, lag, resident(x, ct))
     # a completion flag per (row, R tile) and the ticket counter, zeroed
     # per launch (a captured launch re-zeroes them on every replay)
     flags = torch.zeros(flag_count(nb, r, x.dtype), dtype=torch.int32,
                         device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.gwt_mix_flat2(
-            _DTYPE_CODE[x.dtype], blocks.data_ptr(), slot.data_ptr(),
-            x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
-            None if add is None else add.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), flags.data_ptr(), nb, blocks.shape[0], span,
-            blocks.shape[1], r, int(transpose_lhs), ct, grid, _stream(x))
-    _raise_on(lib, rc, "gathered_block_mix_flat2")
-    LAUNCHES["gathered_block_mix_flat2"] += 1
+    build.launch("mix_flat2.cu", "gwt_mix_flat2",
+                 mix_flat2_desc(blocks, slot, x, src, row_ptr, add, out1,
+                                out2, flags, nb, span, transpose_lhs, ct,
+                                grid),
+                 x.device, "mix_flat2")
     return out1, out2
 
 
 # positional: a stand-in for the plain version that takes *args (a
 # counting test) works
-_outer_flat_op = _Op(
+_outer_flat_op = build.Op(
     "outer_flat", "(Tensor x, Tensor g, Tensor src, Tensor row, "
     "Tensor? slot, int? n_slots, ScalarType? out_dtype) -> Tensor",
     lambda x, g, src, row, slot, n_slots, out_dtype:
     outer_flat_plain(x, g, src, row, slot, n_slots, out_dtype))
 
 
-@_outer_flat_op.register_fake
+@_outer_flat_op.fake
 def _(x, g, src, row, slot, n_slots, out_dtype):
     n_out = src.numel() if slot is None else n_slots
     return x.new_empty((n_out, x.shape[1], g.shape[1]),
                        dtype=out_dtype or torch.float32)
 
 
-@register_flop_formula(torch.ops.gwt_torch.outer_flat)
+@_outer_flat_op.flops
 def _(x, g, src, *args, out_shape=None, **kwargs) -> int:
     # Pallas block_diffusion.py:296
     return 2 * src[0] * x[1] * g[1] * x[2]
 
 
-@_outer_flat_op.register_cuda
+@_outer_flat_op.cuda
 def _(x, g, src, row, slot, n_slots, out_dtype):
     out_dtype = out_dtype or torch.float32
     bs_x, bs_g, r = x.shape[1], g.shape[1], x.shape[2]
@@ -480,19 +434,16 @@ def _(x, g, src, row, slot, n_slots, out_dtype):
     out = torch.empty((n_out, bs_x, bs_g), dtype=out_dtype, device=x.device)
     if lt == 0 or r == 0:
         return out.zero_()
-    lib = _lib("outer_flat.cu", "gwt_outer_flat", 6, 8)
-    with torch.cuda.device(x.device):
-        rc = lib.gwt_outer_flat(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(), src.data_ptr(),
-            row.data_ptr(), None if slot is None else slot.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[out_dtype], lt, n_slots or 0,
-            x.shape[0], g.shape[0], bs_x, bs_g, r, _stream(x))
-    _raise_on(lib, rc, "gathered_block_outer_flat")
-    LAUNCHES["gathered_block_outer_flat"] += 1
+    build.launch("outer_flat.cu", "gwt_outer_flat",
+                 [_DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(),
+                  src.data_ptr(), row.data_ptr(), _ptr(slot), out.data_ptr(),
+                  _DTYPE_CODE[out_dtype], lt, n_slots or 0, x.shape[0],
+                  g.shape[0], bs_x, bs_g, r],
+                 x.device, "outer_flat")
     return out
 
 
-_mix_padded_op = _Op(
+_mix_padded_op = build.Op(
     "mix_padded", "(Tensor blocks_flat, Tensor slot_tbl, Tensor x_pad, "
     "Tensor src_tbl, bool transpose_lhs) -> Tensor",
     lambda blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs:
@@ -500,19 +451,19 @@ _mix_padded_op = _Op(
                      transpose_lhs=transpose_lhs))
 
 
-@_mix_padded_op.register_fake
+@_mix_padded_op.fake
 def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
     return x_pad.new_empty((src_tbl.shape[0],) + tuple(x_pad.shape[1:]))
 
 
-@register_flop_formula(torch.ops.gwt_torch.mix_padded)
+@_mix_padded_op.flops
 def _(blocks_flat, slot_tbl, x_pad, src_tbl, *args, out_shape=None,
       **kwargs) -> int:
     # every (NB, MB) slot, sentinels included (Pallas block_diffusion.py:119)
     return 2 * src_tbl[0] * src_tbl[1] * x_pad[1] * x_pad[1] * x_pad[2]
 
 
-@_mix_padded_op.register_cuda
+@_mix_padded_op.cuda
 def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
     _check_aligned(blocks_flat)
     nb, mb = src_tbl.shape
@@ -521,38 +472,36 @@ def _(blocks_flat, slot_tbl, x_pad, src_tbl, transpose_lhs):
     if r == 0 or nb == 0:
         return out
     slot, src = slot_tbl.reshape(-1), src_tbl.reshape(-1)
-    lib = _lib("mix_padded.cu", "gwt_mix_padded", 5, 8)
-    with torch.cuda.device(x_pad.device):
-        rc = lib.gwt_mix_padded(
-            _DTYPE_CODE[x_pad.dtype], blocks_flat.data_ptr(),
-            slot.data_ptr(), x_pad.data_ptr(), src.data_ptr(),
-            out.data_ptr(), nb, mb, blocks_flat.shape[0], x_pad.shape[0], bs,
-            r, int(transpose_lhs), tile_cols(r, x_pad.dtype), _stream(x_pad))
-    _raise_on(lib, rc, "gathered_block_mix")
-    LAUNCHES["gathered_block_mix"] += 1
+    build.launch("mix_padded.cu", "gwt_mix_padded",
+                 [_DTYPE_CODE[x_pad.dtype], blocks_flat.data_ptr(),
+                  slot.data_ptr(), x_pad.data_ptr(), src.data_ptr(),
+                  out.data_ptr(), nb, mb, blocks_flat.shape[0],
+                  x_pad.shape[0], bs, r, int(transpose_lhs),
+                  tile_cols(r, x_pad.dtype)],
+                 x_pad.device, "mix_padded")
     return out
 
 
-_outer_padded_op = _Op(
+_outer_padded_op = build.Op(
     "outer_padded", "(Tensor x_pad, Tensor g_blocks, Tensor src_tbl, "
     "ScalarType out_dtype) -> Tensor",
     lambda x_pad, g_blocks, src_tbl, out_dtype:
     outer_padded_plain(x_pad, g_blocks, src_tbl, out_dtype=out_dtype))
 
 
-@_outer_padded_op.register_fake
+@_outer_padded_op.fake
 def _(x_pad, g_blocks, src_tbl, out_dtype):
     bs = x_pad.shape[1]
     return x_pad.new_empty(tuple(src_tbl.shape) + (bs, bs), dtype=out_dtype)
 
 
-@register_flop_formula(torch.ops.gwt_torch.outer_padded)
+@_outer_padded_op.flops
 def _(x_pad, g_blocks, src_tbl, *args, out_shape=None, **kwargs) -> int:
     # Pallas block_diffusion.py:359
     return 2 * src_tbl[0] * src_tbl[1] * x_pad[1] * x_pad[1] * x_pad[2]
 
 
-@_outer_padded_op.register_cuda
+@_outer_padded_op.cuda
 def _(x_pad, g_blocks, src_tbl, out_dtype):
     nb, mb = src_tbl.shape
     bs, r = x_pad.shape[1], x_pad.shape[2]
@@ -562,14 +511,11 @@ def _(x_pad, g_blocks, src_tbl, out_dtype):
     if r == 0:
         return out.zero_()
     src = src_tbl.reshape(-1)
-    lib = _lib("outer_padded.cu", "gwt_outer_padded", 4, 6)
-    with torch.cuda.device(x_pad.device):
-        rc = lib.gwt_outer_padded(
-            _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), g_blocks.data_ptr(),
-            src.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-            nb * mb, mb, x_pad.shape[0], bs, r, _stream(x_pad))
-    _raise_on(lib, rc, "gathered_block_outer")
-    LAUNCHES["gathered_block_outer"] += 1
+    build.launch("outer_padded.cu", "gwt_outer_padded",
+                 [_DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(),
+                  g_blocks.data_ptr(), src.data_ptr(), out.data_ptr(),
+                  _DTYPE_CODE[out_dtype], nb * mb, mb, x_pad.shape[0], bs, r],
+                 x_pad.device, "outer_padded")
     return out
 
 

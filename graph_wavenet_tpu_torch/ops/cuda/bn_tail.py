@@ -4,11 +4,10 @@ autograd function.
 A dense-ops kernel with no Pallas counterpart (the JAX package leaves
 BatchNorm to XLA's fusion). The tail of a Graph WaveNet layer is
 ``x = bf16(bf16(h * drop) + res)`` followed by BatchNorm over the (B, T, N)
-positions of channels-last ``(B, T, N, C)`` activations. Six
-``torch.library`` ops in the ``gwt_torch`` namespace, each with a CPU
-kernel (the plain PyTorch version beside it), a CUDA kernel (the ctypes
-launch and its count) and a fake kernel, so a CUDA graph captures them and
-``torch.export`` writes them into an artifact:
+positions of channels-last ``(B, T, N, C)`` activations. Six ops of the
+seam (``ops/cuda/build.py``), each with a CPU kernel (the plain PyTorch
+version beside it), a CUDA kernel (the launch) and a fake kernel, so a CUDA
+graph captures them and ``torch.export`` writes them into an artifact:
 
 - ``bn_tail_stats(h, drop, res)``: ``(x, sum x)``, the sum per channel in
   fp32; ``drop`` and ``res`` may be None, ``res`` any (B, T, N, C) view
@@ -31,14 +30,14 @@ Every sum is fp32 and reduced in a fixed order (no atomics). :func:`tail`
 runs the training tail through them: statistics, the mean and the variance
 each summed over a process group between the launches
 (``parallel.collectives.all_sum``), the normalize; its backward reduces,
-all-reduces the two gradient sums and applies. :data:`LAUNCHES` counts the
-ops' CUDA calls by kind: host counters, so a CUDA graph counts its
-launches once, at capture, and nothing on replay.
+all-reduces the two gradient sums and applies. The seam counts the
+launches of each op (:data:`OPS`) in ``build.LAUNCHES``. Each op carries a
+FLOP formula for ``torch.utils.flop_counter`` (zero: the tail does no
+matmul work, and the counter counts none of the chain's elementwise ops).
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -46,16 +45,10 @@ import torch
 from graph_wavenet_tpu_torch.ops.cuda import build
 from graph_wavenet_tpu_torch.parallel.collectives import all_sum, group_size
 
-LAUNCHES = {"stats": 0, "var": 0, "apply": 0, "eval": 0, "grad_reduce": 0,
-            "grad_apply": 0}
+OPS = ("bn_tail_stats", "bn_tail_var", "bn_tail_apply", "bn_tail_eval",
+       "bn_tail_grad_reduce", "bn_tail_grad_apply")
 
-_LL = ctypes.c_longlong
 _DIMS = (0, 1, 2)
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -110,63 +103,71 @@ def grad_apply_plain(g, x, drop, mean, inv, w, sums, count, t_res):
 # the ops
 # ---------------------------------------------------------------------------
 
-_LIB = torch.library.Library("gwt_torch", "FRAGMENT")
-_LIB.define("bn_tail_stats(Tensor h, Tensor? drop, Tensor? res) "
-            "-> (Tensor, Tensor)")
-_LIB.define("bn_tail_var(Tensor x, Tensor mean) -> Tensor")
-_LIB.define("bn_tail_apply(Tensor x, Tensor mean, Tensor inv, Tensor w, "
-            "Tensor b) -> Tensor")
-_LIB.define("bn_tail_eval(Tensor h, Tensor? drop, Tensor? res, Tensor mean, "
-            "Tensor inv, Tensor w, Tensor b) -> Tensor")
-_LIB.define("bn_tail_grad_reduce(Tensor g, Tensor x, Tensor mean, "
-            "Tensor inv) -> Tensor")
-_LIB.define("bn_tail_grad_apply(Tensor g, Tensor x, Tensor? drop, "
-            "Tensor mean, Tensor inv, Tensor w, Tensor sums, int count, "
-            "int t_res) -> (Tensor, Tensor)")
-_LIB.impl("bn_tail_stats", stats_plain, "CPU")
-_LIB.impl("bn_tail_var", var_plain, "CPU")
-_LIB.impl("bn_tail_apply", apply_plain, "CPU")
-_LIB.impl("bn_tail_eval", eval_plain, "CPU")
-_LIB.impl("bn_tail_grad_reduce", grad_reduce_plain, "CPU")
-_LIB.impl("bn_tail_grad_apply", grad_apply_plain, "CPU")
+_stats_op = build.Op(
+    "bn_tail_stats", "(Tensor h, Tensor? drop, Tensor? res) "
+    "-> (Tensor, Tensor)", stats_plain)
+_var_op = build.Op("bn_tail_var", "(Tensor x, Tensor mean) -> Tensor",
+                   var_plain)
+_apply_op = build.Op(
+    "bn_tail_apply", "(Tensor x, Tensor mean, Tensor inv, Tensor w, "
+    "Tensor b) -> Tensor", apply_plain)
+_eval_op = build.Op(
+    "bn_tail_eval", "(Tensor h, Tensor? drop, Tensor? res, Tensor mean, "
+    "Tensor inv, Tensor w, Tensor b) -> Tensor", eval_plain)
+_grad_reduce_op = build.Op(
+    "bn_tail_grad_reduce", "(Tensor g, Tensor x, Tensor mean, "
+    "Tensor inv) -> Tensor", grad_reduce_plain)
+_grad_apply_op = build.Op(
+    "bn_tail_grad_apply", "(Tensor g, Tensor x, Tensor? drop, "
+    "Tensor mean, Tensor inv, Tensor w, Tensor sums, int count, "
+    "int t_res) -> (Tensor, Tensor)", grad_apply_plain)
 
 
 def _chan(x):
     return x.new_empty(x.shape[-1:], dtype=torch.float32)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_stats", lib=_LIB)
+@_stats_op.fake
 def _(h, drop, res):
     return torch.empty_like(h, memory_format=torch.contiguous_format), _chan(h)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_var", lib=_LIB)
+@_var_op.fake
 def _(x, mean):
     return _chan(x)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_apply", lib=_LIB)
+@_apply_op.fake
 def _(x, mean, inv, w, b):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_eval", lib=_LIB)
+@_eval_op.fake
 def _(h, drop, res, mean, inv, w, b):
     return torch.empty_like(h, memory_format=torch.contiguous_format)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_grad_reduce", lib=_LIB)
+@_grad_reduce_op.fake
 def _(g, x, mean, inv):
     return x.new_empty((2,) + tuple(x.shape[-1:]), dtype=torch.float32)
 
 
-@torch.library.register_fake("gwt_torch::bn_tail_grad_apply", lib=_LIB)
+@_grad_apply_op.fake
 def _(g, x, drop, mean, inv, w, sums, count, t_res):
     dh = torch.empty_like(x, memory_format=torch.contiguous_format)
     if t_res == 0:
         return dh, x.new_empty((0,))
     b, _, n, c = x.shape
     return dh, x.new_empty((b, t_res, n, c))
+
+
+def _no_flops(*args, out_shape=None, **kwargs) -> int:
+    return 0
+
+
+for _op in (_stats_op, _var_op, _apply_op, _eval_op, _grad_reduce_op,
+            _grad_apply_op):
+    _op.flops(_no_flops)
 
 
 # ---------------------------------------------------------------------------
@@ -198,37 +199,6 @@ def plan(b: int, t: int, n: int, c: int, vec: int,
     return lanes, rows, gx
 
 
-_SMS: dict = {}
-
-
-def _sms(dev: torch.device) -> int:
-    key = dev.index
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[key]
-
-
-def _lib(fn: str) -> ctypes.CDLL:
-    lib = build.load("bn_tail.cu")
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = [ctypes.POINTER(_LL), ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        lib.gwt_error_string.argtypes = [ctypes.c_int]
-        lib.gwt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(fn: str, desc: list[int], dev: torch.device) -> None:
-    lib = _lib(fn)
-    with torch.cuda.device(dev):
-        rc = getattr(lib, fn)((_LL * len(desc))(*desc),
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.gwt_error_string(rc).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
-
-
 def _view(t: torch.Tensor | None) -> list[int]:
     if t is None:
         return [0, 0, 0, 0]
@@ -258,7 +228,7 @@ def _head(x: torch.Tensor, *views) -> list[int]:
         v is None or (v.data_ptr() % 16 == 0
                       and all(s % 8 == 0 for s in v.stride()[:3]))
         for v in views) else 1
-    lanes, rows, gx = plan(b, t, n, c, vec, _sms(x.device))
+    lanes, rows, gx = plan(b, t, n, c, vec, build.sms(x.device))
     if b * t > 65535 or n > 2 ** 31 - 1:
         raise ValueError(f"the tail kernel takes at most 65,535 (b, t) "
                          f"planes, got a {tuple(x.shape)} tensor")
@@ -284,7 +254,8 @@ def _empty(x: torch.Tensor) -> bool:
     return x.numel() == 0
 
 
-def _cuda_stats(h, drop, res):
+@_stats_op.cuda
+def _(h, drop, res):
     _check(h, drop, res)
     x = torch.empty_like(h, memory_format=torch.contiguous_format)
     s = _chan(h)
@@ -292,62 +263,67 @@ def _cuda_stats(h, drop, res):
         return x, s.zero_()
     head = _head(h, h, drop, res, x)
     part = _part(h, head, 1)
-    _launch("gwt_bn_tail_stats", head + _view(h) + _view(drop) + _view(res)
-            + _view(x) + [part.data_ptr(), s.data_ptr()], h.device)
-    LAUNCHES["stats"] += 1
+    build.launch("bn_tail.cu", "gwt_bn_tail_stats",
+                 head + _view(h) + _view(drop) + _view(res) + _view(x)
+                 + [part.data_ptr(), s.data_ptr()], h.device, "bn_tail_stats")
     return x, s
 
 
-def _cuda_var(x, mean):
+@_var_op.cuda
+def _(x, mean):
     _check(x)
     s = _chan(x)
     if _empty(x):
         return s.zero_()
     head = _head(x, x)
     part = _part(x, head, 1)
-    _launch("gwt_bn_tail_var", head + _view(x) + _fp32(mean)
-            + [part.data_ptr(), s.data_ptr()], x.device)
-    LAUNCHES["var"] += 1
+    build.launch("bn_tail.cu", "gwt_bn_tail_var",
+                 head + _view(x) + _fp32(mean)
+                 + [part.data_ptr(), s.data_ptr()], x.device, "bn_tail_var")
     return s
 
 
-def _apply(kind, h, drop, res, x, mean, inv, w, b):
+def _apply(op, h, drop, res, x, mean, inv, w, b):
     like = h if x is None else x
     _check(like, drop, res)
     y = torch.empty_like(like, memory_format=torch.contiguous_format)
     if _empty(like):
         return y
     head = _head(like, h, drop, res, x, y)
-    _launch("gwt_bn_tail_apply", head + [int(x is None)] + _view(h)
-            + _view(drop) + _view(res) + _view(x) + _view(y)
-            + _fp32(mean, inv, w, b), like.device)
-    LAUNCHES[kind] += 1
+    build.launch("bn_tail.cu", "gwt_bn_tail_apply",
+                 head + [int(x is None)] + _view(h) + _view(drop)
+                 + _view(res) + _view(x) + _view(y) + _fp32(mean, inv, w, b),
+                 like.device, op)
     return y
 
 
-def _cuda_apply(x, mean, inv, w, b):
-    return _apply("apply", None, None, None, x, mean, inv, w, b)
+@_apply_op.cuda
+def _(x, mean, inv, w, b):
+    return _apply("bn_tail_apply", None, None, None, x, mean, inv, w, b)
 
 
-def _cuda_eval(h, drop, res, mean, inv, w, b):
-    return _apply("eval", h, drop, res, None, mean, inv, w, b)
+@_eval_op.cuda
+def _(h, drop, res, mean, inv, w, b):
+    return _apply("bn_tail_eval", h, drop, res, None, mean, inv, w, b)
 
 
-def _cuda_grad_reduce(g, x, mean, inv):
+@_grad_reduce_op.cuda
+def _(g, x, mean, inv):
     _check(x, g)
     sums = x.new_empty((2,) + tuple(x.shape[-1:]), dtype=torch.float32)
     if _empty(x):
         return sums.zero_()
     head = _head(x, g, x)
     part = _part(x, head, 2)
-    _launch("gwt_bn_tail_grad_reduce", head + _view(g) + _view(x)
-            + _fp32(mean, inv) + [part.data_ptr(), sums.data_ptr()],
-            x.device)
-    LAUNCHES["grad_reduce"] += 1
+    build.launch("bn_tail.cu", "gwt_bn_tail_grad_reduce",
+                 head + _view(g) + _view(x) + _fp32(mean, inv)
+                 + [part.data_ptr(), sums.data_ptr()], x.device,
+                 "bn_tail_grad_reduce")
     return sums
 
 
-def _cuda_grad_apply(g, x, drop, mean, inv, w, sums, count, t_res):
+@_grad_apply_op.cuda
+def _(g, x, drop, mean, inv, w, sums, count, t_res):
     _check(x, g, drop)
     b, t, n, c = x.shape
     dh = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -363,19 +339,11 @@ def _cuda_grad_apply(g, x, drop, mean, inv, w, sums, count, t_res):
     if _empty(x):
         return dh, dres
     head = _head(x, g, x, drop, dh, tail)
-    _launch("gwt_bn_tail_grad_apply", head + _view(g) + _view(x)
-            + _view(drop) + _view(dh) + _view(tail)
-            + _fp32(mean, inv, w, sums) + [int(count)], x.device)
-    LAUNCHES["grad_apply"] += 1
+    build.launch("bn_tail.cu", "gwt_bn_tail_grad_apply",
+                 head + _view(g) + _view(x) + _view(drop) + _view(dh)
+                 + _view(tail) + _fp32(mean, inv, w, sums) + [int(count)],
+                 x.device, "bn_tail_grad_apply")
     return dh, dres
-
-
-_LIB.impl("bn_tail_stats", _cuda_stats, "CUDA")
-_LIB.impl("bn_tail_var", _cuda_var, "CUDA")
-_LIB.impl("bn_tail_apply", _cuda_apply, "CUDA")
-_LIB.impl("bn_tail_eval", _cuda_eval, "CUDA")
-_LIB.impl("bn_tail_grad_reduce", _cuda_grad_reduce, "CUDA")
-_LIB.impl("bn_tail_grad_apply", _cuda_grad_apply, "CUDA")
 
 
 # ---------------------------------------------------------------------------

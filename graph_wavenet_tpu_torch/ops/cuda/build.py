@@ -1,12 +1,34 @@
-"""Build and load the package's CUDA kernels.
+"""The seam of the hand kernels: how each is built, loaded, launched,
+registered as an op and counted.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
-library with a plain C interface, loaded with ``ctypes``. Libraries go to
-``graph_wavenet_tpu_torch/_build/`` (git-ignored), named by a digest of
-the sources, so an edited source rebuilds and an unchanged one loads
-as is. All sources compile in parallel, one ``nvcc`` each, at first use;
+Build: each ``csrc/*.cu`` source compiles with ``nvcc`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. Libraries
+go to ``graph_wavenet_tpu_torch/_build/`` (git-ignored), named by a digest
+of the sources, so an edited source rebuilds and an unchanged one loads as
+is. All sources compile in parallel, one ``nvcc`` each, at first use;
 processes that share ``_build/`` (the ranks of a parallel run) take turns
 through a file lock, so one builds and the others load.
+
+Launch: every entry a library exports has one signature (``csrc/
+entry.cuh``), ``int gwt_<name>(const long long* d, void* stream)``: ``d``
+the call's int64 descriptor (sizes, flags and pointers, 0 for an absent
+one), the result a ``cudaError_t`` code. :func:`launch` is the one caller:
+it passes the descriptor and the current stream of the device, raises on a
+non-zero code and counts the op's launch. :func:`sms` keeps each card's SM
+count, which the launch plans read.
+
+Register: every kernel is an op of the ``gwt_torch`` namespace (:data:`LIB`,
+one ``torch.library`` definition), made with :class:`Op`: its schema, a CPU
+kernel (the plain PyTorch version), a CUDA kernel (the launch), a fake
+kernel (shapes for tracing, ``torch.export`` and CUDA graph capture) and a
+FLOP formula (``torch.utils.flop_counter``). The modules beside this one
+define the ops: ``block_diffusion`` (kernels 1-5), ``chan_proj`` and
+``bn_tail``.
+
+Count: :data:`LAUNCHES` holds one count per op, by its ``gwt_torch`` name:
+the C entry calls since the last :func:`reset_launch_counts`. They are host
+counters: a CUDA graph counts its launches once, at capture, and nothing on
+replay.
 """
 
 from __future__ import annotations
@@ -20,6 +42,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
@@ -102,3 +127,87 @@ def load(source: str) -> ctypes.CDLL:
                 build_all()
             _libs[source] = ctypes.CDLL(str(path))
         return _libs[source]
+
+
+_LL = ctypes.c_longlong
+
+
+def call(lib: ctypes.CDLL, fn: str, desc: list[int],
+         device: torch.device) -> None:
+    """``lib.fn(desc, stream)`` on ``device``'s current stream; raises
+    ``RuntimeError`` with the error string on a non-zero code."""
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = [ctypes.POINTER(_LL), ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        lib.gwt_error_string.argtypes = [ctypes.c_int]
+        lib.gwt_error_string.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        rc = f((_LL * len(desc))(*desc),
+               torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.gwt_error_string(rc).decode()
+        raise RuntimeError(f"{fn} failed: {msg} ({rc})")
+
+
+def launch(source: str, fn: str, desc: list[int], device: torch.device,
+           op: str | None = None) -> None:
+    """Call entry ``fn`` of ``source``'s library with ``desc`` on
+    ``device`` and, on success, count one launch of ``op`` (None: a query,
+    or a launch outside the ops, not counted)."""
+    call(load(source), fn, desc, device)
+    if op is not None:
+        LAUNCHES[op] += 1
+
+
+_SMS: dict = {}
+
+
+def sms(device: torch.device) -> int:
+    """The SM count of ``device``'s card, asked once per device."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+# ---------------------------------------------------------------------------
+# the ops and their launch counts
+# ---------------------------------------------------------------------------
+
+LIB = torch.library.Library("gwt_torch", "DEF")
+
+# C entry calls per op since the last reset_launch_counts()
+LAUNCHES: dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class Op:
+    """One kernel's op: its schema and CPU kernel at construction; the
+    decorators register its fake kernel, FLOP formula and CUDA kernel.
+    Registered straight with the dispatcher (``torch.library.Library``),
+    with no autograd kernel: the autograd functions around the ops call
+    them under no-grad, and ``torch.library.custom_op``'s Python autograd
+    layer would double the host time of every launch."""
+
+    def __init__(self, name: str, schema: str, cpu):
+        LIB.define(name + schema)
+        LIB.impl(name, cpu, "CPU")
+        LAUNCHES[name] = 0
+        self.name = name
+
+    def fake(self, fn):
+        torch.library.register_fake(f"gwt_torch::{self.name}", fn, lib=LIB)
+        return fn
+
+    def flops(self, fn):
+        register_flop_formula(getattr(torch.ops.gwt_torch, self.name))(fn)
+        return fn
+
+    def cuda(self, fn):
+        LIB.impl(self.name, fn, "CUDA")
+        return fn

@@ -2,10 +2,10 @@
 versions.
 
 A dense-ops kernel with no Pallas counterpart (the JAX package leaves its
-channel matmuls to XLA). Three ``torch.library`` ops in the ``gwt_torch``
-namespace, each with a CPU kernel (the plain PyTorch version beside it), a
-CUDA kernel (the ctypes launch and its count) and a fake kernel, so a CUDA
-graph captures them and ``torch.export`` writes them into an artifact:
+channel matmuls to XLA). Three ops of the seam (``ops/cuda/build.py``),
+each with a CPU kernel (the plain PyTorch version beside it), a CUDA kernel
+(the launch) and a fake kernel, so a CUDA graph captures them and
+``torch.export`` writes them into an artifact:
 
 - ``chan_proj(xs, w, bias)``: ``bf16(sum_k xs[k] @ w[:, cols_k].T +
   bias)`` (O, I, F). Every ``xs[k]`` is a bf16 (O, I, C_k) view with a unit
@@ -20,33 +20,24 @@ graph captures them and ``torch.export`` writes them into an artifact:
   over all rows in fp32 (per-block partials and a second pass in a fixed
   order) and db (F,) in fp32.
 
-:data:`LAUNCHES` counts the launches by direction. ``ops.linear.project``
-sends every bf16 CUDA projection here and none to the fp32 chain. The
-counts are host counters: a CUDA graph counts its launches once, at
-capture, and nothing on replay.
-Each op carries a FLOP formula for ``torch.utils.flop_counter``.
+``ops.linear.project`` sends every bf16 CUDA projection here and none to
+the fp32 chain. The seam counts the launches of each op (:data:`OPS`) in
+``build.LAUNCHES``. Each op carries a FLOP formula for
+``torch.utils.flop_counter``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from graph_wavenet_tpu_torch.ops.cuda import build
 
-LAUNCHES = {"forward": 0, "dgrad": 0, "wgrad": 0}
+OPS = ("chan_proj", "chan_proj_dgrad", "chan_proj_wgrad")
 
 # operands of one launch (the kernel's parameter arrays)
 MAX_OPERANDS = 16
-_LL = ctypes.c_longlong
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _offsets(widths) -> list[int]:
@@ -101,65 +92,46 @@ def chan_proj_wgrad_plain(xs: list[torch.Tensor], g: torch.Tensor):
 # the ops
 # ---------------------------------------------------------------------------
 
-_LIB = torch.library.Library("gwt_torch", "FRAGMENT")
-_LIB.define("chan_proj(Tensor[] xs, Tensor w, Tensor bias) -> Tensor")
-_LIB.define("chan_proj_dgrad(Tensor g, Tensor w, Tensor[] xs) -> Tensor[]")
-_LIB.define("chan_proj_wgrad(Tensor[] xs, Tensor g) -> (Tensor, Tensor)")
-_LIB.impl("chan_proj", chan_proj_plain, "CPU")
-_LIB.impl("chan_proj_dgrad", chan_proj_dgrad_plain, "CPU")
-_LIB.impl("chan_proj_wgrad", chan_proj_wgrad_plain, "CPU")
+_forward_op = build.Op(
+    "chan_proj", "(Tensor[] xs, Tensor w, Tensor bias) -> Tensor",
+    chan_proj_plain)
+_dgrad_op = build.Op(
+    "chan_proj_dgrad", "(Tensor g, Tensor w, Tensor[] xs) -> Tensor[]",
+    chan_proj_dgrad_plain)
+_wgrad_op = build.Op(
+    "chan_proj_wgrad", "(Tensor[] xs, Tensor g) -> (Tensor, Tensor)",
+    chan_proj_wgrad_plain)
 
 
-@torch.library.register_fake("gwt_torch::chan_proj", lib=_LIB)
+@_forward_op.fake
 def _(xs, w, bias):
     return xs[0].new_empty(tuple(xs[0].shape[:2]) + (w.shape[0],))
 
 
-@torch.library.register_fake("gwt_torch::chan_proj_dgrad", lib=_LIB)
+@_dgrad_op.fake
 def _(g, w, xs):
     return [torch.empty_like(x) for x in xs]
 
 
-@torch.library.register_fake("gwt_torch::chan_proj_wgrad", lib=_LIB)
+@_wgrad_op.fake
 def _(xs, g):
     return (g.new_empty(tuple(g.shape[-1:]) + (w_cols(xs),)),
             g.new_empty(g.shape[-1:], dtype=torch.float32))
 
 
-@register_flop_formula(torch.ops.gwt_torch.chan_proj)
+@_forward_op.flops
 def _(xs, w, *args, out_shape=None, **kwargs) -> int:
     return 2 * xs[0][0] * xs[0][1] * sum(x[2] for x in xs) * w[0]
 
 
-@register_flop_formula(torch.ops.gwt_torch.chan_proj_dgrad)
+@_dgrad_op.flops
 def _(g, w, *args, out_shape=None, **kwargs) -> int:
     return 2 * g[0] * g[1] * g[2] * w[1]
 
 
-@register_flop_formula(torch.ops.gwt_torch.chan_proj_wgrad)
+@_wgrad_op.flops
 def _(xs, g, *args, out_shape=None, **kwargs) -> int:
     return 2 * g[0] * g[1] * g[2] * sum(x[2] for x in xs)
-
-
-def _lib(fn: str) -> ctypes.CDLL:
-    lib = build.load("chan_proj.cu")
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = [ctypes.POINTER(_LL), ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        lib.gwt_error_string.argtypes = [ctypes.c_int]
-        lib.gwt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(fn: str, desc: list[int], dev: torch.device) -> None:
-    lib = _lib(fn)
-    with torch.cuda.device(dev):
-        rc = getattr(lib, fn)((_LL * len(desc))(*desc),
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.gwt_error_string(rc).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
 
 
 def _operand(x: torch.Tensor, koff: int) -> list[int]:
@@ -180,7 +152,8 @@ def _check(xs, *others) -> None:
         raise ValueError("operands must share their (O, I) rows")
 
 
-def _cuda_forward(xs, w, bias):
+@_forward_op.cuda
+def _(xs, w, bias):
     _check(xs)
     o, i = xs[0].shape[:2]
     f = w.shape[0]
@@ -196,12 +169,13 @@ def _cuda_forward(xs, w, bias):
     for x, k in zip(xs, _offsets(x.shape[2] for x in xs)):
         desc += _operand(x, k)
     desc += [out.data_ptr(), i * f, f, 0, f]
-    _launch("gwt_chan_proj", desc, out.device)
-    LAUNCHES["forward"] += 1
+    build.launch("chan_proj.cu", "gwt_chan_proj", desc, out.device,
+                 "chan_proj")
     return out
 
 
-def _cuda_dgrad(g, w, xs):
+@_dgrad_op.cuda
+def _(g, w, xs):
     _check(xs, g)
     o, i, f = g.shape
     wt = w.t().contiguous()                     # (sum C_k, F)
@@ -212,8 +186,8 @@ def _cuda_dgrad(g, w, xs):
     desc += _operand(g, 0)
     for t, k in zip(outs, _offsets(x.shape[2] for x in xs)):
         desc += [t.data_ptr(), t.stride(0), t.stride(1), k, t.shape[2]]
-    _launch("gwt_chan_proj", desc, g.device)
-    LAUNCHES["dgrad"] += 1
+    build.launch("chan_proj.cu", "gwt_chan_proj", desc, g.device,
+                 "chan_proj_dgrad")
     return outs
 
 
@@ -237,17 +211,8 @@ def wgrad_plan(rows: int, f: int, ctot: int, sms: int) -> tuple[int, int]:
                           65535))
 
 
-_SMS: dict = {}
-
-
-def _sms(dev: torch.device) -> int:
-    key = dev.index
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[key]
-
-
-def _cuda_wgrad(xs, g):
+@_wgrad_op.cuda
+def _(xs, g):
     _check(xs, g)
     o, i, f = g.shape
     ctot = w_cols(xs)
@@ -256,7 +221,7 @@ def _cuda_wgrad(xs, g):
     rows = o * i
     if rows == 0:
         return dw.zero_(), db.zero_()
-    wf, n_split = wgrad_plan(rows, f, ctot, _sms(g.device))
+    wf, n_split = wgrad_plan(rows, f, ctot, build.sms(g.device))
     part = torch.empty(n_split * f * (ctot + 1), dtype=torch.float32,
                        device=g.device)
     desc = [len(xs), rows, i, f, ctot, n_split, wf, g.data_ptr(),
@@ -264,11 +229,6 @@ def _cuda_wgrad(xs, g):
             db.data_ptr()]
     for x, k in zip(xs, _offsets(x.shape[2] for x in xs)):
         desc += _operand(x, k)
-    _launch("gwt_chan_proj_wgrad", desc, g.device)
-    LAUNCHES["wgrad"] += 1
+    build.launch("chan_proj.cu", "gwt_chan_proj_wgrad", desc, g.device,
+                 "chan_proj_wgrad")
     return dw, db
-
-
-_LIB.impl("chan_proj", _cuda_forward, "CUDA")
-_LIB.impl("chan_proj_dgrad", _cuda_dgrad, "CUDA")
-_LIB.impl("chan_proj_wgrad", _cuda_wgrad, "CUDA")

@@ -23,10 +23,11 @@ the optimizer's state and learning-rate tensor, a carried state, and
 that none is freed under it. A failure of the capture or of a replay
 raises; nothing falls back to eager steps.
 
-The hand kernels' launch counters (``ops.cuda.block_diffusion.LAUNCHES``)
-count Python calls, so the capture counts a step's launches once and a
-replay not at all: ``launches`` is what one replay launches and
-``replays`` how often it ran.
+The hand kernels' launch counter (``ops.cuda.build.LAUNCHES``) counts
+Python calls, so the capture counts a step's launches once and a replay
+not at all: ``launches`` is what one replay launches of the five block
+kernels (``block_diffusion.OPS``, by op name) and ``replays`` how often it
+ran.
 
 A graph that captured NCCL collectives holds a reference on the group's
 communicator, and NCCL's destroy waits until every such graph is gone:
@@ -43,6 +44,7 @@ from typing import Callable
 import torch
 
 from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.ops.cuda import build
 
 
 # every StepGraph not yet collected, for release_all
@@ -98,11 +100,11 @@ class StepGraph:
                     "fused train steps draw dropout from the engine's own "
                     "generator and need it")
             register(generator)
-        before = dict(bd.LAUNCHES)
+        before = {k: build.LAUNCHES[k] for k in bd.OPS}
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode=error_mode):
             self.out = body(self.sel)
-        self.launches = {k: bd.LAUNCHES[k] - before[k] for k in before}
+        self.launches = {k: build.LAUNCHES[k] - before[k] for k in bd.OPS}
 
     def replay(self, row: torch.Tensor) -> torch.Tensor:
         """Run the step on the input that ``row`` selects; returns the

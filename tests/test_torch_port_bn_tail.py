@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from graph_wavenet_tpu_torch.ops import normalization
-from graph_wavenet_tpu_torch.ops.cuda import bn_tail
+from graph_wavenet_tpu_torch.ops.cuda import bn_tail, build
 from graph_wavenet_tpu_torch.ops.normalization import BatchNorm
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -33,7 +33,12 @@ DTYPE_IDS = ["f32", "bf16"]
 # the city layers' output steps (12 inputs padded to 13, kernel 2,
 # dilations 1, 2, 1, 2, ...)
 CITY_STEPS = [12, 10, 9, 7, 6, 4, 3, 1]
-TRAIN_KINDS = ("stats", "var", "apply", "grad_reduce", "grad_apply")
+TRAIN_OPS = ("bn_tail_stats", "bn_tail_var", "bn_tail_apply",
+             "bn_tail_grad_reduce", "bn_tail_grad_apply")
+
+
+def tail_launches() -> dict:
+    return {k: build.LAUNCHES[k] for k in bn_tail.OPS}
 
 
 def rand(gen, *shape, dtype=torch.float32, device="cpu", scale=1.0):
@@ -434,7 +439,7 @@ def test_kernels_match_plain_at_the_city_widths(card, t):
     ops = torch.ops.gwt_torch
     h, drop, res, dy, (w, b, m0) = card_case(card, t)
     resv = res[:, -t:]
-    bn_tail.reset_launch_counts()
+    build.reset_launch_counts()
     x, s1 = ops.bn_tail_stats(h, drop, resv)
     xw, s1w = bn_tail.stats_plain(h, drop, resv)
     assert torch.equal(x, xw)
@@ -463,8 +468,7 @@ def test_kernels_match_plain_at_the_city_widths(card, t):
     assert_bf16_close(dh, dhw, "dh")
     assert_bf16_close(dres, dresw, "dres")
     assert not dres[:, :res.shape[1] - t].any()
-    assert bn_tail.LAUNCHES == {"stats": 1, "var": 1, "apply": 1, "eval": 1,
-                                "grad_reduce": 1, "grad_apply": 1}
+    assert tail_launches() == dict.fromkeys(bn_tail.OPS, 1)
 
 
 @pytest.mark.cuda
@@ -562,18 +566,18 @@ def test_graphed_model_step_launches_the_tail_per_layer(card):
     ys = 50 + 10 * torch.randn(8, 12, n, 2, device=card)
     idx = np.arange(8, dtype=np.int64).reshape(2, 4)
     layers = cfg.blocks * cfg.layers
-    bn_tail.reset_launch_counts()
+    build.reset_launch_counts()
     loss = eng.train_steps_resident(xs, ys, idx, sups)["loss"]
     torch.cuda.synchronize()
     assert bool(torch.isfinite(loss).all())
     # the last layer's output reaches no loss term: no backward there
-    assert bn_tail.LAUNCHES == {
-        "stats": 2 * layers, "var": 2 * layers, "apply": 2 * layers,
-        "grad_reduce": 2 * (layers - 1), "grad_apply": 2 * (layers - 1),
-        "eval": 0}
-    bn_tail.reset_launch_counts()
+    assert tail_launches() == {
+        "bn_tail_stats": 2 * layers, "bn_tail_var": 2 * layers,
+        "bn_tail_apply": 2 * layers, "bn_tail_grad_reduce": 2 * (layers - 1),
+        "bn_tail_grad_apply": 2 * (layers - 1), "bn_tail_eval": 0}
+    build.reset_launch_counts()
     eng.model.eval()
     with torch.no_grad():
         eng.model(xs[:2], sups)
-    assert bn_tail.LAUNCHES == dict({k: 0 for k in TRAIN_KINDS},
-                                    eval=layers)
+    assert tail_launches() == dict(dict.fromkeys(TRAIN_OPS, 0),
+                                   bn_tail_eval=layers)

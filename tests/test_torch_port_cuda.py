@@ -49,8 +49,19 @@ import pytest
 import torch
 
 from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.ops.cuda import build, chan_proj
 
 pytestmark = pytest.mark.cuda
+
+
+def block_launches() -> dict:
+    """The five block kernels' launch counts."""
+    return {k: build.LAUNCHES[k] for k in bd.OPS}
+
+
+def proj_launches() -> dict:
+    """The projection kernel's launch counts, by op."""
+    return {k: build.LAUNCHES[k] for k in chan_proj.OPS}
 
 
 @pytest.fixture
@@ -131,10 +142,10 @@ def test_kernel1_matches_plain(card, dtype, r, transpose_lhs, shape):
     blocks[n_live] = 0
     x = torch.randn(nbx, bs_c, r, device=card, generator=gen).to(dtype)
     args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
-    before = bd.LAUNCHES["gathered_block_mix_flat"]
+    before = build.LAUNCHES["mix_flat"]
     got = bd.gathered_block_mix_flat(*args, nb=nb,
                                      transpose_lhs=transpose_lhs)
-    assert bd.LAUNCHES["gathered_block_mix_flat"] == before + 1
+    assert build.LAUNCHES["mix_flat"] == before + 1
     want = bd.mix_flat_plain(*args, nb=nb, transpose_lhs=transpose_lhs)
     torch.cuda.synchronize()
     assert got.shape == (nb, bs_o, r) and got.dtype == dtype
@@ -163,11 +174,11 @@ def test_kernel3_bitwise_two_kernel1(card, dtype, r, transpose_lhs,
         add = torch.randn(nb * 128 * r + off, device=card,
                           generator=gen).to(dtype)[off:].view(nb, 128, r)
     args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
-    before = bd.LAUNCHES["gathered_block_mix_flat2"]
+    before = build.LAUNCHES["mix_flat2"]
     o1, o2 = bd.gathered_block_mix_flat2(
         *args, nb=nb, lag=bd.fused2_lag(row, src),
         transpose_lhs=transpose_lhs, add=add, dispatch="fused")
-    assert bd.LAUNCHES["gathered_block_mix_flat2"] == before + 1
+    assert build.LAUNCHES["mix_flat2"] == before + 1
     c1 = bd.gathered_block_mix_flat(*args, nb=nb,
                                     transpose_lhs=transpose_lhs)
     if add is not None:
@@ -203,20 +214,17 @@ def test_kernel3_dispatch_branches_agree(card, dtype, r, with_add):
     args = (blocks, i32(slot, card), x, i32(src, card), i32(row, card))
     outs, launches = {}, {}
     for d in bd.DISPATCHES:
-        before = dict(bd.LAUNCHES)
+        before = block_launches()
         outs[d] = bd.gathered_block_mix_flat2(
             *args, nb=nb, lag=bd.fused2_lag(row, src), transpose_lhs=True,
             add=add, dispatch=d)
-        launches[d] = {k: bd.LAUNCHES[k] - before[k]
-                       for k in ("gathered_block_mix_flat",
-                                 "gathered_block_mix_flat2")}
+        launches[d] = {k: build.LAUNCHES[k] - before[k]
+                       for k in ("mix_flat", "mix_flat2")}
     torch.cuda.synchronize()
     for d in ("chain", "auto"):
         assert all(torch.equal(a, b) for a, b in zip(outs[d], outs["fused"]))
-    assert launches["fused"] == {"gathered_block_mix_flat": 0,
-                                 "gathered_block_mix_flat2": 1}
-    assert launches["chain"] == {"gathered_block_mix_flat": 2,
-                                 "gathered_block_mix_flat2": 0}
+    assert launches["fused"] == {"mix_flat": 0, "mix_flat2": 1}
+    assert launches["chain"] == {"mix_flat": 2, "mix_flat2": 0}
     pick = bd.fused2_dispatch(r, dtype, add=with_add)
     assert launches["auto"] == launches[pick]
 
@@ -234,9 +242,9 @@ def test_kernel2_matches_plain(card, dtype, r, shape):
     x = torch.randn(5, bs_x, r, device=card, generator=gen).to(dtype)
     g = torch.randn(6, bs_g, r, device=card, generator=gen).to(dtype)
     args = (x, g, i32(src, card), i32(row, card))
-    before = bd.LAUNCHES["gathered_block_outer_flat"]
+    before = build.LAUNCHES["outer_flat"]
     got = bd.gathered_block_outer_flat(*args)
-    assert bd.LAUNCHES["gathered_block_outer_flat"] == before + 1
+    assert build.LAUNCHES["outer_flat"] == before + 1
     want = bd.outer_flat_plain(*args)
     terms = bd.outer_flat_plain(x.abs(), g.abs(), *args[2:])
     torch.cuda.synchronize()
@@ -268,11 +276,11 @@ def test_kernel2_storage_order_bitwise_gather(card, dtype, out_dtype, r,
     inv = np.zeros(n_live + 1, np.int64)
     inv[slot] = np.arange(len(slot))
     inv[n_live] = len(slot)
-    before = bd.LAUNCHES["gathered_block_outer_flat"]
+    before = build.LAUNCHES["outer_flat"]
     got = bd.gathered_block_outer_flat(*args, slot=i32(slot, card),
                                        n_slots=n_live + 1,
                                        out_dtype=out_dtype)
-    assert bd.LAUNCHES["gathered_block_outer_flat"] == before + 1
+    assert build.LAUNCHES["outer_flat"] == before + 1
     per_entry = bd.gathered_block_outer_flat(*args)
     want = torch.cat([per_entry, per_entry.new_zeros((1, bs_x, bs_g))])
     want = want.index_select(0, torch.as_tensor(inv, device=card))
@@ -481,18 +489,13 @@ def test_kernel3_any_grid_and_span(card, dtype, grid, slack):
     ct = bd.tile_cols(r, dtype)
     items = 2 * nb * -(-r // ct)
     span = nb if slack is None else min(lag + slack, nb)
-    lib = bd._lib("mix_flat2.cu", "gwt_mix_flat2", 9, 8)
-    grid = grid or min(items, bd._resident(lib, x, ct))
+    grid = grid or min(items, bd.resident(x, ct))
     o1, o2 = torch.empty_like(x), torch.empty_like(x)
     flags = torch.zeros(bd.flag_count(nb, r, dtype), dtype=torch.int32,
                         device=card)
-    rc = lib.gwt_mix_flat2(
-        bd._DTYPE_CODE[dtype], blocks.data_ptr(), slot.data_ptr(),
-        x.data_ptr(), src.data_ptr(), bd.row_pointer(row, nb).data_ptr(),
-        add.data_ptr(), o1.data_ptr(), o2.data_ptr(), flags.data_ptr(), nb,
-        blocks.shape[0], span, 128, r, 1, ct, grid,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, lib.gwt_error_string(rc)
+    build.launch("mix_flat2.cu", "gwt_mix_flat2", bd.mix_flat2_desc(
+        blocks, slot, x, src, bd.row_pointer(row, nb), add, o1, o2, flags,
+        nb, span, True, ct, grid), x.device)
     c1, c2 = chain_of(args, nb, True, add)
     torch.cuda.synchronize()
     assert torch.equal(o1, c1) and torch.equal(o2, c2)
@@ -529,10 +532,10 @@ def test_kernel3_ten_launches_and_a_replayed_graph(card, dtype):
         k3()                      # warm-up off the capture
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    before = bd.LAUNCHES["gathered_block_mix_flat2"]
+    before = build.LAUNCHES["mix_flat2"]
     with torch.cuda.graph(graph):
         g1, g2 = k3()
-    assert bd.LAUNCHES["gathered_block_mix_flat2"] == before + 1
+    assert build.LAUNCHES["mix_flat2"] == before + 1
     for _ in range(5):
         g1.zero_()
         g2.zero_()
@@ -649,12 +652,12 @@ def test_kernel4_matches_plain(card, dtype, r, transpose_lhs):
     x = torch.randn(nbx + 1, 128, r, device=card, generator=gen).to(dtype)
     x[nbx] = 0
     tbl = (i32(slot, card).reshape(nb, mb), i32(src, card).reshape(nb, mb))
-    before = bd.LAUNCHES["gathered_block_mix"]
+    before = build.LAUNCHES["mix_padded"]
     got = bd.gathered_block_mix(blocks[:n_blocks], tbl[0], x[:nbx], tbl[1],
                                 transpose_lhs=transpose_lhs)
     padded = bd.gathered_block_mix(blocks, tbl[0], x, tbl[1],
                                    transpose_lhs=transpose_lhs)
-    assert bd.LAUNCHES["gathered_block_mix"] == before + 2
+    assert build.LAUNCHES["mix_padded"] == before + 2
     want = bd.mix_padded_plain(blocks, tbl[0], x, tbl[1],
                                transpose_lhs=transpose_lhs)
     torch.cuda.synchronize()
@@ -715,9 +718,9 @@ def test_kernel5_matches_plain(card, dtype, out_dtype, r):
     x = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
     g = torch.randn(nb, 128, r, device=card, generator=gen).to(dtype)
     tbl = i32(src, card).reshape(nb, mb)
-    before = bd.LAUNCHES["gathered_block_outer"]
+    before = build.LAUNCHES["outer_padded"]
     got = bd.gathered_block_outer(x, g, tbl, out_dtype=out_dtype)
-    assert bd.LAUNCHES["gathered_block_outer"] == before + 1
+    assert build.LAUNCHES["outer_padded"] == before + 1
     want = bd.outer_padded_plain(x, g, tbl, out_dtype=torch.float32)
     terms = bd.outer_padded_plain(x.abs(), g.abs(), tbl,
                                   out_dtype=torch.float32)
@@ -948,18 +951,17 @@ def test_graphed_city_steps_equal_eager(card):
     launches = []
     want = []
     for r in torch.as_tensor(idx, device=card):
-        bd.reset_launch_counts()
+        build.reset_launch_counts()
         want.append(eager.train_step(xs.index_select(0, r),
                                      ys.index_select(0, r), sups))
-        launches.append(dict(bd.LAUNCHES))
+        launches.append(block_launches())
     got = graphed.train_steps_resident(xs, ys, idx, sups)
     torch.cuda.synchronize()
     assert torch.equal(got["loss"], torch.stack([m["loss"] for m in want]))
     assert_same_state(step_state(graphed), step_state(eager))
     (g,) = graphed.step_graphs()
     assert g.launches == launches[0] and g.replays == 2
-    for k in ("gathered_block_mix_flat", "gathered_block_mix_flat2",
-              "gathered_block_outer_flat"):
+    for k in ("mix_flat", "mix_flat2", "outer_flat"):
         assert g.launches[k] > 0, k
 
 
@@ -1086,23 +1088,22 @@ def test_exported_city_artifact_equals_forecaster(card, tmp_path, form,
                     generator=torch.Generator(card).manual_seed(1))
     torch.use_deterministic_algorithms(True)
     try:
-        bd.reset_launch_counts()
+        build.reset_launch_counts()
         want = fc.predict(x)
         torch.cuda.synchronize()
-        live = dict(bd.LAUNCHES)
-        bd.reset_launch_counts()
+        live = block_launches()
+        build.reset_launch_counts()
         got = art.predict(x)
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(got, want)
-    assert dict(bd.LAUNCHES) == live
+    assert block_launches() == live
     # the flat supports' pairs go where the dispatch rule sends the first
     # layer's (R = 2 x 12 x 32)
-    kernel = "gathered_block_mix" if form == "pallas" else (
-        "gathered_block_mix_flat2"
-        if bd.fused2_dispatch(768, torch.bfloat16, add=False) == "fused"
-        else "gathered_block_mix_flat")
+    kernel = "mix_padded" if form == "pallas" else (
+        "mix_flat2" if bd.fused2_dispatch(768, torch.bfloat16, add=False)
+        == "fused" else "mix_flat")
     assert live[kernel] > 0
 
 
@@ -1116,17 +1117,17 @@ def test_rolling_forecast_graphed_equals_eager(card):
     fc = city_forecaster(card, "flat", False)
     history = torch.randn(17, fc.input_nodes, 2, device=card,
                           generator=torch.Generator(card).manual_seed(2))
-    bd.reset_launch_counts()
+    build.reset_launch_counts()
     want = torch.stack([fc.predict(history[None, k:k + 12])[0]
                         for k in range(6)])
-    one = {k: v // 6 for k, v in bd.LAUNCHES.items()}
+    one = {k: v // 6 for k, v in block_launches().items()}
     for call in (1, 2):
         got = serving.rolling_forecast(fc, history, 12)
         torch.cuda.synchronize()
         assert torch.equal(got, want), call
     (g,) = fc.step_graphs()
     assert g.launches == one and g.replays == 5 + 6
-    assert one["gathered_block_mix_flat2"] > 0
+    assert one["mix_flat2"] > 0
 
 
 def test_autoregressive_forecast_graphed_equals_eager(card):
@@ -1171,7 +1172,7 @@ import json, os, sys
 import numpy as np
 import torch
 from graph_wavenet_tpu_torch.config import MeshConfig
-from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd
+from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as bd, build
 from graph_wavenet_tpu_torch.parallel import collectives, multihost, sparse_tp
 from graph_wavenet_tpu_torch.parallel.mesh import make_mesh
 
@@ -1217,7 +1218,7 @@ if mode == "gloo2":
             lo, hi = mesh.node_range(n)
             xl = xa[lo:hi].to(dev).requires_grad_(True)
             sp.blocks.requires_grad_(True)
-            bd.reset_launch_counts()
+            build.reset_launch_counts()
             y = sp.mix_2d(xl)
             (y.float() * wa[lo:hi].to(dev).float()).sum().backward()
             torch.cuda.synchronize()
@@ -1229,7 +1230,8 @@ if mode == "gloo2":
             if rank == 0:
                 np.save(os.path.join(out, f"{key.replace('/', '_')}_db.npy"),
                         gb.cpu().numpy())
-            res[key] = {"launches": dict(bd.LAUNCHES), "halo": sp.halo}
+            res[key] = {"launches": {k: build.LAUNCHES[k] for k in bd.OPS},
+                        "halo": sp.halo}
     res.update(gloo_refusals(dev))
 elif mode == "nccl1_graphed":
     res.update(nccl_graphed(dev))
@@ -1594,8 +1596,8 @@ def test_gloo_ranks_sharing_the_card_stage_collectives_and_shard_hops(
                 blocks.grad.float().cpu().numpy())
             for r in res:
                 launches = r[key]["launches"]
-                assert launches["gathered_block_mix_flat"] == 2
-                assert launches["gathered_block_outer_flat"] == 1
+                assert launches["mix_flat"] == 2
+                assert launches["outer_flat"] == 1
                 assert r[key]["halo"] == (halo == "auto")
 
 
@@ -1637,8 +1639,8 @@ def test_nccl_two_ranks_node_tp_graphed_steps_equal_eager(card, tmp_path):
             assert rec["halo"] == [halo, halo], rec
             assert rec["loss_differ"] == [] and rec["state_differ"] == [], rec
             assert rec["replays"] == 3, rec
-            assert rec["per_replay"]["gathered_block_mix_flat"] > 0, rec
-            assert rec["per_replay"]["gathered_block_outer_flat"] > 0, rec
+            assert rec["per_replay"]["mix_flat"] > 0, rec
+            assert rec["per_replay"]["outer_flat"] > 0, rec
 
 
 def test_nccl_two_ranks_time_sp_graphed_steps_equal_eager(card, tmp_path):
@@ -1915,7 +1917,7 @@ def test_chan_proj_matches_fp32_chain(card, name, layout, rows):
     from graph_wavenet_tpu_torch.ops.cuda import chan_proj
 
     base, xs, w, bias = proj_case(card, name, layout, rows)
-    chan_proj.reset_launch_counts()
+    build.reset_launch_counts()
     y = linear.project(xs, w, bias)
     want = linear._chain(xs, w, bias)
     assert y.shape == want.shape and y.dtype == torch.bfloat16
@@ -1931,7 +1933,7 @@ def test_chan_proj_matches_fp32_chain(card, name, layout, rows):
         assert_close(a, b)
     assert_close(got[-2].bfloat16(), ref[-2].bfloat16())
     assert_close(got[-1], ref[-1])
-    assert chan_proj.LAUNCHES == {"forward": 1, "dgrad": 1, "wgrad": 1}
+    assert proj_launches() == dict.fromkeys(chan_proj.OPS, 1)
 
 
 def test_chan_proj_graphed_equals_eager(card):
@@ -2035,7 +2037,6 @@ def test_chan_proj_model_step_matches_fp32_chain(card, kind, monkeypatch):
     the difference within ``STEP_DIFF_FACTOR`` of the chain's. Every
     projection takes the kernel: its launches are the model's count."""
     from graph_wavenet_tpu_torch.config import ModelConfig
-    from graph_wavenet_tpu_torch.ops.cuda import chan_proj
 
     rng = np.random.default_rng(11)
     if kind == "city":
@@ -2063,23 +2064,23 @@ def test_chan_proj_model_step_matches_fp32_chain(card, kind, monkeypatch):
                         device=card)
     y = torch.as_tensor(rng.normal(size=(4, 1, n, 12)).astype(np.float32),
                         device=card)
-    chan_proj.reset_launch_counts()
+    build.reset_launch_counts()
     loss, grads = proj_model_step(card, cfg, sups, x, y, True, monkeypatch)
-    counts = dict(chan_proj.LAUNCHES)
+    counts = proj_launches()
     ref_loss, ref = proj_model_step(card, cfg, sups, x, y, False,
                                     monkeypatch)
-    assert chan_proj.LAUNCHES == counts
+    assert proj_launches() == counts
     loss32, ref32 = proj_model_step(
         card, dataclasses.replace(cfg, dtype="float32"), sups32, x, y, True,
         monkeypatch)
-    assert chan_proj.LAUNCHES == counts
+    assert proj_launches() == counts
     # per layer: taps, skip and diffusion; then start and the two end
     # convs. The last layer's diffusion reaches no loss term (no backward),
     # and the start conv's input needs no gradient (no dgrad)
     layers = cfg.blocks * cfg.layers
-    assert counts["forward"] == 3 * layers + 3
-    assert counts["wgrad"] == counts["forward"] - 1
-    assert counts["dgrad"] == counts["forward"] - 2
+    assert counts["chan_proj"] == 3 * layers + 3
+    assert counts["chan_proj_wgrad"] == counts["chan_proj"] - 1
+    assert counts["chan_proj_dgrad"] == counts["chan_proj"] - 2
     assert abs(loss - ref_loss) <= 6e-4 * abs(ref_loss)
     vs_chain = grad_gaps(grads, ref)
     kernel32, chain32 = grad_gaps(grads, ref32), grad_gaps(ref, ref32)
@@ -2099,11 +2100,9 @@ def test_fp32_projections_keep_the_chain_bitwise_on_the_card(card, site):
     gradient bit for bit, and the projection kernel never launched."""
     import test_torch_port_proj as P
 
-    from graph_wavenet_tpu_torch.ops.cuda import chan_proj
-
     rng = np.random.default_rng(P.SITES.index(site))
     leaves, new, old = P.site_call(site, rng, torch.float32, device=card)
-    chan_proj.reset_launch_counts()
+    build.reset_launch_counts()
     y, want = new(), old()
     assert y.dtype == torch.float32 and torch.equal(y, want)
     g = torch.randn(y.shape, device=card,
@@ -2111,7 +2110,7 @@ def test_fp32_projections_keep_the_chain_bitwise_on_the_card(card, site):
     for a, b in zip(torch.autograd.grad(y, leaves, g),
                     torch.autograd.grad(want, leaves, g)):
         assert torch.equal(a, b)
-    assert not any(chan_proj.LAUNCHES.values())
+    assert not any(proj_launches().values())
 
 
 @pytest.mark.parametrize("name", ["chan_proj", "chan_proj_dgrad",

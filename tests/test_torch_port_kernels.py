@@ -14,6 +14,7 @@ import torch
 
 from graph_wavenet_tpu.ops.pallas import block_diffusion as jbd
 from graph_wavenet_tpu_torch.ops.cuda import block_diffusion as tbd
+from graph_wavenet_tpu_torch.ops.cuda import bn_tail, build, chan_proj
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -321,7 +322,7 @@ def test_row_pointer_is_csr_of_sorted_rows():
 
 def test_cpu_tensor_takes_plain_version_and_no_launch(rng):
     """A CPU tensor never reaches the kernel: the launch count stays 0."""
-    tbd.reset_launch_counts()
+    build.reset_launch_counts()
     row, src, slot, n_live, _ = flat_tables(rng, 4, 4, 2, band=1)
     blocks = torch.zeros(n_live + 1, 32, 128)
     x = torch.ones(4, 32, 8)
@@ -342,11 +343,142 @@ def test_cpu_tensor_takes_plain_version_and_no_launch(rng):
     assert out.shape == (4, 128, 8) and o2.shape == (4, 16, 8)
     assert dw.shape == (len(row), 128, 64)
     assert padded.shape == (4, 16, 8) and db.shape == (4, 2, 16, 16)
-    assert tbd.LAUNCHES == {"gathered_block_mix_flat": 0,
-                            "gathered_block_mix_flat2": 0,
-                            "gathered_block_outer_flat": 0,
-                            "gathered_block_mix": 0,
-                            "gathered_block_outer": 0}
+    assert {k: build.LAUNCHES[k] for k in tbd.OPS} == {
+        "mix_flat": 0, "mix_flat2": 0, "outer_flat": 0, "mix_padded": 0,
+        "outer_padded": 0}
+
+
+# every hand kernel's op: its schema, as artifacts written by earlier
+# versions resolve it
+SCHEMAS = {
+    "mix_flat": "(Tensor blocks, Tensor slot, Tensor x, Tensor src, Tensor "
+                "row, Tensor? row_ptr, int nb, bool transpose_lhs) -> Tensor",
+    "mix_flat2": "(Tensor blocks, Tensor slot, Tensor x, Tensor src, Tensor "
+                 "row, Tensor? row_ptr, Tensor? add, int nb, int lag, bool "
+                 "transpose_lhs) -> (Tensor, Tensor)",
+    "outer_flat": "(Tensor x, Tensor g, Tensor src, Tensor row, Tensor? slot, "
+                  "int? n_slots, ScalarType? out_dtype) -> Tensor",
+    "mix_padded": "(Tensor blocks_flat, Tensor slot_tbl, Tensor x_pad, Tensor "
+                  "src_tbl, bool transpose_lhs) -> Tensor",
+    "outer_padded": "(Tensor x_pad, Tensor g_blocks, Tensor src_tbl, "
+                    "ScalarType out_dtype) -> Tensor",
+    "chan_proj": "(Tensor[] xs, Tensor w, Tensor bias) -> Tensor",
+    "chan_proj_dgrad": "(Tensor g, Tensor w, Tensor[] xs) -> Tensor[]",
+    "chan_proj_wgrad": "(Tensor[] xs, Tensor g) -> (Tensor, Tensor)",
+    "bn_tail_stats": "(Tensor h, Tensor? drop, Tensor? res) -> (Tensor, "
+                     "Tensor)",
+    "bn_tail_var": "(Tensor x, Tensor mean) -> Tensor",
+    "bn_tail_apply": "(Tensor x, Tensor mean, Tensor inv, Tensor w, Tensor b) "
+                     "-> Tensor",
+    "bn_tail_eval": "(Tensor h, Tensor? drop, Tensor? res, Tensor mean, "
+                    "Tensor inv, Tensor w, Tensor b) -> Tensor",
+    "bn_tail_grad_reduce": "(Tensor g, Tensor x, Tensor mean, Tensor inv) -> "
+                           "Tensor",
+    "bn_tail_grad_apply": "(Tensor g, Tensor x, Tensor? drop, Tensor mean, "
+                          "Tensor inv, Tensor w, Tensor sums, int count, int "
+                          "t_res) -> (Tensor, Tensor)",
+}
+
+
+def op_case(name: str):
+    """(op arguments, the plain version's result on them) on small CPU
+    tensors."""
+    gen = torch.Generator().manual_seed(5)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dtype)
+
+    row, src, slot, n_live, _ = flat_tables(np.random.default_rng(3), 4, 4, 2,
+                                            band=1)
+    row, src, slot = as_t(row), as_t(src), as_t(slot)
+    tbl = as_t([[0, 1], [1, 2], [2, 0], [3, 9]])
+    bf = torch.bfloat16
+    xs = [rand(2, 3, 8, dtype=bf), rand(2, 3, 4, dtype=bf)]
+    w, g = rand(6, 12, dtype=bf), rand(2, 3, 6, dtype=bf)
+    h, drop, res = (rand(2, 3, 4, 8, dtype=bf) for _ in range(3))
+    mean, w8, b8 = rand(8), rand(8), rand(8)
+    inv, sums = rand(8).abs() + 0.5, rand(2, 8)
+    if name == "mix_flat":
+        blocks, x = rand(n_live + 1, 16, 32), rand(4, 16, 8)
+        return ((blocks, slot, x, src, row, None, 4, True),
+                tbd.mix_flat_plain(blocks, slot, x, src, row, nb=4,
+                                   transpose_lhs=True))
+    if name == "mix_flat2":
+        blocks, x, add = rand(n_live + 1, 16, 16), rand(4, 16, 8), rand(4, 16,
+                                                                          8)
+        return ((blocks, slot, x, src, row, None, add, 4, 1, False),
+                tbd.mix_flat2_plain(blocks, slot, x, src, row, nb=4,
+                                    transpose_lhs=False, add=add))
+    if name == "outer_flat":
+        x, gb = rand(4, 16, 8), rand(4, 32, 8)
+        return ((x, gb, src, row, slot, n_live + 1, bf),
+                tbd.outer_flat_plain(x, gb, src, row, slot, n_live + 1, bf))
+    if name == "mix_padded":
+        blocks, x = rand(5, 16, 16), rand(4, 16, 8)
+        return ((blocks, tbl, x, tbl, True),
+                tbd.mix_padded_plain(blocks, tbl, x, tbl, transpose_lhs=True))
+    if name == "outer_padded":
+        x, gb = rand(4, 16, 8), rand(4, 16, 8)
+        return ((x, gb, tbl, bf),
+                tbd.outer_padded_plain(x, gb, tbl, out_dtype=bf))
+    if name == "chan_proj":
+        bias = rand(6)
+        return (xs, w, bias), chan_proj.chan_proj_plain(xs, w, bias)
+    if name == "chan_proj_dgrad":
+        return (g, w, xs), chan_proj.chan_proj_dgrad_plain(g, w, xs)
+    if name == "chan_proj_wgrad":
+        return (xs, g), chan_proj.chan_proj_wgrad_plain(xs, g)
+    x = bn_tail.stats_plain(h, drop, res)[0]
+    args = {"bn_tail_stats": (h, drop, res),
+            "bn_tail_var": (x, mean),
+            "bn_tail_apply": (x, mean, inv, w8, b8),
+            "bn_tail_eval": (h, drop, res, mean, inv, w8, b8),
+            "bn_tail_grad_reduce": (h, x, mean, inv),
+            "bn_tail_grad_apply": (h, x, drop, mean, inv, w8, sums, 72, 5)}
+    plain = {"bn_tail_stats": bn_tail.stats_plain,
+             "bn_tail_var": bn_tail.var_plain,
+             "bn_tail_apply": bn_tail.apply_plain,
+             "bn_tail_eval": bn_tail.eval_plain,
+             "bn_tail_grad_reduce": bn_tail.grad_reduce_plain,
+             "bn_tail_grad_apply": bn_tail.grad_apply_plain}
+    return args[name], plain[name](*args[name])
+
+
+def leaves(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.parametrize("name", list(SCHEMAS))
+def test_every_op_registered_once_and_plain_on_cpu(name):
+    """Each hand kernel's op is defined once in ``gwt_torch`` through the
+    seam, with its schema, a fake kernel (its shapes under FakeTensorMode
+    match the CPU result's) and a FLOP formula (FlopCounterMode counts the
+    op); a CPU call runs the plain version and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+    from torch.utils.flop_counter import FlopCounterMode
+
+    assert set(build.LAUNCHES) == set(SCHEMAS)
+    assert set(tbd.OPS + chan_proj.OPS + bn_tail.OPS) == set(SCHEMAS)
+    op = getattr(torch.ops.gwt_torch, name)
+    assert str(op.default._schema) == f"gwt_torch::{name}{SCHEMAS[name]}"
+    assert op.overloads() == ["default"]
+    args, want = op_case(name)
+    build.reset_launch_counts()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        got = op(*args)
+    assert not any(build.LAUNCHES.values())
+    assert len(leaves(got)) == len(leaves(want))
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert op in counter.get_flop_counts()["Global"]
+    mode = FakeTensorMode()
+    with mode:
+        fake = op(*tree_map(lambda t: mode.from_tensor(t)
+                            if isinstance(t, torch.Tensor) else t, args))
+    for a, b in zip(leaves(fake), leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
 
 
 def test_wrappers_refuse_bad_shapes():
@@ -410,7 +542,7 @@ def test_mix_flat2_chain_equals_fused_bit_for_bit(rng, with_add,
     x = torch.as_tensor(rng.normal(size=(nb, bs, r)).astype(np.float32))
     add = (torch.as_tensor(rng.normal(size=(nb, bs, r)).astype(np.float32))
            if with_add else None)
-    tbd.reset_launch_counts()
+    build.reset_launch_counts()
     outs = {d: tbd.gathered_block_mix_flat2(
         blocks, as_t(slot), x, as_t(src), as_t(row), nb=nb, lag=2,
         transpose_lhs=transpose_lhs, add=add, dispatch=d)
@@ -418,7 +550,7 @@ def test_mix_flat2_chain_equals_fused_bit_for_bit(rng, with_add,
     for d in ("chain", "auto"):
         for got, want in zip(outs[d], outs["fused"]):
             assert torch.equal(got, want), d
-    assert not any(tbd.LAUNCHES.values())
+    assert not any(build.LAUNCHES.values())
 
 
 def test_mix_flat2_dispatch_is_validated():

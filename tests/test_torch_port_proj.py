@@ -20,7 +20,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from graph_wavenet_tpu_torch.ops import diffusion, linear, temporal
-from graph_wavenet_tpu_torch.ops.cuda import chan_proj
+from graph_wavenet_tpu_torch.ops.cuda import build, chan_proj
 
 DTYPES = [torch.float32, torch.bfloat16]
 DTYPE_IDS = ["f32", "bf16"]
@@ -188,7 +188,7 @@ def test_cpu_projections_keep_the_chain_bitwise(no_kernel, site, dtype):
     the projection kernel never dispatched."""
     rng = np.random.default_rng(SITES.index(site))
     leaves, new, old = site_call(site, rng, dtype)
-    before = dict(chan_proj.LAUNCHES)
+    before = dict(build.LAUNCHES)
     y, want = new(), old()
     assert y.dtype == dtype and torch.equal(y, want)
     g = rand(rng, *y.shape, dtype=dtype)
@@ -196,7 +196,7 @@ def test_cpu_projections_keep_the_chain_bitwise(no_kernel, site, dtype):
     ref = torch.autograd.grad(want, leaves, g)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert chan_proj.LAUNCHES == before
+    assert build.LAUNCHES == before
 
 
 def test_dispatch_rule():
@@ -267,7 +267,7 @@ def test_project_through_the_plain_op_matches_the_chain(layout):
     operands, the weight (bf16-rounded) and the bias against ``_chain``."""
     rng = np.random.default_rng(LAYOUTS.index(layout))
     base, xs, w, bias = layout_case(layout, rng)
-    before = dict(chan_proj.LAUNCHES)
+    before = dict(build.LAUNCHES)
     y = linear._kernel(xs, w, bias)
     want = linear._chain(xs, w, bias)
     assert y.shape == want.shape
@@ -278,7 +278,7 @@ def test_project_through_the_plain_op_matches_the_chain(layout):
     assert_bf16_close(got[0], ref[0])
     assert_bf16_close(got[1].bfloat16(), ref[1].bfloat16())
     assert torch.allclose(got[2], ref[2], rtol=1e-5, atol=1e-5)
-    assert chan_proj.LAUNCHES == before
+    assert build.LAUNCHES == before
 
 
 def storage(t):
